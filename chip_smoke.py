@@ -1,0 +1,298 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Drives superconductor_tpu_torch's main path -- the 1920x1080 headline
+frame (hero_helmet.glb, opaque PBR + IBL sky) -- on the first CUDA device
+and checks it:
+
+1. device: nvidia-smi name and power limit, torch's device name;
+2. build: compiles csrc/raster.cu (nvcc, sm_90a) and prints the seconds
+   and the compiler's resource report;
+3. raster kernel against its plain torch version on the card, which must
+   agree bit for bit in depth and pair: the binned setup of the headline
+   frame, a fan of edge-sharing triangles with pixel centres on the
+   edges, a mostly empty ragged target, forward z, and an init buffer
+   with a non-zero y_offset; CUDA-event medians over 20 runs of each;
+4. headline: fit_caps, a stats frame, 20 frames timed with CUDA events;
+   the kernel's launch count over those frames; the frame against the
+   same frame rendered with the plain raster (byte-equal); coverage
+   against the opaque_px_needed stat; non-black sky and helmet; and a
+   256x128 frame on the card against the same frame on the CPU and
+   against the JAX reference's frame stored in tests/goldens (>= 40 dB);
+5. jax was never imported.
+
+Any failure raises (non-zero exit) before the result lines. The last two
+lines are the kernel table and the device record, each one JSON object.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N_TIMED = 20
+WIDTH, HEIGHT = 1920, 1080  # the headline frame
+# the JAX reference's hero frame at 256x128 (tests/test_torch_frame.py)
+HERO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "goldens", "torch_hero_256x128.npz")
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+def cuda_ms(fn, runs: int = N_TIMED) -> float:
+    """Median device milliseconds of fn() over `runs`, CUDA events around
+    each call (after one warm-up call)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of two u8 images in dB (the reference's utils/metrics.psnr)."""
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10.0 * np.log10(255.0 ** 2 / mse))
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def fan_setup(width: int, height: int, device, w_scale=(1.0, 2.0)):
+    """A fan of triangles around a pixel centre, outer vertices on pixel
+    centres, every other triangle at another homogeneous w (same screen
+    position) -- shared edges run through pixel centres."""
+    from superconductor_tpu_torch.ops.geometry import TriangleSetup, _setup_from_clip
+
+    cx, cy = 100.5, 60.5
+    ring = [(40, 0), (28, 28), (0, 40), (-28, 28), (-40, 0), (-28, -28),
+            (0, -40), (28, -28), (40, 13), (-13, 40), (-40, -13), (13, -40)]
+    ring.sort(key=lambda d: math.atan2(d[1], d[0]))
+    pts = [(cx, cy)] + [(cx + dx, cy + dy) for dx, dy in ring]
+    n = len(ring)
+    clip, ids = [], []
+    for i in range(n):
+        tri = (0, 1 + i, 1 + (i + 1) % n)
+        w = w_scale[i % len(w_scale)]
+        rows = []
+        for v in tri:
+            px, py = pts[v]
+            xc = px / (width * 0.5) - 1.0
+            yc = 1.0 - py / (height * 0.5)
+            z = 0.25 + 0.01 * v
+            rows.append([xc * w, yc * w, z * w, w])
+        clip.append(rows)
+        ids.append(tri)
+    clip = torch.tensor(clip, dtype=torch.float32, device=device)
+    ids = torch.tensor(ids, dtype=torch.int32, device=device)
+    t = clip.shape[0]
+    ones = torch.ones(t, dtype=torch.bool, device=device)
+    setup, valid, bbox = _setup_from_clip(clip, ones, ones, width, height, False, vertex_ids=ids)
+    return TriangleSetup(
+        setup=setup, tri_id=torch.arange(t, dtype=torch.int32, device=device),
+        inst_id=torch.zeros(t, dtype=torch.int32, device=device), bbox=bbox,
+        valid=valid, num_valid=valid.sum(dtype=torch.int32),
+    )
+
+
+def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
+                   y_offset=0, init=None, timed=False):
+    """Kernel vs plain on the binned, sorted setup of `tri`."""
+    from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
+    from superconductor_tpu_torch.ops.raster import rasterize_sorted, rasterize_sorted_plain
+
+    bins = bin_triangles(tri, width, height, p_cap, y_offset=y_offset)
+    if int(bins.num_pairs) > p_cap:
+        raise RuntimeError(f"{name}: p_cap {p_cap} < {int(bins.num_pairs)} pairs")
+    sorted_setup = gather_sorted_setup(tri, bins).contiguous()
+    args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    kw = dict(reverse_z=reverse_z, init=init, y_offset=y_offset)
+    vk = rasterize_sorted(*args, **kw)
+    vp = rasterize_sorted_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(vk.depth, vp.depth) and torch.equal(vk.pair, vp.pair)
+    err = float((vk.depth - vp.depth).abs().max())
+    covered = float((vk.pair >= 0).float().mean())
+    phase("raster", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} "
+          f"equal={same} (tolerance: bit for bit) max_abs_err={err} "
+          f"covered={covered:.4f}")
+    if not same:
+        diff = int((vk.pair != vp.pair).sum())
+        raise RuntimeError(f"{name}: kernel != plain ({diff} pair pixels differ)")
+    if covered == 0.0:
+        raise RuntimeError(f"{name}: nothing covered")
+    results["max_abs_err"] = max(results["max_abs_err"], err)
+    if timed:
+        results["ms"] = cuda_ms(lambda: rasterize_sorted(*args, **kw))
+        results["plain_ms"] = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
+        phase("raster", f"{name}: kernel {results['ms']:.4f} ms, plain "
+              f"{results['plain_ms']:.4f} ms (CUDA events, median of {N_TIMED})")
+    return vk
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.render import frame as frame_mod
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.frame import (
+        _merged_setup_for_view,
+        _merged_vertex_stage,
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scenes import headline_scene
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(smi, flush=True)  # name, power limit: as nvidia-smi gives them
+    phase("device", f"torch: {kind}, count={torch.cuda.device_count()}, "
+          f"torch {torch.__version__}, cuda {torch.version.cuda}")
+
+    build = raster_mod.build_kernels(force=True, verbose=True)
+    phase("build", f"raster.cu built in {build['seconds']:.2f} s")
+    for line in build["log"].splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            phase("build", line.strip())
+
+    # --- 3. kernel vs plain ---
+    results = {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+    t0 = time.perf_counter()
+    scene_dev, build_state, config, env = headline_scene(WIDTH, HEIGHT, dev)
+    state0 = build_state(0.0)
+    phase("headline", f"scene on card in {time.perf_counter() - t0:.2f} s")
+    stages, attrs = _merged_vertex_stage(scene_dev, state0, config)
+    tri = _merged_setup_for_view(stages, state0.uniforms["view_proj"][0], config)
+    blend = scene_dev["materials"]["blend_mode"][attrs.material]
+    tri = tri._replace(valid=tri.valid & (blend == 0))
+    vis = compare_raster("headline", tri, WIDTH, HEIGHT, config.p_cap, results, timed=True)
+    fan = fan_setup(256, 160, dev)
+    compare_raster("fan", fan, 256, 160, 4096, results)
+    compare_raster("fan-forward-z", fan_setup(256, 160, dev, w_scale=(1.0,)),
+                   256, 160, 4096, results, reverse_z=False)
+    compare_raster("empty-tiles", fan_setup(1000, 700, dev), 1000, 700, 4096, results)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    band_y0, band_h = HEIGHT * 2 // 5, HEIGHT * 3 // 10
+    init = raster_mod.VisibilityBuffer(
+        depth=(vis.depth[band_y0:band_y0 + band_h] * 0.999).contiguous(),
+        pair=torch.randint(-1, 1000, (band_h, WIDTH), generator=gen,
+                           device=dev, dtype=torch.int32),
+    )
+    compare_raster("init+y_offset", tri, WIDTH, band_h, config.p_cap, results,
+                   y_offset=band_y0, init=init)
+
+    # --- 4. headline frame ---
+    config = fit_caps(scene_dev, state0, config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    phase("headline", f"fitted caps: p_cap={config.p_cap} "
+          f"opaque_px_cap={config.opaque_px_cap} sky_px_cap={config.sky_px_cap}")
+    img, stats = render_frame_stats(scene_dev, state0, config, env)
+    stats = stats_to_host(stats)
+    phase("headline", f"stats {stats}")
+
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    frames = [0]
+
+    def one_frame():
+        frames[0] += 1
+        return render_frame(scene_dev, state0, config, env)
+
+    frame_ms = cuda_ms(one_frame)
+    launches = raster_mod.rasterize_sorted.LAUNCHES
+    phase("headline", f"frame {frame_ms:.3f} ms (CUDA events, median of "
+          f"{N_TIMED}); raster launches {launches} over {frames[0]} frames")
+    if launches < frames[0]:
+        raise RuntimeError("the frame path did not launch the raster kernel every frame")
+
+    img = render_frame(scene_dev, state0, config, env)
+    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
+    try:
+        img_plain = render_frame(scene_dev, state0, config, env)
+    finally:
+        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
+    if img.shape != (1, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
+        raise RuntimeError(f"bad frame {tuple(img.shape)} {img.dtype}")
+    if not torch.equal(img, img_plain):
+        raise RuntimeError("frame differs from its plain-raster twin")
+    phase("headline", "frame equals its plain-raster twin byte for byte")
+
+    hit = (vis.pair >= 0).reshape(-1)
+    covered = float(hit.float().mean())
+    gr = frame_mod._worklist_granule(config, WIDTH * HEIGHT)
+    dilated = int(hit.reshape(-1, gr).any(dim=1).sum()) * gr
+    need = stats["opaque_px_needed"] / (WIDTH * HEIGHT)
+    rgb = img[0, :, :, :3].reshape(-1, 3).float()
+    helmet_mean = float(rgb[hit].mean())
+    sky_mean = float(rgb[~hit].mean())
+    black = float((rgb[hit].amax(dim=1) == 0).float().mean())
+    phase("headline", f"covered {covered:.4f}, granule-dilated {dilated} px vs "
+          f"opaque_px_needed {stats['opaque_px_needed']} ({need:.4f} of npx); "
+          f"helmet mean {helmet_mean:.1f}, sky mean {sky_mean:.1f}, "
+          f"black helmet px {black:.4f}")
+    if dilated != stats["opaque_px_needed"] or not 0.0 < covered <= need:
+        raise RuntimeError("coverage disagrees with the opaque_px_needed stat")
+    if helmet_mean < 10.0 or sky_mean < 10.0 or black > 0.01:
+        raise RuntimeError("helmet or sky is black")
+
+    small_gpu = headline_scene(256, 128, dev)
+    small_cpu = headline_scene(256, 128, "cpu")
+    img_g = render_frame(small_gpu[0], small_gpu[1](0.3), small_gpu[2], small_gpu[3]).cpu()
+    img_c = render_frame(small_cpu[0], small_cpu[1](0.3), small_cpu[2], small_cpu[3])
+    golden = np.load(HERO_GOLDEN)["image"]
+    db_cpu = psnr(img_g.numpy(), img_c.numpy())
+    db_ref = psnr(img_g.numpy(), golden)
+    phase("headline", f"256x128 frame: card vs CPU PSNR {db_cpu:.2f} dB, card vs the "
+          f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
+    if min(db_cpu, db_ref) < 40.0:
+        raise RuntimeError("card frame disagrees with the CPU frame or the reference")
+
+    if sys.modules.get("jax") is not None:
+        raise RuntimeError("jax was imported")
+    phase("jax", "not imported")
+
+    print(json.dumps({"kernels": [{
+        "name": "raster_sorted",
+        "route": "cuda",
+        "source": "superconductor_tpu_torch/csrc/raster.cu",
+        "replaces": "superconductor_tpu/ops/raster_pallas.py:80",
+        "launches": launches,
+        "max_abs_err": results["max_abs_err"],
+        "ms": results["ms"],
+        "plain_ms": results["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

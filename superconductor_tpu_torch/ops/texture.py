@@ -1,0 +1,246 @@
+"""Gather-based texture sampling from flat texel pools (port of
+``superconductor_tpu/ops/texture.py``).
+
+Ported: the pool selectors, wrap/fetch, the one-tap bilinear core, sRGB
+decode, isotropic LOD, the cubemap sampler's static-placement path (the
+skybox of the headline frame), and the interleaved material sampler
+(``sample_material_interleaved``: all four material textures of a pixel
+from one 64-channel row per trilinear level). The classic per-slot
+samplers (sample_bilinear_level / sample_trilinear / sample_anisotropic)
+are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .tonemap import srgb_to_linear_exact
+
+WRAP_REPEAT = 0
+WRAP_CLAMP = 1
+TEXFLAG_SRGB = 1
+
+
+def ldr_pool(scene: dict) -> torch.Tensor:
+    """Quad-packed (N, 16) LDR pool when published, else the flat pool."""
+    return scene.get("texels_q", scene["texels"])
+
+
+def hdr_pool(scene: dict) -> torch.Tensor:
+    return scene.get("texels_hdr_q", scene["texels_hdr"])
+
+
+def _clamp_to(coord, size):
+    if isinstance(size, int):
+        return torch.clamp(coord, 0, size - 1)
+    return torch.minimum(torch.clamp_min(coord, 0), size - 1)
+
+
+def _wrap(coord, size, wrap_mode):
+    """REPEAT = floor modulo, CLAMP = clamp to [0, size-1]. size and
+    wrap_mode are per-lane tensors or static Python ints."""
+    if isinstance(wrap_mode, int):
+        if wrap_mode == WRAP_REPEAT:
+            return torch.remainder(coord, size)
+        return _clamp_to(coord, size)
+    return torch.where(
+        wrap_mode == WRAP_REPEAT, torch.remainder(coord, size), _clamp_to(coord, size)
+    )
+
+
+def _fetch(texels: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    return texels[index]
+
+
+def _lerp4(t00, t10, t01, t11, fx, fy):
+    return (
+        t00 * (1 - fx) * (1 - fy)
+        + t10 * fx * (1 - fy)
+        + t01 * (1 - fx) * fy
+        + t11 * fx * fy
+    )
+
+
+def _bilinear_core(texels, off, w, h, wrap_mode, uv):
+    """One bilinear tap at a mip placement -> raw (P, 4) f32 (u8 pools not
+    normalised, no sRGB decode)."""
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+
+    if texels.shape[-1] == 16:  # quad-packed pool: one gather, 4 texels
+        xi = _wrap(x0, w, wrap_mode)
+        yi = _wrap(y0, h, wrap_mode)
+        clamped = wrap_mode == WRAP_CLAMP
+        fx = torch.where((clamped & (x0 < 0))[..., None], 0.0, fx)
+        fy = torch.where((clamped & (y0 < 0))[..., None], 0.0, fy)
+        q = _fetch(texels, off + yi * w + xi).to(torch.float32)
+        t00, t10, t01, t11 = q[..., 0:4], q[..., 4:8], q[..., 8:12], q[..., 12:16]
+    else:
+
+        def tap(xi, yi):
+            xi = _wrap(xi, w, wrap_mode)
+            yi = _wrap(yi, h, wrap_mode)
+            return _fetch(texels, off + yi * w + xi).to(torch.float32)
+
+        t00 = tap(x0, y0)
+        t10 = tap(x0 + 1, y0)
+        t01 = tap(x0, y0 + 1)
+        t11 = tap(x0 + 1, y0 + 1)
+    return _lerp4(t00, t10, t01, t11, fx, fy)
+
+
+def _srgb_decode(out, flags):
+    srgb = (flags & TEXFLAG_SRGB) != 0
+    rgb = torch.where(srgb[..., None], srgb_to_linear_exact(out[..., :3]), out[..., :3])
+    return torch.cat([rgb, out[..., 3:]], dim=-1)
+
+
+def _select_level(levels, lvl):
+    """levels (P, L, C) i32, lvl (P,) -> (P, C): row lvl of each lane's
+    table by a select ladder (clamps lvl to [0, L-1])."""
+    out = levels[..., 0, :]
+    for j in range(1, levels.shape[-2]):
+        out = torch.where((lvl >= j)[..., None], levels[..., j, :], out)
+    return out
+
+
+def mip_level_from_derivatives(dudx, dvdx, dudy, dvdy, tex_w, tex_h):
+    """Isotropic LOD from analytic uv screen derivatives."""
+    du2 = (dudx * tex_w) ** 2 + (dvdx * tex_h) ** 2
+    dv2 = (dudy * tex_w) ** 2 + (dvdy * tex_h) ** 2
+    rho2 = torch.maximum(du2, dv2)
+    return 0.5 * torch.log2(torch.clamp_min(rho2, 1e-12))
+
+
+def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
+                   static=None):
+    """Cubemap stored as 6 consecutive textures (+X,-X,+Y,-Y,+Z,-Z),
+    bilinear, at static pool placement `static` = (face_offsets(6), w, h)
+    (EnvBindings.ibl_cubemap_static): one gather per pixel, CLAMP wrap."""
+    if static is None or lod is not None:
+        raise NotImplementedError(
+            "sample_cubemap without static placement needs the classic "
+            "samplers (ROADMAP queue 1: classic samplers)"
+        )
+    d = direction
+    ax, ay, az = torch.abs(d[..., 0]), torch.abs(d[..., 1]), torch.abs(d[..., 2])
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (ay > ax) & (ay >= az) & ~is_x
+    face = torch.where(
+        is_x,
+        torch.where(x >= 0, 0, 1),
+        torch.where(is_y, torch.where(y >= 0, 2, 3), torch.where(z >= 0, 4, 5)),
+    ).to(torch.int32)
+    ma = torch.where(is_x, ax, torch.where(is_y, ay, az))
+    ma = torch.clamp_min(ma, 1e-20)
+    sc = torch.where(
+        is_x,
+        torch.where(x >= 0, -z, z),
+        torch.where(is_y, x, torch.where(z >= 0, x, -x)),
+    )
+    tc = torch.where(is_y, torch.where(y >= 0, z, -z), -y)
+    u = 0.5 * (sc / ma + 1.0)
+    v = 0.5 * (tc / ma + 1.0)
+    uv = torch.stack([u, v], dim=-1)
+    offs, w, h = static
+    off = torch.tensor(offs, dtype=torch.int32, device=d.device)[face]
+    out = _bilinear_core(texels_hdr, off, w, h, WRAP_CLAMP, uv)
+    if texels_hdr.dtype == torch.uint8:
+        out = out * (1.0 / 255.0)
+    return out
+
+
+def _matq_bilinear(texels_mq, owh, wrap_mode, uv):
+    """One bilinear tap of the material-interleaved pool -> raw (P, 16):
+    the four slots' results from ONE (P, 64) row gather."""
+    off, w, h = owh[..., 0], owh[..., 1], owh[..., 2]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None, None]
+    fy = (y - y0)[..., None, None]
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+    xi = _wrap(x0, w, wrap_mode)
+    yi = _wrap(y0, h, wrap_mode)
+    clamped = wrap_mode == WRAP_CLAMP
+    fx = torch.where((clamped & (x0 < 0))[..., None, None], 0.0, fx)
+    fy = torch.where((clamped & (y0 < 0))[..., None, None], 0.0, fy)
+    q = texels_mq[off + yi * w + xi].to(torch.float32)  # (P, 64)
+    qr = q.reshape(*q.shape[:-1], 4, 4, 4)  # (P, slot, corner, ch)
+    out = _lerp4(qr[..., 0, :], qr[..., 1, :], qr[..., 2, :], qr[..., 3, :], fx, fy)
+    return out.reshape(*q.shape[:-1], 16)
+
+
+def _matq_srgb(out16, mask):
+    """Per-slot sRGB decode by mask bit (bit s = slot s), alpha linear."""
+    o = out16.reshape(*out16.shape[:-1], 4, 4)
+    bits = torch.tensor([1, 2, 4, 8], dtype=torch.int32, device=out16.device)
+    srgb = (mask[..., None] & bits) != 0
+    rgb = torch.where(srgb[..., None], srgb_to_linear_exact(o[..., :3]), o[..., :3])
+    return torch.cat([rgb, o[..., 3:]], dim=-1).reshape(*out16.shape[:-1], 16)
+
+
+def sample_material_interleaved(
+    texels_mq, meta, owh, uv, duvdx, duvdy, taps: int, decode_srgb=True,
+    texels_tail=None,
+):
+    """All four material textures of each pixel, two row gathers (one per
+    trilinear level). meta (P, 4) i32 [wrap, srgb_mask, count, pad]; owh
+    (P, L, 4) i32 per level (offset, w, h, tail_offset). Returns (P, 16)
+    f32 [albedo | normal | mr | emissive] RGBA."""
+    if texels_mq.shape[-1] == 208:
+        raise NotImplementedError("wide mq3 rows are not ported")
+    wrap_mode, mask, count = meta[..., 0], meta[..., 1], meta[..., 2]
+    w = owh[..., 0, 1].to(torch.float32)
+    h = owh[..., 0, 2].to(torch.float32)
+    dx2 = (duvdx[..., 0] * w) ** 2 + (duvdx[..., 1] * h) ** 2
+    dy2 = (duvdy[..., 0] * w) ** 2 + (duvdy[..., 1] * h) ** 2
+
+    def trilinear(uv_t, lod):
+        l0 = torch.floor(lod).to(torch.int32)
+        f = (lod - torch.floor(lod))[..., None]
+        lvl = torch.minimum(torch.clamp_min(l0, 0), count - 1)
+        f = torch.where((l0 < 0)[..., None], 0.0, f)
+        a_owh = _select_level(owh, lvl)
+        b_owh = _select_level(owh, torch.minimum(torch.clamp_min(l0 + 1, 0), count - 1))
+        a = _matq_bilinear(texels_mq, a_owh, wrap_mode, uv_t)
+        if texels_tail is not None and owh.shape[-1] >= 4:
+            b_towh = torch.cat([b_owh[..., 3:4], b_owh[..., 1:3]], dim=-1)
+            b = _matq_bilinear(texels_tail, b_towh, wrap_mode, uv_t)
+        else:
+            b = _matq_bilinear(texels_mq, b_owh, wrap_mode, uv_t)
+        a = a * (1.0 / 255.0)
+        b = b * (1.0 / 255.0)
+        if decode_srgb:
+            a = _matq_srgb(a, mask)
+            b = _matq_srgb(b, mask)
+        return a * (1 - f) + b * f
+
+    if taps <= 1:
+        lod = torch.clamp_min(
+            0.5 * torch.log2(torch.clamp_min(torch.maximum(dx2, dy2), 1e-12)), 0.0
+        )
+        return trilinear(uv, lod)
+    major_is_x = dx2 >= dy2
+    rho_maj2 = torch.maximum(dx2, dy2)
+    rho_min2 = torch.minimum(dx2, dy2)
+    ratio2 = torch.clamp(rho_maj2 / torch.clamp_min(rho_min2, 1e-12), 1.0, float(taps) ** 2)
+    lod = torch.clamp_min(
+        0.5 * torch.log2(torch.clamp_min(rho_maj2 / ratio2, 1e-12)), 0.0
+    )
+    major = torch.where(major_is_x[..., None], duvdx, duvdy)
+    out = None
+    for i in range(taps):
+        t = (i + 0.5) / taps - 0.5
+        s = trilinear(uv + major * t, lod)
+        out = s if out is None else out + s
+    return out / taps

@@ -1,0 +1,77 @@
+"""Where the time of the headline frame goes on the GPU.
+
+    python3 -m superconductor_tpu_torch.profile_frame [--frames 5] [--out build/profile]
+
+Fits the caps of the 1920x1080 headline frame, warms up, then traces
+`--frames` frames with torch.profiler (CPU + CUDA activity). Prints the
+wall time per frame (host clock around synchronised frames), the summed
+device kernel time per frame and the device's idle share, and the top
+operators by device time; writes the full table and a Chrome trace under
+`--out`. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--out", default=os.path.join("build", "profile"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame: no CUDA device")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .render.caps import fit_caps
+    from .render.frame import render_frame
+    from .scenes import headline_scene
+
+    dev, build, config, env = headline_scene(args.width, args.height, "cuda")
+    state = build(0.0)
+    config = fit_caps(dev, state, config, env)
+    for _ in range(3):
+        render_frame(dev, state, config, env)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(args.frames):
+        render_frame(dev, state, config, env)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.frames):
+            render_frame(dev, state, config, env)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    device_ms = device_us / 1e3 / args.frames
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"caps: p_cap={config.p_cap} opaque_px_cap={config.opaque_px_cap}")
+    print(f"wall {wall_ms:.3f} ms/frame (host clock, synchronised, profiler off); "
+          f"device kernels {device_ms:.3f} ms/frame; idle share "
+          f"{max(0.0, 1.0 - device_ms / wall_ms):.3f}")
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    print(table)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "profile_frame.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=200))
+    prof.export_chrome_trace(os.path.join(args.out, "profile_frame.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

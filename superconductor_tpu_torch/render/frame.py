@@ -1,0 +1,437 @@
+"""The frame function: scene tables + FrameState -> (V, H, W, 4) u8 image
+and the capacity-stats dict (port of ``superconductor_tpu/render/frame.py``).
+
+The ported slice is the opaque path of the headline frame: merged
+static + animated geometry, binned tile raster (the CUDA kernel on a GPU,
+its plain version on the CPU) in sorted-pair mode, the full-screen IBL
+skybox, the opaque deferred shade on a compacted granule worklist (or
+full screen), and the tonemap tail. Every configuration outside it raises
+NotImplementedError naming the ROADMAP item that brings it. PyTorch runs
+eagerly, so there is no jit: ``render_frame`` and ``render_frame_stats``
+are plain functions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops.binning import bin_triangles, gather_sorted_setup
+from ..ops.geometry import (
+    DrawList,
+    TriangleSetup,
+    geometry_vertex_stage,
+    geometry_view_setup,
+)
+from ..ops.raster import rasterize_sorted
+from ..ops.shade import interpolate_gbuffer, shade
+from ..ops.sky import sample_skybox
+from ..ops.tonemap import to_u8, tonemap_and_encode
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Same field names and defaults as the reference's RenderConfig
+    (render/frame.py:44-177), so configs and caps caches transfer; see
+    the reference for each field's meaning."""
+
+    width: int = 512
+    height: int = 512
+    t_cap: int = 1 << 14
+    t_cap_anim: int = 1 << 10
+    v_cap: int = 0
+    v_cap_anim: int = 0
+    p_cap: int = 1 << 16
+    raster: str = "auto"  # 'ref' | 'pallas' | 'auto'
+    reverse_z: bool = True
+    flip_viewport: bool = False
+    inline_tonemapping: bool = True
+    inline_srgb: bool = True
+    num_views: int = 1
+    blend_layers: int = 4
+    clip_layers: Optional[int] = None
+    particle_layers: Optional[int] = None
+    enable_clip: bool = False
+    enable_blend: bool = False
+    enable_lines: bool = False
+    enable_particles: bool = False
+    line_width_px: float = 1.5
+    aniso_taps: int = 1
+    shade_px_cap: int = 1 << 17
+    shade_px_caps: Optional[tuple] = None
+    clip_px_caps: Optional[tuple] = None
+    opaque_px_cap: Optional[int] = None
+    sky_px_cap: Optional[int] = None
+    matq_classic_cap: Optional[int] = None
+    shade_row_pad: int = 0
+    worklist_granules: bool = True
+    granule_px: int = 128
+    row_chunks: int = 1
+    tile_h: int = 32
+    tile_w: int = 128
+
+    def resolve_raster(self) -> str:
+        """'auto' and 'pallas' select the binned tile raster (the kernel on
+        CUDA tensors, its plain version on CPU tensors)."""
+        if self.raster in ("auto", "pallas"):
+            return "pallas"
+        if self.raster == "ref":
+            raise NotImplementedError(
+                "raster='ref' waits for rasterize_ref (ROADMAP queue 1: rasterize_ref)"
+            )
+        raise ValueError(f"unknown raster method {self.raster!r}")
+
+    def resolve_clip_layers(self) -> int:
+        return self.clip_layers or self.blend_layers
+
+    def resolve_particle_layers(self) -> int:
+        return self.particle_layers or self.blend_layers
+
+    def needed_k_len(self) -> int:
+        return max(self.blend_layers, self.resolve_particle_layers())
+
+
+DEFAULT_OPAQUE_PX_CAP = 1 << 17
+DEFAULT_SKY_PX_CAP = 1 << 17
+
+
+def size_worklist_cap(need: int, floor: int = 512) -> int:
+    """Worklist capacity from a measured need: 1.125x margin rounded up to
+    a sixteenth-pow2 boundary (reference render/frame.py:236)."""
+    n = int(need) + (int(need) >> 3)
+    if n <= floor:
+        return floor
+    e = max((n - 1).bit_length() - 5, 0)
+    m = -(-n >> e)
+    return m << e
+
+
+class FrameState(NamedTuple):
+    """All per-frame device inputs (torch tensors)."""
+
+    uniforms: dict  # tensors with a leading view axis
+    draws_static: DrawList
+    draws_animated: DrawList
+    joint_palette: torch.Tensor  # (J, 8)
+    lines: Optional[dict] = None
+    particles: Optional[dict] = None
+
+
+def _check_slice(config: RenderConfig, state: FrameState) -> None:
+    """Raise on every configuration outside the ported slice."""
+    unported = [
+        (config.enable_clip, "enable_clip: ROADMAP queue 1, alpha-clip pass (_kbuffer_kernel)"),
+        (config.enable_blend, "enable_blend: ROADMAP queue 1, alpha-blend pass"),
+        (config.enable_lines, "enable_lines: ROADMAP queue 1, lines"),
+        (config.enable_particles, "enable_particles: ROADMAP queue 1, particles"),
+        (config.num_views != 1, "num_views > 1: ROADMAP queue 1, views and bands"),
+        (config.row_chunks != 1, "row_chunks > 1: ROADMAP queue 1, views and bands"),
+        (bool(config.matq_classic_cap), "matq_classic_cap: ROADMAP queue 1, material partition"),
+        (config.shade_row_pad != 0, "shade_row_pad: TPU layout mechanics, not ported"),
+        (state.lines is not None, "FrameState.lines: ROADMAP queue 1, lines"),
+        (state.particles is not None, "FrameState.particles: ROADMAP queue 1, particles"),
+    ]
+    for bad, why in unported:
+        if bad:
+            raise NotImplementedError(f"outside the ported slice: {why}")
+    npx = config.width * config.height
+    if 0 < (config.sky_px_cap or 0) < npx:
+        raise NotImplementedError(
+            "outside the ported slice: sky_px_cap < npx (ROADMAP queue 1, sky worklist)"
+        )
+    config.resolve_raster()
+
+
+def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
+               y_offset: int):
+    """Binned raster in sorted-pair mode -> (VisibilityBuffer with SORTED
+    positions in .pair, pairs_needed i32, bins.order)."""
+    bins = bin_triangles(
+        tri, config.width, band_height, config.p_cap,
+        tile_h=config.tile_h, tile_w=config.tile_w, y_offset=y_offset,
+    )
+    sorted_setup = gather_sorted_setup(tri, bins)
+    vis = rasterize_sorted(
+        sorted_setup, bins.tile_start, bins.tile_count, band_height,
+        config.width, tile_h=config.tile_h, tile_w=config.tile_w,
+        reverse_z=config.reverse_z, y_offset=y_offset,
+    )
+    return vis, bins.num_pairs, bins.order
+
+
+def _worklist_granule(config: RenderConfig, npx: int) -> int:
+    """Lanes per worklist granule (config.granule_px when the band shape
+    divides, else 1)."""
+    gr = config.granule_px
+    if config.worklist_granules and config.width % gr == 0 and npx % gr == 0:
+        return gr
+    return 1
+
+
+class _Worklist(NamedTuple):
+    """A compacted shading worklist of granules (gr lanes each; gr == 1 is
+    per pixel). Lanes past the cap are dropped from shading and keep the
+    destination; `need` (granule-dilated pixel count) tells the host what
+    cap would have sufficed."""
+
+    idx: torch.Tensor  # (cap_g,) granule indices, sentinel n_granules
+    safe: torch.Tensor  # (cap_g,) idx clamped for gathers
+    live: torch.Tensor  # (cap_g,) bool
+    need: torch.Tensor  # () i32
+    gr: int
+    npx: int
+
+    def lane_safe(self) -> torch.Tensor:
+        if self.gr == 1:
+            return self.safe
+        off = torch.arange(self.gr, dtype=torch.int32, device=self.safe.device)
+        return (self.safe[:, None] * self.gr + off[None, :]).reshape(-1)
+
+    def lane_live(self) -> torch.Tensor:
+        if self.gr == 1:
+            return self.live
+        return self.live[:, None].expand(-1, self.gr).reshape(-1)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """Gather flat per-pixel data (npx,) / (npx, C) to worklist lanes,
+        one granule row at a time."""
+        if self.gr == 1:
+            return x[self.safe]
+        if x.ndim == 1:
+            return x.reshape(-1, self.gr)[self.safe].reshape(-1)
+        c = x.shape[-1]
+        return x.reshape(-1, self.gr * c)[self.safe].reshape(-1, c)
+
+    def compose(self, dst: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """Write lane rows into a copy of flat per-pixel dst at the live
+        granules (one plain form of the reference's gather/scatter pair:
+        dead lanes never write)."""
+        c = 1 if dst.ndim == 1 else dst.shape[-1]
+        out = dst.clone().reshape(self.npx // self.gr, self.gr * c)
+        rows_g = rows.reshape(-1, self.gr * c)
+        live = self.live
+        out[self.idx[live].long()] = rows_g[live]
+        return out.reshape(dst.shape)
+
+
+def _compact_px(mask: torch.Tensor, cap: int):
+    """Fixed-capacity compaction of a flat bool mask -> (idx, safe, live,
+    needed): set-lane indices in ascending order, sentinel len(mask) past
+    the end, `safe` clamped for gathers (reference :419)."""
+    n = mask.shape[0]
+    cap = min(cap, n)
+    keys = torch.where(
+        mask,
+        torch.arange(n, dtype=torch.int32, device=mask.device),
+        torch.full((), n, dtype=torch.int32, device=mask.device),
+    )
+    idx = torch.sort(keys).values[:cap]
+    live = idx < n
+    safe = torch.clamp_max(idx, n - 1)
+    return idx, safe, live, mask.sum(dtype=torch.int32)
+
+
+def _compact_worklist(mask: torch.Tensor, cap: int, config: RenderConfig) -> _Worklist:
+    npx = mask.shape[0]
+    gr = _worklist_granule(config, npx)
+    gmask = mask.reshape(-1, gr).any(dim=1) if gr > 1 else mask
+    cap_g = max(1, min(cap, npx) // gr)
+    idx, safe, live, gneed = _compact_px(gmask, cap_g)
+    return _Worklist(idx, safe, live, gneed * gr, gr, npx)
+
+
+def _pixel_centers(config: RenderConfig, band_height: int, y_offset: int, device):
+    ys = torch.arange(band_height, dtype=torch.float32, device=device) + 0.5 + y_offset
+    xs = torch.arange(config.width, dtype=torch.float32, device=device) + 0.5
+    px = xs[None, :].expand(band_height, config.width).reshape(-1)
+    py = ys[:, None].expand(band_height, config.width).reshape(-1)
+    return px, py
+
+
+def _px_py_at(idx: torch.Tensor, width: int, y_offset: int):
+    """Pixel centres of flat band indices, by div/mod."""
+    x = torch.remainder(idx, width).to(torch.float32) + 0.5
+    y = torch.div(idx, width, rounding_mode="floor").to(torch.float32) + 0.5 + y_offset
+    return x, y
+
+
+def _merged_vertex_stage(scene: dict, state: FrameState, config: RenderConfig):
+    """View-independent geometry of both draw lists -> ((static, animated)
+    VertexStage, merged packed attribute rows). The animated stage runs
+    even with no valid draws, as in the reference."""
+    stage_s = geometry_vertex_stage(
+        state.draws_static, scene["indices"], scene["positions"],
+        scene["normals"], scene["uvs"], scene["lightmap_uvs"],
+        scene["tri_material"], scene["materials"], config.t_cap,
+        v_cap=config.v_cap or config.t_cap,
+    )
+    stage_a = geometry_vertex_stage(
+        state.draws_animated, scene["anim_indices"], scene["anim_positions"],
+        scene["anim_normals"], scene["anim_uvs"], None,
+        scene["anim_tri_material"], scene["materials"], config.t_cap_anim,
+        v_cap=config.v_cap_anim or config.t_cap_anim,
+        joint_palette=state.joint_palette,
+        joint_indices=scene["anim_joint_indices"],
+        joint_weights=scene["anim_joint_weights"],
+    )
+    merged = type(stage_s.attrs)(
+        *[torch.cat([a, b]) for a, b in zip(stage_s.attrs, stage_a.attrs)]
+    )
+    return (stage_s, stage_a), merged
+
+
+def _merged_setup_for_view(stages, view_proj: torch.Tensor, config: RenderConfig):
+    """Per-view clip + edge setup of both stages, static rows first."""
+    stage_s, stage_a = stages
+    tri = geometry_view_setup(
+        stage_s, view_proj, config.width, config.height,
+        flip_viewport=config.flip_viewport,
+    )
+    tri_a = geometry_view_setup(
+        stage_a, view_proj, config.width, config.height,
+        flip_viewport=config.flip_viewport,
+    )
+    return TriangleSetup(
+        setup=torch.cat([tri.setup, tri_a.setup]),
+        tri_id=torch.cat([tri.tri_id, tri_a.tri_id]),
+        inst_id=torch.cat([tri.inst_id, tri_a.inst_id]),
+        bbox=torch.cat([tri.bbox, tri_a.bbox]),
+        valid=torch.cat([tri.valid, tri_a.valid]),
+        num_valid=tri.num_valid + tri_a.num_valid,
+    )
+
+
+def _granule_count(mask: torch.Tensor, gr: int) -> torch.Tensor:
+    """Covered pixel count, dilated to whole granules when gr > 1."""
+    if gr > 1:
+        return mask.reshape(-1, gr).any(dim=1).sum(dtype=torch.int32) * gr
+    return mask.sum(dtype=torch.int32)
+
+
+def render_view(scene: dict, state: FrameState, view_index: int,
+                config: RenderConfig, env, geometry):
+    """One view -> ((H, W, 4) f32 image, stats dict of i32 tensors).
+    geometry: (merged TriangleSetup, merged TriangleAttrs) of this view."""
+    band_height, y_offset = config.height, 0
+    u = state.uniforms
+    merged_tri, merged_attrs = geometry
+    dev = merged_tri.setup.device
+    mats = scene["materials"]
+    blend_mode = mats["blend_mode"][merged_attrs.material]
+
+    # One row per pair: setup | packed attrs | (matq) material row, so the
+    # deferred stages fetch a pixel's whole state in one gather; in
+    # sorted-pair mode the table is gathered into the raster's sorted order
+    # and indexed by the sorted positions the kernel leaves in vis.pair.
+    parts = [merged_tri.setup, merged_attrs.packed]
+    if "texels_mq" in scene and "mat_row_mq" in mats:
+        parts.append(mats["mat_row_mq"][merged_attrs.material])
+    shade_row = torch.cat(parts, dim=1)
+
+    # --- pass 1: opaque visibility ---
+    opaque_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 0))
+    vis, pairs_needed, op_order = _rasterize(opaque_tri, config, band_height, y_offset)
+    vis_row = shade_row[op_order]
+
+    # --- skybox: the base layer the shaded surfaces overwrite ---
+    npx = band_height * config.width
+    sky = sample_skybox(
+        scene, env, config.width, band_height,
+        u["projection_inverse"][view_index], u["view_inverse_quat"][view_index],
+        inline_tonemapping=config.inline_tonemapping,
+        inline_srgb=config.inline_srgb, y_offset=y_offset,
+        full_height=config.height,
+    )
+    gr = _worklist_granule(config, npx)
+    hit = (vis.pair >= 0).reshape(-1)
+    sky_px_needed = _granule_count(~hit, gr)
+
+    # --- shade the winning opaque surface ---
+    if 0 < (config.opaque_px_cap or 0) < npx:
+        wl = _compact_worklist(hit, config.opaque_px_cap, config)
+        opaque_px_needed = wl.need
+        opx, opy = _px_py_at(wl.lane_safe(), config.width, y_offset)
+        pair_w = torch.where(
+            wl.lane_live(), wl.take(vis.pair.reshape(-1)),
+            torch.full((), -1, dtype=torch.int32, device=dev),
+        )
+        g = interpolate_gbuffer(pair_w, opx, opy, merged_tri, merged_attrs,
+                                shade_row=vis_row)
+        rgb_w, _ = shade(
+            g, scene, u, view_index, env=env,
+            inline_tonemapping=config.inline_tonemapping,
+            inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+        )
+        rgb = wl.compose(sky, torch.where(g.valid[..., None], rgb_w, wl.take(sky)))
+    else:
+        px, py = _pixel_centers(config, band_height, y_offset, dev)
+        gbuf = interpolate_gbuffer(vis.pair.reshape(-1), px, py, merged_tri,
+                                   merged_attrs, shade_row=vis_row)
+        opaque_px_needed = _granule_count(gbuf.valid, gr)
+        rgb, _ = shade(
+            gbuf, scene, u, view_index, env=env,
+            inline_tonemapping=config.inline_tonemapping,
+            inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+        )
+        rgb = torch.where(gbuf.valid[..., None], rgb, sky)
+
+    # the display transform not applied inline in shade / sky
+    rgb = tonemap_and_encode(rgb, not config.inline_tonemapping, not config.inline_srgb)
+
+    img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1).reshape(
+        band_height, config.width, 4
+    )
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    stats = {
+        "pairs_needed": pairs_needed.to(torch.int32),
+        "layers_needed": zero,
+        "clip_layers_needed": zero,
+        "blend_layers_needed": zero,
+        "particle_layers_needed": zero,
+        "shade_px_needed": zero,
+        "shade_px_needed_k": torch.zeros(
+            (config.needed_k_len(),), dtype=torch.int32, device=dev
+        ),
+        "opaque_px_needed": opaque_px_needed,
+        "sky_px_needed": sky_px_needed,
+        "matq_classic_needed": zero,
+        "clip_px_needed_k": torch.zeros(
+            (config.resolve_clip_layers(),), dtype=torch.int32, device=dev
+        ),
+    }
+    return img, stats
+
+
+def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
+                      env, with_stats: bool = False):
+    """Frame body -> (V, H, W, 4) u8 [, stats dict]; one view, one band."""
+    _check_slice(config, state)
+    stages, merged_attrs = _merged_vertex_stage(scene, state, config)
+    geometry = (
+        _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config),
+        merged_attrs,
+    )
+    img, stats = render_view(scene, state, 0, config, env, geometry=geometry)
+    image = to_u8(img)[None]
+    if with_stats:
+        return image, stats
+    return image
+
+
+def render_frame(scene: dict, state: FrameState, config: RenderConfig, env):
+    return render_frame_impl(scene, state, config, env)
+
+
+def render_frame_stats(scene: dict, state: FrameState, config: RenderConfig, env):
+    """(image, stats) -- the variant the growth loops read."""
+    return render_frame_impl(scene, state, config, env, with_stats=True)
+
+
+def stats_to_host(stats: dict) -> dict:
+    """Device stats -> plain ints / lists of ints."""
+    return {
+        k: ([int(x) for x in v.tolist()] if v.ndim else int(v))
+        for k, v in stats.items()
+    }

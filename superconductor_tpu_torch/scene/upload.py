@@ -1,0 +1,221 @@
+"""Scene tables on the torch device: the port's "weights carried across".
+
+``scene_to_torch`` builds the same dict as the reference's
+``Scene.device_arrays()`` (superconductor_tpu/scene/scene.py:1390) from the
+host ``Scene``'s numpy tables, without jax: the vertex/index mega-buffers
+and texel pools at full capacity (``GrowableArray.host``), the descriptor
+and material tables (host-side ``descriptor_arrays`` / ``material_arrays``
+plus the numpy post-processing of ``device_materials``, :638-700), the
+quad-packed pools (``device_quad``, :187) and the interleaved material pool
+(the non-mq3 path of ``device_matq``, :1072-1241). The quad and matq pools
+are row gathers, done here as torch gathers on ``device``.
+
+The one representation change: the u32 index buffers are carried as i32
+(same bits; every index is far below 2**31), because torch has no gather
+kernels for unsigned 32-bit tensors.
+
+Scenes outside the ported slice raise NotImplementedError instead of
+rendering wrong: partial interleaved pools (``matq_capable``), the wide
+mq3 rows, SH-interleaved light volumes / lightmaps, and smoke pools.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._host import Scene
+
+_VERTEX_KEYS = (
+    "positions", "normals", "uvs", "lightmap_uvs", "indices", "tri_material",
+    "anim_positions", "anim_normals", "anim_uvs", "anim_joint_indices",
+    "anim_joint_weights", "anim_indices", "anim_tri_material",
+)
+
+
+def _np_to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    # always a copy: the tensor never aliases the Scene's host mirror
+    return torch.tensor(a, device=device)
+
+
+def arrays_to_torch(tree, device="cpu"):
+    """Convert a (nested dict of) numpy / jax arrays -- e.g. the
+    reference's ``Scene.device_arrays()`` -- to torch tensors on
+    ``device``, keeping every key and dtype (u32 carried as i32 bits)."""
+    if isinstance(tree, dict):
+        return {k: arrays_to_torch(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return _np_to_torch(np.asarray(tree), device)
+
+
+def material_tables(scene: Scene) -> dict:
+    """Numpy material tables exactly as ``Scene.device_materials`` builds
+    them (scene.py:638-700): material_arrays + mat_tex_meta + mat_row."""
+    arrays = scene.material_arrays()
+    pool = scene.textures
+    d = pool.descriptor_arrays()
+    tm = np.concatenate(
+        [d["tex_meta"], d["mip_owh"][d["tex_meta"][:, 0]][:, 1:3]], axis=1
+    )
+    ids = arrays["packed_i"][:, 0:4].astype(np.int64)
+    arrays["mat_tex_meta"] = tm[ids].reshape(ids.shape[0], 24)
+    counts_full = [
+        pool._full_view[t][1] if t in pool._full_view else pool.tex_mip_count[t]
+        for t in range(pool.num_textures)
+    ]
+    L = max(counts_full) if counts_full else 1
+    base = d["tex_meta"][:, 0:1]
+    count = d["tex_meta"][:, 1:2]
+    lvl = np.minimum(np.arange(L)[None, :], count - 1)
+    tab = d["mip_owh"][base + lvl][:, :, 0:3]
+    mat_levels = tab[ids].reshape(ids.shape[0], 4 * L * 3)
+    arrays["mat_row"] = np.concatenate(
+        [
+            arrays["packed_f"],
+            arrays["packed_i"].view(np.float32),
+            arrays["mat_tex_meta"].astype(np.int32).view(np.float32),
+            mat_levels.astype(np.int32).view(np.float32),
+        ],
+        axis=1,
+    )
+    return arrays
+
+
+def quad_pool(pool, device) -> torch.Tensor:
+    """(N, 16) quad-packed pool (TexturePool.device_quad, scene.py:187):
+    row i = [t[i], t[right], t[down], t[diag]], wrap baked in."""
+    if pool.nbr.capacity < pool.texels.capacity:
+        pool.nbr._ensure(pool.texels.capacity)
+    t = _np_to_torch(pool.texels.host, device)
+    n = _np_to_torch(pool.nbr.host, device).long()
+    return torch.cat([t, t[n[:, 0]], t[n[:, 1]], t[n[:, 2]]], dim=1)
+
+
+def _is_const(pool, t: int) -> bool:
+    base, count = pool.tex_mip_base[t], pool.tex_mip_count[t]
+    return count == 1 and pool.mip_w[base] == 1 and pool.mip_h[base] == 1
+
+
+def _fill_slot_index(idx: np.ndarray, pool, ids, dims, offsets) -> None:
+    """Write one chain's quad-pool rows into idx (4, rows): per interleaved
+    row and material slot (device_matq's index build, scene.py:1100-1115
+    and :1182-1196). Levels with a negative offset are skipped."""
+    for l, (h, w) in enumerate(dims):
+        off = offsets[l]
+        if off < 0:
+            continue
+        for s, t in enumerate(ids):
+            base = pool.tex_mip_base[t]
+            if _is_const(pool, t):
+                idx[s, off:off + h * w] = pool.mip_offset[base]
+            else:
+                idx[s, off:off + h * w] = pool.mip_offset[base + l] + np.arange(
+                    h * w, dtype=np.int32
+                )
+
+
+def matq_tables(scene: Scene, quad: torch.Tensor, device):
+    """(texels_mq (N, 64) u8, texels_mq_tail or None, mat_row_mq (M, 24+4L)
+    f32) or None -- the non-mq3 path of Scene.device_matq
+    (scene.py:1072-1241)."""
+    if not (scene.quad_pools and scene.matq_pools):
+        return None
+    plan = scene.matq_plan()
+    if plan is None:
+        return None
+    for ids, _, _ in plan["chains"]:
+        if any(t in scene.textures._full_view for t in ids):
+            return None
+    if scene.matq3x3 and plan["mq3_ok"]:
+        raise NotImplementedError(
+            "wide mq3 interleaved rows are not ported (ROADMAP: do not port)"
+        )
+    if plan["partial"]:
+        raise NotImplementedError(
+            "partial interleaved pools (matq_capable) wait for the "
+            "material-path partition (ROADMAP queue 1: material partition)"
+        )
+    pool = scene.textures
+
+    def gather(idx: np.ndarray) -> torch.Tensor:
+        i = torch.from_numpy(idx).to(device).long()
+        return torch.cat([quad[i[0]], quad[i[1]], quad[i[2]], quad[i[3]]], dim=1)
+
+    idx = np.empty((4, plan["total_rows"]), np.int32)
+    for c, (ids, dims, _) in enumerate(plan["chains"]):
+        _fill_slot_index(idx, pool, ids, dims, plan["offsets"][c])
+    texels_mq = gather(idx)
+
+    texels_mq_tail = None
+    if plan["tail_total"] > 0:
+        idx_t = np.empty((4, plan["tail_total"]), np.int32)
+        for c, (ids, dims, _) in enumerate(plan["chains"]):
+            _fill_slot_index(idx_t, pool, ids, dims, plan["tail_offsets"][c])
+        texels_mq_tail = gather(idx_t)
+
+    arrays = scene.material_arrays()
+    L = plan["L"]
+    mrows = []
+    for mi, c in enumerate(plan["mat_chain"]):
+        _, dims, wrap = plan["chains"][c]
+        meta = np.array([wrap, plan["srgb_masks"][c], len(dims), 0], np.int32)
+        owh = np.zeros((L, 4), np.int32)
+        for l in range(L):
+            ll = min(l, len(dims) - 1)
+            h, w = dims[ll]
+            owh[l] = (plan["offsets"][c][ll], w, h, plan["tail_offsets"][c][ll])
+        mrows.append(
+            np.concatenate(
+                [
+                    arrays["packed_f"][mi],
+                    arrays["packed_i"][mi].view(np.float32),
+                    meta.view(np.float32),
+                    owh.reshape(-1).view(np.float32),
+                ]
+            )
+        )
+    mat_row_mq = _np_to_torch(np.stack(mrows).astype(np.float32), device)
+    return texels_mq, texels_mq_tail, mat_row_mq
+
+
+def scene_to_torch(scene: Scene, device="cpu") -> dict:
+    """The reference's ``Scene.device_arrays()`` dict, built from the host
+    tables as torch tensors on ``device``."""
+    scene.enforce_texture_budget()
+    if scene.lightvol is not None or scene.lightmap_tex is not None:
+        raise NotImplementedError(
+            "light volumes / lightmaps wait for ROADMAP queue 1: light volumes"
+        )
+    ids = getattr(scene, "smoke_tex", None)
+    if scene.quad_pools and ids and ids[0] >= 0:
+        raise NotImplementedError("smoke pools wait for ROADMAP queue 1: particles")
+    d = {k: _np_to_torch(getattr(scene, k).host, device) for k in _VERTEX_KEYS}
+    d["texels"] = _np_to_torch(scene.textures.texels.host, device)
+    d["texels_hdr"] = _np_to_torch(scene.textures_hdr.texels.host, device)
+    materials = {
+        k: _np_to_torch(v, device) for k, v in material_tables(scene).items()
+    }
+    d["materials"] = materials
+    d["tex"] = arrays_to_torch(scene.textures.descriptor_arrays(), device)
+    d["tex_hdr"] = arrays_to_torch(scene.textures_hdr.descriptor_arrays(), device)
+    if scene.quad_pools:
+        quad = quad_pool(scene.textures, device)
+        d["texels_q"] = quad
+        d["texels_hdr_q"] = quad_pool(scene.textures_hdr, device)
+        mq: Optional[tuple] = matq_tables(scene, quad, device)
+        if mq is not None:
+            d["texels_mq"] = mq[0]
+            if mq[1] is not None:
+                d["texels_mq_tail"] = mq[1]
+            d["materials"] = dict(materials)
+            d["materials"]["mat_row_mq"] = mq[2]
+    return d
+
+
+__all__ = ["arrays_to_torch", "material_tables", "scene_to_torch"]

@@ -1,0 +1,247 @@
+"""Binning and the visibility raster of the port against the reference,
+fed the SAME JAX setup rows: bins bit for bit, and the port's plain raster
+bit for bit in depth and pair against the reference's Pallas kernel in
+interpret mode (rasterize_pallas_sorted(..., interpret=True)), run without
+FMA contraction (see the raster_cases fixture). The CUDA kernel against the
+plain raster (bit for bit in both) runs only where there is a card."""
+
+import functools
+import os
+import subprocess
+import sys
+import textwrap
+from dataclasses import asdict
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_box_glb
+from superconductor_tpu import Camera, Scene, Similarity, make_uniforms
+from superconductor_tpu.assets.models import load_model
+from superconductor_tpu.math3d import quat_from_axis_angle
+from superconductor_tpu.ops import binning as ref_binning
+from superconductor_tpu.ops.geometry import geometry_pass, make_draw_list
+from superconductor_tpu.render import frame as ref_frame
+from superconductor_tpu.render.draws import build_frame_state
+from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
+from superconductor_tpu_torch.ops.geometry import TriangleSetup
+from superconductor_tpu_torch.ops.raster import rasterize_sorted, rasterize_sorted_plain
+from superconductor_tpu_torch.ops.raster_ref import VisibilityBuffer
+from superconductor_tpu_torch.scenes import headline_host
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _to_port(tri) -> TriangleSetup:
+    return TriangleSetup(*[torch.from_numpy(np.array(x)) for x in tri])
+
+
+def _box_tri(box_glb, width, height):
+    """tests/test_raster_pallas.py's box scene."""
+    scene = Scene()
+    model = load_model(scene, box_glb, name="box")
+    uniforms = make_uniforms(Camera(position=np.array([0.6, 0.8, 2.0], np.float32)),
+                             width, height)
+    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.6))
+    prim = model.primitives[0]
+    lod = prim.lods[0]
+    draws = make_draw_list(
+        sim.to_array()[None], np.array([lod.first_index // 3]),
+        np.array([lod.index_count // 3]), first_vertex=np.array([lod.first_vertex]),
+        vertex_count=np.array([lod.vertex_count]), material=np.array([prim.material]),
+    )
+    dev = scene.device_arrays()
+    tri, _ = geometry_pass(
+        draws, dev["indices"], dev["positions"], dev["normals"], dev["uvs"],
+        dev["lightmap_uvs"], dev["tri_material"], dev["materials"],
+        jnp.asarray(uniforms.view_proj[0]), width, height, t_cap=16,
+    )
+    return tri
+
+
+@functools.lru_cache(maxsize=None)
+def _hero_tri(width, height, angle):
+    scene, model, uniforms, _env, config = headline_host(width, height)
+    rcfg = ref_frame.RenderConfig(**{**asdict(config), "raster": "pallas"})
+    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], angle))
+    state = build_frame_state(scene, [(model, sim)], uniforms)
+
+    @jax.jit
+    def geometry(dev, state):
+        tri, _ = ref_frame._merged_geometry(dev, state, state.uniforms["view_proj"][0], rcfg)
+        return tri
+
+    return geometry(scene.device_arrays(), state)
+
+
+_ref_bins = jax.jit(ref_binning.bin_triangles, static_argnums=(1, 2, 3),
+                    static_argnames=("y_offset",))
+
+
+def _check_bins(tri, width, height, p_cap, y_offset=0, rb=None):
+    """The port's bins of the same setup rows equal the reference's (rb,
+    computed here unless given) field for field, dtype included."""
+    if rb is None:
+        rb = _ref_bins(tri, width, height, p_cap, y_offset=y_offset)
+    pb = bin_triangles(_to_port(tri), width, height, p_cap, y_offset=y_offset)
+    for f in rb._fields:
+        a, b = np.asarray(getattr(rb, f)), getattr(pb, f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    return rb, pb
+
+
+def _cases() -> dict:
+    """name -> raster inputs: tests/test_raster_pallas.py's box scene at its
+    two sizes, the hero at 256x128 with reverse and forward z, and a band
+    [40, 104) of the hero over an init buffer (random depths below the
+    geometry's and random pair ids, made with numpy)."""
+    box = make_box_glb()
+    hero = _hero_tri(256, 128, 0.3)
+    rng = np.random.default_rng(11)
+    init = (
+        rng.uniform(0.0, 0.03, size=(64, 256)).astype(np.float32),
+        rng.integers(-1, 500, size=(64, 256)).astype(np.int32),
+    )
+    return {
+        "box-64x128": dict(tri=_box_tri(box, 128, 64), width=128, height=64,
+                           p_cap=128, min_covered=0.05),
+        "box-96x256": dict(tri=_box_tri(box, 256, 96), width=256, height=96,
+                           p_cap=128, min_covered=0.05),
+        "hero-reverse-z": dict(tri=hero, width=256, height=128, p_cap=1 << 13,
+                               min_covered=0.2),
+        "hero-forward-z": dict(tri=hero, width=256, height=128, p_cap=1 << 13,
+                               reverse_z=False, min_covered=0.2),
+        "hero-band-init": dict(tri=hero, width=256, height=64, p_cap=1 << 13,
+                               y_offset=40, init=init, min_covered=0.5),
+    }
+
+
+CASES = ("box-64x128", "box-96x256", "hero-reverse-z", "hero-forward-z", "hero-band-init")
+
+_REFERENCE_CHILD = textwrap.dedent(
+    """
+    import sys
+    import jax.numpy as jnp
+    import numpy as np
+    from superconductor_tpu.ops.raster_pallas import rasterize_pallas_sorted
+    from superconductor_tpu.ops.raster_ref import VisibilityBuffer
+
+    cases = np.load(sys.argv[1])
+    out = {}
+    for name in sorted({k.split("/")[0] for k in cases.files}):
+        def get(key):
+            return jnp.asarray(cases[name + "/" + key])
+        height, width, reverse_z, y_offset = (int(v) for v in cases[name + "/meta"])
+        init = None
+        if name + "/init_depth" in cases.files:
+            init = VisibilityBuffer(get("init_depth"), get("init_pair"))
+        vis = rasterize_pallas_sorted(
+            get("setup"), get("tile_start"), get("tile_count"), height, width,
+            reverse_z=bool(reverse_z), init=init, interpret=True, y_offset=y_offset,
+        )
+        out[name + "/depth"] = np.asarray(vis.depth)
+        out[name + "/pair"] = np.asarray(vis.pair)
+    np.savez(sys.argv[2], **out)
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def raster_cases(tmp_path_factory):
+    """Every case binned by the reference, and the reference's
+    interpret-mode kernel run on its tile-sorted setup rows in ONE child
+    process whose XLA CPU backend is capped at AVX. XLA's CPU backend always
+    allows FMA contraction, so in this process the interpret-mode kernel
+    fuses the multiply-adds of its edge and z sums and its depths move by a
+    few ulp (up to 40 on the hero). Without FMA instructions every product
+    and sum rounds on its own: the arithmetic of the CUDA kernel (built
+    -fmad=false) and of the plain version, so the comparison is bit for bit."""
+    cases = _cases()
+    arrays, bins = {}, {}
+    for name in CASES:
+        c = cases[name]
+        y_offset = c.get("y_offset", 0)
+        rb = _ref_bins(c["tri"], c["width"], c["height"], c["p_cap"], y_offset=y_offset)
+        bins[name] = rb
+        arrays[name + "/setup"] = np.asarray(ref_binning.gather_sorted_setup(c["tri"], rb))
+        arrays[name + "/tile_start"] = np.asarray(rb.tile_start)
+        arrays[name + "/tile_count"] = np.asarray(rb.tile_count)
+        arrays[name + "/meta"] = np.array(
+            [c["height"], c["width"], c.get("reverse_z", True), y_offset], np.int32
+        )
+        if "init" in c:
+            arrays[name + "/init_depth"], arrays[name + "/init_pair"] = c["init"]
+    tmp = tmp_path_factory.mktemp("raster_reference")
+    src, dst = str(tmp / "cases.npz"), str(tmp / "reference.npz")
+    np.savez(src, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_CHILD, src, dst], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    ref = np.load(dst)
+    return {
+        name: (cases[name], bins[name], arrays[name + "/setup"],
+               ref[name + "/depth"], ref[name + "/pair"])
+        for name in CASES
+    }
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_bins_bit_exact(raster_cases, name):
+    c, rb, ref_setup, _, _ = raster_cases[name]
+    _, pb = _check_bins(c["tri"], c["width"], c["height"], c["p_cap"],
+                        c.get("y_offset", 0), rb=rb)
+    assert np.array_equal(ref_setup, gather_sorted_setup(_to_port(c["tri"]), pb).numpy())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_raster_matches_interpret_kernel(raster_cases, name):
+    """depth and pair bit for bit against rasterize_pallas_sorted(...,
+    interpret=True) on the same setup rows; the CPU wrapper takes the plain
+    version."""
+    c, rb, ref_setup, ref_depth, ref_pair = raster_cases[name]
+    init = None
+    if "init" in c:
+        init = VisibilityBuffer(torch.from_numpy(c["init"][0]), torch.from_numpy(c["init"][1]))
+    args = (torch.tensor(ref_setup), torch.tensor(np.asarray(rb.tile_start)),
+            torch.tensor(np.asarray(rb.tile_count)), c["height"], c["width"])
+    kw = dict(reverse_z=c.get("reverse_z", True), init=init, y_offset=c.get("y_offset", 0))
+    pv = rasterize_sorted_plain(*args, **kw)
+    assert np.array_equal(ref_pair, pv.pair.numpy())
+    assert np.array_equal(ref_depth, pv.depth.numpy())
+    assert (pv.pair >= 0).float().mean() > c["min_covered"]
+    wv = rasterize_sorted(*args, **kw)
+    assert torch.equal(wv.pair, pv.pair) and torch.equal(wv.depth, pv.depth)
+
+
+def test_bins_bit_exact_with_overflow():
+    """p_cap below the need: both truncate the same pairs and report the
+    full need."""
+    tri = _hero_tri(256, 128, 0.3)
+    rb, pb = _check_bins(tri, 256, 128, p_cap=1024)
+    assert int(pb.num_pairs) > 1024
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the raster kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    tri = _to_port(_hero_tri(256, 128, 0.3))
+    tri = TriangleSetup(*[x.to(dev) for x in tri])
+    for y0, h in ((0, 128), (40, 64)):
+        bins = bin_triangles(tri, 256, h, 1 << 13, y_offset=y0)
+        s = gather_sorted_setup(tri, bins).contiguous()
+        args = (s, bins.tile_start, bins.tile_count, h, 256)
+        before = rasterize_sorted.LAUNCHES
+        k = rasterize_sorted(*args, y_offset=y0)
+        assert rasterize_sorted.LAUNCHES == before + 1
+        p = rasterize_sorted_plain(*args, y_offset=y0)
+        torch.cuda.synchronize()
+        assert torch.equal(k.pair, p.pair) and torch.equal(k.depth, p.depth)
