@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives superconductor_tpu_torch's main path -- the 1920x1080 headline
-frame (hero_helmet.glb, opaque PBR + IBL sky) -- on the first CUDA device
-and checks it:
+Drives superconductor_tpu_torch's two paths at 1920x1080 on the first
+CUDA device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
+sky) and the clip_blend frame (BASELINE config 3: the helmet plus a ring
+of spheres, alpha-clipped and alpha-blended ones among them) -- and
+checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
-2. build: compiles csrc/raster.cu (nvcc, sm_90a) and prints the seconds
-   and the compiler's resource report;
+2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
+   process each, at once) and prints the seconds and the compiler's
+   registers, shared memory and spills of every template variant;
 3. raster kernel against its plain torch version on the card, which must
    agree bit for bit in depth and pair: the binned setup of the headline
    frame, a fan of edge-sharing triangles with pixel centres on the
@@ -20,7 +23,19 @@ and checks it:
    against the opaque_px_needed stat; non-black sky and helmet; and a
    256x128 frame on the card against the same frame on the CPU and
    against the JAX reference's frame stored in tests/goldens (>= 40 dB);
-5. jax was never imported.
+5. k-buffer kernel against its plain version on the card, bit for bit in
+   every depth plane, pair plane and layers count, for K in {1, 2, 4, 8}
+   and with and without depth planes: the clip and the blend setup of the
+   1080p clip_blend frame over its opaque depth, a stack of 12 quads with
+   equal-z ties (layers > K), the stack in forward z, and a band with a
+   non-zero y_offset; CUDA-event medians of 20 on the blend setup at K=4;
+6. clip_blend: fit_caps, a stats frame, 20 frames timed with CUDA events;
+   both kernels' launch counts; the frame against its twin rendered with
+   both plain versions (byte-equal); the clip pass both keeps and drops
+   clip fragments; the blend composite changes the pixels it covers; a
+   256x128 frame on the card against the CPU frame and the JAX
+   reference's frame in tests/goldens (>= 40 dB);
+7. jax was never imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
@@ -35,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -44,6 +60,9 @@ WIDTH, HEIGHT = 1920, 1080  # the headline frame
 # the JAX reference's hero frame at 256x128 (tests/test_torch_frame.py)
 HERO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "torch_hero_256x128.npz")
+# the JAX reference's clip_blend frame at 256x128 (tests/test_torch_clip_blend.py)
+CLIP_BLEND_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "goldens", "torch_clip_blend_256x128.npz")
 
 
 def phase(name: str, msg: str) -> None:
@@ -152,6 +171,177 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
     return vk
 
 
+def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
+                    y_offset=0, floor=None, min_layers=1, timed_k=None):
+    """Kernel vs plain for every K and both want_depth on the binned,
+    sorted setup of `tri`; times K=timed_k without depth planes."""
+    from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
+    from superconductor_tpu_torch.ops.raster import KBUFFER_KS, kbuffer_sorted
+    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
+
+    bins = bin_triangles(tri, width, height, p_cap, y_offset=y_offset)
+    if int(bins.num_pairs) > p_cap:
+        raise RuntimeError(f"{name}: p_cap {p_cap} < {int(bins.num_pairs)} pairs")
+    sorted_setup = gather_sorted_setup(tri, bins).contiguous()
+    args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    for k in KBUFFER_KS:
+        for want in (True, False):
+            kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
+                      want_depth=want)
+            kb, layers = kbuffer_sorted(*args, **kw)
+            pkb, players = kbuffer_sorted_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
+            err = 0.0
+            if want:
+                same = same and torch.equal(kb.depth, pkb.depth)
+                err = float((kb.depth - pkb.depth).abs().max())
+            if not same:
+                diff = int((kb.pair != pkb.pair).sum())
+                raise RuntimeError(f"{name} K={k} want_depth={want}: kernel != plain "
+                                   f"({diff} pair values differ)")
+            results["max_abs_err"] = max(results["max_abs_err"], err)
+    deepest = int(layers.max())
+    phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} K=1,2,4,8 x "
+          f"want_depth: equal (tolerance: bit for bit); max layers {deepest}, "
+          f"covered {float((layers > 0).float().mean()):.4f}")
+    if deepest < min_layers:
+        raise RuntimeError(f"{name}: at most {deepest} layers, expected >= {min_layers}")
+    if timed_k is not None:
+        kw = dict(k=timed_k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
+                  want_depth=False)
+        results["ms"] = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
+        results["plain_ms"] = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
+        phase("kbuffer", f"{name} K={timed_k}: kernel {results['ms']:.4f} ms, plain "
+              f"{results['plain_ms']:.4f} ms (CUDA events, median of {N_TIMED})")
+
+
+def clip_blend_path(dev, kb_results) -> dict:
+    """Phases 5 and 6: the k-buffer kernel against its plain version, then
+    the 1080p clip_blend frame. Returns the launch counts of its timed run."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
+    from superconductor_tpu_torch.render import frame as frame_mod
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.frame import (
+        _merged_setup_for_view,
+        _merged_vertex_stage,
+        _rasterize,
+        _rasterize_kbuffer,
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scenes import (
+        CLIP_BLEND_SMALL,
+        clip_blend_scene,
+        quad_stack_setup,
+    )
+
+    t0 = time.perf_counter()
+    scene_dev, build_state, config, env = clip_blend_scene(WIDTH, HEIGHT, dev)
+    state0 = build_state(0.0)
+    phase("clip_blend", f"scene on card in {time.perf_counter() - t0:.2f} s")
+
+    # --- 5. k-buffer kernel vs plain ---
+    stages, attrs = _merged_vertex_stage(scene_dev, state0, config)
+    tri = _merged_setup_for_view(stages, state0.uniforms["view_proj"][0], config)
+    blend = scene_dev["materials"]["blend_mode"][attrs.material]
+    opaque, _, _ = _rasterize(tri._replace(valid=tri.valid & (blend == 0)), config, HEIGHT, 0)
+    floor = opaque.depth
+    clip_tri = tri._replace(valid=tri.valid & (blend == 1))
+    blend_tri = tri._replace(valid=tri.valid & (blend == 2))
+    compare_kbuffer("clip-1080p", clip_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
+                    floor=floor, min_layers=2)
+    compare_kbuffer("blend-1080p", blend_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
+                    floor=floor, timed_k=4)
+    compare_kbuffer("stack", quad_stack_setup(200, 80, dev), 200, 80, 512, kb_results,
+                    min_layers=9)
+    compare_kbuffer("stack-forward-z", quad_stack_setup(200, 80, dev, reverse_z=False),
+                    200, 80, 512, kb_results, reverse_z=False, min_layers=9)
+    band_y0, band_h = HEIGHT * 2 // 5, HEIGHT * 3 // 10
+    compare_kbuffer("clip-band+y_offset", clip_tri, WIDTH, band_h, config.p_cap, kb_results,
+                    y_offset=band_y0,
+                    floor=floor[band_y0:band_y0 + band_h].contiguous(), min_layers=2)
+
+    # --- 6. the clip_blend frame ---
+    config = fit_caps(scene_dev, state0, config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    phase("clip_blend", f"fitted caps: p_cap={config.p_cap} clip_layers="
+          f"{config.clip_layers} blend_layers={config.blend_layers} "
+          f"shade_px_cap={config.shade_px_cap} shade_px_caps={config.shade_px_caps} "
+          f"opaque_px_cap={config.opaque_px_cap} sky_px_cap={config.sky_px_cap}")
+    img, stats = render_frame_stats(scene_dev, state0, config, env)
+    stats = stats_to_host(stats)
+    phase("clip_blend", f"stats {stats}")
+    if stats["clip_layers_needed"] < 1 or stats["blend_layers_needed"] < 1:
+        raise RuntimeError("the clip_blend frame has no clip or no blend fragment")
+
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    frames = [0]
+
+    def one_frame():
+        frames[0] += 1
+        return render_frame(scene_dev, state0, config, env)
+
+    frame_ms = cuda_ms(one_frame)
+    launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
+                "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    phase("clip_blend", f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
+          f"launches {launches} over {frames[0]} frames")
+    if launches["raster_sorted"] < frames[0] or launches["kbuffer_sorted"] < 2 * frames[0]:
+        raise RuntimeError("the clip_blend path did not launch raster once and the "
+                           "k-buffer kernel twice per frame")
+
+    img = render_frame(scene_dev, state0, config, env)
+    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
+    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
+    try:
+        img_plain = render_frame(scene_dev, state0, config, env)
+    finally:
+        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
+        frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
+    if img.shape != (1, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
+        raise RuntimeError(f"bad frame {tuple(img.shape)} {img.dtype}")
+    if not torch.equal(img, img_plain):
+        raise RuntimeError("clip_blend frame differs from its plain-kernels twin")
+    phase("clip_blend", "frame equals its twin rendered with both plain versions byte for byte")
+
+    # the clip pass keeps some clip fragments and sees through others
+    clip_kb = _rasterize_kbuffer(clip_tri, config,
+                                  HEIGHT, 0, floor, k=config.resolve_clip_layers())[0]
+    clip_cov = clip_kb.pair[0] >= 0
+    no_clip = render_frame(scene_dev, state0, replace(config, enable_clip=False), env)
+    no_blend = render_frame(scene_dev, state0, replace(config, enable_blend=False), env)
+    kept = (img[0] != no_clip[0]).any(dim=-1) & clip_cov
+    holes = int(clip_cov.sum()) - int(kept.sum())
+    blended = int((img[0] != no_blend[0]).any(dim=-1).sum())
+    phase("clip_blend", f"clip-covered px {int(clip_cov.sum())}: {int(kept.sum())} take a "
+          f"clip surface, {holes} keep the opaque result or sky; blend changes "
+          f"{blended} px (blend layer-0 need {stats['shade_px_needed_k'][0]} px, "
+          f"granule-dilated)")
+    if int(kept.sum()) == 0 or holes == 0:
+        raise RuntimeError("the clip resolve neither kept nor dropped clip fragments")
+    if blended == 0:
+        raise RuntimeError("the blend composite changed no pixel")
+
+    small = dict(CLIP_BLEND_SMALL)
+    w, h = small.pop("width"), small.pop("height")
+    small_gpu = clip_blend_scene(w, h, dev, **small)
+    small_cpu = clip_blend_scene(w, h, "cpu", **small)
+    img_g = render_frame(small_gpu[0], small_gpu[1](0.3), small_gpu[2], small_gpu[3]).cpu()
+    img_c = render_frame(small_cpu[0], small_cpu[1](0.3), small_cpu[2], small_cpu[3])
+    golden = np.load(CLIP_BLEND_GOLDEN)["image"]
+    db_cpu = psnr(img_g.numpy(), img_c.numpy())
+    db_ref = psnr(img_g.numpy(), golden)
+    phase("clip_blend", f"{w}x{h} frame: card vs CPU PSNR {db_cpu:.2f} dB, card vs the "
+          f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
+    if min(db_cpu, db_ref) < 40.0:
+        raise RuntimeError("card frame disagrees with the CPU frame or the reference")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -177,11 +367,14 @@ def main() -> int:
     phase("device", f"torch: {kind}, count={torch.cuda.device_count()}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
 
+    t0 = time.perf_counter()
     build = raster_mod.build_kernels(force=True, verbose=True)
-    phase("build", f"raster.cu built in {build['seconds']:.2f} s")
-    for line in build["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            phase("build", line.strip())
+    phase("build", f"both kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for name, b in build.items():
+        phase("build", f"{name}.cu built in {b['seconds']:.2f} s")
+        for line in b["log"].splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                phase("build", line.strip())
 
     # --- 3. kernel vs plain ---
     results = {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
@@ -219,6 +412,7 @@ def main() -> int:
     phase("headline", f"stats {stats}")
 
     raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
     frames = [0]
 
     def one_frame():
@@ -274,6 +468,9 @@ def main() -> int:
     if min(db_cpu, db_ref) < 40.0:
         raise RuntimeError("card frame disagrees with the CPU frame or the reference")
 
+    kb_results = {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+    cb_launches = clip_blend_path(dev, kb_results)
+
     if sys.modules.get("jax") is not None:
         raise RuntimeError("jax was imported")
     phase("jax", "not imported")
@@ -283,10 +480,19 @@ def main() -> int:
         "route": "cuda",
         "source": "superconductor_tpu_torch/csrc/raster.cu",
         "replaces": "superconductor_tpu/ops/raster_pallas.py:80",
-        "launches": launches,
+        "launches": launches + cb_launches["raster_sorted"],
         "max_abs_err": results["max_abs_err"],
         "ms": results["ms"],
         "plain_ms": results["plain_ms"],
+    }, {
+        "name": "kbuffer_sorted",
+        "route": "cuda",
+        "source": "superconductor_tpu_torch/csrc/kbuffer.cu",
+        "replaces": "superconductor_tpu/ops/raster_pallas.py:314",
+        "launches": cb_launches["kbuffer_sorted"],
+        "max_abs_err": kb_results["max_abs_err"],
+        "ms": kb_results["ms"],
+        "plain_ms": kb_results["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -94,13 +94,30 @@ from superconductor_tpu.render.camera import (  # noqa: E402
     make_uniforms,
 )
 from superconductor_tpu.render.env import EnvBindings  # noqa: E402
-from superconductor_tpu.scene.scene import Model, Scene  # noqa: E402
+from superconductor_tpu.scene.scene import (  # noqa: E402
+    BLEND_ALPHA_BLENDED,
+    BLEND_ALPHA_CLIPPED,
+    MAT_DOUBLE_SIDED,
+    TEXFLAG_SRGB,
+    Model,
+    Scene,
+    build_mip_chain,
+)
 from superconductor_tpu.utils.procgen import (  # noqa: E402
+    add_pbr_sphere,
+    checker_texture,
     default_ambient_sh,
     gradient_cubemap,
 )
 
 __all__ = [
+    "BLEND_ALPHA_BLENDED",
+    "BLEND_ALPHA_CLIPPED",
+    "MAT_DOUBLE_SIDED",
+    "TEXFLAG_SRGB",
+    "add_pbr_sphere",
+    "build_mip_chain",
+    "checker_texture",
     "Camera",
     "EnvBindings",
     "Model",

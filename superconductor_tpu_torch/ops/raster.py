@@ -1,21 +1,26 @@
-"""Binned tile rasterizer: the opaque visibility pass.
+"""Binned tile rasterizers: the opaque visibility pass and the k-buffer
+passes (alpha clip, alpha blend).
 
-Port of ``superconductor_tpu/ops/raster_pallas.py`` ``rasterize_pallas_sorted``
-(:194) and its kernel ``_raster_kernel`` (:80). Given tile-sorted (P, 16)
-setup rows and each tile's range [tile_start, tile_start + tile_count), it
-returns a VisibilityBuffer whose ``pair`` holds the winner's SORTED
-position (-1 = miss) and whose ``depth`` is the winner's z (reverse-z: 0 =
-far).
+Ports of ``superconductor_tpu/ops/raster_pallas.py``: ``rasterize_pallas_sorted``
+(:194, kernel ``_raster_kernel`` :80) and ``kbuffer_pallas_sorted`` (:456,
+kernel ``_kbuffer_kernel`` :314). Given tile-sorted (P, 16) setup rows and
+each tile's range [tile_start, tile_start + tile_count), they leave SORTED
+positions (-1 = miss) in their pair planes; the caller remaps them.
 
-* ``rasterize_sorted`` -- the wrapper. A CUDA tensor launches the
-  hand-written kernel ``csrc/raster.cu`` (built with nvcc at first use into
-  ``build/``, loaded with ctypes); a CPU tensor runs the plain version. It
-  never falls back: anything the kernel does not take raises.
-* ``rasterize_sorted_plain`` -- vectorised torch, chunked over pairs, equal
-  bit for bit to the kernel and to the reference's interpret-mode kernel.
-* ``build_kernels`` -- compile the CUDA library (idempotent).
+* ``rasterize_sorted`` -- VisibilityBuffer of the nearest fragment. A CUDA
+  tensor launches ``csrc/raster.cu``; a CPU tensor runs
+  ``rasterize_sorted_plain`` (vectorised torch, chunked over pairs).
+* ``kbuffer_sorted`` -- the K nearest fragments in front of a depth floor
+  and the accepted-fragment count. A CUDA tensor launches
+  ``csrc/kbuffer.cu``; a CPU tensor runs ``raster_kbuffer.kbuffer_sorted_plain``.
+* ``build_kernels`` -- compile the CUDA libraries (idempotent; one nvcc per
+  stale source, all started together) into ``build/``; they are loaded
+  with ctypes at first use.
 
-``rasterize_sorted.LAUNCHES`` counts kernel launches (never plain calls).
+Neither wrapper falls back: anything its kernel does not take raises. Each
+plain version equals its kernel, and the reference's interpret-mode
+kernel, bit for bit. ``rasterize_sorted.LAUNCHES`` and
+``kbuffer_sorted.LAUNCHES`` count kernel launches (never plain calls).
 """
 
 from __future__ import annotations
@@ -34,16 +39,27 @@ from .geometry import ragged_owner
 from .raster_ref import VisibilityBuffer
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "raster.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-_LIBRARY = os.path.join(BUILD_DIR, "libsc_raster.so")
+# kernel name -> (source, library)
+KERNELS = {
+    name: (os.path.join(_PKG_DIR, "csrc", f"{name}.cu"),
+           os.path.join(BUILD_DIR, f"libsc_{name}.so"))
+    for name in ("raster", "kbuffer")
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
-KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster.cu
+KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster.cu and csrc/kbuffer.cu
+KBUFFER_KS = (1, 2, 4, 8)  # the k-buffer kernel's template depths
 
-_lib: Optional[ctypes.CDLL] = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "raster": ("sc_raster_sorted", [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "kbuffer": ("sc_kbuffer_sorted",
+                [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+}
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -53,52 +69,53 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the raster kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build_kernels(force: bool = False, verbose: bool = False) -> dict:
-    """Compile csrc/raster.cu into build/libsc_raster.so unless an up to
-    date library exists. Returns {"library", "seconds", "log"}; `log`
-    holds the compiler's output (with -Xptxas -v when verbose)."""
-    fresh = (
-        os.path.exists(_LIBRARY)
-        and os.path.getmtime(_LIBRARY) >= os.path.getmtime(_SOURCE)
-    )
-    if fresh and not force:
-        return {"library": _LIBRARY, "seconds": 0.0, "log": ""}
+    """Compile every csrc/<name>.cu whose build/libsc_<name>.so is missing
+    or older than its source (all of them when `force`), one nvcc process
+    per source, all running at once. Returns {name: {"library", "seconds",
+    "log"}} for each kernel (seconds 0.0 and an empty log when it was up to
+    date); `log` holds the compiler's output, with -Xptxas -v when verbose."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, _SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, _LIBRARY)
-    return {"library": _LIBRARY, "seconds": seconds, "log": log}
+    out, running = {}, {}
+    for name, (source, library) in KERNELS.items():
+        fresh = os.path.exists(library) and os.path.getmtime(library) >= os.path.getmtime(source)
+        if fresh and not force:
+            out[name] = {"library": library, "seconds": 0.0, "log": ""}
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, source]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in running.items():
+        log, _ = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{KERNELS[name][0]}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, KERNELS[name][1])
+        out[name] = {"library": KERNELS[name][1], "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _kernel_fn(name: str):
+    """The C entry point of kernel `name`, building the libraries first
+    when needed."""
+    if name not in _libs:
         build_kernels()
-        lib = ctypes.CDLL(_LIBRARY)
-        fn = lib.sc_raster_sorted
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(KERNELS[name][1]), symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        _lib = lib
-    return _lib
+        fn.argtypes = argtypes
+        _libs[name] = fn
+    return _libs[name]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -114,6 +131,40 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _tile_grid(height: int, width: int, tile_h: int, tile_w: int):
     return -(-width // tile_w), -(-height // tile_h)
+
+
+def tile_pixel_centres(tiles: torch.Tensor, ntx: int, tile_h: int, tile_w: int,
+                       y_offset: int):
+    """Pixel centres of tiles (n,) -> px (n, tile_w), py (n, tile_h)."""
+    dev = tiles.device
+    lx = torch.arange(tile_w, dtype=torch.float32, device=dev)
+    ly = torch.arange(tile_h, dtype=torch.float32, device=dev)
+    ox = (torch.remainder(tiles, ntx) * tile_w).to(torch.float32)
+    oy = (torch.div(tiles, ntx, rounding_mode="floor") * tile_h + y_offset).to(torch.float32)
+    return (lx[None, :] + ox[:, None]) + 0.5, (ly[None, :] + oy[:, None]) + 0.5
+
+
+def fragment_z(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """The kernels' per-pixel test, op by op in their order: setup rows
+    (..., 16) at pixel centres px, py (broadcast against rows[..., 0]) ->
+    (z, inside): the fill rule on the three edges, wsum > 0 and z in [0, 1]."""
+
+    def col(k):
+        return rows[..., k, None, None]
+
+    def edge(i):
+        a, b, c = col(3 * i), col(3 * i + 1), col(3 * i + 2)
+        e = a * px + b * py + c
+        tie = (a > 0) | ((a == 0) & (b > 0))
+        return e, (e > 0) | ((e == 0) & tie)
+
+    e0, ok0 = edge(0)
+    e1, ok1 = edge(1)
+    e2, ok2 = edge(2)
+    zsum = e0 * col(9) + e1 * col(10) + e2 * col(11)
+    wsum = e0 * col(12) + e1 * col(13) + e2 * col(14)
+    z = zsum / torch.where(wsum == 0, 1.0, wsum)
+    return z, ok0 & ok1 & ok2 & (wsum > 0) & (z >= 0) & (z <= 1)
 
 
 def rasterize_sorted(
@@ -155,12 +206,12 @@ def rasterize_sorted(
         _check(init.depth, "init.depth", torch.float32, (height, width), dev)
         _check(init.pair, "init.pair", torch.int32, (height, width), dev)
         init_depth, init_pair = init.depth.data_ptr(), init.pair.data_ptr()
-    lib = _library()
+    launch = _kernel_fn("raster")
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     pair = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sc_raster_sorted(
+        err = launch(
             sorted_setup.data_ptr(), p, tile_start.data_ptr(),
             tile_count.data_ptr(), ntx, nty, height, width, int(y_offset),
             int(bool(reverse_z)), init_depth, init_pair, depth.data_ptr(),
@@ -173,6 +224,75 @@ def rasterize_sorted(
 
 
 rasterize_sorted.LAUNCHES = 0
+
+
+def kbuffer_sorted(
+    sorted_setup: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    height: int,
+    width: int,
+    k: int = 4,
+    tile_h: int = 32,
+    tile_w: int = 128,
+    reverse_z: bool = True,
+    depth_floor: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
+    want_depth: bool = True,
+):
+    """K-layer raster of tile-sorted setup rows in front of depth_floor
+    (H, W) (None = far) -> (KBuffer with SORTED positions in .pair and
+    .depth None unless want_depth, layers (H, W) i32). CUDA tensors launch
+    the kernel, CPU tensors run kbuffer_sorted_plain."""
+    from .raster_kbuffer import KBuffer, kbuffer_sorted_plain
+
+    dev = sorted_setup.device
+    if dev.type == "cpu":
+        return kbuffer_sorted_plain(
+            sorted_setup, tile_start, tile_count, height, width, k=k, tile_h=tile_h,
+            tile_w=tile_w, reverse_z=reverse_z, depth_floor=depth_floor,
+            y_offset=y_offset, want_depth=want_depth,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"kbuffer_sorted: unsupported device {dev}")
+    if (tile_h, tile_w) != KERNEL_TILE:
+        raise ValueError(f"the k-buffer kernel takes {KERNEL_TILE} tiles, got {(tile_h, tile_w)}")
+    if k not in KBUFFER_KS:
+        raise ValueError(f"the k-buffer kernel takes k in {KBUFFER_KS}, got {k}")
+    if height <= 0 or width <= 0:
+        raise ValueError("empty raster target")
+    ntx, nty = _tile_grid(height, width, tile_h, tile_w)
+    p = sorted_setup.shape[0]
+    _check(sorted_setup, "sorted_setup", torch.float32, (p, 16), dev)
+    if sorted_setup.data_ptr() % 16:
+        raise ValueError("sorted_setup must be 16-byte aligned")
+    _check(tile_start, "tile_start", torch.int32, (ntx * nty,), dev)
+    _check(tile_count, "tile_count", torch.int32, (ntx * nty,), dev)
+    floor_ptr = None
+    if depth_floor is not None:
+        _check(depth_floor, "depth_floor", torch.float32, (height, width), dev)
+        floor_ptr = depth_floor.data_ptr()
+    launch = _kernel_fn("kbuffer")
+    depth = None
+    if want_depth:
+        depth = torch.empty((k, height, width), dtype=torch.float32, device=dev)
+    pair = torch.empty((k, height, width), dtype=torch.int32, device=dev)
+    layers = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            sorted_setup.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
+            ntx, nty, height, width, int(y_offset), int(k), int(bool(reverse_z)),
+            floor_ptr, None if depth is None else depth.data_ptr(), pair.data_ptr(),
+            layers.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"k-buffer kernel launch failed: cudaError_t {err}")
+    kbuffer_sorted.LAUNCHES += 1
+    return KBuffer(depth=depth, pair=pair), layers
+
+
+kbuffer_sorted.LAUNCHES = 0
 
 
 def rasterize_sorted_plain(
@@ -226,38 +346,13 @@ def rasterize_sorted_plain(
     local = torch.arange(total, dtype=torch.int32, device=dev) - offsets[entry_tile]
     entry_pos = (begin[entry_tile] + local).to(torch.int32)
 
-    lx = torch.arange(tile_w, dtype=torch.float32, device=dev)
-    ly = torch.arange(tile_h, dtype=torch.float32, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
     no_pos = torch.iinfo(torch.int32).max
     for s0 in range(0, total, chunk):
         tiles = entry_tile[s0:s0 + chunk]
         epos = entry_pos[s0:s0 + chunk]
-        rows = sorted_setup[epos]
-        ox = (torch.remainder(tiles, ntx) * tile_w).to(torch.float32)
-        oy = (torch.div(tiles, ntx, rounding_mode="floor") * tile_h + y_offset).to(
-            torch.float32
-        )
-        px = ((lx[None, :] + ox[:, None]) + 0.5)[:, None, :]  # (c, 1, tw)
-        py = ((ly[None, :] + oy[:, None]) + 0.5)[:, :, None]  # (c, th, 1)
-
-        def col(k):
-            return rows[:, k][:, None, None]
-
-        def edge(i):
-            a, b, c = col(3 * i), col(3 * i + 1), col(3 * i + 2)
-            e = a * px + b * py + c
-            tie = (a > 0) | ((a == 0) & (b > 0))
-            return e, (e > 0) | ((e == 0) & tie)
-
-        e0, ok0 = edge(0)
-        e1, ok1 = edge(1)
-        e2, ok2 = edge(2)
-        zsum = e0 * col(9) + e1 * col(10) + e2 * col(11)
-        wsum = e0 * col(12) + e1 * col(13) + e2 * col(14)
-        inside = ok0 & ok1 & ok2 & (wsum > 0)
-        z = zsum / torch.where(wsum == 0, 1.0, wsum)
-        accept = inside & (z >= 0) & (z <= 1)
+        px, py = tile_pixel_centres(tiles, ntx, tile_h, tile_w, y_offset)
+        z, accept = fragment_z(sorted_setup[epos], px[:, None, :], py[:, :, None])
         cand = torch.where(accept, z * sign, neg_inf).reshape(-1, npix)
 
         uniq, inv = torch.unique_consecutive(tiles, return_inverse=True)

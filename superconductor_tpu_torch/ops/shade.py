@@ -4,9 +4,10 @@
 Ported: g-buffer interpolation with analytic screen derivatives, the PBR
 pieces (nonlinear L1 SH irradiance, GGX specular at the SH dominant
 direction, cotangent-frame normal mapping), the constant ambient-SH
-lighting branch, and ``shade`` on the interleaved material pool (matq).
-Scenes needing light volumes, lightmaps, the classic per-slot samplers or
-the material-path partition raise NotImplementedError.
+lighting branch, and ``shade`` and the alpha-clip test ``albedo_alpha`` on
+the interleaved material pool (matq). Scenes needing light volumes,
+lightmaps, the classic per-slot samplers or the material-path partition
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -309,3 +310,28 @@ def shade(
     rgb = torch.where(gbuf.valid[..., None], rgb, 0.0)
     alpha = torch.where(gbuf.valid, alpha, 0.0)
     return rgb, alpha
+
+
+def albedo_alpha(gbuf: GBuffer, scene: dict, aniso_taps: int = 1, albedo4=None):
+    """(albedo alpha, material alpha cutoff) for the alpha-clip test, with
+    the same trilinear lod as full shading (reference ops/shade.py:546);
+    the cutoff rides the material row already gathered. Interleaved-pool
+    (matq) scenes only."""
+    m = scene["materials"]
+    if albedo4 is not None:
+        raise NotImplementedError(
+            "pre-sampled albedo waits for the material-path partition "
+            "(ROADMAP queue 1: material partition)"
+        )
+    if not ("texels_mq" in scene and "mat_row_mq" in m and "matq_capable" not in scene):
+        raise NotImplementedError(
+            "alpha clip without the interleaved material pool needs the classic "
+            "samplers (ROADMAP queue 1: classic samplers)"
+        )
+    pf, _pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
+    s16 = sample_material_interleaved(
+        scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
+        aniso_taps, texels_tail=scene.get("texels_mq_tail"),
+    )
+    albedo = s16[..., 0:4] * pf[..., 0:4]
+    return albedo[..., 3], pf[..., 10]

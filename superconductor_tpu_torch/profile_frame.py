@@ -1,13 +1,15 @@
-"""Where the time of the headline frame goes on the GPU.
+"""Where the time of a frame goes on the GPU.
 
-    python3 -m superconductor_tpu_torch.profile_frame [--frames 5] [--out build/profile]
+    python3 -m superconductor_tpu_torch.profile_frame [--scene headline|clip_blend]
+        [--frames 5] [--out build/profile]
 
-Fits the caps of the 1920x1080 headline frame, warms up, then traces
+Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline,
+or clip_blend: alpha clip + alpha blend), warms up, then traces
 `--frames` frames with torch.profiler (CPU + CUDA activity). Prints the
 wall time per frame (host clock around synchronised frames), the summed
 device kernel time per frame and the device's idle share, and the top
 operators by device time; writes the full table and a Chrome trace under
-`--out`. Needs a CUDA device.
+`--out` (profile_frame[_clip_blend].{txt,json}). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("headline", "clip_blend"), default="headline")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -34,9 +37,10 @@ def main(argv=None) -> int:
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
-    from .scenes import headline_scene
+    from .scenes import clip_blend_scene, headline_scene
 
-    dev, build, config, env = headline_scene(args.width, args.height, "cuda")
+    make = headline_scene if args.scene == "headline" else clip_blend_scene
+    dev, build, config, env = make(args.width, args.height, "cuda")
     state = build(0.0)
     config = fit_caps(dev, state, config, env)
     for _ in range(3):
@@ -59,17 +63,20 @@ def main(argv=None) -> int:
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     device_ms = device_us / 1e3 / args.frames
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"caps: p_cap={config.p_cap} opaque_px_cap={config.opaque_px_cap}")
+    print(f"device: {torch.cuda.get_device_name(0)}; scene: {args.scene}")
+    print(f"caps: p_cap={config.p_cap} opaque_px_cap={config.opaque_px_cap} "
+          f"clip_layers={config.clip_layers} blend_layers={config.blend_layers} "
+          f"shade_px_caps={config.shade_px_caps}")
     print(f"wall {wall_ms:.3f} ms/frame (host clock, synchronised, profiler off); "
           f"device kernels {device_ms:.3f} ms/frame; idle share "
           f"{max(0.0, 1.0 - device_ms / wall_ms):.3f}")
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     print(table)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_frame.txt"), "w") as f:
+    stem = "profile_frame" + ("" if args.scene == "headline" else f"_{args.scene}")
+    with open(os.path.join(args.out, stem + ".txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=200))
-    prof.export_chrome_trace(os.path.join(args.out, "profile_frame.json"))
+    prof.export_chrome_trace(os.path.join(args.out, stem + ".json"))
     return 0
 
 

@@ -1,14 +1,15 @@
 """The frame function: scene tables + FrameState -> (V, H, W, 4) u8 image
 and the capacity-stats dict (port of ``superconductor_tpu/render/frame.py``).
 
-The ported slice is the opaque path of the headline frame: merged
-static + animated geometry, binned tile raster (the CUDA kernel on a GPU,
-its plain version on the CPU) in sorted-pair mode, the full-screen IBL
-skybox, the opaque deferred shade on a compacted granule worklist (or
-full screen), and the tonemap tail. Every configuration outside it raises
-NotImplementedError naming the ROADMAP item that brings it. PyTorch runs
-eagerly, so there is no jit: ``render_frame`` and ``render_frame_stats``
-are plain functions.
+The ported slice: merged static + animated geometry, the binned tile
+raster (the CUDA kernels on a GPU, their plain versions on the CPU) in
+sorted-pair mode, the alpha-clip resolve over a k-buffer of clip
+fragments, the full-screen IBL skybox, the opaque deferred shade on a
+compacted granule worklist (or full screen), the alpha-blend composite of
+a k-buffer of blended fragments, and the tonemap tail. Every
+configuration outside it raises NotImplementedError naming the ROADMAP
+item that brings it. PyTorch runs eagerly, so there is no jit:
+``render_frame`` and ``render_frame_stats`` are plain functions.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from ..ops.geometry import (
     geometry_vertex_stage,
     geometry_view_setup,
 )
-from ..ops.raster import rasterize_sorted
-from ..ops.shade import interpolate_gbuffer, shade
+from ..ops.raster import kbuffer_sorted, rasterize_sorted
+from ..ops.raster_ref import VisibilityBuffer
+from ..ops.shade import albedo_alpha, interpolate_gbuffer, shade
 from ..ops.sky import sample_skybox
 from ..ops.tonemap import to_u8, tonemap_and_encode
 
@@ -89,8 +91,26 @@ class RenderConfig:
     def resolve_particle_layers(self) -> int:
         return self.particle_layers or self.blend_layers
 
+    def layer_caps(self, k: Optional[int] = None) -> tuple:
+        """Per-layer shading worklist caps, length k (default
+        blend_layers): shade_px_caps padded with its last entry, or every
+        layer at shade_px_cap."""
+        return _per_layer(self.shade_px_caps, self.shade_px_cap, k or self.blend_layers)
+
     def needed_k_len(self) -> int:
         return max(self.blend_layers, self.resolve_particle_layers())
+
+    def resolve_clip_caps(self) -> tuple:
+        """Per-layer clip-resolve worklist caps, length
+        resolve_clip_layers(): clip_px_caps padded, or shade_px_cap."""
+        return _per_layer(self.clip_px_caps, self.shade_px_cap, self.resolve_clip_layers())
+
+
+def _per_layer(caps: Optional[tuple], shared: int, k: int) -> tuple:
+    cs = tuple(int(c) for c in caps or ())
+    if not cs:  # None or empty: every layer at the shared cap
+        return (shared,) * k
+    return (cs + (cs[-1],) * (k - len(cs)))[:k]
 
 
 DEFAULT_OPAQUE_PX_CAP = 1 << 17
@@ -122,8 +142,6 @@ class FrameState(NamedTuple):
 def _check_slice(config: RenderConfig, state: FrameState) -> None:
     """Raise on every configuration outside the ported slice."""
     unported = [
-        (config.enable_clip, "enable_clip: ROADMAP queue 1, alpha-clip pass (_kbuffer_kernel)"),
-        (config.enable_blend, "enable_blend: ROADMAP queue 1, alpha-blend pass"),
         (config.enable_lines, "enable_lines: ROADMAP queue 1, lines"),
         (config.enable_particles, "enable_particles: ROADMAP queue 1, particles"),
         (config.num_views != 1, "num_views > 1: ROADMAP queue 1, views and bands"),
@@ -159,6 +177,27 @@ def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
         reverse_z=config.reverse_z, y_offset=y_offset,
     )
     return vis, bins.num_pairs, bins.order
+
+
+def _rasterize_kbuffer(tri: TriangleSetup, config: RenderConfig, band_height: int,
+                       y_offset: int, depth_floor: torch.Tensor,
+                       want_depth: bool = True, k: Optional[int] = None):
+    """K-layer binned raster in sorted-pair mode -> (KBuffer with SORTED
+    positions in .pair, pairs_needed i32, layers_needed i32, bins.order).
+    layers_needed is the most accepted fragments any pixel saw; above k
+    the pass dropped a surface and the host grows that pass's K."""
+    k = k or config.blend_layers
+    bins = bin_triangles(
+        tri, config.width, band_height, config.p_cap,
+        tile_h=config.tile_h, tile_w=config.tile_w, y_offset=y_offset,
+    )
+    sorted_setup = gather_sorted_setup(tri, bins)
+    kb, layers = kbuffer_sorted(
+        sorted_setup, bins.tile_start, bins.tile_count, band_height, config.width,
+        k=k, tile_h=config.tile_h, tile_w=config.tile_w, reverse_z=config.reverse_z,
+        depth_floor=depth_floor, y_offset=y_offset, want_depth=want_depth,
+    )
+    return kb, bins.num_pairs, layers.max(), bins.order
 
 
 def _worklist_granule(config: RenderConfig, npx: int) -> int:
@@ -310,6 +349,27 @@ def _granule_count(mask: torch.Tensor, gr: int) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 
 
+def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):
+    """Back-to-front per-layer compact -> shade -> alpha-blend (reference
+    render/frame.py:652). Layer k compacts its own covered pixels into a
+    worklist of caps[k] lanes, shade_fn(pair_worklist, safe, live) ->
+    (rgb, alpha) shades them, and needed_k[k] takes the max of the
+    layer's granule-dilated need. rgb (npx, 3); pair_planes (K, H, W),
+    -1 = empty. Returns (rgb, needed_k)."""
+    needed_k = needed_k.clone()
+    for k in range(len(caps) - 1, -1, -1):
+        mask_k = (pair_planes[k] >= 0).reshape(-1)
+        wl = _compact_worklist(mask_k, caps[k], config)
+        needed_k[k] = torch.maximum(needed_k[k], wl.need)
+        live = wl.lane_live()
+        pair_w = torch.where(live, wl.take(pair_planes[k].reshape(-1)), -1)
+        srgb, sa = shade_fn(pair_w, wl.lane_safe(), live)
+        cur = wl.take(rgb)
+        rows = srgb * sa[..., None] + cur * (1.0 - sa[..., None])
+        rgb = wl.compose(rgb, rows)
+    return rgb, needed_k
+
+
 def render_view(scene: dict, state: FrameState, view_index: int,
                 config: RenderConfig, env, geometry):
     """One view -> ((H, W, 4) f32 image, stats dict of i32 tensors).
@@ -335,8 +395,63 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     vis, pairs_needed, op_order = _rasterize(opaque_tri, config, band_height, y_offset)
     vis_row = shade_row[op_order]
 
-    # --- skybox: the base layer the shaded surfaces overwrite ---
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    clip_layers_needed = blend_layers_needed = shade_px_needed = zero
+    shade_px_needed_k = torch.zeros((config.needed_k_len(),), dtype=torch.int32, device=dev)
+    clip_px_needed_k = torch.zeros(
+        (config.resolve_clip_layers(),), dtype=torch.int32, device=dev
+    )
     npx = band_height * config.width
+
+    # --- alpha-clip resolve: the K nearest clip fragments in front of the
+    # opaque depth; per pixel the nearest whose albedo alpha passes the
+    # material's cutoff replaces the opaque winner. Alpha is evaluated on
+    # per-layer compacted worklists of the pixels holding a layer-k
+    # fragment; full-screen found / chosen planes carry the search. ---
+    if config.enable_clip:
+        clip_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 1))
+        kb, clip_pairs, clip_layers_needed, clip_order = _rasterize_kbuffer(
+            clip_tri, config, band_height, y_offset, vis.depth,
+            k=config.resolve_clip_layers(),
+        )
+        # one table: opaque rows at [0, p_cap), clip rows at [p_cap, 2 p_cap)
+        vis_row = torch.cat([vis_row, shade_row[clip_order]])
+        clip_off = config.p_cap
+        pairs_needed = torch.maximum(pairs_needed, clip_pairs)
+        clip_caps = config.resolve_clip_caps()
+        found_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
+        chosen_pair_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
+        chosen_depth_p = torch.zeros((npx,), dtype=torch.float32, device=dev)
+        for k in range(config.resolve_clip_layers()):
+            wlk = _compact_worklist((kb.pair[k] >= 0).reshape(-1), clip_caps[k], config)
+            clip_px_needed_k[k] = torch.maximum(clip_px_needed_k[k], wlk.need)
+            livek = wlk.lane_live()
+            pxc, pyc = _px_py_at(wlk.lane_safe(), config.width, y_offset)
+            raw_k = wlk.take(kb.pair[k].reshape(-1))
+            pair_k = torch.where(livek & (raw_k >= 0), raw_k + clip_off, -1)
+            g = interpolate_gbuffer(pair_k, pxc, pyc, merged_tri, merged_attrs,
+                                    shade_row=vis_row)
+            a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps)
+            cur_found = wlk.take(found_p) != 0
+            ok = g.valid & (a >= cutoff) & ~cur_found
+            found_p = wlk.compose(found_p, (cur_found | ok).to(torch.int32))
+            chosen_pair_p = wlk.compose(
+                chosen_pair_p, torch.where(ok, pair_k, wlk.take(chosen_pair_p))
+            )
+            chosen_depth_p = wlk.compose(
+                chosen_depth_p,
+                torch.where(ok, wlk.take(kb.depth[k].reshape(-1)), wlk.take(chosen_depth_p)),
+            )
+        if config.clip_px_caps is None:
+            shade_px_needed = torch.maximum(shade_px_needed, clip_px_needed_k[0])
+        # pixels with no passing layer keep the opaque result
+        found_b = (found_p != 0).reshape(vis.pair.shape)
+        vis = VisibilityBuffer(
+            depth=torch.where(found_b, chosen_depth_p.reshape(vis.depth.shape), vis.depth),
+            pair=torch.where(found_b, chosen_pair_p.reshape(vis.pair.shape), vis.pair),
+        )
+
+    # --- skybox: the base layer the shaded surfaces overwrite ---
     sky = sample_skybox(
         scene, env, config.width, band_height,
         u["projection_inverse"][view_index], u["view_inverse_quat"][view_index],
@@ -377,29 +492,56 @@ def render_view(scene: dict, state: FrameState, view_index: int,
         )
         rgb = torch.where(gbuf.valid[..., None], rgb, sky)
 
+    # --- alpha-blend composite: the K nearest blended fragments in front
+    # of the post-clip depth, shaded and blended back to front ---
+    if config.enable_blend:
+        blend_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 2))
+        kb, blend_pairs, blend_layers_needed, blend_order = _rasterize_kbuffer(
+            blend_tri, config, band_height, y_offset, vis.depth, want_depth=False,
+        )
+        blend_row = shade_row[blend_order]
+        pairs_needed = torch.maximum(pairs_needed, blend_pairs)
+
+        def shade_blend_layer(pair_w, safe, live):
+            bpx, bpy = _px_py_at(safe, config.width, y_offset)
+            g = interpolate_gbuffer(pair_w, bpx, bpy, merged_tri, merged_attrs,
+                                    shade_row=blend_row)
+            lrgb, la = shade(
+                g, scene, u, view_index, env=env,
+                inline_tonemapping=config.inline_tonemapping,
+                inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+            )
+            return lrgb, torch.where(g.valid, la, 0.0)
+
+        rgb, shade_px_needed_k = _composite_layers(
+            rgb, kb.pair, config.layer_caps(), shade_px_needed_k,
+            shade_blend_layer, config,
+        )
+
     # the display transform not applied inline in shade / sky
     rgb = tonemap_and_encode(rgb, not config.inline_tonemapping, not config.inline_srgb)
+
+    # shade_px_needed tracks the worklists bounded by shade_px_cap: the
+    # clip resolve while clip_px_caps is unset, and the blend layer 0 while
+    # shade_px_caps is unset
+    if config.shade_px_caps is None:
+        shade_px_needed = torch.maximum(shade_px_needed, shade_px_needed_k[0])
 
     img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1).reshape(
         band_height, config.width, 4
     )
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     stats = {
         "pairs_needed": pairs_needed.to(torch.int32),
-        "layers_needed": zero,
-        "clip_layers_needed": zero,
-        "blend_layers_needed": zero,
+        "layers_needed": torch.maximum(clip_layers_needed, blend_layers_needed),
+        "clip_layers_needed": clip_layers_needed,
+        "blend_layers_needed": blend_layers_needed,
         "particle_layers_needed": zero,
-        "shade_px_needed": zero,
-        "shade_px_needed_k": torch.zeros(
-            (config.needed_k_len(),), dtype=torch.int32, device=dev
-        ),
+        "shade_px_needed": shade_px_needed,
+        "shade_px_needed_k": shade_px_needed_k,
         "opaque_px_needed": opaque_px_needed,
         "sky_px_needed": sky_px_needed,
         "matq_classic_needed": zero,
-        "clip_px_needed_k": torch.zeros(
-            (config.resolve_clip_layers(),), dtype=torch.int32, device=dev
-        ),
+        "clip_px_needed_k": clip_px_needed_k,
     }
     return img, stats
 

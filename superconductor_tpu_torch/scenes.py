@@ -5,6 +5,14 @@ without jax: ``tests/fixtures/hero_helmet.glb`` through the full asset
 pipeline, a static-placed gradient IBL cubemap sky, constant ambient SH,
 the same camera and the same RenderConfig (t_cap 2^15, t_cap_anim 2^6,
 p_cap 2^17). Capacities are not fitted yet (render/caps.py fit_caps).
+
+``quad_stack_setup`` is the k-buffer kernel's stress case: setup rows of
+twelve quads stacked deeper than any K, with equal-depth ties.
+
+``clip_blend_scene`` is BASELINE config 3 (alpha-clipped + alpha-blended
+materials) built from committed data only: the headline's helmet, sky and
+SH, plus the all-passes sphere ring of ``bench.py`` ``all_passes_scene``
+(:608-621, :667-673), with clip and blend on and lines and particles off.
 """
 
 from __future__ import annotations
@@ -12,17 +20,26 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ._host import (
+    BLEND_ALPHA_BLENDED,
+    BLEND_ALPHA_CLIPPED,
+    MAT_DOUBLE_SIDED,
+    TEXFLAG_SRGB,
     Camera,
     EnvBindings,
     Scene,
+    add_pbr_sphere,
+    build_mip_chain,
+    checker_texture,
     default_ambient_sh,
     gradient_cubemap,
     load_model,
     make_uniforms,
     math3d,
 )
+from .ops.geometry import TriangleSetup, _setup_from_clip
 from .render.draws import build_frame_state
 from .render.frame import RenderConfig
 from .scene.upload import scene_to_torch
@@ -73,3 +90,124 @@ def headline_scene(width: int = 1920, height: int = 1080, device="cuda"):
         return build_frame_state(scene, [(model, sim)], uniforms, device=device)
 
     return dev, build, config, env
+
+
+# the small clip_blend frame of the CPU parity tests, its golden and the
+# card's check against it: spheres cut to 32 stacks and slices
+CLIP_BLEND_SMALL = dict(width=256, height=128, stacks=32)
+
+
+def _clip_checker() -> np.ndarray:
+    """add_pbr_sphere's albedo checker with alpha 0 on its dark squares, so
+    the clip resolve sees failing layers (the procgen checker is opaque)."""
+    img = checker_texture()
+    dark = (img[..., :3] == np.array((200, 60, 40), np.uint8)).all(axis=-1)
+    img[..., 3] = np.where(dark, 0, 255).astype(np.uint8)
+    return img
+
+
+def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
+                    stacks: int = 88):
+    """Host side of the clip_blend scene -> (scene, instances, uniforms,
+    env, config), jax-free and device-free. `instances(angle)` lists the
+    (model, Similarity) draws with the spheres turned by `angle` about +y.
+
+    The ring: every 5th sphere alpha-clipped (checker alpha 0 on the dark
+    squares, double-sided so holes show the inside), every 7th blended
+    (base colour alpha 0.6), the rest opaque, at (6 cos a, 1.3, 3 sin a)
+    around the helmet. The camera looks down the ring's +z side past the
+    blended sphere (index 2) onto the helmet, with clipped sphere 1 in
+    view; sky stays above half the frame."""
+    scene = Scene()
+    with open(HERO_GLB, "rb") as f:
+        hero = load_model(scene, f.read(), name="hero_helmet")
+    cubemap_base = gradient_cubemap(scene)
+    clip_albedo = None
+    spheres = []
+    for i in range(n_spheres):
+        m = add_pbr_sphere(scene, stacks=stacks, slices=stacks, name=f"sphere{i}")
+        mat = scene.materials[m.primitives[0].material]
+        if i % 5 == 1:
+            if clip_albedo is None:
+                clip_albedo = scene.textures.add_texture(
+                    build_mip_chain(_clip_checker()), flags=TEXFLAG_SRGB
+                )
+            mat.albedo_tex = clip_albedo
+            mat.flags |= MAT_DOUBLE_SIDED
+            mat.blend_mode = BLEND_ALPHA_CLIPPED
+            m.primitives[0].blend_mode = BLEND_ALPHA_CLIPPED
+            m.primitives[0].double_sided = True
+        elif i % 7 == 2:
+            mat.blend_mode = BLEND_ALPHA_BLENDED
+            mat.base_color_factor = (1.0, 1.0, 1.0, 0.6)
+            m.primitives[0].blend_mode = BLEND_ALPHA_BLENDED
+        spheres.append(m)
+    scene._materials_dirty = True
+
+    cam = Camera(position=np.array([0.8, 1.7, 7.5], np.float32))
+    _aim(cam, [0.3, 0.8, 0], math3d.look_at, math3d.mat4_inverse, math3d.mat3_to_quat)
+    uniforms = make_uniforms(cam, width, height)
+    env = EnvBindings.from_scene(scene, ambient_sh=default_ambient_sh())
+    if env.ibl_cubemap_base != cubemap_base:
+        raise RuntimeError("clip_blend cubemap is not the scene's IBL cubemap")
+    config = RenderConfig(
+        width=width, height=height, t_cap=1 << 18, t_cap_anim=1 << 6,
+        p_cap=1 << 19, raster="auto", enable_clip=True, enable_blend=True,
+    )
+
+    def instances(angle: float):
+        rot = math3d.quat_from_axis_angle([0, 1, 0], angle)
+        out = [(hero, math3d.Similarity())]
+        for i, m in enumerate(spheres):
+            a = 2.0 * np.pi * i / len(spheres)
+            out.append((m, math3d.Similarity(
+                translation=[6.0 * np.cos(a), 1.3, 3.0 * np.sin(a)], rotation=rot,
+            )))
+        return out
+
+    return scene, instances, uniforms, env, config
+
+
+def clip_blend_scene(width: int = 1920, height: int = 1080, device="cuda",
+                     n_spheres: int = 8, stacks: int = 88):
+    """-> (dev, build, config, env) of the clip_blend scene, as
+    headline_scene: build(angle) turns the spheres by `angle` about +y."""
+    scene, instances, uniforms, env, config = clip_blend_host(
+        width, height, n_spheres, stacks
+    )
+    dev = scene_to_torch(scene, device)
+
+    def build(angle: float):
+        return build_frame_state(scene, instances(angle), uniforms, device=device)
+
+    return dev, build, config, env
+
+
+def quad_stack_setup(width: int, height: int, device="cpu",
+                     reverse_z: bool = True) -> TriangleSetup:
+    """Setup rows of twelve double-sided quads stacked over one region that
+    straddles tile borders: three exact copies of one quad (equal z at
+    every pixel), quads at mixed homogeneous w, and a few at depths drawn
+    from a numpy seed, so a pixel holds up to 12 accepted fragments."""
+    rng = np.random.default_rng(21)
+    quads = [((-0.6, -0.5, 0.5, 0.6), 0.4, 1.0)] * 3
+    for i in range(9):
+        x0, y0 = rng.uniform(-0.8, -0.3, size=2)
+        x1, y1 = rng.uniform(0.2, 0.8, size=2)
+        z = [0.3, 0.55, 0.55][i % 3] if i < 6 else float(rng.uniform(0.1, 0.9))
+        quads.append(((x0, y0, x1, y1), z, 1.0 + (i % 2)))
+    clip = []
+    for (x0, y0, x1, y1), z, w in quads:
+        z = z if reverse_z else 1.0 - z
+        pts = [(x0, y0), (x1, y0), (x1, y1), (x0, y1)]
+        for tri in ((0, 1, 2), (0, 2, 3)):
+            clip.append([[pts[v][0] * w, pts[v][1] * w, z * w, w] for v in tri])
+    clip = torch.tensor(clip, dtype=torch.float32, device=device)
+    t = clip.shape[0]
+    ones = torch.ones(t, dtype=torch.bool, device=device)
+    setup, valid, bbox = _setup_from_clip(clip, ones, ones, width, height, False)
+    return TriangleSetup(
+        setup=setup, tri_id=torch.arange(t, dtype=torch.int32, device=device),
+        inst_id=torch.zeros(t, dtype=torch.int32, device=device), bbox=bbox,
+        valid=valid, num_valid=valid.sum(dtype=torch.int32),
+    )

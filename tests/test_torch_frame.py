@@ -100,7 +100,7 @@ def test_render_config_matches_reference():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(enable_clip=True), dict(enable_blend=True), dict(enable_lines=True),
+    [dict(enable_lines=True),
      dict(enable_particles=True), dict(num_views=2), dict(row_chunks=2),
      dict(sky_px_cap=1024), dict(matq_classic_cap=512), dict(shade_row_pad=128),
      dict(raster="ref")],
@@ -137,7 +137,52 @@ SEQUENCES = {
         _stats(pairs_needed=9000, opaque_px_needed=1500000, sky_px_needed=700000),
         _stats(pairs_needed=9000, opaque_px_needed=1500000, sky_px_needed=700000),
     ],
+    # clip + blend: p_cap grows then tightens, the shared and per-layer
+    # transparent worklists size themselves, then each pass's K is pinned
+    "clip_blend_tighten": [
+        _stats(pairs_needed=900000, layers_needed=3, clip_layers_needed=3,
+               blend_layers_needed=1, shade_px_needed=200000,
+               shade_px_needed_k=[150000, 0, 0, 0], opaque_px_needed=700000,
+               sky_px_needed=1400000, clip_px_needed_k=[200000, 180000, 5000, 0]),
+        _stats(pairs_needed=900000, layers_needed=3, clip_layers_needed=3,
+               blend_layers_needed=1, shade_px_needed=200000,
+               shade_px_needed_k=[150000, 0, 0, 0], opaque_px_needed=700000,
+               sky_px_needed=1400000, clip_px_needed_k=[200000, 180000, 5000, 0]),
+        _stats(pairs_needed=900000, layers_needed=3, clip_layers_needed=3,
+               blend_layers_needed=1, shade_px_needed=200000,
+               shade_px_needed_k=[150000, 0, 0, 0], opaque_px_needed=700000,
+               sky_px_needed=1400000, clip_px_needed_k=[200000, 180000, 5000, 0]),
+        _stats(pairs_needed=900000, layers_needed=3, clip_layers_needed=3,
+               blend_layers_needed=1, shade_px_needed=200000,
+               shade_px_needed_k=[150000], opaque_px_needed=700000,
+               sky_px_needed=1400000, clip_px_needed_k=[200000, 180000, 5000, 0]),
+    ],
+    # blend deeper than K grows blend_layers; a deep layer's worklist then
+    # overflows its per-layer cap and grows it alone
+    "blend_overflow": [
+        _stats(pairs_needed=50000, layers_needed=6, clip_layers_needed=2,
+               blend_layers_needed=6, shade_px_needed=90000,
+               shade_px_needed_k=[90000, 60000, 4000, 1000],
+               opaque_px_needed=400000, sky_px_needed=1700000,
+               clip_px_needed_k=[30000, 2000, 0, 0]),
+        _stats(pairs_needed=50000, layers_needed=6, clip_layers_needed=2,
+               blend_layers_needed=6, shade_px_needed=90000,
+               shade_px_needed_k=[90000, 60000, 4000, 1000, 800, 300, 0, 0],
+               opaque_px_needed=400000, sky_px_needed=1700000,
+               clip_px_needed_k=[30000, 2000, 0, 0, 0, 0, 0, 0]),
+        _stats(pairs_needed=50000, layers_needed=6, clip_layers_needed=2,
+               blend_layers_needed=6, shade_px_needed=0,
+               shade_px_needed_k=[90000, 60000, 40000, 1000, 800, 300, 0, 0],
+               opaque_px_needed=400000, sky_px_needed=1700000,
+               clip_px_needed_k=[30000, 2000]),
+        _stats(pairs_needed=50000, layers_needed=6, clip_layers_needed=2,
+               blend_layers_needed=6, shade_px_needed=0,
+               shade_px_needed_k=[90000, 60000, 40000, 1000, 800, 300, 0, 0],
+               opaque_px_needed=400000, sky_px_needed=1700000,
+               clip_px_needed_k=[30000, 2000]),
+    ],
 }
+TRANSPARENT = ("clip_blend_tighten", "blend_overflow")
 
 
 @pytest.mark.parametrize("seq", sorted(SEQUENCES))
@@ -159,13 +204,18 @@ def test_fit_caps_matches_bench(monkeypatch, seq):
     monkeypatch.setattr(ref_frame, "stats_to_host", lambda s: s)
     monkeypatch.setattr(port_caps, "render_frame_stats", fake("port"))
     monkeypatch.setattr(port_caps, "stats_to_host", lambda s: s)
+    transparent = seq in TRANSPARENT
     config = RenderConfig(width=1920, height=1080, t_cap=1 << 15,
-                          t_cap_anim=1 << 6, p_cap=1 << 17)
+                          t_cap_anim=1 << 6, p_cap=1 << 17,
+                          enable_clip=transparent, enable_blend=transparent)
     ref = bench.fit_caps({}, None, _ref_config(config), None)
     port = port_caps.fit_caps({}, None, config, None)
-    for f in ("p_cap", "opaque_px_cap", "sky_px_cap"):
+    for f in ("p_cap", "opaque_px_cap", "sky_px_cap", "clip_layers",
+              "blend_layers", "shade_px_cap", "shade_px_caps", "clip_px_caps"):
         assert getattr(ref, f) == getattr(port, f), f
     assert seen["ref"] == seen["port"]
+    if transparent:
+        assert port.shade_px_caps is not None and port.clip_layers is not None
 
 
 @pytest.mark.parametrize("block_jax", [True, False])

@@ -1,0 +1,256 @@
+"""The port's k-buffer raster against the reference's, fed the SAME
+tile-sorted setup rows: kbuffer_sorted_plain bit for bit in every depth
+plane, pair plane and the layers count against kbuffer_pallas_sorted(...,
+interpret=True) run without FMA contraction (see the kbuffer_cases
+fixture); kbuffer_insert bit for bit against the reference's. The CUDA
+kernel against the plain version (bit for bit) runs only where there is a
+card."""
+
+import functools
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from superconductor_tpu.math3d import Similarity, quat_from_axis_angle
+from superconductor_tpu.ops import raster_kbuffer as ref_kbuffer
+from superconductor_tpu_torch.ops import raster_kbuffer as port_kbuffer
+from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
+from superconductor_tpu_torch.ops.geometry import TriangleSetup
+from superconductor_tpu_torch.ops.raster import (
+    KBUFFER_KS,
+    kbuffer_sorted,
+    rasterize_sorted_plain,
+)
+from superconductor_tpu_torch.render.draws import build_frame_state
+from superconductor_tpu_torch.render.frame import _merged_setup_for_view, _merged_vertex_stage
+from superconductor_tpu_torch.scene.upload import scene_to_torch
+from superconductor_tpu_torch.scenes import headline_host, quad_stack_setup
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.lru_cache(maxsize=None)
+def _hero_setup(width, height):
+    """The port's setup rows of the hero at 0.3 rad (bit-exact with the
+    eager reference, tests/test_torch_geometry.py), every triangle."""
+    scene, model, uniforms, _env, config = headline_host(width, height)
+    state = build_frame_state(
+        scene, [(model, Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3)))], uniforms
+    )
+    stages, _ = _merged_vertex_stage(scene_to_torch(scene), state, config)
+    return _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config)
+
+
+def _cases() -> dict:
+    """name -> k-buffer raster inputs: the quad stack (reverse and forward
+    z, no floor), and a band [40, 104) of the hero over a floor of random
+    depths (numpy seed) around its own surface depths, with y_offset 40."""
+    rng = np.random.default_rng(22)
+    band_floor = rng.uniform(0.02, 0.06, size=(64, 256)).astype(np.float32)
+    return {
+        "stack": dict(tri=quad_stack_setup(200, 80), width=200, height=80, p_cap=512),
+        "stack-forward-z": dict(tri=quad_stack_setup(200, 80, reverse_z=False), width=200,
+                                height=80, p_cap=512, reverse_z=False),
+        "hero-band-floor": dict(tri=_hero_setup(256, 128), width=256, height=64,
+                                p_cap=1 << 13, y_offset=40, floor=band_floor),
+    }
+
+
+# (case, k, want_depth)
+RUNS = (
+    ("stack", 1, True), ("stack", 2, True), ("stack", 4, True), ("stack", 8, True),
+    ("stack", 4, False), ("stack-forward-z", 2, True), ("stack-forward-z", 8, False),
+    ("hero-band-floor", 1, True), ("hero-band-floor", 4, True),
+    ("hero-band-floor", 8, False),
+)
+
+_REFERENCE_CHILD = textwrap.dedent(
+    """
+    import sys
+    import jax.numpy as jnp
+    import numpy as np
+    from superconductor_tpu.ops.raster_pallas import kbuffer_pallas_sorted
+
+    cases = np.load(sys.argv[1])
+    runs = [r.split(":") for r in sys.argv[3].split(",")]
+    out = {}
+    for name, k, want in runs:
+        def get(key):
+            return jnp.asarray(cases[name + "/" + key])
+        height, width, reverse_z, y_offset = (int(v) for v in cases[name + "/meta"])
+        floor = get("floor") if name + "/floor" in cases.files else None
+        kb, layers = kbuffer_pallas_sorted(
+            get("setup"), get("tile_start"), get("tile_count"), height, width,
+            k=int(k), reverse_z=bool(reverse_z), depth_floor=floor, interpret=True,
+            y_offset=y_offset, want_depth=want == "1",
+        )
+        run = f"{name}:{k}:{want}"
+        if kb.depth is not None:
+            out[run + "/depth"] = np.asarray(kb.depth)
+        out[run + "/pair"] = np.asarray(kb.pair)
+        out[run + "/layers"] = np.asarray(layers)
+    np.savez(sys.argv[2], **out)
+    """
+)
+
+
+def _run_key(name, k, want_depth):
+    return f"{name}:{k}:{int(want_depth)}"
+
+
+@pytest.fixture(scope="module")
+def kbuffer_cases(tmp_path_factory):
+    """Every case binned by the port (bins are bit-exact with the
+    reference's, tests/test_torch_raster.py), and the reference's
+    interpret-mode k-buffer kernel run on the same tile-sorted rows in ONE
+    child process whose XLA CPU backend is capped at AVX: XLA's CPU backend
+    always allows FMA contraction, and only without FMA instructions does
+    every product and sum round on its own, as in the plain version and in
+    the CUDA kernel (built -fmad=false)."""
+    cases = _cases()
+    arrays, inputs = {}, {}
+    for name, c in cases.items():
+        y_offset = c.get("y_offset", 0)
+        bins = bin_triangles(c["tri"], c["width"], c["height"], c["p_cap"], y_offset=y_offset)
+        assert int(bins.num_pairs) <= c["p_cap"]
+        setup = gather_sorted_setup(c["tri"], bins)
+        floor = None if c.get("floor") is None else torch.from_numpy(c["floor"])
+        inputs[name] = (setup, bins.tile_start, bins.tile_count, floor)
+        arrays[name + "/setup"] = setup.numpy()
+        arrays[name + "/tile_start"] = bins.tile_start.numpy()
+        arrays[name + "/tile_count"] = bins.tile_count.numpy()
+        arrays[name + "/meta"] = np.array(
+            [c["height"], c["width"], c.get("reverse_z", True), y_offset], np.int32
+        )
+        if floor is not None:
+            arrays[name + "/floor"] = c["floor"]
+    tmp = tmp_path_factory.mktemp("kbuffer_reference")
+    src, dst = str(tmp / "cases.npz"), str(tmp / "reference.npz")
+    np.savez(src, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    env.pop("PYTHONPATH", None)
+    runs = ",".join(_run_key(*r) for r in RUNS)
+    out = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_CHILD, src, dst, runs], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    return cases, inputs, dict(np.load(dst))
+
+
+@pytest.mark.parametrize("run", RUNS, ids=[_run_key(*r) for r in RUNS])
+def test_plain_kbuffer_matches_interpret_kernel(kbuffer_cases, run):
+    """Every depth plane (when wanted), pair plane and layers bit for bit
+    against kbuffer_pallas_sorted(..., interpret=True); the CPU wrapper
+    takes the plain version."""
+    cases, inputs, ref = kbuffer_cases
+    name, k, want_depth = run
+    c = cases[name]
+    setup, tile_start, tile_count, floor = inputs[name]
+    args = (setup, tile_start, tile_count, c["height"], c["width"])
+    kw = dict(k=k, reverse_z=c.get("reverse_z", True), depth_floor=floor,
+              y_offset=c.get("y_offset", 0), want_depth=want_depth)
+    kb, layers = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
+    key = _run_key(*run)
+    assert np.array_equal(ref[key + "/pair"], kb.pair.numpy())
+    assert np.array_equal(ref[key + "/layers"], layers.numpy())
+    if want_depth:
+        assert np.array_equal(ref[key + "/depth"], kb.depth.numpy())
+    else:
+        assert kb.depth is None and key + "/depth" not in ref
+    assert bool((kb.pair[0] >= 0).any())
+    if name.startswith("stack"):  # up to 12 fragments: past every K
+        assert int(layers.max()) > k and bool((kb.pair[k - 1] >= 0).any())
+    kb_w, layers_w = kbuffer_sorted(*args, **kw)
+    assert torch.equal(kb_w.pair, kb.pair) and torch.equal(layers_w, layers)
+
+
+def test_stack_holds_equal_depth_ties():
+    """The stack case really ties: the three copies of one quad give equal
+    z at a pixel, and the k-buffer holds the later sorted position first."""
+    tri = quad_stack_setup(200, 80)
+    bins = bin_triangles(tri, 200, 80, 512)
+    kb, _ = port_kbuffer.kbuffer_sorted_plain(
+        gather_sorted_setup(tri, bins), bins.tile_start, bins.tile_count, 200, 80, k=8
+    )
+    d, p = kb.depth, kb.pair
+    tie = (d[:-1] == d[1:]) & (p[1:] >= 0)
+    assert bool(tie.any())
+    assert bool((p[:-1][tie] > p[1:][tie]).all())
+
+
+@pytest.mark.parametrize("reverse_z", [True, False])
+def test_kbuffer_insert_matches_reference(reverse_z):
+    """Twelve inserts of random candidates (depths drawn from a small set,
+    so ties are common; random accept masks; numpy seed) into K=4: depth
+    and pair bit for bit after every insert."""
+    rng = np.random.default_rng(23 + reverse_z)
+    h, w, k = 6, 5, 4
+    ref = ref_kbuffer.empty_kbuffer(k, h, w, reverse_z)
+    port = port_kbuffer.empty_kbuffer(k, h, w, reverse_z)
+    for i in range(12):
+        z = rng.choice(np.float32([0.1, 0.25, 0.25, 0.5, 0.75]), size=(h, w))
+        accept = rng.uniform(size=(h, w)) < 0.7
+        pair = np.full((h, w), i, np.int32)
+        ref = ref_kbuffer.kbuffer_insert(ref, jnp.asarray(z), jnp.asarray(pair),
+                                         jnp.asarray(accept), reverse_z)
+        port = port_kbuffer.kbuffer_insert(port, torch.from_numpy(z), torch.from_numpy(pair),
+                                           torch.from_numpy(accept), reverse_z)
+        assert np.array_equal(np.asarray(ref.depth), port.depth.numpy())
+        assert np.array_equal(np.asarray(ref.pair), port.pair.numpy())
+    assert (port.pair.numpy() >= 0).all()
+
+
+def test_kbuffer_sorted_rejects_what_the_kernel_does_not_take():
+    """Off the CPU the wrapper launches the kernel or raises: an unknown
+    device type raises before any build."""
+    setup = torch.zeros((4, 16), device="meta")
+    ts = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kbuffer_sorted(setup, ts, ts, 32, 128, k=4)
+
+
+@pytest.mark.gpu
+def test_kbuffer_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the k-buffer kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    cases = _cases()
+    for name, c in cases.items():
+        tri = TriangleSetup(*[x.to(dev) for x in c["tri"]])
+        y0 = c.get("y_offset", 0)
+        bins = bin_triangles(tri, c["width"], c["height"], c["p_cap"], y_offset=y0)
+        s = gather_sorted_setup(tri, bins).contiguous()
+        floor = None if c.get("floor") is None else torch.from_numpy(c["floor"]).to(dev)
+        args = (s, bins.tile_start, bins.tile_count, c["height"], c["width"])
+        for k in KBUFFER_KS:
+            for want in (True, False):
+                kw = dict(k=k, reverse_z=c.get("reverse_z", True), depth_floor=floor,
+                          y_offset=y0, want_depth=want)
+                before = kbuffer_sorted.LAUNCHES
+                kb, layers = kbuffer_sorted(*args, **kw)
+                assert kbuffer_sorted.LAUNCHES == before + 1
+                pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
+                if want:
+                    assert torch.equal(kb.depth, pkb.depth)
+    # the opaque raster's depth as a floor, as the frame passes it
+    tri = TriangleSetup(*[x.to(dev) for x in _hero_setup(256, 128)])
+    bins = bin_triangles(tri, 256, 128, 1 << 13)
+    s = gather_sorted_setup(tri, bins).contiguous()
+    vis = rasterize_sorted_plain(s, bins.tile_start, bins.tile_count, 128, 256)
+    floor = vis.depth * 0.98
+    kb, layers = kbuffer_sorted(s, bins.tile_start, bins.tile_count, 128, 256, k=2,
+                                depth_floor=floor)
+    pkb, players = port_kbuffer.kbuffer_sorted_plain(
+        s, bins.tile_start, bins.tile_count, 128, 256, k=2, depth_floor=floor
+    )
+    assert torch.equal(kb.depth, pkb.depth) and torch.equal(kb.pair, pkb.pair)
+    assert torch.equal(layers, players)
