@@ -15,30 +15,44 @@ checks them:
 3. raster kernel against its plain torch version on the card, which must
    agree bit for bit in depth and pair: the binned setup of the headline
    frame, a fan of edge-sharing triangles with pixel centres on the
-   edges, a mostly empty ragged target, forward z, and an init buffer
-   with a non-zero y_offset; CUDA-event medians over 20 runs of each;
+   edges, a mostly empty ragged target, forward z, an init buffer with a
+   non-zero y_offset, and one tile of 2,044 rows (every triangle twice,
+   the equal-z copies ~1,000 rows apart, so in different parts of the
+   split) in both z directions, with and without init, at every cluster
+   size; on the headline setup the kernel's device time (CUDA graph of 20
+   launches, median of 20 replays) at each cluster size, the time of one
+   call as a caller sees it and the plain version's (CUDA events, median
+   of 20), the heaviest tile's rows, the bound and the share of it;
 4. headline: fit_caps, a stats frame, 20 frames timed with CUDA events;
    the kernel's launch count over those frames; the frame against the
    same frame rendered with the plain raster (byte-equal); coverage
    against the opaque_px_needed stat; non-black sky and helmet; and a
    256x128 frame on the card against the same frame on the CPU and
    against the JAX reference's frame stored in tests/goldens (>= 40 dB);
-5. k-buffer kernel against its plain version on the card, bit for bit in
-   every depth plane, pair plane and layers count, for K in {1, 2, 4, 8}
-   and with and without depth planes: the clip and the blend setup of the
-   1080p clip_blend frame over its opaque depth, a stack of 12 quads with
-   equal-z ties (layers > K), the stack in forward z, and a band with a
-   non-zero y_offset; CUDA-event medians of 20 on the blend setup at K=4;
+5. the raster kernel on the clip_blend frame's opaque setup, timed as in
+   3; the k-buffer kernel against its plain version on the card, bit for
+   bit in every depth plane, pair plane and layers count, for K in {1, 2,
+   4, 8} and with and without depth planes: the clip and the blend setup
+   of the 1080p clip_blend frame over its opaque depth, a stack of 12
+   quads with equal-z ties (layers > K), the stack in forward z, and a
+   band with a non-zero y_offset; timed at the frame's shapes (clip K=8
+   with depth planes, blend K=1 without) and at blend K=4;
 6. clip_blend: fit_caps, a stats frame, 20 frames timed with CUDA events;
    both kernels' launch counts; the frame against its twin rendered with
    both plain versions (byte-equal); the clip pass both keeps and drops
    clip fragments; the blend composite changes the pixels it covers; a
    256x128 frame on the card against the CPU frame and the JAX
    reference's frame in tests/goldens (>= 40 dB);
-7. jax was never imported.
+7. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
+A kernel's bound_ms is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations (12 FP32
+operations for the three edge functions of every setup row at every
+pixel of its tile) over 67 TFLOP/s: the H100 SXM's published peaks
+(superconductor_tpu_torch/bench_raster.py raster_bound). Kernel times
+are device times (bench_raster.graph_ms: a CUDA graph of 20 launches).
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ import torch
 
 N_TIMED = 20
 WIDTH, HEIGHT = 1920, 1080  # the headline frame
+CLUSTERS = (1, 2, 4, 8)  # the raster kernel's cluster sizes
 # the JAX reference's hero frame at 256x128 (tests/test_torch_frame.py)
 HERO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "torch_hero_256x128.npz")
@@ -137,44 +152,86 @@ def fan_setup(width: int, height: int, device, w_scale=(1.0, 2.0)):
 
 
 def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
-                   y_offset=0, init=None, timed=False):
-    """Kernel vs plain on the binned, sorted setup of `tri`."""
+                   y_offset=0, init=None, clusters=(None,), min_rows=1, timed=False):
+    """Kernel vs plain on the binned, sorted setup of `tri`, at each cluster
+    size in `clusters` (None: the wrapper's default). The heaviest tile must
+    hold `min_rows` rows. With `timed`, records in `results` the kernel's
+    device time at the default cluster size (every size is printed), one
+    call's time, the plain version's, the bound and the heaviest tile."""
+    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
-    from superconductor_tpu_torch.ops.raster import rasterize_sorted, rasterize_sorted_plain
+    from superconductor_tpu_torch.ops.raster import (
+        RASTER_CLUSTER,
+        rasterize_sorted,
+        rasterize_sorted_plain,
+    )
 
     bins = bin_triangles(tri, width, height, p_cap, y_offset=y_offset)
     if int(bins.num_pairs) > p_cap:
         raise RuntimeError(f"{name}: p_cap {p_cap} < {int(bins.num_pairs)} pairs")
+    heaviest = int(bins.tile_count.max())
+    if heaviest < min_rows:
+        raise RuntimeError(f"{name}: heaviest tile {heaviest} rows < {min_rows}")
     sorted_setup = gather_sorted_setup(tri, bins).contiguous()
     args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
     kw = dict(reverse_z=reverse_z, init=init, y_offset=y_offset)
-    vk = rasterize_sorted(*args, **kw)
     vp = rasterize_sorted_plain(*args, **kw)
-    torch.cuda.synchronize()
-    same = torch.equal(vk.depth, vp.depth) and torch.equal(vk.pair, vp.pair)
-    err = float((vk.depth - vp.depth).abs().max())
+    err = 0.0
+    for cluster in clusters:
+        vk = rasterize_sorted(*args, **(kw if cluster is None else dict(kw, cluster=cluster)))
+        torch.cuda.synchronize()
+        if not (torch.equal(vk.depth, vp.depth) and torch.equal(vk.pair, vp.pair)):
+            diff = int((vk.pair != vp.pair).sum())
+            raise RuntimeError(f"{name} cluster={cluster}: kernel != plain "
+                               f"({diff} pair pixels differ)")
+        err = max(err, float((vk.depth - vp.depth).abs().max()))
     covered = float((vk.pair >= 0).float().mean())
-    phase("raster", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} "
-          f"equal={same} (tolerance: bit for bit) max_abs_err={err} "
-          f"covered={covered:.4f}")
-    if not same:
-        diff = int((vk.pair != vp.pair).sum())
-        raise RuntimeError(f"{name}: kernel != plain ({diff} pair pixels differ)")
+    sizes = ",".join("default" if c is None else str(c) for c in clusters)
+    phase("raster", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
+          f"{heaviest} rows, cluster {sizes}: equal (tolerance: bit for bit) "
+          f"max_abs_err={err} covered={covered:.4f}")
     if covered == 0.0:
         raise RuntimeError(f"{name}: nothing covered")
     results["max_abs_err"] = max(results["max_abs_err"], err)
     if timed:
-        results["ms"] = cuda_ms(lambda: rasterize_sorted(*args, **kw))
-        results["plain_ms"] = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
-        phase("raster", f"{name}: kernel {results['ms']:.4f} ms, plain "
-              f"{results['plain_ms']:.4f} ms (CUDA events, median of {N_TIMED})")
-    return vk
+        per_cluster = {c: graph_ms(lambda: rasterize_sorted(*args, **kw, cluster=c))
+                       for c in CLUSTERS}
+        one_call = cuda_ms(lambda: rasterize_sorted(*args, **kw))
+        plain_ms = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
+        bound_ms, bound_by, pairs = raster_bound(bins.tile_count, width * height,
+                                                 8 if init is None else 16)
+        ms = per_cluster[RASTER_CLUSTER]
+        results.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       one_call_ms=one_call, heaviest=heaviest, pairs=pairs)
+        phase("raster", f"{name}: kernel {ms:.4f} ms at cluster {RASTER_CLUSTER} (device "
+              f"time, CUDA graph of 20 launches, median of {N_TIMED} replays); by cluster "
+              + ", ".join(f"{c}: {t:.4f}" for c, t in per_cluster.items())
+              + f"; one call {one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median "
+              f"of {N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
+              f"tile {heaviest} rows), share {bound_ms / ms:.3f}")
+    return vp
+
+
+def heavy_init(vis, seed: int):
+    """An init buffer for `vis`'s target: its depth on a third of the
+    pixels (ties with the walk), 0.5 elsewhere, and random pair ids."""
+    gen = torch.Generator(device=vis.depth.device).manual_seed(seed)
+    keep = vis.pair % 3 == 0
+    from superconductor_tpu_torch.ops.raster import VisibilityBuffer
+
+    return VisibilityBuffer(
+        depth=torch.where(keep, vis.depth, torch.full_like(vis.depth, 0.5)).contiguous(),
+        pair=torch.randint(-1, 5000, tuple(vis.pair.shape), generator=gen,
+                           device=vis.pair.device, dtype=torch.int32),
+    )
 
 
 def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
-                    y_offset=0, floor=None, min_layers=1, timed_k=None):
+                    y_offset=0, floor=None, min_layers=1, timed=()):
     """Kernel vs plain for every K and both want_depth on the binned,
-    sorted setup of `tri`; times K=timed_k without depth planes."""
+    sorted setup of `tri`; times each (K, want_depth) of `timed` and
+    returns {(K, want_depth): timings}."""
+    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
     from superconductor_tpu_torch.ops.raster import KBUFFER_KS, kbuffer_sorted
     from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
@@ -202,23 +259,36 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                                    f"({diff} pair values differ)")
             results["max_abs_err"] = max(results["max_abs_err"], err)
     deepest = int(layers.max())
-    phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} K=1,2,4,8 x "
-          f"want_depth: equal (tolerance: bit for bit); max layers {deepest}, "
-          f"covered {float((layers > 0).float().mean()):.4f}")
+    heaviest = int(bins.tile_count.max())
+    phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
+          f"{heaviest} rows, K=1,2,4,8 x want_depth: equal (tolerance: bit for bit); max "
+          f"layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
     if deepest < min_layers:
         raise RuntimeError(f"{name}: at most {deepest} layers, expected >= {min_layers}")
-    if timed_k is not None:
-        kw = dict(k=timed_k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
-                  want_depth=False)
-        results["ms"] = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
-        results["plain_ms"] = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
-        phase("kbuffer", f"{name} K={timed_k}: kernel {results['ms']:.4f} ms, plain "
-              f"{results['plain_ms']:.4f} ms (CUDA events, median of {N_TIMED})")
+    timings = {}
+    for k, want in timed:
+        kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
+                  want_depth=want)
+        ms = graph_ms(lambda: kbuffer_sorted(*args, **kw))
+        one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
+        plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
+        # pair planes (and depth planes), layers, the floor when given
+        px_bytes = 4 * k * (2 if want else 1) + 4 + (0 if floor is None else 4)
+        bound_ms, bound_by, pairs = raster_bound(bins.tile_count, width * height, px_bytes)
+        timings[(k, want)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, heaviest=heaviest, pairs=pairs)
+        phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms (device time, "
+              f"CUDA graph of 20 launches, median of {N_TIMED} replays); one call "
+              f"{one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
+              f"{N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
+              f"tile {heaviest} rows), share {bound_ms / ms:.3f}")
+    return timings
 
 
-def clip_blend_path(dev, kb_results) -> dict:
-    """Phases 5 and 6: the k-buffer kernel against its plain version, then
-    the 1080p clip_blend frame. Returns the launch counts of its timed run."""
+def clip_blend_path(dev, kb_results, cb_raster) -> dict:
+    """Phases 5 and 6: the raster kernel on the opaque setup and the
+    k-buffer kernel against their plain versions, then the 1080p clip_blend
+    frame. Returns the launch counts of its timed run."""
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
     from superconductor_tpu_torch.render import frame as frame_mod
@@ -243,18 +313,22 @@ def clip_blend_path(dev, kb_results) -> dict:
     state0 = build_state(0.0)
     phase("clip_blend", f"scene on card in {time.perf_counter() - t0:.2f} s")
 
-    # --- 5. k-buffer kernel vs plain ---
+    # --- 5. raster kernel on the opaque setup, k-buffer kernel vs plain ---
     stages, attrs = _merged_vertex_stage(scene_dev, state0, config)
     tri = _merged_setup_for_view(stages, state0.uniforms["view_proj"][0], config)
     blend = scene_dev["materials"]["blend_mode"][attrs.material]
-    opaque, _, _ = _rasterize(tri._replace(valid=tri.valid & (blend == 0)), config, HEIGHT, 0)
+    opaque_tri = tri._replace(valid=tri.valid & (blend == 0))
+    compare_raster("clip_blend-opaque", opaque_tri, WIDTH, HEIGHT, config.p_cap, cb_raster,
+                   timed=True)
+    opaque, _, _ = _rasterize(opaque_tri, config, HEIGHT, 0)
     floor = opaque.depth
     clip_tri = tri._replace(valid=tri.valid & (blend == 1))
     blend_tri = tri._replace(valid=tri.valid & (blend == 2))
-    compare_kbuffer("clip-1080p", clip_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
-                    floor=floor, min_layers=2)
+    clip_t = compare_kbuffer("clip-1080p", clip_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
+                             floor=floor, min_layers=2, timed=[(8, True)])
+    kb_results.update(clip_t[(8, True)])
     compare_kbuffer("blend-1080p", blend_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
-                    floor=floor, timed_k=4)
+                    floor=floor, timed=[(1, False), (4, False)])
     compare_kbuffer("stack", quad_stack_setup(200, 80, dev), 200, 80, 512, kb_results,
                     min_layers=9)
     compare_kbuffer("stack-forward-z", quad_stack_setup(200, 80, dev, reverse_z=False),
@@ -358,7 +432,7 @@ def main() -> int:
         render_frame_stats,
         stats_to_host,
     )
-    from superconductor_tpu_torch.scenes import headline_scene
+    from superconductor_tpu_torch.scenes import headline_scene, heavy_tile_setup
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -386,7 +460,8 @@ def main() -> int:
     tri = _merged_setup_for_view(stages, state0.uniforms["view_proj"][0], config)
     blend = scene_dev["materials"]["blend_mode"][attrs.material]
     tri = tri._replace(valid=tri.valid & (blend == 0))
-    vis = compare_raster("headline", tri, WIDTH, HEIGHT, config.p_cap, results, timed=True)
+    vis = compare_raster("headline", tri, WIDTH, HEIGHT, config.p_cap, results,
+                         clusters=CLUSTERS, timed=True)
     fan = fan_setup(256, 160, dev)
     compare_raster("fan", fan, 256, 160, 4096, results)
     compare_raster("fan-forward-z", fan_setup(256, 160, dev, w_scale=(1.0,)),
@@ -401,6 +476,13 @@ def main() -> int:
     )
     compare_raster("init+y_offset", tri, WIDTH, band_h, config.p_cap, results,
                    y_offset=band_y0, init=init)
+    for reverse_z in (True, False):
+        heavy = heavy_tile_setup(320, 96, dev, reverse_z=reverse_z)
+        name = "heavy-tile" + ("" if reverse_z else "-forward-z")
+        hv = compare_raster(name, heavy, 320, 96, 4096, results, reverse_z=reverse_z,
+                            clusters=CLUSTERS, min_rows=2000)
+        compare_raster(name + "+init", heavy, 320, 96, 4096, results, reverse_z=reverse_z,
+                       init=heavy_init(hv, 9), clusters=CLUSTERS, min_rows=2000)
 
     # --- 4. headline frame ---
     config = fit_caps(scene_dev, state0, config, env,
@@ -468,12 +550,15 @@ def main() -> int:
     if min(db_cpu, db_ref) < 40.0:
         raise RuntimeError("card frame disagrees with the CPU frame or the reference")
 
-    kb_results = {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-    cb_launches = clip_blend_path(dev, kb_results)
+    kb_results = {"max_abs_err": 0.0}
+    cb_raster = {"max_abs_err": 0.0}
+    cb_launches = clip_blend_path(dev, kb_results, cb_raster)
+    results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
-    if sys.modules.get("jax") is not None:
-        raise RuntimeError("jax was imported")
-    phase("jax", "not imported")
+    for mod in ("jax", "superconductor_tpu"):
+        if sys.modules.get(mod) is not None:
+            raise RuntimeError(f"{mod} was imported")
+    phase("imports", "neither jax nor superconductor_tpu was imported")
 
     print(json.dumps({"kernels": [{
         "name": "raster_sorted",
@@ -484,6 +569,9 @@ def main() -> int:
         "max_abs_err": results["max_abs_err"],
         "ms": results["ms"],
         "plain_ms": results["plain_ms"],
+        "bound_ms": results["bound_ms"],
+        "bound_by": results["bound_by"],
+        "library_ms": None,
     }, {
         "name": "kbuffer_sorted",
         "route": "cuda",
@@ -493,6 +581,9 @@ def main() -> int:
         "max_abs_err": kb_results["max_abs_err"],
         "ms": kb_results["ms"],
         "plain_ms": kb_results["plain_ms"],
+        "bound_ms": kb_results["bound_ms"],
+        "bound_by": kb_results["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

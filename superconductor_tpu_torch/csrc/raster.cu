@@ -12,21 +12,63 @@
 //   (a_i, b_i) is lexicographically positive (the fill rule that makes
 //   shared edges watertight); then sum(e*w) > 0, z = sum(e*zc) / sum(e*w)
 //   in [0, 1], and a strict depth test (z > depth under reverse-z). The
-//   pixel keeps its depth and the winner's SORTED position (-1 = miss).
+//   pixel keeps its depth and the winner's SORTED position (-1 = miss),
+//   starting from `init` or from far.
 //
-// Design: one block per tile, 128 x 8 threads; thread (x, y) owns the four
-// pixels of column x in rows 4y..4y+3, so a warp touches 32 neighbouring
-// pixels of a row. The block stages CHUNK setup rows (64 B each) into
-// shared memory cooperatively; every thread then walks them in order,
-// reading each row as a broadcast, and keeps (depth, pos) in registers.
-// Each pixel is written once; the ragged right and bottom edges are masked.
+// What bounds it on this card. The work is FP32 issue: every (row, pixel)
+// pair costs three edge functions (12 operations) and a few compares,
+// whatever the triangle's size, while the bytes (64 B a row, 8 B a pixel)
+// are small. The binning leaves the rows very unevenly spread: at 1080p
+// most tiles are empty and one tile may hold 5-40x the mean, so a kernel
+// with one block per tile runs as long as its heaviest tile walks, on one
+// SM, while the rest of the card idles; and a small triangle covers few of
+// a tile's pixels, so most (row, pixel) pairs are work that can be skipped. Tensor cores do not apply: a TF32
+// or bf16 product moves an edge value off the e == 0 decision the fill
+// rule makes, so every product stays an IEEE f32 multiply.
 //
-// Bounds on this card: every setup row is read once from L2/HBM per tile
-// and once per thread from shared memory (broadcast), then costs FP32
-// instructions -- 3 edge functions plus the z and w sums, 15 multiply/adds per
-// pair-pixel, and a divide for candidates. This is the simple correct
-// form: no TMA staging, no persistent grid, no balancing of heavy tiles
-// (wgmma does not apply); those are later work.
+// Design:
+// * A thread-block cluster of S <= 8 blocks shares a tile (grid x = tile
+//   column * S + rank). A tile with more than min_part_rows rows is cut
+//   into P = min(S, ceil(rows / min_part_rows)) contiguous parts; block s
+//   walks part s from beyond far (-inf under reverse-z, +inf otherwise)
+//   and leaves a partial (depth, pos) per pixel in its shared memory.
+//   After cluster.sync() every block merges a share of the tile's pixels
+//   through distributed shared memory: from init (or far) it takes parts
+//   0..P-1 in order under the same strict test. A sequential walk keeps
+//   the first of the nearest accepted fragments that beat its start; part
+//   by part that is the part's first nearest (its partial), taken when it
+//   beats what came before, and a tie keeps the earlier part or init. So
+//   the merge is the whole walk bit for bit, for every init, with no
+//   atomics, key packing, global scratch or second launch. Tiles of at
+//   most min_part_rows rows are walked by rank 0 alone from init; the
+//   other ranks exit at once.
+// * Exact row rejection per 8x8 block. A warp owns a 16x16 sub-tile, a
+//   thread 8 pixels of one column, each group of 8 lanes one 8x8 quarter.
+//   For 32 rows at a time, lane i evaluates each edge of row i at each
+//   quarter's pixel centre where that edge is largest (px max if a > 0
+//   else px min, likewise py with b), rounded as below. fl(a*px) is
+//   monotone in px and fl(u + v) in each argument, so that is the largest
+//   e any pixel of the quarter computes, and the fill-rule test is
+//   monotone in e: a row whose corner value fails an edge is rejected by
+//   every pixel of the quarter, and skipping it there changes nothing. A
+//   NaN corner value rejects nothing. Four ballots give each group the
+//   rows its quarter keeps; the warp loops while any group has one left,
+//   each group taking its own next row in order, so a row costs the warp
+//   an iteration only where it may cover pixels. A row first runs the
+//   fill-rule test on all eight of a thread's pixels without branches (one
+//   compare per edge), then the depth work of the pixels inside.
+// * Rows are staged by TMA: one thread issues 1-D bulk copies
+//   (cp.async.bulk, global -> shared) of the part's contiguous rows into a
+//   two-slot ring, each slot completing on an mbarrier, so the load of
+//   chunk c + 1 overlaps the walk of chunk c.
+// * 512-thread blocks, at most 64 registers a thread, 40 KB of static
+//   shared memory (32 KB partials + 8 KB ring): two blocks fit on an SM.
+//
+// What still bounds it: a group walks its kept rows one after another, each
+// a chain of dependent FP32 operations (and an IEEE divide where a pixel is
+// inside) with only 32 warps on an SM, so the walk is bound by latency more
+// than by issue; and every tile launches S blocks, most of them on empty
+// tiles, so launching grows with S (the wrapper's default S weighs the two).
 //
 // Bit-exactness with the reference: products and sums are written with
 // __fmul_rn / __fadd_rn in the reference's order ((a*px + b*py) + c and
@@ -34,22 +76,27 @@
 // FMA contraction moves an edge value by an ulp where the e == 0 rule
 // decides a pixel. Build with -fmad=false as well, never fast-math.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
-constexpr int kThreadsY = 8;
-constexpr int kRowsPerThread = kTileH / kThreadsY;  // 4
-constexpr int kChunk = 256;  // setup rows staged per round (16 KB)
+constexpr int kThreads = 512;            // 16 warps, one 16x16 sub-tile each
+constexpr int kSubW = 16;                // sub-tile width (lanes 0-15 / 16-31)
+constexpr int kPix = 8;                  // pixels a thread holds (one column)
+constexpr int kTilePix = kTileH * kTileW;
+constexpr int kChunk = 64;               // setup rows a ring slot holds (4 KB)
+constexpr int kMaxCluster = 8;
+static_assert(kThreads * kPix == kTilePix, "a block holds the whole tile");
 
 __device__ __forceinline__ bool tie_bit(float a, float b) {
   return (a > 0.0f) || (a == 0.0f && b > 0.0f);
-}
-
-__device__ __forceinline__ bool edge_ok(float e, bool tie) {
-  return (e > 0.0f) || (e == 0.0f && tie);
 }
 
 __device__ __forceinline__ float edge(float a, float b, float c, float px,
@@ -63,144 +110,356 @@ __device__ __forceinline__ float dot3(float e0, float e1, float e2, float v0,
                    __fmul_rn(e2, v2));
 }
 
+// True unless the edge fails at the sub-tile corner where it is largest
+// (then it fails at every pixel of the sub-tile).
+__device__ __forceinline__ bool corner_ok(float a, float b, float c,
+                                          float px_lo, float px_hi,
+                                          float py_lo, float py_hi) {
+  const float e = edge(a, b, c, a > 0.0f ? px_hi : px_lo,
+                       b > 0.0f ? py_hi : py_lo);
+  return !((e < 0.0f) || (e == 0.0f && !tie_bit(a, b)));
+}
+
+// Local (x, y) of pixel k of thread o: warp w owns sub-tile (w % 8, w / 8),
+// lanes 0-15 its top 8 rows and lanes 16-31 its bottom 8, one column each.
+__device__ __forceinline__ void local_pixel(int o, int k, int* lx, int* ly) {
+  const int w = o >> 5, lane = o & 31;
+  *lx = (w & 7) * kSubW + (lane & 15);
+  *ly = (w >> 3) * 16 + (lane >> 4) * kPix + k;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One thread: expect `bytes` on `bar`, then bulk-copy them global -> shared.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <bool kReverseZ, bool kHasInit>
-__global__ void __launch_bounds__(kTileW * kThreadsY)
+__global__ void __launch_bounds__(kThreads, 2)
 raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int ntx, int height,
-                     int width, int y_offset,
+                     int width, int y_offset, int min_part_rows,
                      const float* __restrict__ init_depth,
                      const int* __restrict__ init_pair,
                      float* __restrict__ depth_out,
                      int* __restrict__ pair_out) {
-  __shared__ float4 rows[kChunk * 4];
+  __shared__ __align__(128) float4 ring[2][kChunk * 4];
+  __shared__ float part_depth[kTilePix];
+  __shared__ int part_pos[kTilePix];
+  __shared__ __align__(8) uint64_t bar[2];
 
-  const int t = blockIdx.y * ntx + blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tx = blockIdx.x / S;
+  const int ty = blockIdx.y;
+  const int t = ty * ntx + tx;
+
   const long long start = tile_start[t];
   const long long stop = start + static_cast<long long>(tile_count[t]);
   const int begin = static_cast<int>(start < 0 ? 0 : start);
   const int end = static_cast<int>(stop > num_rows ? num_rows : stop);
+  const int n = end > begin ? end - begin : 0;
+  int parts = (n + min_part_rows - 1) / min_part_rows;
+  parts = parts < 1 ? 1 : (parts > S ? S : parts);
+  if (parts == 1 && rank != 0) return;  // uniform over the cluster
 
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y0 = blockIdx.y * kTileH + threadIdx.y * kRowsPerThread;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  int lx, ly0;
+  local_pixel(tid, 0, &lx, &ly0);
+  const int x = tx * kTileW + lx;
+  const int y0 = ty * kTileH + ly0;
   const float px = static_cast<float>(x) + 0.5f;
+  // y + k + y_offset + .5 for k < 8, exact in f32 (|y| < 2^22)
+  const float py0 = static_cast<float>(y0 + y_offset) + 0.5f;
   const float far_depth = kReverseZ ? 0.0f : 1.0f;
+  const float below_zero = __uint_as_float(0x80000001u);  // -0x1p-149
+  // -inf under reverse-z, +inf otherwise: every accepted z beats it
+  const float beyond_far = __uint_as_float(kReverseZ ? 0xff800000u : 0x7f800000u);
 
-  float py[kRowsPerThread];
-  float depth[kRowsPerThread];
-  int pos[kRowsPerThread];
+  // the warp's sub-tile origin (pixel centres at +.5) and the 8x8 quarter
+  // of it that this lane's group of 8 holds
+  const int sx0 = tx * kTileW + (warp & 7) * kSubW;
+  const int sy0 = ty * kTileH + (warp >> 3) * 16 + y_offset;
+  const int quarter = lane >> 3;
+
+  float depth[kPix];
+  int pos[kPix];
+  if (parts == 1) {
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = y0 + k;
-    py[k] = static_cast<float>(y + y_offset) + 0.5f;
-    depth[k] = far_depth;
-    pos[k] = -1;
-    if (kHasInit && x < width && y < height) {
-      depth[k] = init_depth[static_cast<long long>(y) * width + x];
-      pos[k] = init_pair[static_cast<long long>(y) * width + x];
+    for (int k = 0; k < kPix; ++k) {
+      depth[k] = far_depth;
+      pos[k] = -1;
+      if (kHasInit && x < width && y0 + k < height) {
+        const long long i = static_cast<long long>(y0 + k) * width + x;
+        depth[k] = init_depth[i];
+        pos[k] = init_pair[i];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      depth[k] = beyond_far;
+      pos[k] = -1;
     }
   }
 
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int nthreads = kTileW * kThreadsY;
-  for (int base = begin; base < end; base += kChunk) {
-    const int n = min(kChunk, end - base);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int i = tid; i < n * 4; i += nthreads) {
-      rows[i] = setup[static_cast<long long>(base) * 4 + i];
+  // this block's part [pb, pe) of the tile's rows
+  int pb = begin, pe = begin;
+  if (rank < parts) {
+    pb = begin + static_cast<int>(static_cast<long long>(n) * rank / parts);
+    pe = begin + static_cast<int>(static_cast<long long>(n) * (rank + 1) / parts);
+  }
+  const int nchunks = (pe - pb + kChunk - 1) / kChunk;
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (nchunks > 0) {
+      const int cnt = min(kChunk, pe - pb);
+      bulk_load(ring[0], setup + static_cast<long long>(pb) * 4, cnt * 64u, &bar[0]);
     }
-    __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      // row layout: q0 = a0 b0 c0 a1 | q1 = b1 c1 a2 b2 |
-      //             q2 = c2 zc0 zc1 zc2 | q3 = wc0 wc1 wc2 flags
-      const float4 q0 = rows[r * 4 + 0];
-      const float4 q1 = rows[r * 4 + 1];
-      const float4 q2 = rows[r * 4 + 2];
-      const float4 q3 = rows[r * 4 + 3];
-      const bool t0 = tie_bit(q0.x, q0.y);
-      const bool t1 = tie_bit(q0.w, q1.x);
-      const bool t2 = tie_bit(q1.z, q1.w);
+  }
+  __syncthreads();
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int slot = c & 1;
+    const int r0 = pb + c * kChunk;
+    const int cnt = min(kChunk, pe - r0);
+    mbar_wait(&bar[slot], (c >> 1) & 1);
+    __syncthreads();  // every warp is done with chunk c - 1 (the other slot)
+    if (tid == 0 && c + 1 < nchunks) {
+      const int r1 = r0 + kChunk;
+      bulk_load(ring[slot ^ 1], setup + static_cast<long long>(r1) * 4,
+                min(kChunk, pe - r1) * 64u, &bar[slot ^ 1]);
+    }
+    const float4* rows = ring[slot];
+    for (int g = 0; g < cnt; g += 32) {
+      // lane i tests row g + i against each 8x8 quarter of the warp's
+      // sub-tile; each group of 8 lanes (one quarter) then walks, in
+      // order, the rows its quarter keeps
+      bool keep[4] = {false, false, false, false};
+      if (g + lane < cnt) {
+        // row layout: q0 = a0 b0 c0 a1 | q1 = b1 c1 a2 b2 |
+        //             q2 = c2 zc0 zc1 zc2 | q3 = wc0 wc1 wc2 flags
+        const float4 q0 = rows[(g + lane) * 4 + 0];
+        const float4 q1 = rows[(g + lane) * 4 + 1];
+        const float c2 = rows[(g + lane) * 4 + 2].x;
 #pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k) {
-        const float e0 = edge(q0.x, q0.y, q0.z, px, py[k]);
-        const float e1 = edge(q0.w, q1.x, q1.y, px, py[k]);
-        const float e2 = edge(q1.z, q1.w, q2.x, px, py[k]);
-        if (!(edge_ok(e0, t0) && edge_ok(e1, t1) && edge_ok(e2, t2))) continue;
-        const float wsum = dot3(e0, e1, e2, q3.x, q3.y, q3.z);
-        if (!(wsum > 0.0f)) continue;
-        const float zsum = dot3(e0, e1, e2, q2.y, q2.z, q2.w);
-        const float z = __fdiv_rn(zsum, wsum);
-        const bool nearer = kReverseZ ? (z > depth[k]) : (z < depth[k]);
-        if (z >= 0.0f && z <= 1.0f && nearer) {
-          depth[k] = z;
-          pos[k] = base + r;
+        for (int q = 0; q < 4; ++q) {
+          const int qx = sx0 + (q & 1) * 8, qy = sy0 + (q >> 1) * 8;
+          const float xl = static_cast<float>(qx) + 0.5f;
+          const float xh = static_cast<float>(qx + 7) + 0.5f;
+          const float yl = static_cast<float>(qy) + 0.5f;
+          const float yh = static_cast<float>(qy + 7) + 0.5f;
+          keep[q] = corner_ok(q0.x, q0.y, q0.z, xl, xh, yl, yh) &&
+                    corner_ok(q0.w, q1.x, q1.y, xl, xh, yl, yh) &&
+                    corner_ok(q1.z, q1.w, c2, xl, xh, yl, yh);
+        }
+      }
+      unsigned mine = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned m = __ballot_sync(0xffffffffu, keep[q]);
+        if (q == quarter) mine = m;
+      }
+      while (__any_sync(0xffffffffu, mine != 0u)) {
+        const bool active = mine != 0u;
+        const int r = g + (active ? __ffs(mine) - 1 : 0);
+        mine &= mine - 1u;
+        const float4 q0 = rows[r * 4 + 0];
+        const float4 q1 = rows[r * 4 + 1];
+        const float4 q2 = rows[r * 4 + 2];
+        // the fill-rule test e > 0 || (e == 0 && tie) as one compare per
+        // edge: e > -0x1p-149 is e >= 0 (comparisons do not flush
+        // subnormals), and a NaN fails both
+        const float th0 = tie_bit(q0.x, q0.y) ? below_zero : 0.0f;
+        const float th1 = tie_bit(q0.w, q1.x) ? below_zero : 0.0f;
+        const float th2 = tie_bit(q1.z, q1.w) ? below_zero : 0.0f;
+        const float ax0 = __fmul_rn(q0.x, px);
+        const float ax1 = __fmul_rn(q0.w, px);
+        const float ax2 = __fmul_rn(q1.z, px);
+        // all eight fill-rule tests first, without branches, so their
+        // chains overlap; then the depth work of the pixels inside
+        unsigned hit = 0;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const float py = __fadd_rn(py0, static_cast<float>(k));
+          const float e0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py)), q0.z);
+          const float e1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py)), q1.y);
+          const float e2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py)), q2.x);
+          hit |= (e0 > th0 && e1 > th1 && e2 > th2) ? 1u << k : 0u;
+        }
+        if (active && hit != 0u) {
+          const float4 q3 = rows[r * 4 + 3];
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            if (!(hit & (1u << k))) continue;
+            const float py = __fadd_rn(py0, static_cast<float>(k));
+            const float e0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py)), q0.z);
+            const float e1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py)), q1.y);
+            const float e2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py)), q2.x);
+            const float wsum = dot3(e0, e1, e2, q3.x, q3.y, q3.z);
+            if (!(wsum > 0.0f)) continue;
+            const float zsum = dot3(e0, e1, e2, q2.y, q2.z, q2.w);
+            const float z = __fdiv_rn(zsum, wsum);
+            const bool nearer = kReverseZ ? (z > depth[k]) : (z < depth[k]);
+            if (z >= 0.0f && z <= 1.0f && nearer) {
+              depth[k] = z;
+              pos[k] = r0 + r;
+            }
+          }
         }
       }
     }
   }
 
-  if (x < width) {
+  if (parts == 1) {
+    if (x < width) {
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const int y = y0 + k;
-      if (y < height) {
-        depth_out[static_cast<long long>(y) * width + x] = depth[k];
-        pair_out[static_cast<long long>(y) * width + x] = pos[k];
+      for (int k = 0; k < kPix; ++k) {
+        if (y0 + k < height) {
+          const long long i = static_cast<long long>(y0 + k) * width + x;
+          depth_out[i] = depth[k];
+          pair_out[i] = pos[k];
+        }
       }
     }
+    return;
   }
+
+  // split tile: partials by slot q = k * kThreads + thread, then the merge
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    part_depth[k * kThreads + tid] = depth[k];
+    part_pos[k * kThreads + tid] = pos[k];
+  }
+  cluster.sync();
+  for (int q = rank * kThreads + tid; q < kTilePix; q += S * kThreads) {
+    int qx, qy;
+    local_pixel(q % kThreads, q / kThreads, &qx, &qy);
+    const int gx = tx * kTileW + qx;
+    const int gy = ty * kTileH + qy;
+    if (gx >= width || gy >= height) continue;
+    const long long i = static_cast<long long>(gy) * width + gx;
+    float d = kHasInit ? init_depth[i] : far_depth;
+    int p = kHasInit ? init_pair[i] : -1;
+    for (int s = 0; s < parts; ++s) {
+      const float ds = cluster.map_shared_rank(part_depth, s)[q];
+      if (kReverseZ ? (ds > d) : (ds < d)) {
+        d = ds;
+        p = cluster.map_shared_rank(part_pos, s)[q];
+      }
+    }
+    depth_out[i] = d;
+    pair_out[i] = p;
+  }
+  cluster.sync();  // no block leaves while another still reads its partials
 }
 
 template <bool kReverseZ, bool kHasInit>
-void launch(const void* setup, int num_rows, const void* tile_start,
-            const void* tile_count, int ntx, int nty, int height, int width,
-            int y_offset, const void* init_depth, const void* init_pair,
-            void* depth_out, void* pair_out, cudaStream_t stream) {
-  const dim3 grid(ntx, nty);
-  const dim3 block(kTileW, kThreadsY);
-  raster_sorted_kernel<kReverseZ, kHasInit><<<grid, block, 0, stream>>>(
+cudaError_t launch(const void* setup, int num_rows, const void* tile_start,
+                   const void* tile_count, int ntx, int nty, int height,
+                   int width, int y_offset, int cluster, int min_part_rows,
+                   const void* init_depth, const void* init_pair,
+                   void* depth_out, void* pair_out, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntx * cluster, nty, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, raster_sorted_kernel<kReverseZ, kHasInit>,
       static_cast<const float4*>(setup), num_rows,
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      ntx, height, width, y_offset, static_cast<const float*>(init_depth),
-      static_cast<const int*>(init_pair), static_cast<float*>(depth_out),
-      static_cast<int*>(pair_out));
+      ntx, height, width, y_offset, min_part_rows,
+      static_cast<const float*>(init_depth), static_cast<const int*>(init_pair),
+      static_cast<float*>(depth_out), static_cast<int*>(pair_out));
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128;
-// the caller checks shapes, dtypes, devices and alignment. Launches on
-// `stream`, allocates nothing, does not synchronise. Returns the
-// cudaGetLastError() code of the launch (0 = launched).
+// `cluster` (1..8) blocks share a tile, and a tile is split only into parts
+// of more than `min_part_rows` (>= 1) rows. The caller checks shapes,
+// dtypes, devices and 16-byte alignment of `setup`. Launches on `stream`,
+// allocates nothing, does not synchronise. Returns the launch's
+// cudaError_t code (0 = launched).
 extern "C" int sc_raster_sorted(const void* setup, int num_rows,
                                 const void* tile_start, const void* tile_count,
                                 int ntx, int nty, int height, int width,
-                                int y_offset, int reverse_z,
-                                const void* init_depth, const void* init_pair,
-                                void* depth_out, void* pair_out,
-                                void* stream) {
+                                int y_offset, int reverse_z, int cluster,
+                                int min_part_rows, const void* init_depth,
+                                const void* init_pair, void* depth_out,
+                                void* pair_out, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || min_part_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_init = init_depth != nullptr;
+  cudaError_t err;
   if (reverse_z) {
-    if (has_init) {
-      launch<true, true>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                         height, width, y_offset, init_depth, init_pair,
-                         depth_out, pair_out, s);
-    } else {
-      launch<true, false>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                          height, width, y_offset, init_depth, init_pair,
-                          depth_out, pair_out, s);
-    }
+    err = has_init
+              ? launch<true, true>(setup, num_rows, tile_start, tile_count, ntx,
+                                   nty, height, width, y_offset, cluster,
+                                   min_part_rows, init_depth, init_pair,
+                                   depth_out, pair_out, s)
+              : launch<true, false>(setup, num_rows, tile_start, tile_count, ntx,
+                                    nty, height, width, y_offset, cluster,
+                                    min_part_rows, init_depth, init_pair,
+                                    depth_out, pair_out, s);
   } else {
-    if (has_init) {
-      launch<false, true>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                          height, width, y_offset, init_depth, init_pair,
-                          depth_out, pair_out, s);
-    } else {
-      launch<false, false>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                           height, width, y_offset, init_depth, init_pair,
-                           depth_out, pair_out, s);
-    }
+    err = has_init
+              ? launch<false, true>(setup, num_rows, tile_start, tile_count, ntx,
+                                    nty, height, width, y_offset, cluster,
+                                    min_part_rows, init_depth, init_pair,
+                                    depth_out, pair_out, s)
+              : launch<false, false>(setup, num_rows, tile_start, tile_count,
+                                     ntx, nty, height, width, y_offset, cluster,
+                                     min_part_rows, init_depth, init_pair,
+                                     depth_out, pair_out, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }

@@ -369,7 +369,7 @@ def _setup_from_clip(clip, pair_valid, double_sided, width, height,
 
 def make_draw_list(sim8, first_tri, tri_count, first_vertex=None,
                    vertex_count=None, joints_offset=None, material=None,
-                   lightmapped=None, valid=None, device="cpu") -> DrawList:
+                   lightmapped=None, valid=None, device="cuda") -> DrawList:
     """Convenience constructor with defaults for optional fields."""
 
     def i32(x, n):

@@ -29,7 +29,7 @@ class KBuffer(NamedTuple):
 
 
 def empty_kbuffer(k: int, height: int, width: int, reverse_z: bool = True,
-                  device="cpu") -> KBuffer:
+                  device="cuda") -> KBuffer:
     far = 0.0 if reverse_z else 1.0
     return KBuffer(
         depth=torch.full((k, height, width), far, dtype=torch.float32, device=device),

@@ -2,9 +2,9 @@
 
 Port of ``superconductor_tpu/render/draws.py`` ``build_frame_state`` (:311)
 and its helpers, on the reference's numpy path (the optional native
-``framestate.cpp`` path gives the same draws). Culling and LOD selection
-are the reference's own host modules; only the final arrays become torch
-tensors on ``device``.
+``framestate.cpp`` path gives the same draws). Culling is the port's copy
+of the reference's host module (``render/culling.py``); only the final
+arrays become torch tensors on ``device``.
 """
 
 from __future__ import annotations
@@ -14,8 +14,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._host import Model, Scene, Uniforms, culling, math3d
+from .. import math3d
 from ..ops.geometry import DrawList
+from ..scene.scene import Model, Scene
+from . import culling
+from .camera import Uniforms
 from .frame import FrameState
 
 
@@ -171,7 +174,7 @@ def build_frame_state(
     screen_height: int = 1080,
     draw_cap: Optional[int] = None,
     sat: Optional[tuple] = None,
-    device="cpu",
+    device="cuda",
 ) -> FrameState:
     """Walk instances, cull, select LODs, emit a torch FrameState (the
     reference's numpy path, render/draws.py:398-510). Lines and particles

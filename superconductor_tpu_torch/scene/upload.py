@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._host import Scene
+from .scene import Scene
 
 _VERTEX_KEYS = (
     "positions", "normals", "uvs", "lightmap_uvs", "indices", "tri_material",
@@ -43,7 +43,7 @@ def _np_to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
-def arrays_to_torch(tree, device="cpu"):
+def arrays_to_torch(tree, device="cuda"):
     """Convert a (nested dict of) numpy / jax arrays -- e.g. the
     reference's ``Scene.device_arrays()`` -- to torch tensors on
     ``device``, keeping every key and dtype (u32 carried as i32 bits)."""
@@ -184,7 +184,7 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
     return texels_mq, texels_mq_tail, mat_row_mq
 
 
-def scene_to_torch(scene: Scene, device="cpu") -> dict:
+def scene_to_torch(scene: Scene, device="cuda") -> dict:
     """The reference's ``Scene.device_arrays()`` dict, built from the host
     tables as torch tensors on ``device``."""
     scene.enforce_texture_budget()

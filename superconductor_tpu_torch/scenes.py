@@ -8,6 +8,8 @@ p_cap 2^17). Capacities are not fitted yet (render/caps.py fit_caps).
 
 ``quad_stack_setup`` is the k-buffer kernel's stress case: setup rows of
 twelve quads stacked deeper than any K, with equal-depth ties.
+``heavy_tile_setup`` is the raster kernel's: one tile holding thousands of
+rows, each triangle repeated far from its first copy.
 
 ``clip_blend_scene`` is BASELINE config 3 (alpha-clipped + alpha-blended
 materials) built from committed data only: the headline's helmet, sky and
@@ -18,31 +20,44 @@ SH, plus the all-passes sphere ring of ``bench.py`` ``all_passes_scene``
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ._host import (
+from . import math3d
+from .assets.models import load_model
+from .ops.geometry import TriangleSetup, _setup_from_clip
+from .render.camera import Camera, make_uniforms
+from .render.draws import build_frame_state
+from .render.env import EnvBindings
+from .render.frame import RenderConfig
+from .scene.scene import (
     BLEND_ALPHA_BLENDED,
     BLEND_ALPHA_CLIPPED,
     MAT_DOUBLE_SIDED,
     TEXFLAG_SRGB,
-    Camera,
-    EnvBindings,
     Scene,
-    add_pbr_sphere,
     build_mip_chain,
+)
+from .scene.upload import scene_to_torch
+from .utils.procgen import (
+    add_pbr_sphere,
     checker_texture,
     default_ambient_sh,
     gradient_cubemap,
-    load_model,
-    make_uniforms,
-    math3d,
 )
-from .ops.geometry import TriangleSetup, _setup_from_clip
-from .render.draws import build_frame_state
-from .render.frame import RenderConfig
-from .scene.upload import scene_to_torch
+
+# The host layer the scenes are built with: the port's own modules. Any
+# namespace with these names and the same behaviour builds the same scene
+# (the parity tests pass the reference's, to hold the two side by side).
+HOST = SimpleNamespace(
+    Scene=Scene, load_model=load_model, gradient_cubemap=gradient_cubemap,
+    add_pbr_sphere=add_pbr_sphere, checker_texture=checker_texture,
+    default_ambient_sh=default_ambient_sh, build_mip_chain=build_mip_chain,
+    Camera=Camera, make_uniforms=make_uniforms, EnvBindings=EnvBindings,
+    math3d=math3d,
+)
 
 HERO_GLB = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -50,23 +65,23 @@ HERO_GLB = os.path.join(
 )
 
 
-def _aim(cam, target, look_at, mat4_inverse, mat3_to_quat):
+def _aim(cam, target, m3):
     """Point the camera at target (copy of bench.py:124)."""
-    v = look_at(cam.position, target)
-    cam.rotation = mat3_to_quat(mat4_inverse(v)[:3, :3])
+    v = m3.look_at(cam.position, target)
+    cam.rotation = m3.mat3_to_quat(m3.mat4_inverse(v)[:3, :3])
 
 
-def headline_host(width: int = 1920, height: int = 1080):
+def headline_host(width: int = 1920, height: int = 1080, host=HOST):
     """Host side of the headline scene -> (scene, model, uniforms, env,
-    config): everything jax-free and device-free."""
-    scene = Scene()
+    config): everything device-free, built with `host`'s modules."""
+    scene = host.Scene()
     with open(HERO_GLB, "rb") as f:
-        model = load_model(scene, f.read(), name="hero_helmet")
-    cubemap_base = gradient_cubemap(scene)
-    cam = Camera(position=np.array([0.0, 0.25, 2.8], np.float32))
-    _aim(cam, [0, 0, 0], math3d.look_at, math3d.mat4_inverse, math3d.mat3_to_quat)
-    uniforms = make_uniforms(cam, width, height)
-    env = EnvBindings.from_scene(scene, ambient_sh=default_ambient_sh())
+        model = host.load_model(scene, f.read(), name="hero_helmet")
+    cubemap_base = host.gradient_cubemap(scene)
+    cam = host.Camera(position=np.array([0.0, 0.25, 2.8], np.float32))
+    _aim(cam, [0, 0, 0], host.math3d)
+    uniforms = host.make_uniforms(cam, width, height)
+    env = host.EnvBindings.from_scene(scene, ambient_sh=host.default_ambient_sh())
     if env.ibl_cubemap_base != cubemap_base:
         raise RuntimeError("headline cubemap is not the scene's IBL cubemap")
     config = RenderConfig(
@@ -97,7 +112,7 @@ def headline_scene(width: int = 1920, height: int = 1080, device="cuda"):
 CLIP_BLEND_SMALL = dict(width=256, height=128, stacks=32)
 
 
-def _clip_checker() -> np.ndarray:
+def _clip_checker(checker_texture) -> np.ndarray:
     """add_pbr_sphere's albedo checker with alpha 0 on its dark squares, so
     the clip resolve sees failing layers (the procgen checker is opaque)."""
     img = checker_texture()
@@ -107,10 +122,11 @@ def _clip_checker() -> np.ndarray:
 
 
 def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
-                    stacks: int = 88):
+                    stacks: int = 88, host=HOST):
     """Host side of the clip_blend scene -> (scene, instances, uniforms,
-    env, config), jax-free and device-free. `instances(angle)` lists the
-    (model, Similarity) draws with the spheres turned by `angle` about +y.
+    env, config), device-free, built with `host`'s modules.
+    `instances(angle)` lists the (model, Similarity) draws with the spheres
+    turned by `angle` about +y.
 
     The ring: every 5th sphere alpha-clipped (checker alpha 0 on the dark
     squares, double-sided so holes show the inside), every 7th blended
@@ -118,19 +134,21 @@ def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
     around the helmet. The camera looks down the ring's +z side past the
     blended sphere (index 2) onto the helmet, with clipped sphere 1 in
     view; sky stays above half the frame."""
-    scene = Scene()
+    m3 = host.math3d
+    scene = host.Scene()
     with open(HERO_GLB, "rb") as f:
-        hero = load_model(scene, f.read(), name="hero_helmet")
-    cubemap_base = gradient_cubemap(scene)
+        hero = host.load_model(scene, f.read(), name="hero_helmet")
+    cubemap_base = host.gradient_cubemap(scene)
     clip_albedo = None
     spheres = []
     for i in range(n_spheres):
-        m = add_pbr_sphere(scene, stacks=stacks, slices=stacks, name=f"sphere{i}")
+        m = host.add_pbr_sphere(scene, stacks=stacks, slices=stacks, name=f"sphere{i}")
         mat = scene.materials[m.primitives[0].material]
         if i % 5 == 1:
             if clip_albedo is None:
                 clip_albedo = scene.textures.add_texture(
-                    build_mip_chain(_clip_checker()), flags=TEXFLAG_SRGB
+                    host.build_mip_chain(_clip_checker(host.checker_texture)),
+                    flags=TEXFLAG_SRGB,
                 )
             mat.albedo_tex = clip_albedo
             mat.flags |= MAT_DOUBLE_SIDED
@@ -142,12 +160,11 @@ def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
             mat.base_color_factor = (1.0, 1.0, 1.0, 0.6)
             m.primitives[0].blend_mode = BLEND_ALPHA_BLENDED
         spheres.append(m)
-    scene._materials_dirty = True
 
-    cam = Camera(position=np.array([0.8, 1.7, 7.5], np.float32))
-    _aim(cam, [0.3, 0.8, 0], math3d.look_at, math3d.mat4_inverse, math3d.mat3_to_quat)
-    uniforms = make_uniforms(cam, width, height)
-    env = EnvBindings.from_scene(scene, ambient_sh=default_ambient_sh())
+    cam = host.Camera(position=np.array([0.8, 1.7, 7.5], np.float32))
+    _aim(cam, [0.3, 0.8, 0], m3)
+    uniforms = host.make_uniforms(cam, width, height)
+    env = host.EnvBindings.from_scene(scene, ambient_sh=host.default_ambient_sh())
     if env.ibl_cubemap_base != cubemap_base:
         raise RuntimeError("clip_blend cubemap is not the scene's IBL cubemap")
     config = RenderConfig(
@@ -156,11 +173,11 @@ def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
     )
 
     def instances(angle: float):
-        rot = math3d.quat_from_axis_angle([0, 1, 0], angle)
-        out = [(hero, math3d.Similarity())]
+        rot = m3.quat_from_axis_angle([0, 1, 0], angle)
+        out = [(hero, m3.Similarity())]
         for i, m in enumerate(spheres):
             a = 2.0 * np.pi * i / len(spheres)
-            out.append((m, math3d.Similarity(
+            out.append((m, m3.Similarity(
                 translation=[6.0 * np.cos(a), 1.3, 3.0 * np.sin(a)], rotation=rot,
             )))
         return out
@@ -183,7 +200,7 @@ def clip_blend_scene(width: int = 1920, height: int = 1080, device="cuda",
     return dev, build, config, env
 
 
-def quad_stack_setup(width: int, height: int, device="cpu",
+def quad_stack_setup(width: int, height: int, device="cuda",
                      reverse_z: bool = True) -> TriangleSetup:
     """Setup rows of twelve double-sided quads stacked over one region that
     straddles tile borders: three exact copies of one quad (equal z at
@@ -202,6 +219,37 @@ def quad_stack_setup(width: int, height: int, device="cpu",
         pts = [(x0, y0), (x1, y0), (x1, y1), (x0, y1)]
         for tri in ((0, 1, 2), (0, 2, 3)):
             clip.append([[pts[v][0] * w, pts[v][1] * w, z * w, w] for v in tri])
+    return _clip_setup(clip, width, height, device)
+
+
+def heavy_tile_setup(width: int, height: int, device="cuda",
+                     reverse_z: bool = True, n: int = 1100) -> TriangleSetup:
+    """Setup rows of 2n small double-sided triangles inside the 32x128 tile
+    at pixel (128, 32): n triangles drawn from a numpy seed (half of them
+    with every vertex on a pixel centre, depths from a set of three values,
+    homogeneous w 1 or 2), then the same n again in shuffled order. The
+    tile holds all 2n rows, and every triangle's exact copy, equal in z at
+    every pixel, lies about n rows away, so a split of the tile's rows puts
+    the two in different parts. Needs width >= 256 and height >= 64."""
+    rng = np.random.default_rng(33)
+    clip = []
+    for i in range(n):
+        cx, cy = rng.uniform(131.0, 253.0), rng.uniform(35.0, 61.0)
+        pts = [(cx + dx, cy + dy) for dx, dy in rng.uniform(-3.0, 3.0, size=(3, 2))]
+        if i % 2:
+            pts = [(np.floor(x) + 0.5, np.floor(y) + 0.5) for x, y in pts]
+        z = (0.2, 0.45, 0.7)[i % 3] if i % 4 else float(rng.uniform(0.1, 0.9))
+        z = z if reverse_z else 1.0 - z
+        w = 1.0 + (i % 2)
+        clip.append([[(x / (width * 0.5) - 1.0) * w, (1.0 - y / (height * 0.5)) * w,
+                      z * w, w] for x, y in pts])
+    clip = clip + [clip[j] for j in rng.permutation(n)]
+    return _clip_setup(clip, width, height, device)
+
+
+def _clip_setup(clip: list, width: int, height: int, device) -> TriangleSetup:
+    """TriangleSetup of double-sided triangles given as clip-space corner
+    lists (T, 3, 4), all valid."""
     clip = torch.tensor(clip, dtype=torch.float32, device=device)
     t = clip.shape[0]
     ones = torch.ones(t, dtype=torch.bool, device=device)

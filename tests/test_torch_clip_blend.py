@@ -25,16 +25,17 @@ import numpy as np
 import pytest
 import torch
 
-from superconductor_tpu.math3d import Similarity
 from superconductor_tpu.ops import shade as ref_shade
 from superconductor_tpu.render import frame as ref_frame
 from superconductor_tpu.render.draws import build_frame_state as ref_build
 from superconductor_tpu.utils.metrics import psnr
+from superconductor_tpu_torch.math3d import Similarity
 from superconductor_tpu_torch.ops import shade as port_shade
 from superconductor_tpu_torch.render import frame as port_frame
 from superconductor_tpu_torch.render.draws import build_frame_state as port_build
-from superconductor_tpu_torch.scene.upload import arrays_to_torch, scene_to_torch
+from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import CLIP_BLEND_SMALL, clip_blend_host, headline_host
+from test_torch_host import REF_HOST
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_clip_blend_256x128.npz")
@@ -43,13 +44,19 @@ ANGLE = 0.3  # sphere turn of the golden frame
 
 @functools.lru_cache(maxsize=None)
 def _host():
+    """The scene built by the port's host layer."""
     return clip_blend_host(**CLIP_BLEND_SMALL)
 
 
 @functools.lru_cache(maxsize=None)
+def _ref_host():
+    """The same scene built by the reference's host layer."""
+    return clip_blend_host(**CLIP_BLEND_SMALL, host=REF_HOST)
+
+
+@functools.lru_cache(maxsize=None)
 def _tables():
-    scene = _host()[0]
-    return scene.device_arrays(), scene_to_torch(scene)
+    return _ref_host()[0].device_arrays(), scene_to_torch(_host()[0], "cpu")
 
 
 def _ref_config(config):
@@ -73,9 +80,11 @@ _REFERENCE_CHILD = textwrap.dedent(
     from superconductor_tpu.render import frame as ref_frame
     from superconductor_tpu.render.draws import build_frame_state
     from superconductor_tpu_torch.scenes import CLIP_BLEND_SMALL, clip_blend_host
+    sys.path.insert(0, "tests")
+    from test_torch_host import REF_HOST
 
     configs, angle = json.loads(sys.argv[2]), float(sys.argv[3])
-    scene, instances, uniforms, env, config = clip_blend_host(**CLIP_BLEND_SMALL)
+    scene, instances, uniforms, env, config = clip_blend_host(**CLIP_BLEND_SMALL, host=REF_HOST)
     dev = scene.device_arrays()
     state = build_frame_state(scene, instances(angle), uniforms)
     out, stats = {}, {}
@@ -116,7 +125,7 @@ def reference():
 def _port_frame(config):
     scene, instances, uniforms, env, _ = _host()
     return port_frame.render_frame_stats(
-        _tables()[1], port_build(scene, instances(ANGLE), uniforms), config, env
+        _tables()[1], port_build(scene, instances(ANGLE), uniforms, device="cpu"), config, env
     )
 
 
@@ -151,7 +160,7 @@ def test_clip_blend_golden_is_the_reference_frame(reference):
     assert psnr(golden, img_r) >= 40.0
     scene, instances, uniforms, env, config = _host()
     img_p = port_frame.render_frame(
-        _tables()[1], port_build(scene, instances(ANGLE), uniforms), config, env
+        _tables()[1], port_build(scene, instances(ANGLE), uniforms, device="cpu"), config, env
     )
     assert psnr(golden, img_p.numpy()) >= 40.0
 
@@ -164,7 +173,7 @@ def test_clip_resolve_sees_through_failing_layers():
     scene, instances, uniforms, env, config = _host()
     img, stats = _port_frame(config)
     no_clip = port_frame.render_frame(
-        _tables()[1], port_build(scene, instances(ANGLE), uniforms),
+        _tables()[1], port_build(scene, instances(ANGLE), uniforms, device="cpu"),
         dataclasses.replace(config, enable_clip=False), env,
     )
     differs = int((img != no_clip).any(dim=-1).sum())
@@ -176,7 +185,7 @@ def _gbuffer():
     """The reference's g-buffer of lanes on every triangle of the scene
     (pixel centres at bbox centres, jittered; numpy seed), from its jitted
     geometry: inputs, fed to both sides."""
-    scene, instances, uniforms, _env, config = _host()
+    scene, instances, uniforms, _env, config = _ref_host()
     dev_r, _ = _tables()
     rcfg = _ref_config(config)
     state = ref_build(scene, instances(ANGLE), uniforms)
@@ -239,8 +248,8 @@ def test_headline_scene_unchanged_by_clip_and_blend():
     passes on changes neither its image nor any stat but the pass flags'
     own (all zero)."""
     scene, model, uniforms, env, config = headline_host(128, 64)
-    state = port_build(scene, [(model, Similarity())], uniforms)
-    dev = arrays_to_torch(scene.device_arrays())
+    state = port_build(scene, [(model, Similarity())], uniforms, device="cpu")
+    dev = scene_to_torch(scene, "cpu")
     off = port_frame.render_frame_stats(dev, state, config, env)
     on = port_frame.render_frame_stats(
         dev, state, dataclasses.replace(config, enable_clip=True, enable_blend=True), env

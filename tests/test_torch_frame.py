@@ -19,15 +19,26 @@ from superconductor_tpu.math3d import Similarity, quat_from_axis_angle
 from superconductor_tpu.render import frame as ref_frame
 from superconductor_tpu.render.draws import build_frame_state as ref_build
 from superconductor_tpu.utils.metrics import psnr
+from superconductor_tpu_torch import math3d as port_math3d
 from superconductor_tpu_torch.render import caps as port_caps
 from superconductor_tpu_torch.render import frame as port_frame
 from superconductor_tpu_torch.render.draws import build_frame_state as port_build
 from superconductor_tpu_torch.render.frame import RenderConfig
 from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host
+from test_torch_host import REF_HOST
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERO_GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_hero_256x128.npz")
+
+
+def _port_frame_inputs(width, height, angle):
+    """(scene tables, FrameState, env) of the port's own headline scene on
+    the CPU, the helmet turned by `angle`."""
+    scene, model, uniforms, env, _ = headline_host(width, height)
+    sim = port_math3d.Similarity(rotation=port_math3d.quat_from_axis_angle([0, 1, 0], angle))
+    return (scene_to_torch(scene, "cpu"),
+            port_build(scene, [(model, sim)], uniforms, device="cpu"), env)
 
 
 def _ref_config(config):
@@ -40,16 +51,15 @@ def test_hero_frame_matches_reference(opaque_px_cap):
     measured ~85 dB full-screen and ~99 dB compacted, at most one u8 step
     apart; the stats dict equal key for key (same integers, same per-layer
     vectors)."""
-    scene, model, uniforms, env, config = headline_host(256, 128)
+    scene, model, uniforms, env, config = headline_host(256, 128, host=REF_HOST)
     config = dataclasses.replace(config, opaque_px_cap=opaque_px_cap, p_cap=1 << 13)
     sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3))
     img_r, stats_r = ref_frame.render_frame_stats(
         scene.device_arrays(), ref_build(scene, [(model, sim)], uniforms),
         _ref_config(config), env,
     )
-    img_p, stats_p = port_frame.render_frame_stats(
-        scene_to_torch(scene), port_build(scene, [(model, sim)], uniforms), config, env
-    )
+    dev_p, state_p, env_p = _port_frame_inputs(256, 128, 0.3)
+    img_p, stats_p = port_frame.render_frame_stats(dev_p, state_p, config, env_p)
     img_r = np.asarray(img_r)
     assert img_p.dtype == torch.uint8 and tuple(img_p.shape) == img_r.shape == (1, 128, 256, 4)
     db = psnr(img_r, img_p.numpy())
@@ -66,7 +76,7 @@ def test_hero_golden_is_the_reference_frame():
     imported. The reference must still render it (PSNR >= 40 dB, the
     goldens bar), and so must the port on the CPU. Regenerate with
     SC_REGEN_GOLDENS=1."""
-    scene, model, uniforms, env, config = headline_host(256, 128)
+    scene, model, uniforms, env, config = headline_host(256, 128, host=REF_HOST)
     sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3))
     img_r = np.asarray(ref_frame.render_frame(
         scene.device_arrays(), ref_build(scene, [(model, sim)], uniforms),
@@ -77,9 +87,8 @@ def test_hero_golden_is_the_reference_frame():
     golden = np.load(HERO_GOLDEN)["image"]
     assert golden.shape == (1, 128, 256, 4) and golden.dtype == np.uint8
     assert psnr(golden, img_r) >= 40.0
-    img_p = port_frame.render_frame(
-        scene_to_torch(scene), port_build(scene, [(model, sim)], uniforms), config, env
-    )
+    dev_p, state_p, env_p = _port_frame_inputs(256, 128, 0.3)
+    img_p = port_frame.render_frame(dev_p, state_p, config, env_p)
     assert psnr(golden, img_p.numpy()) >= 40.0
 
 
@@ -106,11 +115,11 @@ def test_render_config_matches_reference():
      dict(raster="ref")],
 )
 def test_outside_the_slice_raises(change):
-    scene, model, uniforms, env, config = headline_host(64, 32)
+    _scene, _model, _uniforms, _env, config = headline_host(64, 32)
     config = dataclasses.replace(config, **change)
-    state = port_build(scene, [(model, Similarity())], uniforms)
+    dev, state, env = _port_frame_inputs(64, 32, 0.0)
     with pytest.raises(NotImplementedError):
-        port_frame.render_frame(scene_to_torch(scene), state, config, env)
+        port_frame.render_frame(dev, state, config, env)
 
 
 def _stats(**kw):
@@ -233,20 +242,24 @@ def test_port_renders_without_jax(tmp_path, box_glb, block_jax):
             sys.modules["jax"] = None
         sys.path.insert(0, {REPO!r})
         import numpy as np
-        from superconductor_tpu_torch import _host
+        from superconductor_tpu_torch import math3d as m
+        from superconductor_tpu_torch.assets.models import load_model
+        from superconductor_tpu_torch.render.camera import Camera, make_uniforms
         from superconductor_tpu_torch.render.draws import build_frame_state
+        from superconductor_tpu_torch.render.env import EnvBindings
         from superconductor_tpu_torch.render.frame import RenderConfig, render_frame_stats, stats_to_host
+        from superconductor_tpu_torch.scene.scene import Scene
         from superconductor_tpu_torch.scene.upload import scene_to_torch
+        from superconductor_tpu_torch.utils.procgen import default_ambient_sh
 
-        scene = _host.Scene()
-        model = _host.load_model(scene, open({str(glb)!r}, "rb").read(), name="box")
-        cam = _host.Camera(position=np.array([0.9, 0.8, 1.8], np.float32))
-        m = _host.math3d
+        scene = Scene()
+        model = load_model(scene, open({str(glb)!r}, "rb").read(), name="box")
+        cam = Camera(position=np.array([0.9, 0.8, 1.8], np.float32))
         cam.rotation = m.mat3_to_quat(m.mat4_inverse(m.look_at(cam.position, [0, 0, 0]))[:3, :3])
-        uniforms = _host.make_uniforms(cam, 128, 64)
-        env = _host.EnvBindings(clear_color=(0.0, 0.0, 1.0), ambient_sh=_host.default_ambient_sh())
-        state = build_frame_state(scene, [(model, _host.math3d.Similarity())], uniforms)
-        img, stats = render_frame_stats(scene_to_torch(scene), state,
+        uniforms = make_uniforms(cam, 128, 64)
+        env = EnvBindings(clear_color=(0.0, 0.0, 1.0), ambient_sh=default_ambient_sh())
+        state = build_frame_state(scene, [(model, m.Similarity())], uniforms, device="cpu")
+        img, stats = render_frame_stats(scene_to_torch(scene, "cpu"), state,
                                         RenderConfig(width=128, height=64, t_cap=64, t_cap_anim=8), env)
         stats = stats_to_host(stats)
         assert tuple(img.shape) == (1, 64, 128, 4), img.shape
@@ -255,6 +268,7 @@ def test_port_renders_without_jax(tmp_path, box_glb, block_jax):
         assert 0.05 < covered < 0.95, covered
         assert stats["opaque_px_needed"] > 0
         assert sys.modules.get("jax") is None, "jax was loaded"
+        assert "superconductor_tpu" not in sys.modules, "the reference was loaded"
         print("OK", covered)
         """
     )

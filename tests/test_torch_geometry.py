@@ -11,40 +11,51 @@ import numpy as np
 import pytest
 import torch
 
-from superconductor_tpu.math3d import (
-    Similarity,
-    look_at,
-    mat3_to_quat,
-    mat4_inverse,
-    quat_from_axis_angle,
-)
+import superconductor_tpu.math3d as ref_math3d
+from superconductor_tpu.render import camera as ref_camera
 from superconductor_tpu.render import frame as ref_frame
-from superconductor_tpu.render.camera import Camera, make_uniforms
 from superconductor_tpu.render.draws import build_frame_state as ref_build
 from superconductor_tpu.scene.scene import Scene
-from superconductor_tpu.utils.procgen import add_skinned_tube, wave_joint_palette
+from superconductor_tpu.utils import procgen as ref_procgen
+from superconductor_tpu_torch import math3d as port_math3d
+from superconductor_tpu_torch.render import camera as port_camera
 from superconductor_tpu_torch.render import frame as port_frame
 from superconductor_tpu_torch.render.draws import build_frame_state as port_build
 from superconductor_tpu_torch.render.frame import RenderConfig
-from superconductor_tpu_torch.scene.upload import arrays_to_torch
+from superconductor_tpu_torch.scene.scene import Scene as PortScene
+from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host
+from superconductor_tpu_torch.utils import procgen as port_procgen
+from test_torch_host import REF_HOST, numpy_joint_update
 
 ANGLES = [0.0, 0.7, 2.5]
 
 
 @pytest.fixture(scope="module")
 def hero():
-    return headline_host(256, 128)
+    """The hero scene built by the reference's host layer and by the
+    port's."""
+    return headline_host(256, 128, host=REF_HOST), headline_host(256, 128)
 
 
 def _ref_config(config: RenderConfig):
     return ref_frame.RenderConfig(**{**asdict(config), "raster": "pallas"})
 
 
-def _both_states(scene, instances, uniforms, **kw):
-    return ref_build(scene, instances, uniforms, **kw), port_build(
-        scene, instances, uniforms, **kw
-    )
+def _turned(m3, angle):
+    return m3.Similarity(rotation=m3.quat_from_axis_angle([0, 1, 0], angle))
+
+
+def _both_states(ref, port, **kw):
+    """FrameStates of (scene, instances, uniforms) built by each package
+    from its own host objects."""
+    return ref_build(*ref, **kw), port_build(*port, device="cpu", **kw)
+
+
+def _hero_states(hero, angle):
+    (scene_r, model_r, uni_r, _e, _c), (scene_p, model_p, uni_p, _e, _c) = hero
+    return _both_states((scene_r, [(model_r, _turned(ref_math3d, angle))], uni_r),
+                        (scene_p, [(model_p, _turned(port_math3d, angle))], uni_p))
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,9 +87,7 @@ def _geometry(dev, dev_t, ref_state, port_state, config, jit=False):
 
 @pytest.mark.parametrize("angle", ANGLES)
 def test_build_frame_state_matches_reference(hero, angle):
-    scene, model, uniforms, _env, _config = hero
-    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], angle))
-    ref, port = _both_states(scene, [(model, sim)], uniforms)
+    ref, port = _hero_states(hero, angle)
     for name in ("draws_static", "draws_animated"):
         r, p = getattr(ref, name), getattr(port, name)
         for field in r._fields:
@@ -97,11 +106,10 @@ def test_setup_rows_bit_exact_on_hero(hero, angle):
     bit-identical on every valid pair. Invalid padding rows
     of the animated stage are NaN in both (zero skinning weights), with
     unspecified NaN payloads, so they compare as NaN-equal."""
-    scene, model, uniforms, _env, config = hero
-    dev = scene.device_arrays()
-    dev_t = arrays_to_torch(dev)
-    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], angle))
-    ref_state, port_state = _both_states(scene, [(model, sim)], uniforms)
+    config = hero[0][4]
+    dev = hero[0][0].device_arrays()
+    dev_t = scene_to_torch(hero[1][0], "cpu")
+    ref_state, port_state = _hero_states(hero, angle)
     (st_r, at_r, tri_r), (st_p, at_p, tri_p) = _geometry(
         dev, dev_t, ref_state, port_state, config
     )
@@ -120,20 +128,30 @@ def test_setup_rows_bit_exact_on_hero(hero, angle):
 
 
 def _skinned_geometry(jit: bool):
-    """A skinned tube bent by a joint palette, through both packages."""
-    scene = Scene()
-    model = add_skinned_tube(scene, segments=12, slices=8)
-    cam = Camera(position=np.array([0.0, 1.0, 4.0], np.float32))
-    cam.rotation = mat3_to_quat(mat4_inverse(look_at(cam.position, [0, 1.0, 0]))[:3, :3])
-    uniforms = make_uniforms(cam, 128, 96)
-    pal = wave_joint_palette(0.8, 8, amp=0.6)
+    """A skinned tube bent by a joint palette, through both packages, each
+    building it with its own host layer. The port has no native FK walk
+    (framestate.cpp is not in its library), so the reference's palette
+    takes its numpy path too (tests/test_torch_host.py holds the two
+    palettes equal)."""
+    sides = []
+    for scene_cls, procgen, m3, camera in (
+        (Scene, ref_procgen, ref_math3d, ref_camera),
+        (PortScene, port_procgen, port_math3d, port_camera),
+    ):
+        scene = scene_cls()
+        model = procgen.add_skinned_tube(scene, segments=12, slices=8)
+        cam = camera.Camera(position=np.array([0.0, 1.0, 4.0], np.float32))
+        cam.rotation = m3.mat3_to_quat(m3.mat4_inverse(m3.look_at(cam.position, [0, 1.0, 0]))[:3, :3])
+        uniforms = camera.make_uniforms(cam, 128, 96)
+        with numpy_joint_update():
+            pal = procgen.wave_joint_palette(0.8, 8, amp=0.6)
+        sides.append((scene, [(model, m3.Similarity())], uniforms, pal))
     config = RenderConfig(width=128, height=96, t_cap=16, t_cap_anim=512)
-    dev = scene.device_arrays()
-    dev_t = arrays_to_torch(dev)
-    ref_state, port_state = _both_states(
-        scene, [(model, Similarity())], uniforms, joint_palettes={0: pal}
-    )
-    return _geometry(dev, dev_t, ref_state, port_state, config, jit=jit)
+    (scene_r, inst_r, uni_r, pal_r), (scene_p, inst_p, uni_p, pal_p) = sides
+    ref_state = ref_build(scene_r, inst_r, uni_r, joint_palettes={0: pal_r})
+    port_state = port_build(scene_p, inst_p, uni_p, joint_palettes={0: pal_p}, device="cpu")
+    return _geometry(scene_r.device_arrays(), scene_to_torch(scene_p, "cpu"),
+                     ref_state, port_state, config, jit=jit)
 
 
 def test_skinned_setup_rows_bit_exact():
@@ -206,26 +224,30 @@ def test_box_geometry_pass_matches_reference(box_glb):
 
     from superconductor_tpu.assets.models import load_model
     from superconductor_tpu.ops import geometry as ref_geom
+    from superconductor_tpu_torch.assets.models import load_model as port_load_model
     from superconductor_tpu_torch.ops import geometry as port_geom
 
     scene = Scene()
     model = load_model(scene, box_glb, name="box")
-    uniforms = make_uniforms(Camera(position=np.array([0.6, 0.8, 2.0], np.float32)), 256, 96)
-    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.6))
+    scene_p = PortScene()
+    port_load_model(scene_p, box_glb, name="box")
+    uniforms = ref_camera.make_uniforms(
+        ref_camera.Camera(position=np.array([0.6, 0.8, 2.0], np.float32)), 256, 96)
+    sim = _turned(ref_math3d, 0.6)
     prim, lod = model.primitives[0], model.primitives[0].lods[0]
     args = (sim.to_array()[None], np.array([lod.first_index // 3]),
             np.array([lod.index_count // 3]))
     kw = dict(first_vertex=np.array([lod.first_vertex]),
               vertex_count=np.array([lod.vertex_count]), material=np.array([prim.material]))
     dev = scene.device_arrays()
-    dev_t = arrays_to_torch(dev)
+    dev_t = scene_to_torch(scene_p, "cpu")
     keys = ("indices", "positions", "normals", "uvs", "lightmap_uvs", "tri_material", "materials")
     tri_r, attrs_r = ref_geom.geometry_pass(
         ref_geom.make_draw_list(*args, **kw), *[dev[k] for k in keys],
         jnp.asarray(uniforms.view_proj[0]), 256, 96, t_cap=16,
     )
     stage = port_geom.geometry_vertex_stage(
-        port_geom.make_draw_list(*args, **kw), *[dev_t[k] for k in keys], 16
+        port_geom.make_draw_list(*args, **kw, device="cpu"), *[dev_t[k] for k in keys], 16
     )
     tri_p = port_geom.geometry_view_setup(stage, torch.from_numpy(uniforms.view_proj[0]), 256, 96)
     for f in tri_r._fields:

@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from superconductor_tpu.math3d import Similarity, quat_from_axis_angle
 from superconductor_tpu.ops import raster_kbuffer as ref_kbuffer
+from superconductor_tpu_torch.math3d import Similarity, quat_from_axis_angle
 from superconductor_tpu_torch.ops import raster_kbuffer as port_kbuffer
 from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
 from superconductor_tpu_torch.ops.geometry import TriangleSetup
@@ -41,9 +41,10 @@ def _hero_setup(width, height):
     eager reference, tests/test_torch_geometry.py), every triangle."""
     scene, model, uniforms, _env, config = headline_host(width, height)
     state = build_frame_state(
-        scene, [(model, Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3)))], uniforms
+        scene, [(model, Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3)))], uniforms,
+        device="cpu",
     )
-    stages, _ = _merged_vertex_stage(scene_to_torch(scene), state, config)
+    stages, _ = _merged_vertex_stage(scene_to_torch(scene, "cpu"), state, config)
     return _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config)
 
 
@@ -54,8 +55,8 @@ def _cases() -> dict:
     rng = np.random.default_rng(22)
     band_floor = rng.uniform(0.02, 0.06, size=(64, 256)).astype(np.float32)
     return {
-        "stack": dict(tri=quad_stack_setup(200, 80), width=200, height=80, p_cap=512),
-        "stack-forward-z": dict(tri=quad_stack_setup(200, 80, reverse_z=False), width=200,
+        "stack": dict(tri=quad_stack_setup(200, 80, "cpu"), width=200, height=80, p_cap=512),
+        "stack-forward-z": dict(tri=quad_stack_setup(200, 80, "cpu", reverse_z=False), width=200,
                                 height=80, p_cap=512, reverse_z=False),
         "hero-band-floor": dict(tri=_hero_setup(256, 128), width=256, height=64,
                                 p_cap=1 << 13, y_offset=40, floor=band_floor),
@@ -174,7 +175,7 @@ def test_plain_kbuffer_matches_interpret_kernel(kbuffer_cases, run):
 def test_stack_holds_equal_depth_ties():
     """The stack case really ties: the three copies of one quad give equal
     z at a pixel, and the k-buffer holds the later sorted position first."""
-    tri = quad_stack_setup(200, 80)
+    tri = quad_stack_setup(200, 80, "cpu")
     bins = bin_triangles(tri, 200, 80, 512)
     kb, _ = port_kbuffer.kbuffer_sorted_plain(
         gather_sorted_setup(tri, bins), bins.tile_start, bins.tile_count, 200, 80, k=8
@@ -193,7 +194,7 @@ def test_kbuffer_insert_matches_reference(reverse_z):
     rng = np.random.default_rng(23 + reverse_z)
     h, w, k = 6, 5, 4
     ref = ref_kbuffer.empty_kbuffer(k, h, w, reverse_z)
-    port = port_kbuffer.empty_kbuffer(k, h, w, reverse_z)
+    port = port_kbuffer.empty_kbuffer(k, h, w, reverse_z, device="cpu")
     for i in range(12):
         z = rng.choice(np.float32([0.1, 0.25, 0.25, 0.5, 0.75]), size=(h, w))
         accept = rng.uniform(size=(h, w)) < 0.7

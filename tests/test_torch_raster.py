@@ -30,7 +30,8 @@ from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_se
 from superconductor_tpu_torch.ops.geometry import TriangleSetup
 from superconductor_tpu_torch.ops.raster import rasterize_sorted, rasterize_sorted_plain
 from superconductor_tpu_torch.ops.raster_ref import VisibilityBuffer
-from superconductor_tpu_torch.scenes import headline_host
+from superconductor_tpu_torch.scenes import headline_host, heavy_tile_setup, quad_stack_setup
+from test_torch_host import REF_HOST
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,7 +65,7 @@ def _box_tri(box_glb, width, height):
 
 @functools.lru_cache(maxsize=None)
 def _hero_tri(width, height, angle):
-    scene, model, uniforms, _env, config = headline_host(width, height)
+    scene, model, uniforms, _env, config = headline_host(width, height, host=REF_HOST)
     rcfg = ref_frame.RenderConfig(**{**asdict(config), "raster": "pallas"})
     sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], angle))
     state = build_frame_state(scene, [(model, sim)], uniforms)
@@ -245,3 +246,129 @@ def test_kernel_matches_plain_on_card():
         p = rasterize_sorted_plain(*args, y_offset=y0)
         torch.cuda.synchronize()
         assert torch.equal(k.pair, p.pair) and torch.equal(k.depth, p.depth)
+
+
+def _split_merge(sorted_setup, tile_start, tile_count, height, width, parts,
+                 reverse_z, init, start):
+    """The CUDA kernel's split-and-merge rule written with the plain
+    version: each tile's rows cut into `parts` contiguous parts, each part
+    rasterized alone from `start` ("far", or "inf": -inf under reverse-z,
+    +inf otherwise, as the kernel starts them), then merged part by part in
+    order from init (or far) under the strict depth test."""
+    far = 0.0 if reverse_z else 1.0
+    if init is None:
+        depth = torch.full((height, width), far)
+        pair = torch.full((height, width), -1, dtype=torch.int32)
+    else:
+        depth, pair = init.depth.clone(), init.pair.clone()
+    beyond = float("-inf") if reverse_z else float("inf")
+    part_init = None
+    if start == "inf":
+        part_init = VisibilityBuffer(torch.full((height, width), beyond),
+                                     torch.full((height, width), -1, dtype=torch.int32))
+    count = tile_count.to(torch.int64)
+    for s in range(parts):
+        lo = tile_start + (count * s // parts).to(torch.int32)
+        n = (count * (s + 1) // parts - count * s // parts).to(torch.int32)
+        part = rasterize_sorted_plain(sorted_setup, lo, n, height, width,
+                                      reverse_z=reverse_z, init=part_init)
+        take = part.depth > depth if reverse_z else part.depth < depth
+        depth = torch.where(take, part.depth, depth)
+        pair = torch.where(take, part.pair, pair)
+    return VisibilityBuffer(depth=depth, pair=pair)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_cases(name, reverse_z):
+    """(sorted setup, bins, height, width) of the port's own setups: the
+    hero at 256x128 (z reversed for forward-z), the 12-quad stack with its
+    equal-z copies, and one tile of 2,044 rows holding every triangle
+    twice, the copies ~1,000 rows apart."""
+    if name == "hero":
+        tri = _to_port(_hero_tri(256, 128, 0.3))
+        if not reverse_z:
+            setup = tri.setup.clone()
+            setup[:, 9:12] = setup[:, 12:15] - setup[:, 9:12]  # z -> w - z
+            tri = tri._replace(setup=setup)
+        width, height, p_cap = 256, 128, 1 << 13
+    elif name == "stack":
+        tri = quad_stack_setup(200, 80, "cpu", reverse_z=reverse_z)
+        width, height, p_cap = 200, 80, 512
+    else:
+        tri = heavy_tile_setup(320, 96, "cpu", reverse_z=reverse_z)
+        width, height, p_cap = 320, 96, 4096
+    bins = bin_triangles(tri, width, height, p_cap)
+    return gather_sorted_setup(tri, bins).contiguous(), bins, height, width
+
+
+@pytest.mark.parametrize("start", ["far", "inf"])
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("reverse_z", [True, False])
+@pytest.mark.parametrize("name", ["hero", "stack", "heavy"])
+def test_split_merge_equals_whole_walk(name, reverse_z, with_init, start):
+    """Splitting every tile into S in {2, 3, 8} contiguous parts and merging
+    them in order gives the whole walk bit for bit: ties across part
+    boundaries keep the earlier part, and init keeps its ties."""
+    sorted_setup, bins, height, width = _split_cases(name, reverse_z)
+    args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    init = None
+    if with_init:
+        whole = rasterize_sorted_plain(*args, reverse_z=reverse_z)
+        rng = np.random.default_rng(12)
+        keep = torch.from_numpy(rng.uniform(size=(height, width)) < 0.5)
+        init = VisibilityBuffer(
+            depth=torch.where(keep, whole.depth, torch.full_like(whole.depth, 0.5)),
+            pair=torch.from_numpy(rng.integers(-1, 5000, size=(height, width)).astype(np.int32)),
+        )
+    ref = rasterize_sorted_plain(*args, reverse_z=reverse_z, init=init)
+    assert (ref.pair >= 0).any()
+    for parts in (2, 3, 8):
+        got = _split_merge(*args, parts, reverse_z, init, start)
+        assert torch.equal(got.depth, ref.depth) and torch.equal(got.pair, ref.pair), parts
+
+
+def test_split_cases_have_ties_across_parts():
+    """The stack's three equal quads and the heavy tile's copies fall into
+    different parts of an 8-way split, and the later copy never wins."""
+    sorted_setup, bins, height, width = _split_cases("heavy", True)
+    t = int(torch.argmax(bins.tile_count))
+    n = int(bins.tile_count[t])
+    assert n >= 2000
+    vis = rasterize_sorted_plain(sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    ntx = -(-width // 128)
+    ty, tx = divmod(t, ntx)
+    tile_pair = vis.pair[ty * 32:(ty + 1) * 32, tx * 128:(tx + 1) * 128]
+    assert (ty, tx) == (1, 1)
+    assert 0 <= int(tile_pair.max()) < int(bins.tile_start[t]) + n // 2
+    sorted_setup, bins, height, width = _split_cases("stack", True)
+    rows = sorted_setup[bins.tile_start[0]:bins.tile_start[0] + bins.tile_count[0]]
+    assert torch.equal(rows[0], rows[2]) and torch.equal(rows[0], rows[4])
+
+
+@pytest.mark.gpu
+def test_kernel_split_matches_plain_on_card():
+    """The cluster split on the card: every cluster size and split
+    threshold, both z directions, with and without init, on the heavy tile
+    and the stack, bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the raster kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    for name in ("heavy", "stack"):
+        for reverse_z in (True, False):
+            sorted_setup, bins, height, width = _split_cases(name, reverse_z)
+            args = (sorted_setup.to(dev), bins.tile_start.to(dev), bins.tile_count.to(dev),
+                    height, width)
+            plain = rasterize_sorted_plain(*args, reverse_z=reverse_z)
+            init = VisibilityBuffer(depth=(plain.depth * 0.999).contiguous(),
+                                    pair=torch.arange(height * width, dtype=torch.int32,
+                                                      device=dev).reshape(height, width))
+            plain_init = rasterize_sorted_plain(*args, reverse_z=reverse_z, init=init)
+            for cluster in (1, 2, 4, 8):
+                for min_part_rows in (1, 32):
+                    kw = dict(reverse_z=reverse_z, cluster=cluster, min_part_rows=min_part_rows)
+                    k = rasterize_sorted(*args, **kw)
+                    ki = rasterize_sorted(*args, init=init, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(k.pair, plain.pair) and torch.equal(k.depth, plain.depth)
+                    assert torch.equal(ki.pair, plain_init.pair)
+                    assert torch.equal(ki.depth, plain_init.depth)

@@ -31,8 +31,9 @@ from superconductor_tpu_torch.ops import shade as port_shade
 from superconductor_tpu_torch.ops.geometry import TriangleAttrs, TriangleSetup
 from superconductor_tpu_torch.ops import texture as port_texture
 from superconductor_tpu_torch.ops import tonemap as port_tonemap
-from superconductor_tpu_torch.scene.upload import arrays_to_torch
+from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host
+from test_torch_host import REF_HOST
 
 
 def _t(x):
@@ -41,9 +42,12 @@ def _t(x):
 
 @functools.lru_cache(maxsize=None)
 def _hero():
-    scene, model, uniforms, env, config = headline_host(256, 128)
-    dev = scene.device_arrays()
-    return scene, model, uniforms, env, config, dev, arrays_to_torch(dev)
+    """The hero scene twice: built by the reference's host layer (its
+    tables `dev`, env) and by the port's (its tables `dev_t`, env_t)."""
+    scene, model, uniforms, env, config = headline_host(256, 128, host=REF_HOST)
+    scene_t, _model, _uniforms, env_t, _config = headline_host(256, 128)
+    return (scene, model, uniforms, env, config, scene.device_arrays(),
+            scene_to_torch(scene_t, "cpu"), env_t)
 
 
 @pytest.mark.parametrize(
@@ -82,7 +86,7 @@ def test_to_u8_is_exact():
 
 
 def test_sample_cubemap_static_matches_reference():
-    scene, _m, _u, env, _c, dev, dev_t = _hero()
+    _s, _m, _u, env, _c, dev, dev_t, env_t = _hero()
     rng = np.random.default_rng(3)
     d = rng.normal(size=(8192, 3)).astype(np.float32)
     d[:6] = [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]]
@@ -92,8 +96,8 @@ def test_sample_cubemap_static_matches_reference():
         jnp.asarray(d), static=env.ibl_cubemap_static,
     ))
     port = port_texture.sample_cubemap(
-        port_texture.hdr_pool(dev_t), dev_t["tex_hdr"], env.ibl_cubemap_base,
-        _t(d), static=env.ibl_cubemap_static,
+        port_texture.hdr_pool(dev_t), dev_t["tex_hdr"], env_t.ibl_cubemap_base,
+        _t(d), static=env_t.ibl_cubemap_static,
     ).numpy()
     np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
 
@@ -103,7 +107,7 @@ def test_sample_material_interleaved_matches_reference(taps):
     """Both hero materials, uv inside and outside [0, 1] (wrap), and
     footprints from below one texel to the whole chain (every mip level,
     both the main and the tail pool)."""
-    _s, _m, _u, _e, _c, dev, dev_t = _hero()
+    _s, _m, _u, _e, _c, dev, dev_t, _e_t = _hero()
     rng = np.random.default_rng(4 + taps)
     p = 4096
     mat = rng.integers(0, 2, size=p).astype(np.int32)
@@ -129,7 +133,7 @@ def test_sample_material_interleaved_matches_reference(taps):
 def _hero_gbuffer_inputs():
     """Shade rows of the hero at 256x128 (reference geometry, jitted: these
     are inputs, fed to both sides) plus pixel lanes that hit and miss."""
-    scene, model, uniforms, env, config, dev, dev_t = _hero()
+    scene, model, uniforms, _env, config, dev, _dev_t, _env_t = _hero()
     from dataclasses import asdict
 
     rcfg = ref_frame.RenderConfig(**{**asdict(config), "raster": "pallas"})
@@ -197,7 +201,7 @@ def test_interpolate_gbuffer_matches_reference(with_shade_row):
 def test_shade_matches_reference(inline):
     """shade() on the SAME g-buffer (the reference's, carried across)."""
     state, tri, attrs, shade_row, pair, px, py = _hero_gbuffer_inputs()
-    _s, _m, _u, env, _c, dev, dev_t = _hero()
+    _s, _m, _u, env, _c, dev, dev_t, env_t = _hero()
     g = ref_shade.interpolate_gbuffer(
         jnp.asarray(pair), jnp.asarray(px), jnp.asarray(py), tri, attrs,
         shade_row=jnp.asarray(shade_row),
@@ -206,7 +210,7 @@ def test_shade_matches_reference(inline):
     rgb_r, a_r = ref_shade.shade(g, dev, u, 0, env=env, inline_tonemapping=inline,
                                  inline_srgb=inline)
     u_t = {k: _t(np.asarray(v, np.float32)) for k, v in state.uniforms.items()}
-    rgb_p, a_p = port_shade.shade(_port_gbuffer(g), dev_t, u_t, 0, env=env,
+    rgb_p, a_p = port_shade.shade(_port_gbuffer(g), dev_t, u_t, 0, env=env_t,
                                   inline_tonemapping=inline, inline_srgb=inline)
     rgb_r = np.asarray(rgb_r)
     assert np.isfinite(rgb_p.numpy()).all()

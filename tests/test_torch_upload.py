@@ -1,5 +1,6 @@
 """The port's scene upload against the reference's Scene.device_arrays():
-every key, bit for bit, on the hero fixture and the test box."""
+every key, bit for bit, on the hero fixture and the test box, each side
+loading the asset with its own host layer."""
 
 import os
 
@@ -8,6 +9,8 @@ import pytest
 
 from superconductor_tpu.assets.models import load_model
 from superconductor_tpu.scene.scene import Scene
+from superconductor_tpu_torch.assets.models import load_model as port_load_model
+from superconductor_tpu_torch.scene.scene import Scene as PortScene
 from superconductor_tpu_torch.scene.upload import arrays_to_torch, scene_to_torch
 
 HERO = os.path.join(os.path.dirname(__file__), "fixtures", "hero_helmet.glb")
@@ -49,6 +52,12 @@ def _scene_of(glb: bytes) -> Scene:
     return scene
 
 
+def _port_scene_of(glb: bytes) -> PortScene:
+    scene = PortScene()
+    port_load_model(scene, glb, name="m")
+    return scene
+
+
 @pytest.mark.parametrize("which", ["hero", "box"])
 def test_scene_to_torch_bit_exact(which, box_glb):
     if which == "hero":
@@ -56,20 +65,19 @@ def test_scene_to_torch_bit_exact(which, box_glb):
             glb = f.read()
     else:
         glb = box_glb
-    scene = _scene_of(glb)
-    ref = scene.device_arrays()
-    port = scene_to_torch(scene, "cpu")
+    ref = _scene_of(glb).device_arrays()
+    port = scene_to_torch(_port_scene_of(glb), "cpu")
     _assert_same_tables(ref, port)
     # the converter feeds both packages identical inputs
-    _assert_same_tables(ref, arrays_to_torch(ref))
+    _assert_same_tables(ref, arrays_to_torch(ref, "cpu"))
 
 
 def test_scene_to_torch_rejects_unported_scene(box_glb):
-    from superconductor_tpu.utils.procgen import gradient_cubemap
+    from superconductor_tpu_torch.utils.procgen import gradient_cubemap
 
-    scene = _scene_of(box_glb)
+    scene = _port_scene_of(box_glb)
     gradient_cubemap(scene)  # cubemaps are in the slice
-    scene_to_torch(scene)
+    scene_to_torch(scene, "cpu")
     scene.lightvol = {"tex_ids": [0, 0, 0, 0], "z_layers": 1}
     with pytest.raises(NotImplementedError):
-        scene_to_torch(scene)
+        scene_to_torch(scene, "cpu")
