@@ -49,10 +49,11 @@ Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
-operations for the three edge functions of every setup row at every
-pixel of its tile) over 67 TFLOP/s: the H100 SXM's published peaks
-(superconductor_tpu_torch/bench_raster.py raster_bound). Kernel times
-are device times (bench_raster.graph_ms: a CUDA graph of 20 launches).
+operations for the three edge functions of a setup row at each pixel of
+its tile that its triangle's bounding box covers) over 67 TFLOP/s: the
+H100 SXM's published peaks (superconductor_tpu_torch/bench_raster.py
+raster_bound). Kernel times are device times (bench_raster.graph_ms: a
+CUDA graph of 20 launches).
 """
 
 from __future__ import annotations
@@ -152,13 +153,13 @@ def fan_setup(width: int, height: int, device, w_scale=(1.0, 2.0)):
 
 
 def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
-                   y_offset=0, init=None, clusters=(None,), min_rows=1, timed=False):
+                   y_offset=0, init=None, clusters=None, min_rows=1, timed=False):
     """Kernel vs plain on the binned, sorted setup of `tri`, at each cluster
-    size in `clusters` (None: the wrapper's default). The heaviest tile must
-    hold `min_rows` rows. With `timed`, records in `results` the kernel's
-    device time at the default cluster size (every size is printed), one
+    size in `clusters` (None: the wrapper's RASTER_CLUSTER). The heaviest
+    tile must hold `min_rows` rows. With `timed`, records in `results` the
+    kernel's device time at RASTER_CLUSTER (every size is printed), one
     call's time, the plain version's, the bound and the heaviest tile."""
-    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound
+    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound, raster_cluster
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
     from superconductor_tpu_torch.ops.raster import (
         RASTER_CLUSTER,
@@ -177,8 +178,10 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
     kw = dict(reverse_z=reverse_z, init=init, y_offset=y_offset)
     vp = rasterize_sorted_plain(*args, **kw)
     err = 0.0
+    clusters = clusters or (RASTER_CLUSTER,)
     for cluster in clusters:
-        vk = rasterize_sorted(*args, **(kw if cluster is None else dict(kw, cluster=cluster)))
+        with raster_cluster(cluster):
+            vk = rasterize_sorted(*args, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(vk.depth, vp.depth) and torch.equal(vk.pair, vp.pair)):
             diff = int((vk.pair != vp.pair).sum())
@@ -186,7 +189,7 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
                                f"({diff} pair pixels differ)")
         err = max(err, float((vk.depth - vp.depth).abs().max()))
     covered = float((vk.pair >= 0).float().mean())
-    sizes = ",".join("default" if c is None else str(c) for c in clusters)
+    sizes = ",".join(map(str, clusters))
     phase("raster", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
           f"{heaviest} rows, cluster {sizes}: equal (tolerance: bit for bit) "
           f"max_abs_err={err} covered={covered:.4f}")
@@ -194,12 +197,14 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
         raise RuntimeError(f"{name}: nothing covered")
     results["max_abs_err"] = max(results["max_abs_err"], err)
     if timed:
-        per_cluster = {c: graph_ms(lambda: rasterize_sorted(*args, **kw, cluster=c))
-                       for c in CLUSTERS}
+        per_cluster = {}
+        for c in CLUSTERS:
+            with raster_cluster(c):
+                per_cluster[c] = graph_ms(lambda: rasterize_sorted(*args, **kw))
         one_call = cuda_ms(lambda: rasterize_sorted(*args, **kw))
         plain_ms = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
-        bound_ms, bound_by, pairs = raster_bound(bins.tile_count, width * height,
-                                                 8 if init is None else 16)
+        bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, width, height,
+                                                 8 if init is None else 16, y_offset)
         ms = per_cluster[RASTER_CLUSTER]
         results.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        one_call_ms=one_call, heaviest=heaviest, pairs=pairs)
@@ -274,7 +279,8 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
         plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
         # pair planes (and depth planes), layers, the floor when given
         px_bytes = 4 * k * (2 if want else 1) + 4 + (0 if floor is None else 4)
-        bound_ms, bound_by, pairs = raster_bound(bins.tile_count, width * height, px_bytes)
+        bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, width, height, px_bytes,
+                                                 y_offset)
         timings[(k, want)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, heaviest=heaviest, pairs=pairs)
         phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms (device time, "

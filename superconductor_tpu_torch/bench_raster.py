@@ -1,29 +1,19 @@
 """The raster kernel at the frames' own shapes, on the GPU.
 
-    python3 -m superconductor_tpu_torch.bench_raster [--against OTHER.cu]
+    python3 -m superconductor_tpu_torch.bench_raster
 
 Builds the opaque setup rows of the 1920x1080 headline and clip_blend
 frames, bins them, and prints for each: the pairs, the tiles holding rows
 and the heaviest tile; the kernel's device time at every cluster size
 (`graph_ms`: a CUDA graph of 20 launches, median of 20 replays); at the
-wrapper's default size, the time with only the heaviest tile's rows, with
+wrapper's cluster size, the time with only the heaviest tile's rows, with
 every tile but that one, and with every tile empty (where the time goes);
-and the bound (bytes over 3.35 TB/s or 12 FP32 operations a row and pixel
-over 67 TFLOP/s, the H100 SXM's peaks, whichever is larger).
-
-`--against` builds another source of the kernel (for instance an earlier
-commit's ``csrc/raster.cu``, unpacked with ``git archive``) into
-``build/`` and times it on the same inputs in turns (other, this, this,
-other); its C entry takes the current arguments, or those of the first
-version (no cluster size and split threshold). Needs a CUDA device.
+and the bound (`raster_bound`). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import os
-import re
+import contextlib
 import statistics
 import subprocess
 import sys
@@ -63,51 +53,49 @@ def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def raster_bound(tile_count: torch.Tensor, npx: int, px_bytes: int, tile_pix: int = 4096):
-    """(bound_ms, bound_by, pairs) of one binned raster call: 64 B a setup
-    row its tiles hold and 8 B a tile read once, `px_bytes` a pixel of
-    planes read or written once; EDGE_OPS for every row at every pixel of
-    its tile."""
-    pairs = int(tile_count.to(torch.int64).sum())
-    t_bytes = (pairs * 64 + tile_count.numel() * 8 + npx * px_bytes) / PEAK_BYTES * 1e3
-    t_ops = EDGE_OPS * pairs * tile_pix / PEAK_FP32_OPS * 1e3
+def raster_bound(bbox: torch.Tensor, bins, width: int, height: int, px_bytes: int,
+                 y_offset: int = 0, tile_h: int = 32, tile_w: int = 128):
+    """(bound_ms, bound_by, pairs) of one binned raster call over the
+    band [y_offset, y_offset + height). Bytes: 64 B a setup row its tiles
+    hold and 8 B a tile, each read once, and `px_bytes` a pixel of planes
+    read or written once. Operations: EDGE_OPS at each pixel of a row's
+    tile that the row's triangle bounding box (`bbox` (T, 4), inclusive
+    pixels, the binning's) covers -- the pixels any raster of this data
+    must test -- not at every pixel of the tile."""
+    ntx, nty = -(-width // tile_w), -(-height // tile_h)
+    used = bins.tile_of_pair < ntx * nty
+    tile = bins.tile_of_pair[used].to(torch.int64)
+    box = bbox[bins.order[used].to(torch.int64)].to(torch.int64)
+    tx0 = torch.remainder(tile, ntx) * tile_w
+    ty0 = torch.div(tile, ntx, rounding_mode="floor") * tile_h + y_offset
+    x0 = torch.maximum(box[:, 0], tx0)
+    x1 = torch.minimum(box[:, 2], tx0 + tile_w - 1).clamp(max=width - 1)
+    y0 = torch.maximum(box[:, 1], ty0)
+    y1 = torch.minimum(box[:, 3], ty0 + tile_h - 1).clamp(max=y_offset + height - 1)
+    edge_px = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
+    pairs = int(tile.numel())
+    t_bytes = (pairs * 64 + ntx * nty * 8 + width * height * px_bytes) / PEAK_BYTES * 1e3
+    t_ops = EDGE_OPS * edge_px / PEAK_FP32_OPS * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
 
-def _other_kernel(source: str):
-    """Build `source` into build/ and return launch(setup, bins, h, w, S)."""
-    from .ops.raster import BUILD_DIR, NVCC_FLAGS, _nvcc
+@contextlib.contextmanager
+def raster_cluster(size: int):
+    """Run the raster wrapper at cluster size `size` (1..8) inside the
+    block; the result does not depend on it."""
+    from .ops import raster
 
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, "libsc_raster_other.so")
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", lib, source], check=True)
-    with open(source) as f:
-        entry = f.read().split('extern "C" int sc_raster_sorted(')[1].split(")")[0]
-    with_cluster = re.search(r"\bint cluster\b", entry) is not None
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = ctypes.CDLL(lib).sc_raster_sorted
-    fn.restype = i
-    fn.argtypes = ([p, i, p, p] + [i] * (8 if with_cluster else 6) + [p] * 5)
-
-    def launch(setup, tile_start, tile_count, height, width, cluster):
-        ntx, nty = -(-width // 128), -(-height // 32)
-        dev = setup.device
-        depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-        pair = torch.empty((height, width), dtype=torch.int32, device=dev)
-        extra = (cluster, 32) if with_cluster else ()
-        err = fn(setup.data_ptr(), setup.shape[0], tile_start.data_ptr(),
-                 tile_count.data_ptr(), ntx, nty, height, width, 0, 1, *extra, None,
-                 None, depth.data_ptr(), pair.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"{source}: launch failed ({err})")
-
-    return launch
+    saved = raster.RASTER_CLUSTER
+    raster.RASTER_CLUSTER = size
+    try:
+        yield
+    finally:
+        raster.RASTER_CLUSTER = saved
 
 
 def opaque_setup(scene: str, width: int, height: int):
-    """Tile-sorted opaque setup rows of `scene`'s frame at angle 0 and its
-    bins, on the card."""
+    """The opaque triangles of `scene`'s frame at angle 0, their
+    tile-sorted setup rows and their bins, on the card."""
     from .ops.binning import bin_triangles, gather_sorted_setup
     from .render.frame import _merged_setup_for_view, _merged_vertex_stage
     from .scenes import clip_blend_scene, headline_scene
@@ -119,15 +107,10 @@ def opaque_setup(scene: str, width: int, height: int):
     tri = _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config)
     tri = tri._replace(valid=tri.valid & (dev["materials"]["blend_mode"][attrs.material] == 0))
     bins = bin_triangles(tri, width, height, config.p_cap)
-    return gather_sorted_setup(tri, bins).contiguous(), bins
+    return tri, gather_sorted_setup(tri, bins).contiguous(), bins
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", help="another raster.cu to time on the same inputs")
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--height", type=int, default=1080)
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_raster: no CUDA device")
 
@@ -136,22 +119,23 @@ def main(argv=None) -> int:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(out.stdout.strip().splitlines()[0], flush=True)
-    other = _other_kernel(args.against) if args.against else None
-    w, h = args.width, args.height
+    w, h = 1920, 1080
     for scene in ("headline", "clip_blend"):
-        setup, bins = opaque_setup(scene, w, h)
+        tri, setup, bins = opaque_setup(scene, w, h)
         counts = bins.tile_count
         heaviest = int(torch.argmax(counts))
-        bound_ms, bound_by, pairs = raster_bound(counts, w * h, 8)
+        bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, w, h, 8)
         print(f"{scene}: {pairs} pairs in {int((counts > 0).sum())} of {counts.numel()} tiles, "
               f"heaviest tile {int(counts[heaviest])} rows; bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
 
-        def run(tile_count, cluster=RASTER_CLUSTER):
-            return graph_ms(lambda: rasterize_sorted(setup, bins.tile_start, tile_count, h, w,
-                                                     cluster=cluster))
+        def run(tile_count):
+            return graph_ms(lambda: rasterize_sorted(setup, bins.tile_start, tile_count, h, w))
 
-        per_cluster = {c: run(counts, c) for c in (1, 2, 4, 8)}
+        per_cluster = {}
+        for c in (1, 2, 4, 8):
+            with raster_cluster(c):
+                per_cluster[c] = run(counts)
         print(f"  kernel by cluster size (ms): "
               + ", ".join(f"{c}: {t:.4f}" for c, t in per_cluster.items()), flush=True)
         only = torch.zeros_like(counts)
@@ -161,16 +145,6 @@ def main(argv=None) -> int:
         print(f"  at cluster {RASTER_CLUSTER} (ms): heaviest tile only {run(only):.4f}, every "
               f"other tile {run(rest):.4f}, every tile empty {run(torch.zeros_like(counts)):.4f}",
               flush=True)
-        if other is not None:
-            turns = []
-            for which in ("other", "this", "this", "other"):
-                if which == "this":
-                    turns.append(run(counts))
-                else:
-                    turns.append(graph_ms(lambda: other(setup, bins.tile_start, counts, h, w,
-                                                        RASTER_CLUSTER)))
-            print(f"  in turns (ms): other {turns[0]:.4f}, this {turns[1]:.4f}, this "
-                  f"{turns[2]:.4f}, other {turns[3]:.4f}", flush=True)
     return 0
 
 

@@ -55,6 +55,8 @@ KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster.cu and csrc/kbuffer.cu
 # and the fewest rows a tile part holds before the tile is split. 4 is the
 # fastest on the headline frame's opaque pass and within 2% of 8 on the
 # clip_blend frame's (PERF.md); 8 pays for its idle blocks on light tiles.
+# rasterize_sorted reads both at each call (bench_raster.raster_cluster
+# sets the first for a sweep).
 RASTER_CLUSTER = 4
 RASTER_MIN_PART_ROWS = 32
 KBUFFER_KS = (1, 2, 4, 8)  # the k-buffer kernel's template depths
@@ -185,14 +187,12 @@ def rasterize_sorted(
     reverse_z: bool = True,
     init: Optional[VisibilityBuffer] = None,
     y_offset: int = 0,
-    *,
-    cluster: int = RASTER_CLUSTER,
-    min_part_rows: int = RASTER_MIN_PART_ROWS,
 ) -> VisibilityBuffer:
     """Visibility of tile-sorted setup rows; ``pair`` holds sorted
     positions. CUDA tensors launch the kernel, CPU tensors run
-    rasterize_sorted_plain. `cluster` and `min_part_rows` choose how the
-    kernel splits heavy tiles; the result does not depend on them."""
+    rasterize_sorted_plain. The kernel splits heavy tiles by the module's
+    RASTER_CLUSTER and RASTER_MIN_PART_ROWS; the result does not depend on
+    them."""
     dev = sorted_setup.device
     if dev.type == "cpu":
         return rasterize_sorted_plain(
@@ -205,9 +205,6 @@ def rasterize_sorted(
         raise ValueError(f"the raster kernel takes {KERNEL_TILE} tiles, got {(tile_h, tile_w)}")
     if height <= 0 or width <= 0:
         raise ValueError("empty raster target")
-    if not 1 <= cluster <= 8 or min_part_rows < 1:
-        raise ValueError(f"cluster must be in 1..8 and min_part_rows >= 1, got "
-                         f"{cluster}, {min_part_rows}")
     ntx, nty = _tile_grid(height, width, tile_h, tile_w)
     p = sorted_setup.shape[0]
     _check(sorted_setup, "sorted_setup", torch.float32, (p, 16), dev)
@@ -228,7 +225,7 @@ def rasterize_sorted(
         err = launch(
             sorted_setup.data_ptr(), p, tile_start.data_ptr(),
             tile_count.data_ptr(), ntx, nty, height, width, int(y_offset),
-            int(bool(reverse_z)), int(cluster), int(min_part_rows), init_depth,
+            int(bool(reverse_z)), RASTER_CLUSTER, RASTER_MIN_PART_ROWS, init_depth,
             init_pair, depth.data_ptr(), pair.data_ptr(), stream,
         )
     if err != 0:

@@ -37,6 +37,10 @@ from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import CLIP_BLEND_SMALL, clip_blend_host, headline_host
 from test_torch_host import REF_HOST
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_clip_blend_256x128.npz")
 ANGLE = 0.3  # sphere turn of the golden frame

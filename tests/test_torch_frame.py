@@ -28,6 +28,10 @@ from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host
 from test_torch_host import REF_HOST
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERO_GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_hero_256x128.npz")
 

@@ -28,6 +28,10 @@ from superconductor_tpu_torch.scenes import headline_host
 from superconductor_tpu_torch.utils import procgen as port_procgen
 from test_torch_host import REF_HOST, numpy_joint_update
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 ANGLES = [0.0, 0.7, 2.5]
 
 

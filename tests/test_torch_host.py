@@ -37,6 +37,10 @@ from superconductor_tpu_torch.scene import scene as port_scene
 from superconductor_tpu_torch.scenes import HERO_GLB, HOST
 from superconductor_tpu_torch.utils import procgen as port_procgen
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "superconductor_tpu_torch")
 

@@ -32,6 +32,10 @@ from superconductor_tpu_torch.render.frame import _merged_setup_for_view, _merge
 from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host, quad_stack_setup
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -26,12 +26,18 @@ from superconductor_tpu.ops import binning as ref_binning
 from superconductor_tpu.ops.geometry import geometry_pass, make_draw_list
 from superconductor_tpu.render import frame as ref_frame
 from superconductor_tpu.render.draws import build_frame_state
+from superconductor_tpu_torch.bench_raster import raster_bound
+from superconductor_tpu_torch.ops import raster as raster_mod
 from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
 from superconductor_tpu_torch.ops.geometry import TriangleSetup
 from superconductor_tpu_torch.ops.raster import rasterize_sorted, rasterize_sorted_plain
 from superconductor_tpu_torch.ops.raster_ref import VisibilityBuffer
 from superconductor_tpu_torch.scenes import headline_host, heavy_tile_setup, quad_stack_setup
 from test_torch_host import REF_HOST
+
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -345,8 +351,35 @@ def test_split_cases_have_ties_across_parts():
     assert torch.equal(rows[0], rows[2]) and torch.equal(rows[0], rows[4])
 
 
+def test_raster_bound_counts_box_pixels_in_tiles():
+    """bench_raster.raster_bound charges the edge operations only at the
+    pixels of each row's tile that its triangle's bounding box covers
+    inside the band: against a loop over the pairs, in a band with a
+    y_offset, at far less than every pixel of every row's tile."""
+    tri = _to_port(_hero_tri(256, 128, 0.3))
+    y0, h, w, px_bytes = 40, 64, 256, 8
+    bins = bin_triangles(tri, w, h, 1 << 13, y_offset=y0)
+    pairs = int(bins.tile_count.sum())
+    ntx, ntiles = 2, 2 * 2
+    edge_px = 0
+    for p in range(pairs):
+        tile, t = int(bins.tile_of_pair[p]), int(bins.order[p])
+        bx0, by0, bx1, by1 = (int(v) for v in tri.bbox[t])
+        tx, ty = tile % ntx * 128, tile // ntx * 32 + y0
+        cols = min(bx1, tx + 127, w - 1) - max(bx0, tx) + 1
+        rows = min(by1, ty + 31, y0 + h - 1) - max(by0, ty) + 1
+        edge_px += max(cols, 0) * max(rows, 0)
+    assert 0 < edge_px < pairs * 4096 // 4
+    t_bytes = (pairs * 64 + ntiles * 8 + w * h * px_bytes) / 3.35e12 * 1e3
+    t_ops = 12 * edge_px / 67e12 * 1e3
+    bound_ms, bound_by, got_pairs = raster_bound(tri.bbox, bins, w, h, px_bytes, y0)
+    assert got_pairs == pairs
+    assert bound_ms == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert bound_by == ("operations" if t_ops >= t_bytes else "bytes")
+
+
 @pytest.mark.gpu
-def test_kernel_split_matches_plain_on_card():
+def test_kernel_split_matches_plain_on_card(monkeypatch):
     """The cluster split on the card: every cluster size and split
     threshold, both z directions, with and without init, on the heavy tile
     and the stack, bit for bit against the plain version."""
@@ -365,9 +398,10 @@ def test_kernel_split_matches_plain_on_card():
             plain_init = rasterize_sorted_plain(*args, reverse_z=reverse_z, init=init)
             for cluster in (1, 2, 4, 8):
                 for min_part_rows in (1, 32):
-                    kw = dict(reverse_z=reverse_z, cluster=cluster, min_part_rows=min_part_rows)
-                    k = rasterize_sorted(*args, **kw)
-                    ki = rasterize_sorted(*args, init=init, **kw)
+                    monkeypatch.setattr(raster_mod, "RASTER_CLUSTER", cluster)
+                    monkeypatch.setattr(raster_mod, "RASTER_MIN_PART_ROWS", min_part_rows)
+                    k = rasterize_sorted(*args, reverse_z=reverse_z)
+                    ki = rasterize_sorted(*args, reverse_z=reverse_z, init=init)
                     torch.cuda.synchronize()
                     assert torch.equal(k.pair, plain.pair) and torch.equal(k.depth, plain.depth)
                     assert torch.equal(ki.pair, plain_init.pair)

@@ -35,6 +35,10 @@ from superconductor_tpu_torch.scene.upload import scene_to_torch
 from superconductor_tpu_torch.scenes import headline_host
 from test_torch_host import REF_HOST
 
+# The test workers share the CPU: torch's default of a thread per core in
+# each of them oversubscribes it many times over.
+torch.set_num_threads(2)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))
