@@ -10,8 +10,9 @@ checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
-   process each, at once) and prints the seconds and the compiler's
-   registers, shared memory and spills of every template variant;
+   process each, at once) and prints the seconds, the compiler's
+   registers, shared memory and spills of every template variant, and the
+   k-buffer kernel's dynamic shared memory per K;
 3. raster kernel against its plain torch version on the card, which must
    agree bit for bit in depth and pair: the binned setup of the headline
    frame, a fan of edge-sharing triangles with pixel centres on the
@@ -20,9 +21,10 @@ checks them:
    the equal-z copies ~1,000 rows apart, so in different parts of the
    split) in both z directions, with and without init, at every cluster
    size; on the headline setup the kernel's device time (CUDA graph of 20
-   launches, median of 20 replays) at each cluster size, the time of one
-   call as a caller sees it and the plain version's (CUDA events, median
-   of 20), the heaviest tile's rows, the bound and the share of it;
+   launches, median of 20 replays) at each cluster size, with all tiles,
+   the heaviest tile only, every other tile and every tile empty, the time
+   of one call as a caller sees it and the plain version's (CUDA events,
+   median of 20), the heaviest tile's rows, the bound and the share of it;
 4. headline: fit_caps, a stats frame, 20 frames timed with CUDA events;
    the kernel's launch count over those frames; the frame against the
    same frame rendered with the plain raster (byte-equal); coverage
@@ -32,11 +34,14 @@ checks them:
 5. the raster kernel on the clip_blend frame's opaque setup, timed as in
    3; the k-buffer kernel against its plain version on the card, bit for
    bit in every depth plane, pair plane and layers count, for K in {1, 2,
-   4, 8} and with and without depth planes: the clip and the blend setup
-   of the 1080p clip_blend frame over its opaque depth, a stack of 12
-   quads with equal-z ties (layers > K), the stack in forward z, and a
-   band with a non-zero y_offset; timed at the frame's shapes (clip K=8
-   with depth planes, blend K=1 without) and at blend K=4;
+   4, 8}, with and without depth planes and at every cluster size: the
+   clip and the blend setup of the 1080p clip_blend frame over its opaque
+   depth, a stack of 12 quads with equal-z ties (layers > K), the stack in
+   forward z, a band with a non-zero y_offset, and the 2,044-row tile in
+   both z directions over a floor that rejects some of its rows; timed at
+   the frame's shapes (clip K=8 with depth planes, blend K=1 without) and
+   at blend K=4, each at every cluster size with all tiles, the heaviest
+   tile only, every other tile and every tile empty;
 6. clip_blend: fit_caps, a stats frame, 20 frames timed with CUDA events;
    both kernels' launch counts; the frame against its twin rendered with
    both plain versions (byte-equal); the clip pass both keeps and drops
@@ -72,7 +77,6 @@ import torch
 
 N_TIMED = 20
 WIDTH, HEIGHT = 1920, 1080  # the headline frame
-CLUSTERS = (1, 2, 4, 8)  # the raster kernel's cluster sizes
 # the JAX reference's hero frame at 256x128 (tests/test_torch_frame.py)
 HERO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "goldens", "torch_hero_256x128.npz")
@@ -159,7 +163,13 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
     tile must hold `min_rows` rows. With `timed`, records in `results` the
     kernel's device time at RASTER_CLUSTER (every size is printed), one
     call's time, the plain version's, the bound and the heaviest tile."""
-    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound, raster_cluster
+    from superconductor_tpu_torch.bench_raster import (
+        format_sweep,
+        graph_ms,
+        kernel_constants,
+        raster_bound,
+        sweep,
+    )
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
     from superconductor_tpu_torch.ops.raster import (
         RASTER_CLUSTER,
@@ -180,7 +190,7 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
     err = 0.0
     clusters = clusters or (RASTER_CLUSTER,)
     for cluster in clusters:
-        with raster_cluster(cluster):
+        with kernel_constants(RASTER_CLUSTER=cluster):
             vk = rasterize_sorted(*args, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(vk.depth, vp.depth) and torch.equal(vk.pair, vp.pair)):
@@ -197,23 +207,25 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
         raise RuntimeError(f"{name}: nothing covered")
     results["max_abs_err"] = max(results["max_abs_err"], err)
     if timed:
-        per_cluster = {}
-        for c in CLUSTERS:
-            with raster_cluster(c):
-                per_cluster[c] = graph_ms(lambda: rasterize_sorted(*args, **kw))
+
+        def run(tile_count):
+            return graph_ms(lambda: rasterize_sorted(sorted_setup, bins.tile_start, tile_count,
+                                                     height, width, **kw))
+
+        times = sweep(run, bins.tile_count, "RASTER_CLUSTER")
         one_call = cuda_ms(lambda: rasterize_sorted(*args, **kw))
         plain_ms = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
         bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, width, height,
                                                  8 if init is None else 16, y_offset)
-        ms = per_cluster[RASTER_CLUSTER]
+        ms = times[RASTER_CLUSTER]["all tiles"]
         results.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        one_call_ms=one_call, heaviest=heaviest, pairs=pairs)
         phase("raster", f"{name}: kernel {ms:.4f} ms at cluster {RASTER_CLUSTER} (device "
-              f"time, CUDA graph of 20 launches, median of {N_TIMED} replays); by cluster "
-              + ", ".join(f"{c}: {t:.4f}" for c, t in per_cluster.items())
-              + f"; one call {one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median "
-              f"of {N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
+              f"time, CUDA graph of 20 launches, median of {N_TIMED} replays); one call "
+              f"{one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
+              f"{N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
               f"tile {heaviest} rows), share {bound_ms / ms:.3f}")
+        phase("raster", f"{name}: " + format_sweep(times))
     return vp
 
 
@@ -232,11 +244,23 @@ def heavy_init(vis, seed: int):
 
 
 def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
-                    y_offset=0, floor=None, min_layers=1, timed=()):
+                    y_offset=0, floor=None, min_layers=1, min_rows=1, clusters=None,
+                    timed=()):
     """Kernel vs plain for every K and both want_depth on the binned,
-    sorted setup of `tri`; times each (K, want_depth) of `timed` and
-    returns {(K, want_depth): timings}."""
-    from superconductor_tpu_torch.bench_raster import graph_ms, raster_bound
+    sorted setup of `tri`, at each cluster size in `clusters` (None: the
+    wrapper's KBUFFER_CLUSTER). The heaviest tile must hold `min_rows` rows.
+    Times each (K, want_depth) of `timed` at every cluster size, with all
+    tiles, the heaviest tile only, every other tile and every tile empty;
+    returns {(K, want_depth): timings} at KBUFFER_CLUSTER."""
+    from superconductor_tpu_torch.bench_raster import (
+        format_sweep,
+        graph_ms,
+        kbuffer_px_bytes,
+        kernel_constants,
+        raster_bound,
+        sweep,
+    )
+    from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
     from superconductor_tpu_torch.ops.raster import KBUFFER_KS, kbuffer_sorted
     from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
@@ -244,50 +268,62 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
     bins = bin_triangles(tri, width, height, p_cap, y_offset=y_offset)
     if int(bins.num_pairs) > p_cap:
         raise RuntimeError(f"{name}: p_cap {p_cap} < {int(bins.num_pairs)} pairs")
+    heaviest = int(bins.tile_count.max())
+    if heaviest < min_rows:
+        raise RuntimeError(f"{name}: heaviest tile {heaviest} rows < {min_rows}")
     sorted_setup = gather_sorted_setup(tri, bins).contiguous()
     args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    clusters = clusters or (raster_mod.KBUFFER_CLUSTER,)
     for k in KBUFFER_KS:
         for want in (True, False):
             kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
                       want_depth=want)
-            kb, layers = kbuffer_sorted(*args, **kw)
             pkb, players = kbuffer_sorted_plain(*args, **kw)
-            torch.cuda.synchronize()
-            same = torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
-            err = 0.0
-            if want:
-                same = same and torch.equal(kb.depth, pkb.depth)
-                err = float((kb.depth - pkb.depth).abs().max())
-            if not same:
-                diff = int((kb.pair != pkb.pair).sum())
-                raise RuntimeError(f"{name} K={k} want_depth={want}: kernel != plain "
-                                   f"({diff} pair values differ)")
-            results["max_abs_err"] = max(results["max_abs_err"], err)
+            for cluster in clusters:
+                with kernel_constants(KBUFFER_CLUSTER=cluster):
+                    kb, layers = kbuffer_sorted(*args, **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
+                err = 0.0
+                if want:
+                    same = same and torch.equal(kb.depth, pkb.depth)
+                    err = float((kb.depth - pkb.depth).abs().max())
+                if not same:
+                    diff = int((kb.pair != pkb.pair).sum())
+                    raise RuntimeError(f"{name} K={k} want_depth={want} cluster={cluster}: "
+                                       f"kernel != plain ({diff} pair values differ)")
+                results["max_abs_err"] = max(results["max_abs_err"], err)
     deepest = int(layers.max())
-    heaviest = int(bins.tile_count.max())
+    sizes = ",".join(map(str, clusters))
     phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
-          f"{heaviest} rows, K=1,2,4,8 x want_depth: equal (tolerance: bit for bit); max "
-          f"layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
+          f"{heaviest} rows, K=1,2,4,8 x want_depth, cluster {sizes}: equal (tolerance: bit "
+          f"for bit); max layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
     if deepest < min_layers:
         raise RuntimeError(f"{name}: at most {deepest} layers, expected >= {min_layers}")
     timings = {}
     for k, want in timed:
         kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
                   want_depth=want)
-        ms = graph_ms(lambda: kbuffer_sorted(*args, **kw))
+
+        def run(tile_count):
+            return graph_ms(lambda: kbuffer_sorted(sorted_setup, bins.tile_start, tile_count,
+                                                   height, width, **kw))
+
+        times = sweep(run, bins.tile_count, "KBUFFER_CLUSTER")
+        ms = times[raster_mod.KBUFFER_CLUSTER]["all tiles"]
         one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
         plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
-        # pair planes (and depth planes), layers, the floor when given
-        px_bytes = 4 * k * (2 if want else 1) + 4 + (0 if floor is None else 4)
-        bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, width, height, px_bytes,
-                                                 y_offset)
+        bound_ms, bound_by, pairs = raster_bound(
+            tri.bbox, bins, width, height, kbuffer_px_bytes(k, want, floor is not None), y_offset
+        )
         timings[(k, want)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, heaviest=heaviest, pairs=pairs)
-        phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms (device time, "
-              f"CUDA graph of 20 launches, median of {N_TIMED} replays); one call "
-              f"{one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
-              f"{N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
-              f"tile {heaviest} rows), share {bound_ms / ms:.3f}")
+        phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms at cluster "
+              f"{raster_mod.KBUFFER_CLUSTER} (device time, CUDA graph of 20 launches, median "
+              f"of {N_TIMED} replays); one call {one_call:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(CUDA events, median of {N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{pairs} pairs, heaviest tile {heaviest} rows), share {bound_ms / ms:.3f}")
+        phase("kbuffer", f"{name} K={k} want_depth={want}: " + format_sweep(times))
     return timings
 
 
@@ -308,9 +344,11 @@ def clip_blend_path(dev, kb_results, cb_raster) -> dict:
         render_frame_stats,
         stats_to_host,
     )
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.scenes import (
         CLIP_BLEND_SMALL,
         clip_blend_scene,
+        heavy_tile_setup,
         quad_stack_setup,
     )
 
@@ -331,18 +369,28 @@ def clip_blend_path(dev, kb_results, cb_raster) -> dict:
     clip_tri = tri._replace(valid=tri.valid & (blend == 1))
     blend_tri = tri._replace(valid=tri.valid & (blend == 2))
     clip_t = compare_kbuffer("clip-1080p", clip_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
-                             floor=floor, min_layers=2, timed=[(8, True)])
+                             floor=floor, min_layers=2, clusters=CLUSTERS, timed=[(8, True)])
     kb_results.update(clip_t[(8, True)])
     compare_kbuffer("blend-1080p", blend_tri, WIDTH, HEIGHT, config.p_cap, kb_results,
-                    floor=floor, timed=[(1, False), (4, False)])
+                    floor=floor, clusters=CLUSTERS, timed=[(1, False), (4, False)])
     compare_kbuffer("stack", quad_stack_setup(200, 80, dev), 200, 80, 512, kb_results,
-                    min_layers=9)
+                    min_layers=9, clusters=CLUSTERS)
     compare_kbuffer("stack-forward-z", quad_stack_setup(200, 80, dev, reverse_z=False),
-                    200, 80, 512, kb_results, reverse_z=False, min_layers=9)
+                    200, 80, 512, kb_results, reverse_z=False, min_layers=9, clusters=CLUSTERS)
     band_y0, band_h = HEIGHT * 2 // 5, HEIGHT * 3 // 10
     compare_kbuffer("clip-band+y_offset", clip_tri, WIDTH, band_h, config.p_cap, kb_results,
-                    y_offset=band_y0,
-                    floor=floor[band_y0:band_y0 + band_h].contiguous(), min_layers=2)
+                    y_offset=band_y0, floor=floor[band_y0:band_y0 + band_h].contiguous(),
+                    min_layers=2, clusters=CLUSTERS)
+    # one tile of 2,044 rows (every triangle twice, the equal-z copies ~1,000
+    # rows apart) over a floor of random depths that rejects some of them
+    gen = torch.Generator(device=dev).manual_seed(5)
+    heavy_floor = torch.rand((96, 320), generator=gen, device=dev) * 0.35 + 0.15
+    for reverse_z in (True, False):
+        compare_kbuffer("heavy-tile" + ("" if reverse_z else "-forward-z"),
+                        heavy_tile_setup(320, 96, dev, reverse_z=reverse_z), 320, 96, 4096,
+                        kb_results, reverse_z=reverse_z,
+                        floor=heavy_floor if reverse_z else 1.0 - heavy_floor,
+                        min_layers=9, min_rows=2000, clusters=CLUSTERS)
 
     # --- 6. the clip_blend frame ---
     config = fit_caps(scene_dev, state0, config, env,
@@ -428,6 +476,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.render import frame as frame_mod
     from superconductor_tpu_torch.render.caps import fit_caps
@@ -455,6 +504,8 @@ def main() -> int:
         for line in b["log"].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 phase("build", line.strip())
+    phase("build", "kbuffer.cu dynamic shared memory a block: " + ", ".join(
+        f"K={k} {raster_mod.kbuffer_smem_bytes(k)} B" for k in raster_mod.KBUFFER_KS))
 
     # --- 3. kernel vs plain ---
     results = {"max_abs_err": 0.0, "ms": None, "plain_ms": None}

@@ -1,14 +1,17 @@
-"""The raster kernel at the frames' own shapes, on the GPU.
+"""The raster and k-buffer kernels at the frames' own shapes, on the GPU.
 
     python3 -m superconductor_tpu_torch.bench_raster
 
-Builds the opaque setup rows of the 1920x1080 headline and clip_blend
-frames, bins them, and prints for each: the pairs, the tiles holding rows
-and the heaviest tile; the kernel's device time at every cluster size
-(`graph_ms`: a CUDA graph of 20 launches, median of 20 replays); at the
-wrapper's cluster size, the time with only the heaviest tile's rows, with
-every tile but that one, and with every tile empty (where the time goes);
-and the bound (`raster_bound`). Needs a CUDA device.
+Builds the setup rows of the 1920x1080 headline and clip_blend frames,
+bins them, and prints for the raster kernel on both frames' opaque setups,
+and for the k-buffer kernel at the clip_blend frame's two shapes (clip K=8
+with depth planes, blend K=1 without, over the opaque depth) and at blend
+K=4: the pairs, the tiles holding rows and the heaviest tile; the kernel's
+device time at every cluster size (`graph_ms`: a CUDA graph of 20
+launches, median of 20 replays), with every tile's rows, with only the
+heaviest tile's, with every tile but that one, and with every tile empty
+(where the time goes); and the bound (`raster_bound`).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published
 EDGE_OPS = 12  # FP32 operations of three edge functions at one pixel
+CLUSTERS = (1, 2, 4, 8)  # the cluster sizes a sweep times
 
 
 def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
@@ -79,24 +83,57 @@ def raster_bound(bbox: torch.Tensor, bins, width: int, height: int, px_bytes: in
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
 
+def kbuffer_px_bytes(k: int, want_depth: bool, has_floor: bool) -> int:
+    """Bytes a pixel of one k-buffer call moves: K pair planes (and K depth
+    planes) and `layers` written, the floor read when given."""
+    return 4 * k * (2 if want_depth else 1) + 4 + (4 if has_floor else 0)
+
+
 @contextlib.contextmanager
-def raster_cluster(size: int):
-    """Run the raster wrapper at cluster size `size` (1..8) inside the
-    block; the result does not depend on it."""
+def kernel_constants(**values):
+    """Set ops.raster's module constants (RASTER_CLUSTER,
+    KBUFFER_MIN_PART_ROWS, ...) to `values` inside the block; no result
+    depends on them."""
     from .ops import raster
 
-    saved = raster.RASTER_CLUSTER
-    raster.RASTER_CLUSTER = size
+    saved = {name: getattr(raster, name) for name in values}
     try:
+        for name, value in values.items():
+            setattr(raster, name, value)
         yield
     finally:
-        raster.RASTER_CLUSTER = saved
+        for name, value in saved.items():
+            setattr(raster, name, value)
 
 
-def opaque_setup(scene: str, width: int, height: int):
-    """The opaque triangles of `scene`'s frame at angle 0, their
-    tile-sorted setup rows and their bins, on the card."""
-    from .ops.binning import bin_triangles, gather_sorted_setup
+def sweep(run, counts: torch.Tensor, constant: str) -> dict:
+    """Device ms of run(tile_count) at each cluster size in CLUSTERS, with
+    ops.raster's `constant` set to it, for four tile_counts: every tile's
+    rows, only the heaviest tile's, every tile but that one, and every tile
+    empty (where the time goes). -> {size: {variant: ms}}."""
+    heaviest = int(torch.argmax(counts))
+    only = torch.zeros_like(counts)
+    only[heaviest] = counts[heaviest]
+    rest = counts.clone()
+    rest[heaviest] = 0
+    variants = {"all tiles": counts, "heaviest tile only": only, "every other tile": rest,
+                "every tile empty": torch.zeros_like(counts)}
+    times = {}
+    for c in CLUSTERS:
+        with kernel_constants(**{constant: c}):
+            times[c] = {name: run(tile_count) for name, tile_count in variants.items()}
+    return times
+
+
+def format_sweep(times: dict) -> str:
+    return "; ".join(f"cluster {c}: " + ", ".join(f"{name} {t:.4f}" for name, t in v.items())
+                     for c, v in times.items()) + " (ms)"
+
+
+def frame_setup(scene: str, width: int, height: int):
+    """The merged triangle setup of `scene`'s frame at angle 0 on the card,
+    each triangle's blend mode (0 opaque, 1 clip, 2 blend) and the
+    scene's RenderConfig."""
     from .render.frame import _merged_setup_for_view, _merged_vertex_stage
     from .scenes import clip_blend_scene, headline_scene
 
@@ -105,46 +142,59 @@ def opaque_setup(scene: str, width: int, height: int):
     state = build(0.0)
     stages, attrs = _merged_vertex_stage(dev, state, config)
     tri = _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config)
-    tri = tri._replace(valid=tri.valid & (dev["materials"]["blend_mode"][attrs.material] == 0))
-    bins = bin_triangles(tri, width, height, config.p_cap)
-    return tri, gather_sorted_setup(tri, bins).contiguous(), bins
+    return tri, dev["materials"]["blend_mode"][attrs.material], config
+
+
+def binned(tri, width: int, height: int, p_cap: int):
+    """Bins of `tri` and its tile-sorted setup rows."""
+    from .ops.binning import bin_triangles, gather_sorted_setup
+
+    bins = bin_triangles(tri, width, height, p_cap)
+    return gather_sorted_setup(tri, bins).contiguous(), bins
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_raster: no CUDA device")
 
-    from .ops.raster import RASTER_CLUSTER, rasterize_sorted
+    from .ops import raster
+    from .ops.raster import kbuffer_sorted, rasterize_sorted
 
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(out.stdout.strip().splitlines()[0], flush=True)
     w, h = 1920, 1080
     for scene in ("headline", "clip_blend"):
-        tri, setup, bins = opaque_setup(scene, w, h)
+        tri, blend, config = frame_setup(scene, w, h)
+        opaque = tri._replace(valid=tri.valid & (blend == 0))
+        setup, bins = binned(opaque, w, h, config.p_cap)
         counts = bins.tile_count
-        heaviest = int(torch.argmax(counts))
-        bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, w, h, 8)
-        print(f"{scene}: {pairs} pairs in {int((counts > 0).sum())} of {counts.numel()} tiles, "
-              f"heaviest tile {int(counts[heaviest])} rows; bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
+        bound_ms, bound_by, pairs = raster_bound(opaque.bbox, bins, w, h, 8)
+        print(f"{scene} raster: {pairs} pairs in {int((counts > 0).sum())} of {counts.numel()} "
+              f"tiles, heaviest tile {int(counts.max())} rows; bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
 
         def run(tile_count):
             return graph_ms(lambda: rasterize_sorted(setup, bins.tile_start, tile_count, h, w))
 
-        per_cluster = {}
-        for c in (1, 2, 4, 8):
-            with raster_cluster(c):
-                per_cluster[c] = run(counts)
-        print(f"  kernel by cluster size (ms): "
-              + ", ".join(f"{c}: {t:.4f}" for c, t in per_cluster.items()), flush=True)
-        only = torch.zeros_like(counts)
-        only[heaviest] = counts[heaviest]
-        rest = counts.clone()
-        rest[heaviest] = 0
-        print(f"  at cluster {RASTER_CLUSTER} (ms): heaviest tile only {run(only):.4f}, every "
-              f"other tile {run(rest):.4f}, every tile empty {run(torch.zeros_like(counts)):.4f}",
-              flush=True)
+        print("  " + format_sweep(sweep(run, counts, "RASTER_CLUSTER")), flush=True)
+    floor = rasterize_sorted(setup, bins.tile_start, bins.tile_count, h, w).depth
+    for name, mode, k, want in (("clip", 1, 8, True), ("blend", 2, 1, False),
+                                ("blend", 2, 4, False)):
+        part = tri._replace(valid=tri.valid & (blend == mode))
+        setup, bins = binned(part, w, h, config.p_cap)
+        counts = bins.tile_count
+        bound_ms, bound_by, pairs = raster_bound(part.bbox, bins, w, h,
+                                                 kbuffer_px_bytes(k, want, True))
+        print(f"clip_blend k-buffer {name} K={k} want_depth={want}: {pairs} pairs in "
+              f"{int((counts > 0).sum())} of {counts.numel()} tiles, heaviest tile "
+              f"{int(counts.max())} rows; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+
+        def run(tile_count):
+            return graph_ms(lambda: kbuffer_sorted(setup, bins.tile_start, tile_count, h, w, k=k,
+                                                   depth_floor=floor, want_depth=want))
+
+        print("  " + format_sweep(sweep(run, counts, "KBUFFER_CLUSTER")), flush=True)
     return 0
 
 

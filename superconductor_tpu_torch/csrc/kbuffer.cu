@@ -19,51 +19,89 @@
 // when kWantDepth (the clip resolve reads them; the blend pass does not),
 // and `layers`, which may exceed K (the host's signal to grow K).
 //
-// Design: raster.cu's, with the slots in registers. A block of 128 x 4
-// threads covers 128 columns by kRows * 4 rows of a tile, kRows pixels of
-// one column per thread (4 for K <= 4, 2 for K = 8, so 2K+3 live values
-// per pixel stay within the 128 registers a 512-thread block allows), and
-// 32 / (4 * kRows) blocks share a tile. Each block stages CHUNK setup rows
-// (64 B each) into shared memory cooperatively and every thread walks them
-// in order, reading each row as a broadcast. The insertion shift is fully
-// unrolled over K, so the slots are registers and the shift is selects.
-// Each pixel writes its slots once; ragged edges are masked.
+// What bounds it on this card. Bytes set the floor: every pixel writes K
+// pair planes, K depth planes (clip) and `layers` and reads its floor --
+// 149 MB at 1080p for K = 8 with depth planes, 0.045 ms at 3.35 TB/s --
+// while the rows (64 B each) are small. The work is FP32 issue over (row,
+// pixel) pairs, plus, per accepted fragment, K compares and 2K selects;
+// but the binning leaves the rows very unevenly spread (one clip tile
+// holds 2,821 rows, most tiles none), and a tile's rows must be walked in
+// order, so a kernel that walks each tile on one SM takes as long as its
+// heaviest tile's walk while the card idles; and a small triangle covers
+// few of a tile's pixels, so most (row, pixel) pairs can be skipped.
 //
-// Bounds on this card: like raster.cu, FP32 instruction issue over
-// (row, pixel) pairs -- 15 multiply/adds per pair-pixel -- plus, per
-// accepted fragment, K compares and 2K selects. Every tile's rows are read
-// from L2 once per block that covers it. The simple correct form: no TMA
-// staging, no persistent grid, no balancing of heavy tiles.
+// Design:
+// * Bands. A block of 512 threads owns a band of 4 * kPix rows of a tile,
+//   kPix pixels of one column per thread (kPix = 2 for K = 8, 4 for K <= 4,
+//   so the 2K + 3 live values per pixel fit the 64 registers that two
+//   blocks an SM allow). Each group of 64 / kPix lanes owns one 8x8 block
+//   (raster_common.cuh band_pixel), and 8 neighbouring lanes store 32
+//   contiguous bytes of a plane.
+// * A thread-block cluster of S <= 8 blocks shares a band (grid x = tile
+//   column * S + rank). A tile of more than min_part_rows rows is cut into
+//   P = min(S, ceil(rows / min_part_rows)) contiguous parts; block s walks
+//   part s from empty slots under the same floor and leaves its K slots and
+//   count per pixel in its shared memory (dynamic: 2K + 1 words a pixel of
+//   the band, 40-80 KB with the ring; sc_kbuffer_smem_bytes). The insert
+//   leaves the top K of the accepted fragments under a total order
+//   (nearer first, then the later sorted position), so the top K of the
+//   union of the parts' lists is the whole walk's, in any merge order, and
+//   `layers` is the sum of the parts' counts. After cluster.sync() every
+//   block merges a share of the band's pixels through distributed shared
+//   memory: part 0's list as it is, then each later part's entries
+//   inserted by the same float `nearer` test (-0.0 equals 0.0) and, at an
+//   equal depth, the larger sorted position first -- so the result is the
+//   whole walk bit for bit, with no atomics, key packing or second launch.
+//   Bands of at most min_part_rows rows are walked by rank 0 alone, which
+//   writes from registers; the other ranks exit at once (empty tiles too:
+//   rank 0 writes far / -1 / 0).
+// * Exact row rejection per 8x8 block (raster_common.cuh block_keeps). For
+//   32 rows at a time, lane i tests row i against each of its warp's 8x8
+//   blocks at the corner where each edge is largest; a ballot gives each
+//   group the rows its block keeps, and the warp loops while any group has
+//   one left, each group taking its own next row in order. A kept row runs
+//   the fill-rule test on the thread's kPix pixels without branches, then
+//   the depth work and the insert of the pixels inside.
+// * Rows are staged by TMA (raster_common.cuh ring_walk): one thread
+//   issues 1-D bulk copies into a two-slot ring, each slot completing on an
+//   mbarrier, so the load of chunk c + 1 overlaps the walk of chunk c.
+//
+// What still bounds it (measured at 1080p on an H100, PERF.md): a group
+// walks its kept rows one after another, each a chain of dependent FP32
+// operations, an IEEE divide and, when accepted, an unrolled K-slot insert,
+// at 2 blocks an SM; the clip setup holds several heavy tiles whose band
+// walks together, not the heaviest tile's alone, set the time. Most
+// rows the 8x8 test keeps there are thin silhouette slivers that cover no
+// pixel of the block. And every band launches S blocks, most of them on
+// empty tiles: at S = 1 the empty tiles write their planes near the bytes
+// bound, and each step in S adds launch time (the wrapper's S = 2 weighs
+// the two).
 //
 // Bit-exactness with the reference: __fmul_rn / __fadd_rn in its order and
 // an IEEE divide (__fdiv_rn); build with -fmad=false, never fast-math.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "raster_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTileH = 32;
-constexpr int kTileW = 128;
-constexpr int kThreadsY = 4;
-constexpr int kChunk = 256;  // setup rows staged per round (16 KB)
+// pixels a thread holds down one column, for K slots
+template <int K>
+constexpr int kPixFor = K >= 8 ? 2 : 4;
 
-__device__ __forceinline__ bool tie_bit(float a, float b) {
-  return (a > 0.0f) || (a == 0.0f && b > 0.0f);
-}
+constexpr int kRingBytes = 2 * kChunk * 64;
 
-__device__ __forceinline__ bool edge_ok(float e, bool tie) {
-  return (e > 0.0f) || (e == 0.0f && tie);
-}
-
-__device__ __forceinline__ float edge(float a, float b, float c, float px,
-                                      float py) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
-}
-
-__device__ __forceinline__ float dot3(float e0, float e1, float e2, float v0,
-                                      float v1, float v2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(e0, v0), __fmul_rn(e1, v1)),
-                   __fmul_rn(e2, v2));
+// dynamic shared memory of a block: the ring, then K depth and K position
+// partials and a count for every pixel of the band
+template <int K>
+constexpr int smem_bytes() {
+  return kRingBytes + kThreads * kPixFor<K> * (2 * K + 1) * 4;
 }
 
 template <bool kReverseZ>
@@ -71,216 +109,376 @@ __device__ __forceinline__ bool nearer(float a, float b) {
   return kReverseZ ? (a > b) : (a < b);
 }
 
-// pixels per thread down a column for K slots
-template <int K>
-constexpr int kRowsFor = K >= 8 ? 2 : 4;
+// Inserts (z, p) into slots sorted nearest first: its rank is the number of
+// occupied slots ahead of it, the slots from the rank on shift back by one,
+// and the last falls off (rank K drops it). A slot is ahead when strictly
+// nearer or, with kByPos, at an equal depth with a larger position. The
+// walk inserts in increasing position, so there kByPos changes nothing.
+template <int K, bool kReverseZ, bool kByPos>
+__device__ __forceinline__ void insert(float (&depth)[K], int (&pos)[K],
+                                       float z, int p) {
+  int rank = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const bool ahead = nearer<kReverseZ>(depth[i], z) ||
+                       (kByPos && depth[i] == z && pos[i] > p);
+    rank += (pos[i] >= 0 && ahead) ? 1 : 0;
+  }
+#pragma unroll
+  for (int i = K - 1; i > 0; --i) {
+    if (i > rank) {
+      depth[i] = depth[i - 1];
+      pos[i] = pos[i - 1];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i == rank) {
+      depth[i] = z;
+      pos[i] = p;
+    }
+  }
+}
 
 template <int K, bool kReverseZ, bool kWantDepth>
-__global__ void __launch_bounds__(kTileW * kThreadsY)
+__global__ void __launch_bounds__(kThreads, 2)
 kbuffer_sorted_kernel(const float4* __restrict__ setup, int num_rows,
                       const int* __restrict__ tile_start,
                       const int* __restrict__ tile_count, int ntx, int height,
-                      int width, int y_offset,
+                      int width, int y_offset, int min_part_rows,
                       const float* __restrict__ floor_depth,
                       float* __restrict__ depth_out,
                       int* __restrict__ pair_out,
                       int* __restrict__ layers_out) {
-  constexpr int kRows = kRowsFor<K>;
-  constexpr int kBlockRows = kThreadsY * kRows;
-  constexpr int kSplit = kTileH / kBlockRows;  // blocks per tile
-  __shared__ float4 rows[kChunk * 4];
+  constexpr int kPix = kPixFor<K>;
+  constexpr int kBandH = kThreads * kPix / kTileW;  // 4 * kPix rows
+  constexpr int kBands = kTileH / kBandH;
+  constexpr int kBandPx = kThreads * kPix;
+  constexpr int kGroups = kPix / 2;  // 8x8 blocks of a warp
+  constexpr int kGroupLanes = 32 / kGroups;
 
-  const int tile_y = blockIdx.y / kSplit;
-  const int t = tile_y * ntx + blockIdx.x;
-  const long long start = tile_start[t];
-  const long long stop = start + static_cast<long long>(tile_count[t]);
-  const int begin = static_cast<int>(start < 0 ? 0 : start);
-  const int end = static_cast<int>(stop > num_rows ? num_rows : stop);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4(*ring)[kChunk * 4] = reinterpret_cast<float4(*)[kChunk * 4]>(smem);
+  // partials by slot q = k * kThreads + thread: slot i of pixel q at
+  // [i * kBandPx + q]
+  float* part_depth = reinterpret_cast<float*>(smem + kRingBytes);
+  int* part_pos = reinterpret_cast<int*>(part_depth + K * kBandPx);
+  int* part_layers = part_pos + K * kBandPx;
+  __shared__ __align__(8) uint64_t bar[2];
 
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y0 = tile_y * kTileH + (blockIdx.y % kSplit) * kBlockRows +
-                 threadIdx.y * kRows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tx = blockIdx.x / S;
+  const int ty = blockIdx.y / kBands;
+  const int band_y = ty * kTileH + (blockIdx.y % kBands) * kBandH;
+  const int t = ty * ntx + tx;
+
+  // this block's part [pb, pe) of the tile's rows
+  int pb, pe;
+  const int parts = tile_part(tile_start, tile_count, t, num_rows, S,
+                              min_part_rows, rank, &pb, &pe);
+  if (parts == 1 && rank != 0) return;  // uniform over the cluster
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int group = lane / kGroupLanes;
+  int lx, ly0;
+  band_pixel<kPix>(tid, 0, &lx, &ly0);
+  const int x = tx * kTileW + lx;
+  const int y0 = band_y + ly0;
   const float px = static_cast<float>(x) + 0.5f;
+  // y + k + y_offset + .5 for k < kPix, exact in f32 (|y| < 2^22)
+  const float py0 = static_cast<float>(y0 + y_offset) + 0.5f;
   const float far_depth = kReverseZ ? 0.0f : 1.0f;
 
-  float py[kRows];
-  float floor_z[kRows];
-  int layers[kRows];
-  float depth[kRows][K];
-  int pos[kRows][K];
+  float floor_z[kPix];
+  int layers[kPix];
+  float depth[kPix][K];
+  int pos[kPix][K];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int y = y0 + r;
-    py[r] = static_cast<float>(y + y_offset) + 0.5f;
-    floor_z[r] = far_depth;
-    if (floor_depth != nullptr && x < width && y < height) {
-      floor_z[r] = floor_depth[static_cast<long long>(y) * width + x];
+  for (int k = 0; k < kPix; ++k) {
+    floor_z[k] = far_depth;  // read only where there are rows to test
+    if (floor_depth != nullptr && pe > pb && x < width && y0 + k < height) {
+      floor_z[k] = floor_depth[static_cast<long long>(y0 + k) * width + x];
     }
-    layers[r] = 0;
+    layers[k] = 0;
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      depth[r][i] = far_depth;
-      pos[r][i] = -1;
+      depth[k][i] = far_depth;
+      pos[k][i] = -1;
     }
   }
 
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int nthreads = kTileW * kThreadsY;
-  for (int base = begin; base < end; base += kChunk) {
-    const int n = min(kChunk, end - base);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int i = tid; i < n * 4; i += nthreads) {
-      rows[i] = setup[static_cast<long long>(base) * 4 + i];
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      // row layout: q0 = a0 b0 c0 a1 | q1 = b1 c1 a2 b2 |
-      //             q2 = c2 zc0 zc1 zc2 | q3 = wc0 wc1 wc2 flags
-      const float4 q0 = rows[s * 4 + 0];
-      const float4 q1 = rows[s * 4 + 1];
-      const float4 q2 = rows[s * 4 + 2];
-      const float4 q3 = rows[s * 4 + 3];
-      const bool t0 = tie_bit(q0.x, q0.y);
-      const bool t1 = tie_bit(q0.w, q1.x);
-      const bool t2 = tie_bit(q1.z, q1.w);
-      const int sorted_pos = base + s;
+  ring_walk(setup, pb, pe, ring, bar, [&](const float4* rows, int r0, int cnt) {
+    for (int g = 0; g < cnt; g += 32) {
+      // lane i tests row g + i against each 8x8 block of the warp; each
+      // group then walks, in order, the rows its block keeps
+      bool keep[kGroups];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float e0 = edge(q0.x, q0.y, q0.z, px, py[r]);
-        const float e1 = edge(q0.w, q1.x, q1.y, px, py[r]);
-        const float e2 = edge(q1.z, q1.w, q2.x, px, py[r]);
-        if (!(edge_ok(e0, t0) && edge_ok(e1, t1) && edge_ok(e2, t2))) continue;
-        const float wsum = dot3(e0, e1, e2, q3.x, q3.y, q3.z);
-        if (!(wsum > 0.0f)) continue;
-        const float zsum = dot3(e0, e1, e2, q2.y, q2.z, q2.w);
-        const float z = __fdiv_rn(zsum, wsum);
-        if (!(z >= 0.0f && z <= 1.0f && nearer<kReverseZ>(z, floor_z[r]))) continue;
-        layers[r] += 1;
-        int rank = 0;
+      for (int q = 0; q < kGroups; ++q) keep[q] = false;
+      if (g + lane < cnt) {
+        const float4 q0 = rows[(g + lane) * 4 + 0];
+        const float4 q1 = rows[(g + lane) * 4 + 1];
+        const float c2 = rows[(g + lane) * 4 + 2].x;
 #pragma unroll
-        for (int i = 0; i < K; ++i) {
-          rank += (pos[r][i] >= 0 && nearer<kReverseZ>(depth[r][i], z)) ? 1 : 0;
+        for (int q = 0; q < kGroups; ++q) {
+          int bx, by;
+          band_pixel<kPix>(warp * 32 + q * kGroupLanes, 0, &bx, &by);
+          keep[q] = block_keeps(q0, q1, c2, tx * kTileW + bx,
+                                band_y + by + y_offset);
         }
-        // shift the slots behind the rank back by one (the last falls
-        // off), then write the new fragment at the rank; rank == K drops it
+      }
+      unsigned mine = 0;
 #pragma unroll
-        for (int i = K - 1; i > 0; --i) {
-          if (i > rank) {
-            depth[r][i] = depth[r][i - 1];
-            pos[r][i] = pos[r][i - 1];
-          }
+      for (int q = 0; q < kGroups; ++q) {
+        const unsigned m = __ballot_sync(0xffffffffu, keep[q]);
+        if (q == group) mine = m;
+      }
+      while (__any_sync(0xffffffffu, mine != 0u)) {
+        const bool active = mine != 0u;
+        const int r = g + (active ? __ffs(mine) - 1 : 0);
+        mine &= mine - 1u;
+        const float4 q0 = rows[r * 4 + 0];
+        const float4 q1 = rows[r * 4 + 1];
+        const float4 q2 = rows[r * 4 + 2];
+        const float th0 = fill_threshold(q0.x, q0.y);
+        const float th1 = fill_threshold(q0.w, q1.x);
+        const float th2 = fill_threshold(q1.z, q1.w);
+        const float ax0 = __fmul_rn(q0.x, px);
+        const float ax1 = __fmul_rn(q0.w, px);
+        const float ax2 = __fmul_rn(q1.z, px);
+        // the fill-rule tests of every pixel first, without branches, so
+        // their chains overlap; then the depth work of the pixels inside
+        unsigned hit = 0;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const float py = __fadd_rn(py0, static_cast<float>(k));
+          const float e0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py)), q0.z);
+          const float e1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py)), q1.y);
+          const float e2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py)), q2.x);
+          hit |= (e0 > th0 && e1 > th1 && e2 > th2) ? 1u << k : 0u;
         }
+        if (active && hit != 0u) {
+          const float4 q3 = rows[r * 4 + 3];
 #pragma unroll
-        for (int i = 0; i < K; ++i) {
-          if (i == rank) {
-            depth[r][i] = z;
-            pos[r][i] = sorted_pos;
+          for (int k = 0; k < kPix; ++k) {
+            if (!(hit & (1u << k))) continue;
+            const float py = __fadd_rn(py0, static_cast<float>(k));
+            const float e0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py)), q0.z);
+            const float e1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py)), q1.y);
+            const float e2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py)), q2.x);
+            const float wsum = dot3(e0, e1, e2, q3.x, q3.y, q3.z);
+            if (!(wsum > 0.0f)) continue;
+            const float zsum = dot3(e0, e1, e2, q2.y, q2.z, q2.w);
+            const float z = __fdiv_rn(zsum, wsum);
+            if (!(z >= 0.0f && z <= 1.0f && nearer<kReverseZ>(z, floor_z[k]))) continue;
+            layers[k] += 1;
+            insert<K, kReverseZ, false>(depth[k], pos[k], z, r0 + r);
           }
         }
       }
     }
-  }
+  });
 
-  if (x < width) {
-    const long long plane = static_cast<long long>(height) * width;
+  const long long plane = static_cast<long long>(height) * width;
+  if (parts == 1) {
+    if (x < width) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int y = y0 + r;
-      if (y < height) {
-        const long long at = static_cast<long long>(y) * width + x;
-        layers_out[at] = layers[r];
+      for (int k = 0; k < kPix; ++k) {
+        if (y0 + k < height) {
+          const long long at = static_cast<long long>(y0 + k) * width + x;
+          layers_out[at] = layers[k];
 #pragma unroll
-        for (int i = 0; i < K; ++i) {
-          pair_out[i * plane + at] = pos[r][i];
-          if (kWantDepth) depth_out[i * plane + at] = depth[r][i];
+          for (int i = 0; i < K; ++i) {
+            pair_out[i * plane + at] = pos[k][i];
+            if (kWantDepth) depth_out[i * plane + at] = depth[k][i];
+          }
         }
       }
     }
+    return;
   }
+
+  // split band: partials, then the merge of a share of the band's pixels
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int q = k * kThreads + tid;
+    part_layers[q] = layers[k];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      part_depth[i * kBandPx + q] = depth[k][i];
+      part_pos[i * kBandPx + q] = pos[k][i];
+    }
+  }
+  cluster.sync();
+  for (int q = rank * kThreads + tid; q < kBandPx; q += S * kThreads) {
+    int qx, qy;
+    band_pixel<kPix>(q % kThreads, q / kThreads, &qx, &qy);
+    const int gx = tx * kTileW + qx;
+    const int gy = band_y + qy;
+    if (gx >= width || gy >= height) continue;
+    // part 0's list as it is (sorted already), then the later parts'
+    const float* d0 = cluster.map_shared_rank(part_depth, 0);
+    const int* p0 = cluster.map_shared_rank(part_pos, 0);
+    float d[K];
+    int p[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      d[j] = d0[j * kBandPx + q];
+      p[j] = p0[j * kBandPx + q];
+    }
+    int count = cluster.map_shared_rank(part_layers, 0)[q];
+    for (int s = 1; s < parts; ++s) {
+      const float* sd = cluster.map_shared_rank(part_depth, s);
+      const int* sp = cluster.map_shared_rank(part_pos, s);
+      count += cluster.map_shared_rank(part_layers, s)[q];
+      float zs[K];
+      int ps[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        zs[j] = sd[j * kBandPx + q];
+        ps[j] = sp[j * kBandPx + q];
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (ps[j] >= 0) insert<K, kReverseZ, true>(d, p, zs[j], ps[j]);
+      }
+    }
+    const long long at = static_cast<long long>(gy) * width + gx;
+    layers_out[at] = count;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      pair_out[i * plane + at] = p[i];
+      if (kWantDepth) depth_out[i * plane + at] = d[i];
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its partials
 }
 
 template <int K, bool kReverseZ, bool kWantDepth>
-void launch(const void* setup, int num_rows, const void* tile_start,
-            const void* tile_count, int ntx, int nty, int height, int width,
-            int y_offset, const void* floor_depth, void* depth_out,
-            void* pair_out, void* layers_out, cudaStream_t stream) {
-  constexpr int kSplit = kTileH / (kThreadsY * kRowsFor<K>);
-  const dim3 grid(ntx, nty * kSplit);
-  const dim3 block(kTileW, kThreadsY);
-  kbuffer_sorted_kernel<K, kReverseZ, kWantDepth><<<grid, block, 0, stream>>>(
-      static_cast<const float4*>(setup), num_rows,
+cudaError_t launch(const void* setup, int num_rows, const void* tile_start,
+                   const void* tile_count, int ntx, int nty, int height,
+                   int width, int y_offset, int cluster, int min_part_rows,
+                   const void* floor_depth, void* depth_out, void* pair_out,
+                   void* layers_out, cudaStream_t stream) {
+  constexpr int kBands = kTileH / (kThreads * kPixFor<K> / kTileW);
+  constexpr int smem = smem_bytes<K>();
+  auto kernel = kbuffer_sorted_kernel<K, kReverseZ, kWantDepth>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntx * cluster, nty * kBands, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float4*>(setup), num_rows,
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      ntx, height, width, y_offset, static_cast<const float*>(floor_depth),
-      static_cast<float*>(depth_out), static_cast<int*>(pair_out),
-      static_cast<int*>(layers_out));
+      ntx, height, width, y_offset, min_part_rows,
+      static_cast<const float*>(floor_depth), static_cast<float*>(depth_out),
+      static_cast<int*>(pair_out), static_cast<int*>(layers_out));
 }
 
 template <int K>
-void dispatch(bool reverse_z, const void* setup, int num_rows,
-              const void* tile_start, const void* tile_count, int ntx, int nty,
-              int height, int width, int y_offset, const void* floor_depth,
-              void* depth_out, void* pair_out, void* layers_out,
-              cudaStream_t s) {
+cudaError_t dispatch(bool reverse_z, const void* setup, int num_rows,
+                     const void* tile_start, const void* tile_count, int ntx,
+                     int nty, int height, int width, int y_offset, int cluster,
+                     int min_part_rows, const void* floor_depth,
+                     void* depth_out, void* pair_out, void* layers_out,
+                     cudaStream_t s) {
   const bool want_depth = depth_out != nullptr;
   if (reverse_z && want_depth) {
-    launch<K, true, true>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                          height, width, y_offset, floor_depth, depth_out,
-                          pair_out, layers_out, s);
+    return launch<K, true, true>(setup, num_rows, tile_start, tile_count, ntx,
+                                 nty, height, width, y_offset, cluster,
+                                 min_part_rows, floor_depth, depth_out,
+                                 pair_out, layers_out, s);
   } else if (reverse_z) {
-    launch<K, true, false>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                           height, width, y_offset, floor_depth, depth_out,
-                           pair_out, layers_out, s);
+    return launch<K, true, false>(setup, num_rows, tile_start, tile_count, ntx,
+                                  nty, height, width, y_offset, cluster,
+                                  min_part_rows, floor_depth, depth_out,
+                                  pair_out, layers_out, s);
   } else if (want_depth) {
-    launch<K, false, true>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                           height, width, y_offset, floor_depth, depth_out,
-                           pair_out, layers_out, s);
-  } else {
-    launch<K, false, false>(setup, num_rows, tile_start, tile_count, ntx, nty,
-                            height, width, y_offset, floor_depth, depth_out,
-                            pair_out, layers_out, s);
+    return launch<K, false, true>(setup, num_rows, tile_start, tile_count,
+                                  ntx, nty, height, width, y_offset, cluster,
+                                  min_part_rows, floor_depth, depth_out,
+                                  pair_out, layers_out, s);
   }
+  return launch<K, false, false>(setup, num_rows, tile_start, tile_count, ntx,
+                                 nty, height, width, y_offset, cluster,
+                                 min_part_rows, floor_depth, depth_out,
+                                 pair_out, layers_out, s);
 }
 
 }  // namespace
 
+// Bytes of dynamic shared memory a block of the K-slot kernel takes, or -1
+// for another k.
+extern "C" int sc_kbuffer_smem_bytes(int k) {
+  switch (k) {
+    case 1: return smem_bytes<1>();
+    case 2: return smem_bytes<2>();
+    case 4: return smem_bytes<4>();
+    case 8: return smem_bytes<8>();
+    default: return -1;
+  }
+}
+
 // Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128
-// and k must be 1, 2, 4 or 8; the caller checks shapes, dtypes, devices and
-// alignment. floor_depth (H, W) may be null (every floor at far); depth_out
+// and k must be 1, 2, 4 or 8; `cluster` (1..8) blocks share a band, and a
+// tile is split only into parts of more than `min_part_rows` (>= 1) rows.
+// The caller checks shapes, dtypes, devices and 16-byte alignment of
+// `setup`. floor_depth (H, W) may be null (every floor at far); depth_out
 // (K, H, W) may be null (no depth planes). Launches on `stream`, allocates
-// nothing, does not synchronise. Returns the cudaGetLastError() code of the
-// launch (0 = launched), or cudaErrorInvalidValue for another k.
+// nothing, does not synchronise. Returns the launch's cudaError_t code (0 =
+// launched), or cudaErrorInvalidValue for another k, cluster or
+// min_part_rows.
 extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
                                  const void* tile_start,
                                  const void* tile_count, int ntx, int nty,
                                  int height, int width, int y_offset, int k,
-                                 int reverse_z, const void* floor_depth,
-                                 void* depth_out, void* pair_out,
-                                 void* layers_out, void* stream) {
+                                 int reverse_z, int cluster, int min_part_rows,
+                                 const void* floor_depth, void* depth_out,
+                                 void* pair_out, void* layers_out,
+                                 void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || min_part_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool rz = reverse_z != 0;
+  cudaError_t err;
   switch (k) {
     case 1:
-      dispatch<1>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
-                  height, width, y_offset, floor_depth, depth_out, pair_out,
-                  layers_out, s);
+      err = dispatch<1>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
+                        height, width, y_offset, cluster, min_part_rows,
+                        floor_depth, depth_out, pair_out, layers_out, s);
       break;
     case 2:
-      dispatch<2>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
-                  height, width, y_offset, floor_depth, depth_out, pair_out,
-                  layers_out, s);
+      err = dispatch<2>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
+                        height, width, y_offset, cluster, min_part_rows,
+                        floor_depth, depth_out, pair_out, layers_out, s);
       break;
     case 4:
-      dispatch<4>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
-                  height, width, y_offset, floor_depth, depth_out, pair_out,
-                  layers_out, s);
+      err = dispatch<4>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
+                        height, width, y_offset, cluster, min_part_rows,
+                        floor_depth, depth_out, pair_out, layers_out, s);
       break;
     case 8:
-      dispatch<8>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
-                  height, width, y_offset, floor_depth, depth_out, pair_out,
-                  layers_out, s);
+      err = dispatch<8>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
+                        height, width, y_offset, cluster, min_part_rows,
+                        floor_depth, depth_out, pair_out, layers_out, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }

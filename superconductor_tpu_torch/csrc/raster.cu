@@ -63,6 +63,9 @@
 //   chunk c + 1 overlaps the walk of chunk c.
 // * 512-thread blocks, at most 64 registers a thread, 40 KB of static
 //   shared memory (32 KB partials + 8 KB ring): two blocks fit on an SM.
+// * The edge arithmetic, the 8x8 rejection, the thread-to-pixel map, the
+//   split into parts and the TMA ring live in raster_common.cuh, shared
+//   with kbuffer.cu.
 //
 // What still bounds it: a group walks its kept rows one after another, each
 // a chain of dependent FP32 operations (and an IEEE divide where a pixel is
@@ -81,89 +84,15 @@
 
 #include <cstdint>
 
+#include "raster_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTileH = 32;
-constexpr int kTileW = 128;
-constexpr int kThreads = 512;            // 16 warps, one 16x16 sub-tile each
-constexpr int kSubW = 16;                // sub-tile width (lanes 0-15 / 16-31)
-constexpr int kPix = 8;                  // pixels a thread holds (one column)
+constexpr int kPix = 8;  // pixels a thread holds (one column)
 constexpr int kTilePix = kTileH * kTileW;
-constexpr int kChunk = 64;               // setup rows a ring slot holds (4 KB)
-constexpr int kMaxCluster = 8;
 static_assert(kThreads * kPix == kTilePix, "a block holds the whole tile");
-
-__device__ __forceinline__ bool tie_bit(float a, float b) {
-  return (a > 0.0f) || (a == 0.0f && b > 0.0f);
-}
-
-__device__ __forceinline__ float edge(float a, float b, float c, float px,
-                                      float py) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
-}
-
-__device__ __forceinline__ float dot3(float e0, float e1, float e2, float v0,
-                                      float v1, float v2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(e0, v0), __fmul_rn(e1, v1)),
-                   __fmul_rn(e2, v2));
-}
-
-// True unless the edge fails at the sub-tile corner where it is largest
-// (then it fails at every pixel of the sub-tile).
-__device__ __forceinline__ bool corner_ok(float a, float b, float c,
-                                          float px_lo, float px_hi,
-                                          float py_lo, float py_hi) {
-  const float e = edge(a, b, c, a > 0.0f ? px_hi : px_lo,
-                       b > 0.0f ? py_hi : py_lo);
-  return !((e < 0.0f) || (e == 0.0f && !tie_bit(a, b)));
-}
-
-// Local (x, y) of pixel k of thread o: warp w owns sub-tile (w % 8, w / 8),
-// lanes 0-15 its top 8 rows and lanes 16-31 its bottom 8, one column each.
-__device__ __forceinline__ void local_pixel(int o, int k, int* lx, int* ly) {
-  const int w = o >> 5, lane = o & 31;
-  *lx = (w & 7) * kSubW + (lane & 15);
-  *ly = (w >> 3) * 16 + (lane >> 4) * kPix + k;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One thread: expect `bytes` on `bar`, then bulk-copy them global -> shared.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 template <bool kReverseZ, bool kHasInit>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -187,33 +116,26 @@ raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
   const int ty = blockIdx.y;
   const int t = ty * ntx + tx;
 
-  const long long start = tile_start[t];
-  const long long stop = start + static_cast<long long>(tile_count[t]);
-  const int begin = static_cast<int>(start < 0 ? 0 : start);
-  const int end = static_cast<int>(stop > num_rows ? num_rows : stop);
-  const int n = end > begin ? end - begin : 0;
-  int parts = (n + min_part_rows - 1) / min_part_rows;
-  parts = parts < 1 ? 1 : (parts > S ? S : parts);
+  // this block's part [pb, pe) of the tile's rows
+  int pb, pe;
+  const int parts = tile_part(tile_start, tile_count, t, num_rows, S,
+                              min_part_rows, rank, &pb, &pe);
   if (parts == 1 && rank != 0) return;  // uniform over the cluster
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   int lx, ly0;
-  local_pixel(tid, 0, &lx, &ly0);
+  band_pixel<kPix>(tid, 0, &lx, &ly0);
   const int x = tx * kTileW + lx;
   const int y0 = ty * kTileH + ly0;
   const float px = static_cast<float>(x) + 0.5f;
   // y + k + y_offset + .5 for k < 8, exact in f32 (|y| < 2^22)
   const float py0 = static_cast<float>(y0 + y_offset) + 0.5f;
   const float far_depth = kReverseZ ? 0.0f : 1.0f;
-  const float below_zero = __uint_as_float(0x80000001u);  // -0x1p-149
   // -inf under reverse-z, +inf otherwise: every accepted z beats it
   const float beyond_far = __uint_as_float(kReverseZ ? 0xff800000u : 0x7f800000u);
-
-  // the warp's sub-tile origin (pixel centres at +.5) and the 8x8 quarter
-  // of it that this lane's group of 8 holds
-  const int sx0 = tx * kTileW + (warp & 7) * kSubW;
-  const int sy0 = ty * kTileH + (warp >> 3) * 16 + y_offset;
+  // the 8x8 quarter of the warp's 16x16 sub-tile that this lane's group of
+  // 8 holds
   const int quarter = lane >> 3;
 
   float depth[kPix];
@@ -237,58 +159,22 @@ raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
     }
   }
 
-  // this block's part [pb, pe) of the tile's rows
-  int pb = begin, pe = begin;
-  if (rank < parts) {
-    pb = begin + static_cast<int>(static_cast<long long>(n) * rank / parts);
-    pe = begin + static_cast<int>(static_cast<long long>(n) * (rank + 1) / parts);
-  }
-  const int nchunks = (pe - pb + kChunk - 1) / kChunk;
-
-  if (tid == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (nchunks > 0) {
-      const int cnt = min(kChunk, pe - pb);
-      bulk_load(ring[0], setup + static_cast<long long>(pb) * 4, cnt * 64u, &bar[0]);
-    }
-  }
-  __syncthreads();
-
-  for (int c = 0; c < nchunks; ++c) {
-    const int slot = c & 1;
-    const int r0 = pb + c * kChunk;
-    const int cnt = min(kChunk, pe - r0);
-    mbar_wait(&bar[slot], (c >> 1) & 1);
-    __syncthreads();  // every warp is done with chunk c - 1 (the other slot)
-    if (tid == 0 && c + 1 < nchunks) {
-      const int r1 = r0 + kChunk;
-      bulk_load(ring[slot ^ 1], setup + static_cast<long long>(r1) * 4,
-                min(kChunk, pe - r1) * 64u, &bar[slot ^ 1]);
-    }
-    const float4* rows = ring[slot];
+  ring_walk(setup, pb, pe, ring, bar, [&](const float4* rows, int r0, int cnt) {
     for (int g = 0; g < cnt; g += 32) {
       // lane i tests row g + i against each 8x8 quarter of the warp's
       // sub-tile; each group of 8 lanes (one quarter) then walks, in
       // order, the rows its quarter keeps
       bool keep[4] = {false, false, false, false};
       if (g + lane < cnt) {
-        // row layout: q0 = a0 b0 c0 a1 | q1 = b1 c1 a2 b2 |
-        //             q2 = c2 zc0 zc1 zc2 | q3 = wc0 wc1 wc2 flags
         const float4 q0 = rows[(g + lane) * 4 + 0];
         const float4 q1 = rows[(g + lane) * 4 + 1];
         const float c2 = rows[(g + lane) * 4 + 2].x;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int qx = sx0 + (q & 1) * 8, qy = sy0 + (q >> 1) * 8;
-          const float xl = static_cast<float>(qx) + 0.5f;
-          const float xh = static_cast<float>(qx + 7) + 0.5f;
-          const float yl = static_cast<float>(qy) + 0.5f;
-          const float yh = static_cast<float>(qy + 7) + 0.5f;
-          keep[q] = corner_ok(q0.x, q0.y, q0.z, xl, xh, yl, yh) &&
-                    corner_ok(q0.w, q1.x, q1.y, xl, xh, yl, yh) &&
-                    corner_ok(q1.z, q1.w, c2, xl, xh, yl, yh);
+          int bx, by;
+          band_pixel<kPix>(warp * 32 + q * 8, 0, &bx, &by);
+          keep[q] = block_keeps(q0, q1, c2, tx * kTileW + bx,
+                                ty * kTileH + by + y_offset);
         }
       }
       unsigned mine = 0;
@@ -304,12 +190,9 @@ raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
         const float4 q0 = rows[r * 4 + 0];
         const float4 q1 = rows[r * 4 + 1];
         const float4 q2 = rows[r * 4 + 2];
-        // the fill-rule test e > 0 || (e == 0 && tie) as one compare per
-        // edge: e > -0x1p-149 is e >= 0 (comparisons do not flush
-        // subnormals), and a NaN fails both
-        const float th0 = tie_bit(q0.x, q0.y) ? below_zero : 0.0f;
-        const float th1 = tie_bit(q0.w, q1.x) ? below_zero : 0.0f;
-        const float th2 = tie_bit(q1.z, q1.w) ? below_zero : 0.0f;
+        const float th0 = fill_threshold(q0.x, q0.y);
+        const float th1 = fill_threshold(q0.w, q1.x);
+        const float th2 = fill_threshold(q1.z, q1.w);
         const float ax0 = __fmul_rn(q0.x, px);
         const float ax1 = __fmul_rn(q0.w, px);
         const float ax2 = __fmul_rn(q1.z, px);
@@ -346,7 +229,7 @@ raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
         }
       }
     }
-  }
+  });
 
   if (parts == 1) {
     if (x < width) {
@@ -371,7 +254,7 @@ raster_sorted_kernel(const float4* __restrict__ setup, int num_rows,
   cluster.sync();
   for (int q = rank * kThreads + tid; q < kTilePix; q += S * kThreads) {
     int qx, qy;
-    local_pixel(q % kThreads, q / kThreads, &qx, &qy);
+    band_pixel<kPix>(q % kThreads, q / kThreads, &qx, &qy);
     const int gx = tx * kTileW + qx;
     const int gy = ty * kTileH + qy;
     if (gx >= width || gy >= height) continue;

@@ -26,6 +26,7 @@ kernel, bit for bit. ``rasterize_sorted.LAUNCHES`` and
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -50,15 +51,21 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
-KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster.cu and csrc/kbuffer.cu
+KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster_common.cuh
 # csrc/raster.cu: blocks of a thread-block cluster sharing a tile (1..8),
 # and the fewest rows a tile part holds before the tile is split. 4 is the
 # fastest on the headline frame's opaque pass and within 2% of 8 on the
 # clip_blend frame's (PERF.md); 8 pays for its idle blocks on light tiles.
-# rasterize_sorted reads both at each call (bench_raster.raster_cluster
-# sets the first for a sweep).
+# csrc/kbuffer.cu: the same two for a band of a tile. 2 is within 2% of
+# the fastest (4) on the clip_blend frame's clip pass (K=8) and 8-13%
+# faster than 4 on its blend pass (K=1, 4); it launches half the idle
+# blocks (PERF.md). The wrappers read all four at each call
+# (bench_raster.kernel_constants sets them for a sweep); no result depends
+# on them.
 RASTER_CLUSTER = 4
 RASTER_MIN_PART_ROWS = 32
+KBUFFER_CLUSTER = 2
+KBUFFER_MIN_PART_ROWS = 32
 KBUFFER_KS = (1, 2, 4, 8)  # the k-buffer kernel's template depths
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,7 +73,7 @@ _SIGNATURES = {
     "raster": ("sc_raster_sorted",
                [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "kbuffer": ("sc_kbuffer_sorted",
-                [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 _libs: dict = {}
 
@@ -81,17 +88,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def is_fresh(source: str, library: str) -> bool:
+    """True when `library` exists and is no older than `source` and every
+    header csrc/*.cuh (which any source may include)."""
+    if not os.path.exists(library):
+        return False
+    headers = glob.glob(os.path.join(os.path.dirname(source), "*.cuh"))
+    built = os.path.getmtime(library)
+    return all(built >= os.path.getmtime(f) for f in (source, *headers))
+
+
 def build_kernels(force: bool = False, verbose: bool = False) -> dict:
-    """Compile every csrc/<name>.cu whose build/libsc_<name>.so is missing
-    or older than its source (all of them when `force`), one nvcc process
-    per source, all running at once. Returns {name: {"library", "seconds",
-    "log"}} for each kernel (seconds 0.0 and an empty log when it was up to
-    date); `log` holds the compiler's output, with -Xptxas -v when verbose."""
+    """Compile every csrc/<name>.cu whose build/libsc_<name>.so is not
+    `is_fresh` (all of them when `force`), one nvcc process per source, all
+    running at once. Returns {name: {"library", "seconds", "log"}} for each
+    kernel (seconds 0.0 and an empty log when it was up to date); `log`
+    holds the compiler's output, with -Xptxas -v when verbose."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out, running = {}, {}
     for name, (source, library) in KERNELS.items():
-        fresh = os.path.exists(library) and os.path.getmtime(library) >= os.path.getmtime(source)
-        if fresh and not force:
+        if is_fresh(source, library) and not force:
             out[name] = {"library": library, "seconds": 0.0, "log": ""}
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -114,17 +130,31 @@ def build_kernels(force: bool = False, verbose: bool = False) -> dict:
     return out
 
 
-def _kernel_fn(name: str):
-    """The C entry point of kernel `name`, building the libraries first
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building the libraries first
     when needed."""
     if name not in _libs:
         build_kernels()
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(KERNELS[name][1]), symbol)
+        _libs[name] = ctypes.CDLL(KERNELS[name][1])
+    return _libs[name]
+
+
+def _kernel_fn(name: str):
+    """The C entry point of kernel `name`."""
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(_library(name), symbol)
+    if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _libs[name] = fn
-    return _libs[name]
+    return fn
+
+
+def kbuffer_smem_bytes(k: int) -> int:
+    """Dynamic shared memory (bytes) a block of the K-slot k-buffer kernel
+    takes, from the built library (-1 for a k it does not take)."""
+    fn = _library("kbuffer").sc_kbuffer_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return int(fn(int(k)))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -254,7 +284,9 @@ def kbuffer_sorted(
     """K-layer raster of tile-sorted setup rows in front of depth_floor
     (H, W) (None = far) -> (KBuffer with SORTED positions in .pair and
     .depth None unless want_depth, layers (H, W) i32). CUDA tensors launch
-    the kernel, CPU tensors run kbuffer_sorted_plain."""
+    the kernel, CPU tensors run kbuffer_sorted_plain. The kernel splits
+    heavy tiles by the module's KBUFFER_CLUSTER and KBUFFER_MIN_PART_ROWS;
+    the result does not depend on them."""
     from .raster_kbuffer import KBuffer, kbuffer_sorted_plain
 
     dev = sorted_setup.device
@@ -294,8 +326,9 @@ def kbuffer_sorted(
         err = launch(
             sorted_setup.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
             ntx, nty, height, width, int(y_offset), int(k), int(bool(reverse_z)),
-            floor_ptr, None if depth is None else depth.data_ptr(), pair.data_ptr(),
-            layers.data_ptr(), stream,
+            KBUFFER_CLUSTER, KBUFFER_MIN_PART_ROWS, floor_ptr,
+            None if depth is None else depth.data_ptr(), pair.data_ptr(), layers.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"k-buffer kernel launch failed: cudaError_t {err}")

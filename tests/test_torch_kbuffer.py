@@ -3,8 +3,9 @@ tile-sorted setup rows: kbuffer_sorted_plain bit for bit in every depth
 plane, pair plane and the layers count against kbuffer_pallas_sorted(...,
 interpret=True) run without FMA contraction (see the kbuffer_cases
 fixture); kbuffer_insert bit for bit against the reference's. The CUDA
-kernel against the plain version (bit for bit) runs only where there is a
-card."""
+kernel's split of heavy tiles into parts merged by top K is modelled with
+the plain version (bit for bit against the whole walk). The CUDA kernel
+against the plain version (bit for bit) runs only where there is a card."""
 
 import functools
 import os
@@ -22,6 +23,7 @@ from superconductor_tpu_torch.math3d import Similarity, quat_from_axis_angle
 from superconductor_tpu_torch.ops import raster_kbuffer as port_kbuffer
 from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
 from superconductor_tpu_torch.ops.geometry import TriangleSetup
+from superconductor_tpu_torch.ops import raster as raster_mod
 from superconductor_tpu_torch.ops.raster import (
     KBUFFER_KS,
     kbuffer_sorted,
@@ -30,7 +32,7 @@ from superconductor_tpu_torch.ops.raster import (
 from superconductor_tpu_torch.render.draws import build_frame_state
 from superconductor_tpu_torch.render.frame import _merged_setup_for_view, _merged_vertex_stage
 from superconductor_tpu_torch.scene.upload import scene_to_torch
-from superconductor_tpu_torch.scenes import headline_host, quad_stack_setup
+from superconductor_tpu_torch.scenes import headline_host, heavy_tile_setup, quad_stack_setup
 
 # The test workers share the CPU: torch's default of a thread per core in
 # each of them oversubscribes it many times over.
@@ -259,3 +261,147 @@ def test_kbuffer_kernel_matches_plain_on_card():
     )
     assert torch.equal(kb.depth, pkb.depth) and torch.equal(kb.pair, pkb.pair)
     assert torch.equal(layers, players)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(name, reverse_z):
+    """(sorted setup, bins, height, width) of the 12-quad stack (equal-z
+    copies, up to 12 layers) or of one tile of 2,044 rows holding every
+    small triangle twice, the exact copies ~1,000 rows apart."""
+    if name == "stack":
+        tri, width, height, p_cap = quad_stack_setup(200, 80, "cpu", reverse_z=reverse_z), 200, 80, 512
+    else:
+        tri, width, height, p_cap = heavy_tile_setup(320, 96, "cpu", reverse_z=reverse_z), 320, 96, 4096
+    bins = bin_triangles(tri, width, height, p_cap)
+    return gather_sorted_setup(tri, bins).contiguous(), bins, height, width
+
+
+def _split_floor(height, width, reverse_z):
+    """A floor of random depths (numpy seed) that rejects some fragments of
+    both split cases."""
+    f = np.random.default_rng(24).uniform(0.15, 0.5, size=(height, width))
+    return torch.from_numpy((f if reverse_z else 1.0 - f).astype(np.float32))
+
+
+def _merge_insert(depth, pair, z, p, reverse_z):
+    """The kernel's merge step: insert fragment (z, p) (H, W) (p < 0: none)
+    into the sorted lists depth, pair (K, H, W) behind every held slot that
+    is strictly nearer or, at an equal depth (-0.0 == 0.0), holds a larger
+    sorted position; the last slot falls off."""
+    k = depth.shape[0]
+    nearer = depth > z[None] if reverse_z else depth < z[None]
+    ahead = (pair >= 0) & (nearer | ((depth == z[None]) & (pair > p[None])))
+    rank = torch.where(p >= 0, ahead.sum(dim=0), k)
+    out_d, out_p = [], []
+    for i in range(k):
+        prev = max(i - 1, 0)
+        out_d.append(torch.where(rank == i, z, torch.where(rank < i, depth[prev], depth[i])))
+        out_p.append(torch.where(rank == i, p, torch.where(rank < i, pair[prev], pair[i])))
+    return torch.stack(out_d), torch.stack(out_p)
+
+
+@functools.lru_cache(maxsize=None)
+def _part_lists(name, reverse_z, with_floor, parts):
+    """Every tile's rows of a split case cut into `parts` contiguous parts
+    as the kernel cuts them, each part walked alone by the plain version
+    from empty slots under the same floor, at K = 8 -> [(depth, pair,
+    layers)] by part. A part's top K is the first K slots of its top 8
+    (its list is sorted by the total order), so every K takes these."""
+    sorted_setup, bins, height, width = _split_case(name, reverse_z)
+    floor = _split_floor(height, width, reverse_z) if with_floor else None
+    count = bins.tile_count.to(torch.int64)
+    out = []
+    for s in range(parts):
+        lo = bins.tile_start + (count * s // parts).to(torch.int32)
+        n = (count * (s + 1) // parts - count * s // parts).to(torch.int32)
+        kb, layers = port_kbuffer.kbuffer_sorted_plain(
+            sorted_setup, lo, n, height, width, k=8, reverse_z=reverse_z, depth_floor=floor
+        )
+        out.append((kb.depth, kb.pair, layers))
+    return out
+
+
+def _merge_parts(part_lists, k, reverse_z):
+    """The CUDA kernel's merge: part 0's first K slots as they are, then
+    every later part's entries inserted by _merge_insert; layers is the sum
+    of the parts' counts."""
+    depth, pair, layers = part_lists[0]
+    depth, pair = depth[:k], pair[:k]
+    for part_depth, part_pair, part_layers in part_lists[1:]:
+        layers = layers + part_layers
+        for j in range(k):
+            depth, pair = _merge_insert(depth, pair, part_depth[j], part_pair[j], reverse_z)
+    return depth, pair, layers
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("with_floor", [False, True])
+@pytest.mark.parametrize("reverse_z", [True, False])
+@pytest.mark.parametrize("name", ["stack", "heavy"])
+def test_kbuffer_split_merge_equals_whole_walk(name, reverse_z, with_floor, k):
+    """Splitting every tile into 2, 3 and 8 contiguous parts and merging
+    the parts' top-K lists by the kernel's rule gives the whole walk's
+    depth, pair and layers planes bit for bit: equal-z copies in different
+    parts keep the later sorted position first, and layers exceeds K."""
+    sorted_setup, bins, height, width = _split_case(name, reverse_z)
+    floor = _split_floor(height, width, reverse_z) if with_floor else None
+    args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
+    whole, whole_layers = port_kbuffer.kbuffer_sorted_plain(
+        *args, k=k, reverse_z=reverse_z, depth_floor=floor
+    )
+    assert bool((whole.pair[k - 1] >= 0).any()) and int(whole_layers.max()) > k
+    for parts in (2, 3, 8):
+        depth, pair, layers = _merge_parts(_part_lists(name, reverse_z, with_floor, parts), k,
+                                           reverse_z)
+        assert torch.equal(depth, whole.depth), parts
+        assert torch.equal(pair, whole.pair), parts
+        assert torch.equal(layers, whole_layers), parts
+
+
+def test_kbuffer_split_case_ties_across_parts():
+    """In the heavy tile, cut in two as the kernel cuts it, some pixel holds
+    two equal-z fragments from different parts (the later one first) and
+    more accepted fragments than K."""
+    sorted_setup, bins, height, width = _split_case("heavy", True)
+    t = int(torch.argmax(bins.tile_count))
+    half = int(bins.tile_start[t]) + int(bins.tile_count[t]) // 2
+    kb, layers = port_kbuffer.kbuffer_sorted_plain(
+        sorted_setup, bins.tile_start, bins.tile_count, height, width, k=2
+    )
+    d, p = kb.depth, kb.pair
+    across = (d[0] == d[1]) & (p[1] >= 0) & ((p[0] >= half) != (p[1] >= half))
+    assert bool(across.any())
+    assert bool((p[0][across] > p[1][across]).all())
+    assert bool((layers[across] > 2).any())
+
+
+@pytest.mark.gpu
+def test_kbuffer_kernel_split_matches_plain_on_card(monkeypatch):
+    """The kernel's cluster split on the card: every cluster size and split
+    threshold, on the heavy tile and the stack, both z directions, with and
+    without a floor, every K, with and without depth planes, bit for bit
+    against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the k-buffer kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    for name in ("heavy", "stack"):
+        for reverse_z in (True, False):
+            sorted_setup, bins, height, width = _split_case(name, reverse_z)
+            args = (sorted_setup.to(dev), bins.tile_start.to(dev), bins.tile_count.to(dev),
+                    height, width)
+            for floor in (None, _split_floor(height, width, reverse_z).to(dev)):
+                for k in KBUFFER_KS:
+                    for want in (True, False):
+                        kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, want_depth=want)
+                        pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
+                        for cluster in (1, 2, 4, 8):
+                            for min_part_rows in (1, 32):
+                                monkeypatch.setattr(raster_mod, "KBUFFER_CLUSTER", cluster)
+                                monkeypatch.setattr(raster_mod, "KBUFFER_MIN_PART_ROWS",
+                                                    min_part_rows)
+                                kb, layers = kbuffer_sorted(*args, **kw)
+                                torch.cuda.synchronize()
+                                assert torch.equal(kb.pair, pkb.pair)
+                                assert torch.equal(layers, players)
+                                if want:
+                                    assert torch.equal(kb.depth, pkb.depth)

@@ -378,6 +378,29 @@ def test_raster_bound_counts_box_pixels_in_tiles():
     assert bound_by == ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def test_build_freshness_follows_headers(tmp_path):
+    """build_kernels rebuilds a library older than its source or than any
+    csrc/*.cuh beside it (both kernels include raster_common.cuh): checked
+    through raster.is_fresh on files with set mtimes, without nvcc."""
+    src, header, lib = tmp_path / "k.cu", tmp_path / "common.cuh", tmp_path / "libk.so"
+    src.write_text("")
+    header.write_text("")
+    assert not raster_mod.is_fresh(str(src), str(lib))  # never built
+    lib.write_bytes(b"")
+    for path, mtime in ((src, 100), (header, 100), (lib, 200)):
+        os.utime(path, (mtime, mtime))
+    assert raster_mod.is_fresh(str(src), str(lib))
+    os.utime(header, (300, 300))  # an edited header
+    assert not raster_mod.is_fresh(str(src), str(lib))
+    os.utime(lib, (400, 400))
+    assert raster_mod.is_fresh(str(src), str(lib))
+    os.utime(src, (500, 500))  # an edited source
+    assert not raster_mod.is_fresh(str(src), str(lib))
+    for source, _library in raster_mod.KERNELS.values():
+        with open(source) as f:
+            assert '#include "raster_common.cuh"' in f.read()
+
+
 @pytest.mark.gpu
 def test_kernel_split_matches_plain_on_card(monkeypatch):
     """The cluster split on the card: every cluster size and split
