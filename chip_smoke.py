@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives superconductor_tpu_torch's two paths at 1920x1080 on the first
+Drives superconductor_tpu_torch's three paths at 1920x1080 on the first
 CUDA device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
-sky) and the clip_blend frame (BASELINE config 3: the helmet plus a ring
-of spheres, alpha-clipped and alpha-blended ones among them) -- and
-checks them:
+sky), the clip_blend frame (BASELINE config 3: the helmet plus a ring of
+spheres, alpha-clipped and alpha-blended ones among them) and the
+all-passes frame (dense_terrain.glb, the ring, lines and particles) --
+and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
@@ -34,7 +35,7 @@ checks them:
 5. the raster kernel on the clip_blend frame's opaque setup, timed as in
    3; the k-buffer kernel against its plain version on the card, bit for
    bit in every depth plane, pair plane and layers count, for K in {1, 2,
-   4, 8}, with and without depth planes and at every cluster size: the
+   4, 8, 16}, with and without depth planes and at every cluster size: the
    clip and the blend setup of the 1080p clip_blend frame over its opaque
    depth, a stack of 12 quads with equal-z ties (layers > K), the stack in
    forward z, a band with a non-zero y_offset, and the 2,044-row tile in
@@ -48,10 +49,28 @@ checks them:
    clip fragments; the blend composite changes the pixels it covers; a
    256x128 frame on the card against the CPU frame and the JAX
    reference's frame in tests/goldens (>= 40 dB);
-7. neither jax nor the JAX package (superconductor_tpu) was imported.
+7. all_passes (the terrain, the sphere ring, grid lines and particles,
+   every pass on): fit_caps, with the material-path partition engaged; a
+   stats frame that records each pass's inputs; the raster kernel at the
+   lines pass's shape (line quads walked from the post-clip depth as its
+   init buffer) and at the opaque pass's, and the k-buffer kernel at the
+   particle pass's (particle quads over the lines' depth, K =
+   particle_layers), the clip pass's (K = 16 with depth planes: 9 layers
+   on some pixel) and the blend pass's, against their plain versions for
+   every K and cluster size, bit for bit, and timed at the frame's K as in
+   3 and 5;
+   20 frames timed with CUDA events, with exactly 2 raster and 3 k-buffer
+   launches per frame; the frame against its plain-versions twin
+   (byte-equal); lines and particles each change it; a 256x128 frame (at
+   the capacities stored with its golden) on the card against the CPU
+   frame and the JAX reference's frame in tests/goldens (>= 40 dB);
+8. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
+The table holds both kernels (launches summed over the three frames'
+timed runs) and the all-passes frame's five passes, each with the
+launches it made in that frame's timed run.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -83,6 +102,20 @@ HERO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the JAX reference's clip_blend frame at 256x128 (tests/test_torch_clip_blend.py)
 CLIP_BLEND_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "tests", "goldens", "torch_clip_blend_256x128.npz")
+# the JAX reference's all-passes frame at 256x128 and the capacities it was
+# rendered with (tests/test_torch_all_passes.py)
+ALL_PASSES_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "goldens", "torch_all_passes_256x128.npz")
+# kernel -> (its source, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "raster": ("superconductor_tpu_torch/csrc/raster.cu",
+               "superconductor_tpu/ops/raster_pallas.py:80"),
+    "kbuffer": ("superconductor_tpu_torch/csrc/kbuffer.cu",
+                "superconductor_tpu/ops/raster_pallas.py:314"),
+}
+# the all-passes frame's raster passes and k-buffer passes, in frame order
+AP_RASTER = ("opaque", "lines")
+AP_KBUFFER = ("clip", "particles", "blend")
 
 
 def phase(name: str, msg: str) -> None:
@@ -296,8 +329,8 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
     deepest = int(layers.max())
     sizes = ",".join(map(str, clusters))
     phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
-          f"{heaviest} rows, K=1,2,4,8 x want_depth, cluster {sizes}: equal (tolerance: bit "
-          f"for bit); max layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
+          f"{heaviest} rows, K={','.join(map(str, KBUFFER_KS))} x want_depth, cluster {sizes}: "
+          f"equal (tolerance: bit for bit); max layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
     if deepest < min_layers:
         raise RuntimeError(f"{name}: at most {deepest} layers, expected >= {min_layers}")
     timings = {}
@@ -470,6 +503,190 @@ def clip_blend_path(dev, kb_results, cb_raster) -> dict:
     return launches
 
 
+def golden_frame(path: str, make_scene, device, angle: float = 0.3):
+    """The 256x128 frame of `make_scene` on `device` with the capacities
+    stored beside the golden image in `path` (its fitted config)."""
+    from superconductor_tpu_torch.render.frame import render_frame
+    from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL
+
+    golden = np.load(path)
+    caps = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in json.loads(str(golden["caps"])).items()}
+    small = dict(ALL_PASSES_SMALL)
+    w, h = small.pop("width"), small.pop("height")
+    scene_dev, build_state, config, env = make_scene(w, h, device, **small)
+    return render_frame(scene_dev, build_state(angle), replace(config, **caps), env)
+
+
+def all_passes_path(dev, shapes: dict) -> dict:
+    """Phase 7: the all-passes frame (the terrain, the sphere ring, grid
+    lines and particles; every pass on) at 1920x1080 after fit_caps; the
+    raster kernel at the lines pass's shape (line quads walked from the
+    post-clip depth as init), the k-buffer kernel at the particle pass's
+    (particle quads over the lines' depth, no depth planes), and each other
+    pass's kernel at its shape (the clip pass at K = 16), against their
+    plain versions at every cluster size, and timed; the frame's launches
+    (2 raster and 3 k-buffer a frame), its plain-versions twin, and the
+    256x128 frame against the CPU and the reference's golden. Returns the
+    launch counts of the timed run."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
+    from superconductor_tpu_torch.render import frame as frame_mod
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.frame import (
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scenes import all_passes_scene
+
+    t0 = time.perf_counter()
+    scene_dev, build_state, config, env = all_passes_scene(WIDTH, HEIGHT, dev)
+    state0 = build_state(0.0)
+    phase("all_passes", f"scene on card in {time.perf_counter() - t0:.2f} s; "
+          f"{int(state0.draws_static.tri_count.sum())} static triangles drawn")
+    t0 = time.perf_counter()
+    config = fit_caps(scene_dev, state0, config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    npx = WIDTH * HEIGHT
+    engaged = {
+        "sky_px_cap": 0 < (config.sky_px_cap or 0) < npx,
+        "matq_classic_cap": (config.matq_classic_cap or 0) > 0,
+        "particle_layers": config.particle_layers is not None,
+    }
+    phase("all_passes", f"fit_caps in {time.perf_counter() - t0:.2f} s: p_cap={config.p_cap} "
+          f"clip_layers={config.clip_layers} blend_layers={config.blend_layers} "
+          f"particle_layers={config.particle_layers} shade_px_cap={config.shade_px_cap} "
+          f"shade_px_caps={config.shade_px_caps} opaque_px_cap={config.opaque_px_cap} "
+          f"sky_px_cap={config.sky_px_cap} matq_classic_cap={config.matq_classic_cap}; "
+          f"engaged {engaged}")
+    if not engaged["matq_classic_cap"]:
+        raise RuntimeError("the material-path partition did not engage")
+
+    # one stats frame, recording the inputs of each raster and k-buffer pass
+    calls = {"raster": [], "kbuffer": []}
+    real_r, real_k = frame_mod._rasterize, frame_mod._rasterize_kbuffer
+
+    def rec_raster(tri, cfg, band_height, y_offset, init=None):
+        calls["raster"].append((tri, init))
+        return real_r(tri, cfg, band_height, y_offset, init=init)
+
+    def rec_kbuffer(tri, cfg, band_height, y_offset, depth_floor, want_depth=True, k=None):
+        calls["kbuffer"].append((tri, depth_floor, want_depth, k or cfg.blend_layers))
+        return real_k(tri, cfg, band_height, y_offset, depth_floor, want_depth=want_depth, k=k)
+
+    frame_mod._rasterize, frame_mod._rasterize_kbuffer = rec_raster, rec_kbuffer
+    try:
+        img, stats = render_frame_stats(scene_dev, state0, config, env)
+    finally:
+        frame_mod._rasterize, frame_mod._rasterize_kbuffer = real_r, real_k
+    stats = stats_to_host(stats)
+    phase("all_passes", f"stats {stats}")
+    if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
+        raise RuntimeError(f"the all-passes frame made {len(calls['raster'])} raster and "
+                           f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
+    if min(stats["clip_layers_needed"], stats["blend_layers_needed"],
+           stats["particle_layers_needed"]) < 1:
+        raise RuntimeError("the all-passes frame has no clip, blend or particle fragment")
+
+    # --- each pass's kernel at its shape: the opaque raster, the lines
+    # raster (init buffer), the clip, particle and blend k-buffers, each at
+    # the K fit_caps pinned to the next power of two of its need, so more
+    # than K / 2 layers on some pixel (the clip pass: 9, K = 16) ---
+    for name, (tri, init) in zip(AP_RASTER, calls["raster"]):
+        compare_raster(f"all_passes-{name}", tri, WIDTH, HEIGHT, config.p_cap, shapes[name],
+                       init=init, clusters=CLUSTERS, timed=True)
+    for name, (tri, floor, want, k) in zip(AP_KBUFFER, calls["kbuffer"]):
+        timings = compare_kbuffer(f"all_passes-{name}", tri, WIDTH, HEIGHT, config.p_cap,
+                                  shapes[name], floor=floor, min_layers=k // 2 + 1,
+                                  clusters=CLUSTERS, timed=[(k, want)])
+        shapes[name].update(timings[(k, want)])
+
+    # --- the frame ---
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    frames = [0]
+
+    def one_frame():
+        frames[0] += 1
+        return render_frame(scene_dev, state0, config, env)
+
+    frame_ms = cuda_ms(one_frame)
+    launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
+                "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    phase("all_passes", f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
+          f"launches {launches} over {frames[0]} frames")
+    if launches != {"raster_sorted": 2 * frames[0], "kbuffer_sorted": 3 * frames[0]}:
+        raise RuntimeError("the all-passes frame did not launch the raster kernel twice and "
+                           "the k-buffer kernel three times per frame")
+
+    img = render_frame(scene_dev, state0, config, env)
+    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
+    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
+    try:
+        img_plain = render_frame(scene_dev, state0, config, env)
+    finally:
+        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
+        frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
+    if img.shape != (1, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
+        raise RuntimeError(f"bad frame {tuple(img.shape)} {img.dtype}")
+    if not torch.equal(img, img_plain):
+        raise RuntimeError("all-passes frame differs from its plain-kernels twin")
+    phase("all_passes", "frame equals its twin rendered with both plain versions byte for byte")
+
+    # lines and particles both change the frame
+    for flag in ("enable_lines", "enable_particles"):
+        off = render_frame(scene_dev, state0, replace(config, **{flag: False}), env)
+        changed = int((img[0] != off[0]).any(dim=-1).sum())
+        phase("all_passes", f"{flag}: {changed} px change")
+        if changed == 0:
+            raise RuntimeError(f"{flag} changed no pixel")
+
+    img_g = golden_frame(ALL_PASSES_GOLDEN, all_passes_scene, dev).cpu()
+    img_c = golden_frame(ALL_PASSES_GOLDEN, all_passes_scene, "cpu")
+    golden = np.load(ALL_PASSES_GOLDEN)["image"]
+    db_cpu = psnr(img_g.numpy(), img_c.numpy())
+    db_ref = psnr(img_g.numpy(), golden)
+    phase("all_passes", f"256x128 frame: card vs CPU PSNR {db_cpu:.2f} dB, card vs the "
+          f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
+    if min(db_cpu, db_ref) < 40.0:
+        raise RuntimeError("card frame disagrees with the CPU frame or the reference")
+    return launches
+
+
+def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
+                 raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
+    """The kernels line: each kernel at its representative shape (the
+    headline's opaque raster, clip_blend's clip k-buffer) with its launches
+    over the three frames' timed runs, then each all-passes pass at its
+    own shape with its launches in that frame's timed run (one a frame)."""
+
+    def entry(name, kernel, n_launches, res, max_abs_err=None):
+        source, replaces = KERNEL_SOURCES[kernel]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches,
+            "max_abs_err": res["max_abs_err"] if max_abs_err is None else max_abs_err,
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+        }
+
+    ap_raster, ap_kbuffer = ap_launches["raster_sorted"], ap_launches["kbuffer_sorted"]
+    return {"kernels": [
+        entry("raster_sorted", "raster",
+              headline_launches + cb_launches["raster_sorted"] + ap_raster, raster_res,
+              max(raster_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_RASTER))),
+        entry("kbuffer_sorted", "kbuffer", cb_launches["kbuffer_sorted"] + ap_kbuffer,
+              kbuffer_res,
+              max(kbuffer_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_KBUFFER))),
+        *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_raster // len(AP_RASTER),
+                shapes[n]) for n in AP_RASTER],
+        *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_kbuffer // len(AP_KBUFFER),
+                shapes[n]) for n in AP_KBUFFER],
+    ]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -612,36 +829,16 @@ def main() -> int:
     cb_launches = clip_blend_path(dev, kb_results, cb_raster)
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
+    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER}
+    ap_launches = all_passes_path(dev, shapes)
+
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
             raise RuntimeError(f"{mod} was imported")
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "raster_sorted",
-        "route": "cuda",
-        "source": "superconductor_tpu_torch/csrc/raster.cu",
-        "replaces": "superconductor_tpu/ops/raster_pallas.py:80",
-        "launches": launches + cb_launches["raster_sorted"],
-        "max_abs_err": results["max_abs_err"],
-        "ms": results["ms"],
-        "plain_ms": results["plain_ms"],
-        "bound_ms": results["bound_ms"],
-        "bound_by": results["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "kbuffer_sorted",
-        "route": "cuda",
-        "source": "superconductor_tpu_torch/csrc/kbuffer.cu",
-        "replaces": "superconductor_tpu/ops/raster_pallas.py:314",
-        "launches": cb_launches["kbuffer_sorted"],
-        "max_abs_err": kb_results["max_abs_err"],
-        "ms": kb_results["ms"],
-        "plain_ms": kb_results["plain_ms"],
-        "bound_ms": kb_results["bound_ms"],
-        "bound_by": kb_results["bound_by"],
-        "library_ms": None,
-    }]}))
+    print(json.dumps(kernels_line(launches, cb_launches, ap_launches, results, kb_results,
+                                  shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -32,11 +32,12 @@
 //
 // Design:
 // * Bands. A block of 512 threads owns a band of 4 * kPix rows of a tile,
-//   kPix pixels of one column per thread (kPix = 2 for K = 8, 4 for K <= 4,
-//   so the 2K + 3 live values per pixel fit the 64 registers that two
-//   blocks an SM allow). Each group of 64 / kPix lanes owns one 8x8 block
-//   (raster_common.cuh band_pixel), and 8 neighbouring lanes store 32
-//   contiguous bytes of a plane.
+//   kPix pixels of one column per thread (kPix = 2 for K >= 8, 4 for
+//   K <= 4, so the 2K + 3 live values per pixel fit the 64 registers that
+//   two blocks an SM allow; K = 16 runs one block an SM, with 128
+//   registers and 140 KB of shared memory). Each group of 64 / kPix lanes
+//   owns one 8x8 block (raster_common.cuh band_pixel), and 8 neighbouring
+//   lanes store 32 contiguous bytes of a plane.
 // * A thread-block cluster of S <= 8 blocks shares a band (grid x = tile
 //   column * S + rank). A tile of more than min_part_rows rows is cut into
 //   P = min(S, ceil(rows / min_part_rows)) contiguous parts; block s walks
@@ -95,6 +96,11 @@ namespace {
 template <int K>
 constexpr int kPixFor = K >= 8 ? 2 : 4;
 
+// resident blocks an SM: two up to K = 8, one at K = 16 (its 2K + 3 live
+// values a pixel need more than the 64 registers two blocks leave)
+template <int K>
+constexpr int kBlocksPerSm = K >= 16 ? 1 : 2;
+
 constexpr int kRingBytes = 2 * kChunk * 64;
 
 // dynamic shared memory of a block: the ring, then K depth and K position
@@ -141,7 +147,7 @@ __device__ __forceinline__ void insert(float (&depth)[K], int (&pos)[K],
 }
 
 template <int K, bool kReverseZ, bool kWantDepth>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<K>)
 kbuffer_sorted_kernel(const float4* __restrict__ setup, int num_rows,
                       const int* __restrict__ tile_start,
                       const int* __restrict__ tile_count, int ntx, int height,
@@ -428,12 +434,13 @@ extern "C" int sc_kbuffer_smem_bytes(int k) {
     case 2: return smem_bytes<2>();
     case 4: return smem_bytes<4>();
     case 8: return smem_bytes<8>();
+    case 16: return smem_bytes<16>();
     default: return -1;
   }
 }
 
 // Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128
-// and k must be 1, 2, 4 or 8; `cluster` (1..8) blocks share a band, and a
+// and k must be 1, 2, 4, 8 or 16; `cluster` (1..8) blocks share a band, and a
 // tile is split only into parts of more than `min_part_rows` (>= 1) rows.
 // The caller checks shapes, dtypes, devices and 16-byte alignment of
 // `setup`. floor_depth (H, W) may be null (every floor at far); depth_out
@@ -475,6 +482,11 @@ extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
       err = dispatch<8>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
                         height, width, y_offset, cluster, min_part_rows,
                         floor_depth, depth_out, pair_out, layers_out, s);
+      break;
+    case 16:
+      err = dispatch<16>(rz, setup, num_rows, tile_start, tile_count, ntx, nty,
+                         height, width, y_offset, cluster, min_part_rows,
+                         floor_depth, depth_out, pair_out, layers_out, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

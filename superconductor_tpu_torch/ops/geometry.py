@@ -228,15 +228,16 @@ def geometry_vertex_stage(
 
 
 def clip_transform(w1: torch.Tensor, view_proj: torch.Tensor) -> torch.Tensor:
-    """(V, 4) rows times view_proj^T as explicit multiply-adds in the fixed
+    """(..., 4) rows times view_proj^T as explicit multiply-adds in the fixed
     order (x*m0 + y*m1) + (z*m2 + w*m3) per output column -- the order
-    XLA's CPU dot uses for this shape, so the port's clip coordinates (and
-    with them the setup rows) equal the reference's bit for bit. The
-    products and sums are separate ops: no FMA contraction, no TF32."""
+    XLA's CPU dot uses for these shapes (the reference's matmuls and
+    einsums of rows by a 4x4), so the port's clip coordinates (and with
+    them the setup rows) equal the reference's bit for bit. The products
+    and sums are separate ops: no FMA contraction, no TF32."""
     m = view_proj.to(w1.dtype)
     cols = [
-        (w1[:, 0] * m[j, 0] + w1[:, 1] * m[j, 1])
-        + (w1[:, 2] * m[j, 2] + w1[:, 3] * m[j, 3])
+        (w1[..., 0] * m[j, 0] + w1[..., 1] * m[j, 1])
+        + (w1[..., 2] * m[j, 2] + w1[..., 3] * m[j, 3])
         for j in range(4)
     ]
     return torch.stack(cols, dim=-1)

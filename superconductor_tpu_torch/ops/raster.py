@@ -66,7 +66,7 @@ RASTER_CLUSTER = 4
 RASTER_MIN_PART_ROWS = 32
 KBUFFER_CLUSTER = 2
 KBUFFER_MIN_PART_ROWS = 32
-KBUFFER_KS = (1, 2, 4, 8)  # the k-buffer kernel's template depths
+KBUFFER_KS = (1, 2, 4, 8, 16)  # the k-buffer kernel's template depths
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {

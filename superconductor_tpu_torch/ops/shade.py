@@ -5,9 +5,9 @@ Ported: g-buffer interpolation with analytic screen derivatives, the PBR
 pieces (nonlinear L1 SH irradiance, GGX specular at the SH dominant
 direction, cotangent-frame normal mapping), the constant ambient-SH
 lighting branch, and ``shade`` and the alpha-clip test ``albedo_alpha`` on
-the interleaved material pool (matq). Scenes needing light volumes,
-lightmaps, the classic per-slot samplers or the material-path partition
-raise NotImplementedError.
+every material path: the interleaved pool (matq), the classic per-slot
+samplers, and textures pre-sampled by the material-path partition. Scenes
+needing light volumes or lightmaps raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .geometry import TriangleAttrs, TriangleSetup
-from .texture import sample_material_interleaved
+from .texture import ldr_pool, sample_anisotropic, sample_material_interleaved
 from .tonemap import linear_to_srgb_approx, tonemap_and_encode
 
 MAT_UNLIT = 1
@@ -244,6 +244,44 @@ def _material_rows_mq(m: dict, mat, gbuf=None):
     return _unpack_mq_row(m["mat_row_mq"][mat])
 
 
+def _material_rows(m: dict, mat):
+    """(pf (P,12) f32, pi (P,8) i32, mtm (P,24) i32 or None, mlv (P,4,L,3)
+    i32 or None) of the classic samplers -- from ONE mat_row gather when
+    the scene publishes it, else the separate packed rows (reference
+    ops/shade.py:363). mlv is each slot's in-register mip table."""
+    if "mat_row" in m:
+        row = m["mat_row"][mat]  # (P, 44 + 4*L*3)
+        pf = row[..., 0:12]
+        pi = _bitcast_i32(row[..., 12:20])
+        mtm = _bitcast_i32(row[..., 20:44])
+        mlv = None
+        if row.shape[-1] > 44:
+            L = (row.shape[-1] - 44) // 12
+            mlv = _bitcast_i32(row[..., 44:44 + 12 * L]).reshape(*row.shape[:-1], 4, L, 3)
+        return pf, pi, mtm, mlv
+    mtm = m["mat_tex_meta"][mat] if "mat_tex_meta" in m else None
+    return m["packed_f"][mat], m["packed_i"][mat], mtm, None
+
+
+def classic_sample(scene: dict, rows, slot: int, uv, duvdx, duvdy, taps: int):
+    """Material texture `slot` of each lane through the classic per-slot
+    sampler (sample_anisotropic, lod from the texture's own mip-0 size);
+    rows = _material_rows(...) of the lanes' materials."""
+    _pf, pi, mtm, mlv = rows
+    meta = mtm[..., 6 * slot:6 * slot + 6] if mtm is not None else None
+    lv = mlv[..., slot, :, :] if mlv is not None else None
+    return sample_anisotropic(
+        ldr_pool(scene), scene["tex"], pi[..., slot], uv, duvdx, duvdy, taps,
+        meta=meta, levels_owh=lv,
+    )
+
+
+def _whole_pool(scene: dict) -> bool:
+    """Every material samples the interleaved pool (no partial pool)."""
+    return ("texels_mq" in scene and "mat_row_mq" in scene["materials"]
+            and "matq_capable" not in scene)
+
+
 def shade(
     gbuf: GBuffer,
     scene: dict,
@@ -256,22 +294,28 @@ def shade(
     s16=None,
 ):
     """-> (rgb (P, 3) display-encoded, alpha (P,)); misses are black with
-    alpha 0. Interleaved-pool (matq) scenes only."""
+    alpha 0. The material textures come pre-sampled in `s16` (P, 16) from
+    the material-path partition, else from the interleaved pool when every
+    material takes it, else from the classic per-slot samplers (partial
+    pools without the partition, scenes without the pool)."""
     m = scene["materials"]
-    if s16 is not None or not (
-        "texels_mq" in scene and "mat_row_mq" in m and "matq_capable" not in scene
-    ):
-        raise NotImplementedError(
-            "shading without the interleaved material pool needs the classic "
-            "samplers / material partition (ROADMAP queue 1)"
-        )
     if env is None:
         raise ValueError("shade needs EnvBindings")
-    pf, pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
-    s16 = sample_material_interleaved(
-        scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
-        aniso_taps, texels_tail=scene.get("texels_mq_tail"),
-    )
+    if s16 is not None:
+        # factors and flags still come from the material row (incapable
+        # materials' rows carry their real pf / pi)
+        pf, pi, _meta, _owh = _material_rows_mq(m, gbuf.material, gbuf)
+    elif _whole_pool(scene):
+        pf, pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
+        s16 = sample_material_interleaved(
+            scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
+            aniso_taps, texels_tail=scene.get("texels_mq_tail"),
+        )
+    else:
+        rows = _material_rows(m, gbuf.material)
+        pf, pi = rows[0], rows[1]
+        s16 = torch.cat([classic_sample(scene, rows, slot, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
+                                        aniso_taps) for slot in range(4)], dim=-1)
     albedo = s16[..., 0:4] * pf[..., 0:4]
     normal_tex = s16[..., 4:8]
     mr = s16[..., 8:12]
@@ -315,23 +359,23 @@ def shade(
 def albedo_alpha(gbuf: GBuffer, scene: dict, aniso_taps: int = 1, albedo4=None):
     """(albedo alpha, material alpha cutoff) for the alpha-clip test, with
     the same trilinear lod as full shading (reference ops/shade.py:546);
-    the cutoff rides the material row already gathered. Interleaved-pool
-    (matq) scenes only."""
+    the cutoff rides the material row already gathered. `albedo4` is the
+    pre-sampled (P, 4) albedo of the material-path partition; partial
+    pools without it take the classic sampler."""
     m = scene["materials"]
     if albedo4 is not None:
-        raise NotImplementedError(
-            "pre-sampled albedo waits for the material-path partition "
-            "(ROADMAP queue 1: material partition)"
+        pf, _pi, _meta, _owh = _material_rows_mq(m, gbuf.material, gbuf)
+        albedo = albedo4 * pf[..., 0:4]
+        return albedo[..., 3], pf[..., 10]
+    if _whole_pool(scene):
+        pf, _pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
+        s16 = sample_material_interleaved(
+            scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
+            aniso_taps, texels_tail=scene.get("texels_mq_tail"),
         )
-    if not ("texels_mq" in scene and "mat_row_mq" in m and "matq_capable" not in scene):
-        raise NotImplementedError(
-            "alpha clip without the interleaved material pool needs the classic "
-            "samplers (ROADMAP queue 1: classic samplers)"
-        )
-    pf, _pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
-    s16 = sample_material_interleaved(
-        scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
-        aniso_taps, texels_tail=scene.get("texels_mq_tail"),
-    )
-    albedo = s16[..., 0:4] * pf[..., 0:4]
-    return albedo[..., 3], pf[..., 10]
+        albedo = s16[..., 0:4] * pf[..., 0:4]
+        return albedo[..., 3], pf[..., 10]
+    rows = _material_rows(m, gbuf.material)
+    albedo = classic_sample(scene, rows, 0, gbuf.uv, gbuf.duvdx, gbuf.duvdy, aniso_taps)
+    albedo = albedo * rows[0][..., 0:4]
+    return albedo[..., 3], rows[0][..., 10]

@@ -1,6 +1,7 @@
 """Skybox: a ray per pixel centre from the inverse projection, sampled
-from the IBL cubemap (port of ``superconductor_tpu/ops/sky.py`` :19-91).
-The sky-worklist entry points (``*_at``) are not ported yet."""
+from the IBL cubemap (port of ``superconductor_tpu/ops/sky.py``): over the
+whole band (``sample_skybox``) or at the flat pixel indices of the sky
+worklist (``sample_skybox_at``)."""
 
 from __future__ import annotations
 
@@ -44,6 +45,17 @@ def skybox_rays(width, height, projection_inverse, view_quat, y_offset=0,
     return _rays_from_ndc(ndc_x, ndc_y, projection_inverse, view_quat)
 
 
+def skybox_rays_at(idx, width, projection_inverse, view_quat, y_offset=0,
+                   full_height=None):
+    """Rays through the centres of flat band pixel indices `idx` (P,), by
+    div/mod (the sky-worklist path, RenderConfig.sky_px_cap)."""
+    x = torch.remainder(idx, width).to(torch.float32) + 0.5
+    y = torch.div(idx, width, rounding_mode="floor").to(torch.float32) + 0.5 + y_offset
+    ndc_x = x / width * 2.0 - 1.0
+    ndc_y = 1.0 - y / full_height * 2.0
+    return _rays_from_ndc(ndc_x, ndc_y, projection_inverse, view_quat)
+
+
 def shade_sky_rays(scene, env, rays, inline_tonemapping=True, inline_srgb=True):
     """Cubemap sample + display transform for rays (P, 3)."""
     base = env.ibl_cubemap_base
@@ -63,4 +75,14 @@ def sample_skybox(scene, env, width, height, projection_inverse, view_quat,
                   full_height=None):
     rays = skybox_rays(width, height, projection_inverse, view_quat, y_offset,
                        full_height)
+    return shade_sky_rays(scene, env, rays, inline_tonemapping, inline_srgb)
+
+
+def sample_skybox_at(scene, env, idx, width, projection_inverse, view_quat,
+                     inline_tonemapping=True, inline_srgb=True, y_offset=0,
+                     full_height=None):
+    """Skybox colour at flat band pixel indices only (the sky worklist):
+    covered pixels never pay the cubemap gather."""
+    rays = skybox_rays_at(idx, width, projection_inverse, view_quat, y_offset,
+                          full_height)
     return shade_sky_rays(scene, env, rays, inline_tonemapping, inline_srgb)

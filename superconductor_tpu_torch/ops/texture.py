@@ -2,12 +2,14 @@
 ``superconductor_tpu/ops/texture.py``).
 
 Ported: the pool selectors, wrap/fetch, the one-tap bilinear core, sRGB
-decode, isotropic LOD, the cubemap sampler's static-placement path (the
-skybox of the headline frame), and the interleaved material sampler
-(``sample_material_interleaved``: all four material textures of a pixel
-from one 64-channel row per trilinear level). The classic per-slot
-samplers (sample_bilinear_level / sample_trilinear / sample_anisotropic)
-are not ported yet and raise.
+decode, isotropic LOD, the classic per-slot samplers
+(``sample_bilinear_level``, ``sample_trilinear`` with its three
+descriptor paths, ``sample_anisotropic``), the cubemap sampler (static
+placement and through the descriptor tables), and the interleaved
+material sampler (``sample_material_interleaved``: all four material
+textures of a pixel from one 64-channel row per trilinear level). Not
+ported: the wide mq3 rows, the smoke pool and the light-volume /
+lightmap samplers (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -95,6 +97,43 @@ def _bilinear_core(texels, off, w, h, wrap_mode, uv):
     return _lerp4(t00, t10, t01, t11, fx, fy)
 
 
+def _decode_u8(out, texels, decode_srgb, flags):
+    """u8 pools: normalise to [0, 1] and, with decode_srgb, sRGB-decode the
+    colour channels of textures flagged TEXFLAG_SRGB."""
+    if texels.dtype != torch.uint8:
+        return out
+    out = out * (1.0 / 255.0)
+    if decode_srgb:
+        out = _srgb_decode(out, flags)
+    return out
+
+
+def sample_bilinear_level(texels, tex_desc, tex_id, uv, level, decode_srgb=True):
+    """Bilinear sample of texture `tex_id` (P,) at mip `level` (P,) i32,
+    clamped to the chain, from the flat (N, 4) or quad-packed (N, 16) pool
+    -> (P, 4) f32 (reference ops/texture.py:46)."""
+    if "tex_meta" in tex_desc:
+        meta = tex_desc["tex_meta"][tex_id]
+        base, count, wrap_mode = meta[..., 0], meta[..., 1], meta[..., 2]
+        flags = meta[..., 3]
+        lvl = _clamp_to(level, count)
+        owh = tex_desc["mip_owh"][base + lvl]
+        off, w, h = owh[..., 0], owh[..., 1], owh[..., 2]
+    else:
+        base = tex_desc["tex_mip_base"][tex_id]
+        count = tex_desc["tex_mip_count"][tex_id]
+        wrap_mode = tex_desc["tex_wrap"][tex_id]
+        flags = None
+        entry = base + _clamp_to(level, count)
+        off = tex_desc["mip_offset"][entry]
+        w = tex_desc["mip_w"][entry]
+        h = tex_desc["mip_h"][entry]
+    out = _bilinear_core(texels, off, w, h, wrap_mode, uv)
+    if texels.dtype == torch.uint8 and decode_srgb and flags is None:
+        flags = tex_desc["tex_flags"][tex_id]
+    return _decode_u8(out, texels, decode_srgb, flags)
+
+
 def _srgb_decode(out, flags):
     srgb = (flags & TEXFLAG_SRGB) != 0
     rgb = torch.where(srgb[..., None], srgb_to_linear_exact(out[..., :3]), out[..., :3])
@@ -110,6 +149,43 @@ def _select_level(levels, lvl):
     return out
 
 
+def sample_trilinear(texels, tex_desc, tex_id, uv, lod, decode_srgb=True,
+                     meta=None, levels_owh=None):
+    """Trilinear: the two nearest mips blended by the fractional lod
+    (reference ops/texture.py:154). Three descriptor paths, as there: the
+    in-register mip table `levels_owh` (P, L, 3) with a pre-gathered
+    `meta` row; the mip_owh2 pair rows; or two bilinear_level calls. The
+    first two zero the fraction below lod 0 (pure mip 0), exactly as the
+    two-call path's clamp does."""
+    l0 = torch.floor(lod).to(torch.int32)
+    f = (lod - torch.floor(lod))[..., None]
+    if levels_owh is not None and meta is not None:
+        count, wrap_mode, flags = meta[..., 1], meta[..., 2], meta[..., 3]
+        lvl = _clamp_to(l0, count)
+        f = torch.where((l0 < 0)[..., None], 0.0, f)
+        a_owh = _select_level(levels_owh, lvl)
+        b_owh = _select_level(levels_owh, _clamp_to(l0 + 1, count))
+        a = _bilinear_core(texels, a_owh[..., 0], a_owh[..., 1], a_owh[..., 2], wrap_mode, uv)
+        b = _bilinear_core(texels, b_owh[..., 0], b_owh[..., 1], b_owh[..., 2], wrap_mode, uv)
+    elif "mip_owh2" in tex_desc and ("tex_meta" in tex_desc or meta is not None):
+        if meta is None:
+            meta = tex_desc["tex_meta"][tex_id]
+        base, count, wrap_mode = meta[..., 0], meta[..., 1], meta[..., 2]
+        flags = meta[..., 3]
+        lvl = _clamp_to(l0, count)
+        f = torch.where((l0 < 0)[..., None], 0.0, f)
+        row = tex_desc["mip_owh2"][base + lvl]  # (P, 8): this mip + next
+        a = _bilinear_core(texels, row[..., 0], row[..., 1], row[..., 2], wrap_mode, uv)
+        b = _bilinear_core(texels, row[..., 4], row[..., 5], row[..., 6], wrap_mode, uv)
+    else:
+        a = sample_bilinear_level(texels, tex_desc, tex_id, uv, l0, decode_srgb)
+        b = sample_bilinear_level(texels, tex_desc, tex_id, uv, l0 + 1, decode_srgb)
+        return a * (1 - f) + b * f
+    a = _decode_u8(a, texels, decode_srgb, flags)
+    b = _decode_u8(b, texels, decode_srgb, flags)
+    return a * (1 - f) + b * f
+
+
 def mip_level_from_derivatives(dudx, dvdx, dudy, dvdy, tex_w, tex_h):
     """Isotropic LOD from analytic uv screen derivatives."""
     du2 = (dudx * tex_w) ** 2 + (dvdx * tex_h) ** 2
@@ -121,13 +197,10 @@ def mip_level_from_derivatives(dudx, dvdx, dudy, dvdy, tex_w, tex_h):
 def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
                    static=None):
     """Cubemap stored as 6 consecutive textures (+X,-X,+Y,-Y,+Z,-Z),
-    bilinear, at static pool placement `static` = (face_offsets(6), w, h)
-    (EnvBindings.ibl_cubemap_static): one gather per pixel, CLAMP wrap."""
-    if static is None or lod is not None:
-        raise NotImplementedError(
-            "sample_cubemap without static placement needs the classic "
-            "samplers (ROADMAP queue 1: classic samplers)"
-        )
+    bilinear. With static pool placement `static` = (face_offsets(6), w,
+    h) (EnvBindings.ibl_cubemap_static) and no lod: one gather per pixel,
+    CLAMP wrap. Otherwise through the descriptor tables: one bilinear tap
+    at the base level without lod, else trilinear at `lod`."""
     d = direction
     ax, ay, az = torch.abs(d[..., 0]), torch.abs(d[..., 1]), torch.abs(d[..., 2])
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
@@ -149,12 +222,18 @@ def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
     u = 0.5 * (sc / ma + 1.0)
     v = 0.5 * (tc / ma + 1.0)
     uv = torch.stack([u, v], dim=-1)
-    offs, w, h = static
-    off = torch.tensor(offs, dtype=torch.int32, device=d.device)[face]
-    out = _bilinear_core(texels_hdr, off, w, h, WRAP_CLAMP, uv)
-    if texels_hdr.dtype == torch.uint8:
-        out = out * (1.0 / 255.0)
-    return out
+    if static is not None and lod is None:
+        offs, w, h = static
+        off = torch.tensor(offs, dtype=torch.int32, device=d.device)[face]
+        out = _bilinear_core(texels_hdr, off, w, h, WRAP_CLAMP, uv)
+        if texels_hdr.dtype == torch.uint8:
+            out = out * (1.0 / 255.0)
+        return out
+    tex_id = base_tex_id + face
+    if lod is None:
+        lvl = torch.zeros(d.shape[:-1], dtype=torch.int32, device=d.device)
+        return sample_bilinear_level(texels_hdr, tex_desc, tex_id, uv, lvl, decode_srgb=False)
+    return sample_trilinear(texels_hdr, tex_desc, tex_id, uv, lod, decode_srgb=False)
 
 
 def _matq_bilinear(texels_mq, owh, wrap_mode, uv):
@@ -242,5 +321,56 @@ def sample_material_interleaved(
     for i in range(taps):
         t = (i + 0.5) / taps - 0.5
         s = trilinear(uv + major * t, lod)
+        out = s if out is None else out + s
+    return out / taps
+
+
+def sample_anisotropic(
+    texels, tex_desc, tex_id, uv, duvdx, duvdy, taps: int, decode_srgb=True,
+    meta=None, levels_owh=None,
+):
+    """`taps` trilinear samples averaged along the major-axis uv
+    derivative, lod from the minor axis clamped by the tap count; taps=1 is
+    trilinear at the isotropic (major-axis) lod (reference
+    ops/texture.py:629). The mip-0 size comes from a (P, 6) `meta` row
+    (mat_tex_meta), else from the descriptor tables."""
+    if meta is not None and meta.shape[-1] >= 6:
+        w = meta[..., 4].to(torch.float32)
+        h = meta[..., 5].to(torch.float32)
+    else:
+        if meta is not None:
+            base = meta[..., 0]
+        elif "tex_meta" in tex_desc:
+            base = tex_desc["tex_meta"][tex_id][..., 0]
+        else:
+            base = tex_desc["tex_mip_base"][tex_id]
+        if meta is not None or "tex_meta" in tex_desc:
+            owh = tex_desc["mip_owh"][base]
+            w = owh[..., 1].to(torch.float32)
+            h = owh[..., 2].to(torch.float32)
+        else:
+            w = tex_desc["mip_w"][base].to(torch.float32)
+            h = tex_desc["mip_h"][base].to(torch.float32)
+    dx2 = (duvdx[..., 0] * w) ** 2 + (duvdx[..., 1] * h) ** 2
+    dy2 = (duvdy[..., 0] * w) ** 2 + (duvdy[..., 1] * h) ** 2
+    if taps <= 1:
+        lod = torch.clamp_min(
+            0.5 * torch.log2(torch.clamp_min(torch.maximum(dx2, dy2), 1e-12)), 0.0
+        )
+        return sample_trilinear(texels, tex_desc, tex_id, uv, lod, decode_srgb,
+                                meta=meta, levels_owh=levels_owh)
+    major_is_x = dx2 >= dy2
+    rho_maj2 = torch.maximum(dx2, dy2)
+    rho_min2 = torch.minimum(dx2, dy2)
+    ratio2 = torch.clamp(rho_maj2 / torch.clamp_min(rho_min2, 1e-12), 1.0, float(taps) ** 2)
+    lod = torch.clamp_min(
+        0.5 * torch.log2(torch.clamp_min(rho_maj2 / ratio2, 1e-12)), 0.0
+    )
+    major = torch.where(major_is_x[..., None], duvdx, duvdy)
+    out = None
+    for i in range(taps):
+        t = (i + 0.5) / taps - 0.5
+        s = sample_trilinear(texels, tex_desc, tex_id, uv + major * t, lod, decode_srgb,
+                             meta=meta, levels_owh=levels_owh)
         out = s if out is None else out + s
     return out / taps

@@ -26,6 +26,53 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1)).bit_length() if n > 1 else 1
 
 
+def pack_lines(segments, color_ids, cap: Optional[int] = None) -> dict:
+    """Line segments padded to a pow2 cap: numpy {pos (L, 2, 3), color (L,),
+    valid (L,)} (reference render/draws.py:98)."""
+    n = len(segments)
+    cap = cap or max(1, _next_pow2(n))
+    pos = np.zeros((cap, 2, 3), np.float32)
+    col = np.zeros(cap, np.int32)
+    valid = np.zeros(cap, bool)
+    if n:
+        pos[:n] = np.asarray(segments, np.float32)
+        col[:n] = np.asarray(color_ids, np.int32)
+        valid[:n] = True
+    return {"pos": pos, "color": col, "valid": valid}
+
+
+def pack_particles(particles: Optional[List[dict]] = None, cap: Optional[int] = None) -> dict:
+    """Particle dicts padded to a pow2 cap, as a numpy SoA of the
+    ParticleInstance fields (reference render/draws.py:112)."""
+    particles = particles or []
+    n = len(particles)
+    cap = cap or max(1, _next_pow2(n))
+
+    def field(name, dim, default=0.0):
+        out = np.full((cap, dim) if dim > 1 else (cap,), default, np.float32)
+        for i, p in enumerate(particles):
+            out[i] = p.get(name, default)
+        return out
+
+    return {
+        "center": field("center", 3),
+        "scale": field("scale", 2, 1.0),
+        "colour": field("colour", 3, 1.0),
+        "uv_offset": field("uv_offset", 2, 0.0),
+        "uv_scale": field("uv_scale", 2, 1.0),
+        "emissive_colour": field("emissive_colour", 3, 0.0),
+        "use_emissive_lut": np.array(
+            [p.get("use_emissive_lut", 0) for p in particles] + [0] * (cap - n), np.int32
+        ),
+        "lut_y": field("lut_y", 1, 0.0),
+        "valid": np.array([True] * n + [False] * (cap - n), bool),
+    }
+
+
+def _soa_to_torch(soa: dict, device) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in soa.items()}
+
+
 def _model_frame_arrays(model: Model) -> dict:
     """Per-model SoA of primitive metadata, cached on the Model under the
     reference's key (so Model.invalidate_frame_cache() drops it too). LOD
@@ -173,12 +220,15 @@ def build_frame_state(
     cull_params: Optional[list] = None,
     screen_height: int = 1080,
     draw_cap: Optional[int] = None,
+    lines: Optional[dict] = None,
+    particles: Optional[dict] = None,
     sat: Optional[tuple] = None,
     device="cuda",
 ) -> FrameState:
     """Walk instances, cull, select LODs, emit a torch FrameState (the
-    reference's numpy path, render/draws.py:398-510). Lines and particles
-    are outside the ported slice and are not accepted."""
+    reference's numpy path, render/draws.py:398-510). `lines` and
+    `particles` are pack_lines / pack_particles dicts; missing ones are
+    empty packs, as in the reference."""
     uniq: dict = {}
     inst_uid = np.empty(len(instances), np.int32)
     for inst_index, (model, _s) in enumerate(instances):
@@ -287,4 +337,8 @@ def build_frame_state(
         draws_static=_pack_compact(static_c, inst_pal_offset, draw_cap, device),
         draws_animated=_pack_compact(anim_c, inst_pal_offset, draw_cap, device),
         joint_palette=torch.from_numpy(palette.astype(np.float32)).to(device),
+        lines=_soa_to_torch(lines if lines is not None else pack_lines([], []), device),
+        particles=_soa_to_torch(
+            particles if particles is not None else pack_particles(), device
+        ),
     )

@@ -1,14 +1,19 @@
 """The frame function: scene tables + FrameState -> (V, H, W, 4) u8 image
 and the capacity-stats dict (port of ``superconductor_tpu/render/frame.py``).
 
-The ported slice: merged static + animated geometry, the binned tile
-raster (the CUDA kernels on a GPU, their plain versions on the CPU) in
-sorted-pair mode, the alpha-clip resolve over a k-buffer of clip
-fragments, the full-screen IBL skybox, the opaque deferred shade on a
-compacted granule worklist (or full screen), the alpha-blend composite of
-a k-buffer of blended fragments, and the tonemap tail. Every
-configuration outside it raises NotImplementedError naming the ROADMAP
-item that brings it. PyTorch runs eagerly, so there is no jit:
+The ported slice, in the reference's pass order: merged static + animated
+geometry, the binned tile raster (the CUDA kernels on a GPU, their plain
+versions on the CPU) in sorted-pair mode, the alpha-clip resolve over a
+k-buffer of clip fragments, the IBL skybox (full screen or on the sky
+worklist), the opaque deferred shade on a compacted granule worklist (or
+full screen), the flat-colour lines pass (the raster kernel over the
+opaque depth as its init buffer), the particle composite (the k-buffer
+kernel over the lines' depth), the alpha-blend composite (the k-buffer
+kernel over the same floor), and the tonemap tail. Material textures are
+sampled on the interleaved pool, the classic per-slot samplers, or both
+through the material-path partition on partial pools. Every
+configuration outside the slice raises NotImplementedError naming the
+ROADMAP item that brings it. PyTorch runs eagerly, so there is no jit:
 ``render_frame`` and ``render_frame_stats`` are plain functions.
 """
 
@@ -26,10 +31,22 @@ from ..ops.geometry import (
     geometry_vertex_stage,
     geometry_view_setup,
 )
+from ..ops.lines import line_geometry
+from ..ops.particles import particle_geometry, shade_particles
 from ..ops.raster import kbuffer_sorted, rasterize_sorted
 from ..ops.raster_ref import VisibilityBuffer
-from ..ops.shade import albedo_alpha, interpolate_gbuffer, shade
-from ..ops.sky import sample_skybox
+from ..ops.shade import (
+    GBuffer,
+    _material_rows,
+    _material_rows_mq,
+    albedo_alpha,
+    classic_sample,
+    interpolate_gbuffer,
+    sample_spherical_harmonics,
+    shade,
+)
+from ..ops.texture import sample_material_interleaved
+from ..ops.sky import sample_skybox, sample_skybox_at
 from ..ops.tonemap import to_u8, tonemap_and_encode
 
 
@@ -139,33 +156,28 @@ class FrameState(NamedTuple):
     particles: Optional[dict] = None
 
 
-def _check_slice(config: RenderConfig, state: FrameState) -> None:
+def _check_slice(config: RenderConfig, env) -> None:
     """Raise on every configuration outside the ported slice."""
     unported = [
-        (config.enable_lines, "enable_lines: ROADMAP queue 1, lines"),
-        (config.enable_particles, "enable_particles: ROADMAP queue 1, particles"),
         (config.num_views != 1, "num_views > 1: ROADMAP queue 1, views and bands"),
         (config.row_chunks != 1, "row_chunks > 1: ROADMAP queue 1, views and bands"),
-        (bool(config.matq_classic_cap), "matq_classic_cap: ROADMAP queue 1, material partition"),
         (config.shade_row_pad != 0, "shade_row_pad: TPU layout mechanics, not ported"),
-        (state.lines is not None, "FrameState.lines: ROADMAP queue 1, lines"),
-        (state.particles is not None, "FrameState.particles: ROADMAP queue 1, particles"),
+        (env.lightvol_tex_ids is not None or env.lightmap_tex_ids is not None,
+         "light volumes / lightmaps: ROADMAP queue 1, light volumes"),
+        (env.smoke_tex_ids is not None,
+         "smoke textures: ROADMAP queue 1, the smoke pool (with light volumes)"),
     ]
     for bad, why in unported:
         if bad:
             raise NotImplementedError(f"outside the ported slice: {why}")
-    npx = config.width * config.height
-    if 0 < (config.sky_px_cap or 0) < npx:
-        raise NotImplementedError(
-            "outside the ported slice: sky_px_cap < npx (ROADMAP queue 1, sky worklist)"
-        )
     config.resolve_raster()
 
 
 def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
-               y_offset: int):
-    """Binned raster in sorted-pair mode -> (VisibilityBuffer with SORTED
-    positions in .pair, pairs_needed i32, bins.order)."""
+               y_offset: int, init: Optional[VisibilityBuffer] = None):
+    """Binned raster in sorted-pair mode, walked from `init` (None = far,
+    no pair) -> (VisibilityBuffer with SORTED positions in .pair,
+    pairs_needed i32, bins.order)."""
     bins = bin_triangles(
         tri, config.width, band_height, config.p_cap,
         tile_h=config.tile_h, tile_w=config.tile_w, y_offset=y_offset,
@@ -174,7 +186,7 @@ def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
     vis = rasterize_sorted(
         sorted_setup, bins.tile_start, bins.tile_count, band_height,
         config.width, tile_h=config.tile_h, tile_w=config.tile_w,
-        reverse_z=config.reverse_z, y_offset=y_offset,
+        reverse_z=config.reverse_z, init=init, y_offset=y_offset,
     )
     return vis, bins.num_pairs, bins.order
 
@@ -349,6 +361,55 @@ def _granule_count(mask: torch.Tensor, gr: int) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 
 
+def _partition_material_sample(g: GBuffer, scene: dict, config: RenderConfig,
+                               aniso_taps: int, slots=None):
+    """Material sampling on a PARTIAL interleaved pool, each lane on its
+    own material's path (reference render/frame.py:565). The lanes are
+    permuted (a sort of (incapable, lane) keys) so that matq-incapable
+    lanes form a tail segment of cap_c = max(1, min(matq_classic_cap,
+    lanes)) lanes, sampled by the classic per-slot sampler, while the head
+    samples the interleaved pool; the result is permuted back. Incapable
+    lanes beyond the tail spill into the head and read the count=0
+    sentinel row -- the grow signal. `slots`: the material slots to
+    return (None = all four). Returns (s (lanes, 4 * len(slots)),
+    classic_needed () i32)."""
+    m = scene["materials"]
+    lanes = g.material.shape[0]
+    dev = g.material.device
+    capable = scene["matq_capable"][torch.clamp_min(g.material, 0).long()]
+    classic_lane = (~capable) & g.valid
+    classic_needed = classic_lane.sum(dtype=torch.int32)
+    cap_c = max(1, min(int(config.matq_classic_cap), lanes))
+
+    shift = max(int(lanes - 1).bit_length(), 1)
+    lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
+    keys = (classic_lane.to(torch.int32) << shift) | lane_ids
+    order = torch.sort(keys).values & ((1 << shift) - 1)
+
+    matf = g.material.to(torch.int32).contiguous().view(torch.float32)
+    inp = torch.cat([g.uv, g.duvdx, g.duvdy, matf[..., None]], dim=-1)[order.long()]
+    want = tuple(range(4)) if slots is None else tuple(slots)
+
+    def seg_sample(seg, use_matq):
+        uv, dx, dy = seg[..., 0:2], seg[..., 2:4], seg[..., 4:6]
+        mat = seg[..., 6].contiguous().view(torch.int32)
+        if use_matq:
+            _pf, _pi, meta, owh = _material_rows_mq(m, mat)
+            s16 = sample_material_interleaved(
+                scene["texels_mq"], meta, owh, uv, dx, dy, aniso_taps,
+                texels_tail=scene.get("texels_mq_tail"),
+            )
+            return torch.cat([s16[..., 4 * s:4 * s + 4] for s in want], dim=-1)
+        rows = _material_rows(m, mat)
+        return torch.cat([classic_sample(scene, rows, slot, uv, dx, dy, aniso_taps)
+                          for slot in want], dim=-1)
+
+    n_h = lanes - cap_c
+    s_perm = torch.cat([seg_sample(inp[:n_h], True), seg_sample(inp[n_h:], False)])
+    inv = torch.argsort(order)
+    return s_perm[inv], classic_needed
+
+
 def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):
     """Back-to-front per-layer compact -> shade -> alpha-blend (reference
     render/frame.py:652). Layer k compacts its own covered pixels into a
@@ -396,12 +457,36 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     vis_row = shade_row[op_order]
 
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    clip_layers_needed = blend_layers_needed = shade_px_needed = zero
+    clip_layers_needed = blend_layers_needed = particle_layers_needed = zero
+    shade_px_needed = matq_classic_needed = zero
     shade_px_needed_k = torch.zeros((config.needed_k_len(),), dtype=torch.int32, device=dev)
     clip_px_needed_k = torch.zeros(
         (config.resolve_clip_layers(),), dtype=torch.int32, device=dev
     )
     npx = band_height * config.width
+
+    # Material-path partition on PARTIAL interleaved pools: each lane
+    # samples on its own material's path (_partition_material_sample), in
+    # the opaque shade, the blend layers and (albedo only) the clip
+    # resolve. Without matq_classic_cap every lane takes the classic path,
+    # and the incapable-lane count is still reported so a host can size
+    # the cap from one stats frame.
+    partial_pool = "matq_capable" in scene and "texels_mq" in scene
+    use_partition = partial_pool and (config.matq_classic_cap or 0) > 0
+
+    def sampled(g, slots=None):
+        nonlocal matq_classic_needed
+        if not partial_pool:
+            return None
+        if not use_partition:
+            capable = scene["matq_capable"][torch.clamp_min(g.material, 0).long()]
+            need = ((~capable) & g.valid).sum(dtype=torch.int32)
+            matq_classic_needed = torch.maximum(matq_classic_needed, need)
+            return None
+        s16, need = _partition_material_sample(g, scene, config, config.aniso_taps,
+                                               slots=slots)
+        matq_classic_needed = torch.maximum(matq_classic_needed, need)
+        return s16
 
     # --- alpha-clip resolve: the K nearest clip fragments in front of the
     # opaque depth; per pixel the nearest whose albedo alpha passes the
@@ -431,7 +516,8 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             pair_k = torch.where(livek & (raw_k >= 0), raw_k + clip_off, -1)
             g = interpolate_gbuffer(pair_k, pxc, pyc, merged_tri, merged_attrs,
                                     shade_row=vis_row)
-            a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps)
+            a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps,
+                                     albedo4=sampled(g, slots=(0,)))
             cur_found = wlk.take(found_p) != 0
             ok = g.valid & (a >= cutoff) & ~cur_found
             found_p = wlk.compose(found_p, (cur_found | ok).to(torch.int32))
@@ -451,17 +537,26 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             pair=torch.where(found_b, chosen_pair_p.reshape(vis.pair.shape), vis.pair),
         )
 
-    # --- skybox: the base layer the shaded surfaces overwrite ---
-    sky = sample_skybox(
-        scene, env, config.width, band_height,
-        u["projection_inverse"][view_index], u["view_inverse_quat"][view_index],
-        inline_tonemapping=config.inline_tonemapping,
-        inline_srgb=config.inline_srgb, y_offset=y_offset,
-        full_height=config.height,
-    )
+    # --- skybox: the base layer the shaded surfaces overwrite; on the sky
+    # worklist only where the post-clip visibility has no winner (covered
+    # pixels never read the sky, so zeros under covered granules are
+    # unobservable) ---
     gr = _worklist_granule(config, npx)
     hit = (vis.pair >= 0).reshape(-1)
-    sky_px_needed = _granule_count(~hit, gr)
+    sky_args = dict(
+        projection_inverse=u["projection_inverse"][view_index],
+        view_quat=u["view_inverse_quat"][view_index],
+        inline_tonemapping=config.inline_tonemapping, inline_srgb=config.inline_srgb,
+        y_offset=y_offset, full_height=config.height,
+    )
+    if 0 < (config.sky_px_cap or 0) < npx:
+        swl = _compact_worklist(~hit, config.sky_px_cap, config)
+        sky_px_needed = swl.need
+        sky_rows = sample_skybox_at(scene, env, swl.lane_safe(), config.width, **sky_args)
+        sky = swl.compose(torch.zeros((npx, 3), dtype=torch.float32, device=dev), sky_rows)
+    else:
+        sky = sample_skybox(scene, env, config.width, band_height, **sky_args)
+        sky_px_needed = _granule_count(~hit, gr)
 
     # --- shade the winning opaque surface ---
     if 0 < (config.opaque_px_cap or 0) < npx:
@@ -478,6 +573,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             g, scene, u, view_index, env=env,
             inline_tonemapping=config.inline_tonemapping,
             inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+            s16=sampled(g),
         )
         rgb = wl.compose(sky, torch.where(g.valid[..., None], rgb_w, wl.take(sky)))
     else:
@@ -489,15 +585,76 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             gbuf, scene, u, view_index, env=env,
             inline_tonemapping=config.inline_tonemapping,
             inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+            s16=sampled(gbuf),
         )
         rgb = torch.where(gbuf.valid[..., None], rgb, sky)
 
+    # --- lines: flat-colour quads depth-tested against the post-clip depth
+    # (the raster kernel walks from it as its init buffer); their depth is
+    # the floor of the particle and blend passes ---
+    depth_floor = vis.depth
+    if config.enable_lines and state.lines is not None:
+        line_tri, line_colors = line_geometry(
+            state.lines["pos"], state.lines["color"], state.lines["valid"],
+            u["view_proj"][view_index], config.width, config.height,
+            line_width_px=config.line_width_px, flip_viewport=config.flip_viewport,
+        )
+        line_init = VisibilityBuffer(depth=vis.depth, pair=torch.full_like(vis.pair, -1))
+        lvis, line_pairs, l_order = _rasterize(line_tri, config, band_height, y_offset,
+                                               init=line_init)
+        line_colors = line_colors[l_order]
+        pairs_needed = torch.maximum(pairs_needed, line_pairs)
+        lhit = (lvis.pair >= 0).reshape(-1)
+        lcol = line_colors[torch.clamp_min(lvis.pair.reshape(-1), 0)]
+        rgb = torch.where(lhit[..., None], lcol, rgb)
+        depth_floor = lvis.depth
+
+    # --- particles: camera-facing quads, the K nearest in front of the
+    # floor per pixel, shaded and blended back to front ---
+    if config.enable_particles and state.particles is not None:
+        p_tri, p_attrs = particle_geometry(
+            state.particles, u["view"][view_index], u["view_inverse"][view_index],
+            u["projection"][view_index], config.width, config.height,
+            flip_viewport=config.flip_viewport,
+        )
+        pkb, p_pairs, particle_layers_needed, p_order = _rasterize_kbuffer(
+            p_tri, config, band_height, y_offset, depth_floor, want_depth=False,
+            k=config.resolve_particle_layers(),
+        )
+        p_attrs = p_attrs._replace(packed=p_attrs.packed[p_order])
+        pairs_needed = torch.maximum(pairs_needed, p_pairs)
+
+        def sh_sampler(world_pos):
+            # a stand-in g-buffer: the SH lookup reads only the position
+            stand_in = GBuffer(
+                valid=None, world_pos=world_pos, normal=None, uv=None,
+                lm_uv=torch.zeros_like(world_pos[..., :2]), material=None,
+                front_facing=None,
+                lightmapped=torch.zeros(world_pos.shape[0], dtype=torch.bool, device=dev),
+                dpdx=None, dpdy=None, duvdx=None, duvdy=None,
+            )
+            return sample_spherical_harmonics(stand_in, scene, u, env)
+
+        def shade_particle_layer(pair_w, safe, live):
+            spx, spy = _px_py_at(safe, config.width, y_offset)
+            return shade_particles(
+                pair_w, spx, spy, p_tri, p_attrs, state.particles, scene, u, env,
+                view_index, sh_sampler, inline_tonemapping=config.inline_tonemapping,
+                inline_srgb=config.inline_srgb,
+            )
+
+        rgb, shade_px_needed_k = _composite_layers(
+            rgb, pkb.pair, config.layer_caps(config.resolve_particle_layers()),
+            shade_px_needed_k, shade_particle_layer, config,
+        )
+
     # --- alpha-blend composite: the K nearest blended fragments in front
-    # of the post-clip depth, shaded and blended back to front ---
+    # of the floor (the lines' depth, else the post-clip depth), shaded and
+    # blended back to front ---
     if config.enable_blend:
         blend_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 2))
         kb, blend_pairs, blend_layers_needed, blend_order = _rasterize_kbuffer(
-            blend_tri, config, band_height, y_offset, vis.depth, want_depth=False,
+            blend_tri, config, band_height, y_offset, depth_floor, want_depth=False,
         )
         blend_row = shade_row[blend_order]
         pairs_needed = torch.maximum(pairs_needed, blend_pairs)
@@ -510,6 +667,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
                 g, scene, u, view_index, env=env,
                 inline_tonemapping=config.inline_tonemapping,
                 inline_srgb=config.inline_srgb, aniso_taps=config.aniso_taps,
+                s16=sampled(g),
             )
             return lrgb, torch.where(g.valid, la, 0.0)
 
@@ -522,8 +680,8 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     rgb = tonemap_and_encode(rgb, not config.inline_tonemapping, not config.inline_srgb)
 
     # shade_px_needed tracks the worklists bounded by shade_px_cap: the
-    # clip resolve while clip_px_caps is unset, and the blend layer 0 while
-    # shade_px_caps is unset
+    # clip resolve while clip_px_caps is unset, and the particle / blend
+    # layer 0 while shade_px_caps is unset
     if config.shade_px_caps is None:
         shade_px_needed = torch.maximum(shade_px_needed, shade_px_needed_k[0])
 
@@ -532,15 +690,17 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     )
     stats = {
         "pairs_needed": pairs_needed.to(torch.int32),
-        "layers_needed": torch.maximum(clip_layers_needed, blend_layers_needed),
+        "layers_needed": torch.maximum(
+            torch.maximum(clip_layers_needed, blend_layers_needed), particle_layers_needed
+        ),
         "clip_layers_needed": clip_layers_needed,
         "blend_layers_needed": blend_layers_needed,
-        "particle_layers_needed": zero,
+        "particle_layers_needed": particle_layers_needed,
         "shade_px_needed": shade_px_needed,
         "shade_px_needed_k": shade_px_needed_k,
         "opaque_px_needed": opaque_px_needed,
         "sky_px_needed": sky_px_needed,
-        "matq_classic_needed": zero,
+        "matq_classic_needed": matq_classic_needed,
         "clip_px_needed_k": clip_px_needed_k,
     }
     return img, stats
@@ -549,7 +709,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
 def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
                       env, with_stats: bool = False):
     """Frame body -> (V, H, W, 4) u8 [, stats dict]; one view, one band."""
-    _check_slice(config, state)
+    _check_slice(config, env)
     stages, merged_attrs = _merged_vertex_stage(scene, state, config)
     geometry = (
         _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config),

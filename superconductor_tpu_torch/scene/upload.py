@@ -14,9 +14,14 @@ The one representation change: the u32 index buffers are carried as i32
 (same bits; every index is far below 2**31), because torch has no gather
 kernels for unsigned 32-bit tensors.
 
+A partial interleaved pool (some materials incapable) is published as the
+reference publishes it: incapable materials' ``mat_row_mq`` rows carry
+their real factors and a count=0 sentinel, and ``matq_capable`` (M,) bool
+marks the capable ones for the material-path partition.
+
 Scenes outside the ported slice raise NotImplementedError instead of
-rendering wrong: partial interleaved pools (``matq_capable``), the wide
-mq3 rows, SH-interleaved light volumes / lightmaps, and smoke pools.
+rendering wrong: the wide mq3 rows, SH-interleaved light volumes /
+lightmaps, and smoke pools.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .scene import Scene
+from .scene import WRAP_REPEAT, Scene
 
 _VERTEX_KEYS = (
     "positions", "normals", "uvs", "lightmap_uvs", "indices", "tri_material",
@@ -122,8 +127,9 @@ def _fill_slot_index(idx: np.ndarray, pool, ids, dims, offsets) -> None:
 
 def matq_tables(scene: Scene, quad: torch.Tensor, device):
     """(texels_mq (N, 64) u8, texels_mq_tail or None, mat_row_mq (M, 24+4L)
-    f32) or None -- the non-mq3 path of Scene.device_matq
-    (scene.py:1072-1241)."""
+    f32, matq_capable (M,) bool or None) or None -- the non-mq3 path of
+    Scene.device_matq (scene.py:1072-1241); matq_capable only for a
+    partial pool (scene.py:1428-1438)."""
     if not (scene.quad_pools and scene.matq_pools):
         return None
     plan = scene.matq_plan()
@@ -135,11 +141,6 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
     if scene.matq3x3 and plan["mq3_ok"]:
         raise NotImplementedError(
             "wide mq3 interleaved rows are not ported (ROADMAP: do not port)"
-        )
-    if plan["partial"]:
-        raise NotImplementedError(
-            "partial interleaved pools (matq_capable) wait for the "
-            "material-path partition (ROADMAP queue 1: material partition)"
         )
     pool = scene.textures
 
@@ -163,13 +164,18 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
     L = plan["L"]
     mrows = []
     for mi, c in enumerate(plan["mat_chain"]):
-        _, dims, wrap = plan["chains"][c]
-        meta = np.array([wrap, plan["srgb_masks"][c], len(dims), 0], np.int32)
         owh = np.zeros((L, 4), np.int32)
-        for l in range(L):
-            ll = min(l, len(dims) - 1)
-            h, w = dims[ll]
-            owh[l] = (plan["offsets"][c][ll], w, h, plan["tail_offsets"][c][ll])
+        if c < 0:
+            # incapable material: count=0 sentinel, zero offsets, 1x1 dims
+            meta = np.array([WRAP_REPEAT, 0, 0, 0], np.int32)
+            owh[:, 1:3] = 1
+        else:
+            _, dims, wrap = plan["chains"][c]
+            meta = np.array([wrap, plan["srgb_masks"][c], len(dims), 0], np.int32)
+            for l in range(L):
+                ll = min(l, len(dims) - 1)
+                h, w = dims[ll]
+                owh[l] = (plan["offsets"][c][ll], w, h, plan["tail_offsets"][c][ll])
         mrows.append(
             np.concatenate(
                 [
@@ -181,7 +187,10 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
             )
         )
     mat_row_mq = _np_to_torch(np.stack(mrows).astype(np.float32), device)
-    return texels_mq, texels_mq_tail, mat_row_mq
+    capable = None
+    if plan["partial"]:
+        capable = _np_to_torch(np.asarray(plan["mat_capable"], np.bool_), device)
+    return texels_mq, texels_mq_tail, mat_row_mq, capable
 
 
 def scene_to_torch(scene: Scene, device="cuda") -> dict:
@@ -215,6 +224,8 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
                 d["texels_mq_tail"] = mq[1]
             d["materials"] = dict(materials)
             d["materials"]["mat_row_mq"] = mq[2]
+            if mq[3] is not None:
+                d["matq_capable"] = mq[3]
     return d
 
 

@@ -15,6 +15,15 @@ rows, each triangle repeated far from its first copy.
 materials) built from committed data only: the headline's helmet, sky and
 SH, plus the all-passes sphere ring of ``bench.py`` ``all_passes_scene``
 (:608-621, :667-673), with clip and blend on and lines and particles off.
+
+``all_passes_scene`` is ``bench.py`` ``all_passes_scene`` (:534-679) with
+what the repository holds: ``tests/fixtures/dense_terrain.glb`` (whose
+material cannot take the interleaved pool, so the pool is partial and the
+material-path partition engages), the sphere ring, 22 grid lines and 16
+particles, every pass on. Its external assets (sponza_cubes, the bcn light
+volume, noon.ktx2, the smoke textures) are left out: the sky is the
+procedural gradient cubemap with constant ambient SH, as in the headline,
+and the particles take the reference's procedural puff.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from . import math3d
 from .assets.models import load_model
 from .ops.geometry import TriangleSetup, _setup_from_clip
 from .render.camera import Camera, make_uniforms
-from .render.draws import build_frame_state
+from .render.draws import build_frame_state, pack_lines, pack_particles
 from .render.env import EnvBindings
 from .render.frame import RenderConfig
 from .scene.scene import (
@@ -59,10 +68,11 @@ HOST = SimpleNamespace(
     math3d=math3d,
 )
 
-HERO_GLB = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "tests", "fixtures", "hero_helmet.glb",
+_FIXTURES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "fixtures"
 )
+HERO_GLB = os.path.join(_FIXTURES, "hero_helmet.glb")
+TERRAIN_GLB = os.path.join(_FIXTURES, "dense_terrain.glb")
 
 
 def _aim(cam, target, m3):
@@ -121,24 +131,11 @@ def _clip_checker(checker_texture) -> np.ndarray:
     return img
 
 
-def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
-                    stacks: int = 88, host=HOST):
-    """Host side of the clip_blend scene -> (scene, instances, uniforms,
-    env, config), device-free, built with `host`'s modules.
-    `instances(angle)` lists the (model, Similarity) draws with the spheres
-    turned by `angle` about +y.
-
-    The ring: every 5th sphere alpha-clipped (checker alpha 0 on the dark
-    squares, double-sided so holes show the inside), every 7th blended
-    (base colour alpha 0.6), the rest opaque, at (6 cos a, 1.3, 3 sin a)
-    around the helmet. The camera looks down the ring's +z side past the
-    blended sphere (index 2) onto the helmet, with clipped sphere 1 in
-    view; sky stays above half the frame."""
-    m3 = host.math3d
-    scene = host.Scene()
-    with open(HERO_GLB, "rb") as f:
-        hero = host.load_model(scene, f.read(), name="hero_helmet")
-    cubemap_base = host.gradient_cubemap(scene)
+def _sphere_ring(scene, host, n_spheres: int, stacks: int) -> list:
+    """The all-passes sphere ring's models (bench.py:610-621): every 5th
+    sphere alpha-clipped (checker alpha 0 on the dark squares, double-sided
+    so holes show the inside), every 7th blended (base colour alpha 0.6),
+    the rest opaque."""
     clip_albedo = None
     spheres = []
     for i in range(n_spheres):
@@ -160,6 +157,41 @@ def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
             mat.base_color_factor = (1.0, 1.0, 1.0, 0.6)
             m.primitives[0].blend_mode = BLEND_ALPHA_BLENDED
         spheres.append(m)
+    return spheres
+
+
+def _ring_instances(spheres: list, angle: float, m3) -> list:
+    """(model, Similarity) of each sphere on the ring (6 cos a, 1.3,
+    3 sin a), turned by `angle` about +y (bench.py:667-673)."""
+    rot = m3.quat_from_axis_angle([0, 1, 0], angle)
+    out = []
+    for i, m in enumerate(spheres):
+        a = 2.0 * np.pi * i / len(spheres)
+        out.append((m, m3.Similarity(
+            translation=[6.0 * np.cos(a), 1.3, 3.0 * np.sin(a)], rotation=rot,
+        )))
+    return out
+
+
+def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
+                    stacks: int = 88, host=HOST):
+    """Host side of the clip_blend scene -> (scene, instances, uniforms,
+    env, config), device-free, built with `host`'s modules.
+    `instances(angle)` lists the (model, Similarity) draws with the spheres
+    turned by `angle` about +y.
+
+    The ring: every 5th sphere alpha-clipped (checker alpha 0 on the dark
+    squares, double-sided so holes show the inside), every 7th blended
+    (base colour alpha 0.6), the rest opaque, at (6 cos a, 1.3, 3 sin a)
+    around the helmet. The camera looks down the ring's +z side past the
+    blended sphere (index 2) onto the helmet, with clipped sphere 1 in
+    view; sky stays above half the frame."""
+    m3 = host.math3d
+    scene = host.Scene()
+    with open(HERO_GLB, "rb") as f:
+        hero = host.load_model(scene, f.read(), name="hero_helmet")
+    cubemap_base = host.gradient_cubemap(scene)
+    spheres = _sphere_ring(scene, host, n_spheres, stacks)
 
     cam = host.Camera(position=np.array([0.8, 1.7, 7.5], np.float32))
     _aim(cam, [0.3, 0.8, 0], m3)
@@ -173,14 +205,7 @@ def clip_blend_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
     )
 
     def instances(angle: float):
-        rot = m3.quat_from_axis_angle([0, 1, 0], angle)
-        out = [(hero, m3.Similarity())]
-        for i, m in enumerate(spheres):
-            a = 2.0 * np.pi * i / len(spheres)
-            out.append((m, m3.Similarity(
-                translation=[6.0 * np.cos(a), 1.3, 3.0 * np.sin(a)], rotation=rot,
-            )))
-        return out
+        return [(hero, m3.Similarity())] + _ring_instances(spheres, angle, m3)
 
     return scene, instances, uniforms, env, config
 
@@ -196,6 +221,83 @@ def clip_blend_scene(width: int = 1920, height: int = 1080, device="cuda",
 
     def build(angle: float):
         return build_frame_state(scene, instances(angle), uniforms, device=device)
+
+    return dev, build, config, env
+
+
+# the small all-passes frame of the CPU parity tests, its golden and the
+# card's check against it: spheres cut to 32 stacks and slices, LODs
+# selected for a 128-px-tall screen
+ALL_PASSES_SMALL = dict(width=256, height=128, stacks=32, lod_screen_height=128)
+
+
+def all_passes_overlays() -> dict:
+    """The all-passes frame's 22 grid lines (colour ids 0-21) and 16
+    particles (bench.py:641-658), as build_frame_state keywords."""
+    lines = pack_lines(
+        [[[g, 0.02, -5], [g, 0.02, 5]] for g in range(-5, 6)]
+        + [[[-5, 0.02, g], [5, 0.02, g]] for g in range(-5, 6)],
+        list(range(22)),
+    )
+    particles = pack_particles([
+        {
+            "center": [3.0 * np.cos(0.8 * k), 1.0 + 0.2 * k, 3.0 * np.sin(0.8 * k)],
+            "scale": [1.5, 1.5],
+            "colour": [0.9, 0.9, 0.95],
+            "emissive_colour": [0.3, 0.2, 0.1],
+        }
+        for k in range(16)
+    ])
+    return {"lines": lines, "particles": particles}
+
+
+def all_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
+                    stacks: int = 88, lod_screen_height: int = 1080, host=HOST):
+    """Host side of the all-passes scene -> (scene, instances, uniforms,
+    env, config, draw_kw), device-free, built with `host`'s modules.
+    `instances(angle)` lists the (model, Similarity) draws -- the terrain
+    at translation (0, -0.6, 0), scale 1.6, and the ring turned by `angle`
+    about +y -- and `draw_kw` the build_frame_state keywords: the lines,
+    the particles and the LOD screen height."""
+    m3 = host.math3d
+    scene = host.Scene()
+    with open(TERRAIN_GLB, "rb") as f:
+        terrain = host.load_model(scene, f.read(), name="dense_terrain")
+    cubemap_base = host.gradient_cubemap(scene)
+    spheres = _sphere_ring(scene, host, n_spheres, stacks)
+    scene._materials_dirty = True
+
+    cam = host.Camera(position=np.array([8.0, 2.5, 3.0], np.float32))
+    _aim(cam, [0, 1.2, 0], m3)
+    uniforms = host.make_uniforms(cam, width, height)
+    env = host.EnvBindings.from_scene(scene, ambient_sh=host.default_ambient_sh())
+    if env.ibl_cubemap_base != cubemap_base:
+        raise RuntimeError("all-passes cubemap is not the scene's IBL cubemap")
+    config = RenderConfig(
+        width=width, height=height, t_cap=1 << 18, t_cap_anim=1 << 6,
+        p_cap=1 << 19, raster="auto", enable_clip=True, enable_blend=True,
+        enable_lines=True, enable_particles=True,
+    )
+
+    def instances(angle: float):
+        ground = m3.Similarity(translation=[0.0, -0.6, 0.0], scale=1.6)
+        return [(terrain, ground)] + _ring_instances(spheres, angle, m3)
+
+    draw_kw = dict(all_passes_overlays(), screen_height=lod_screen_height)
+    return scene, instances, uniforms, env, config, draw_kw
+
+
+def all_passes_scene(width: int = 1920, height: int = 1080, device="cuda",
+                     n_spheres: int = 8, stacks: int = 88, lod_screen_height: int = 1080):
+    """-> (dev, build, config, env) of the all-passes scene, as
+    headline_scene: build(angle) turns the spheres by `angle` about +y."""
+    scene, instances, uniforms, env, config, draw_kw = all_passes_host(
+        width, height, n_spheres, stacks, lod_screen_height
+    )
+    dev = scene_to_torch(scene, device)
+
+    def build(angle: float):
+        return build_frame_state(scene, instances(angle), uniforms, device=device, **draw_kw)
 
     return dev, build, config, env
 

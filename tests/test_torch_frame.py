@@ -1,8 +1,9 @@
 """The ported slice end to end: the hero frame at 256x128 through the
 port against the reference's render_frame_stats (raster="pallas", the
 Pallas kernel in interpret mode on CPU) with the same config; the
-RenderConfig contract; the slice guard; fit_caps against bench.fit_caps;
-and a jax-free process rendering a frame."""
+reference's two PNG goldens rendered by the port; the RenderConfig
+contract; the slice guard; fit_caps against bench.fit_caps; and a
+jax-free process rendering a frame."""
 
 import dataclasses
 import os
@@ -113,15 +114,21 @@ def test_render_config_matches_reference():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(enable_lines=True),
-     dict(enable_particles=True), dict(num_views=2), dict(row_chunks=2),
-     dict(sky_px_cap=1024), dict(matq_classic_cap=512), dict(shade_row_pad=128),
+    [dict(env=dict(lightvol_tex_ids=(0, 0, 0, 0), lightvol_z_layers=1)),
+     dict(env=dict(lightmap_tex_ids=(0, 0, 0, 0))), dict(num_views=2), dict(row_chunks=2),
+     dict(env=dict(smoke_tex_ids=(0, 0, 0))),
+     dict(num_views=2, enable_lines=True, enable_particles=True), dict(shade_row_pad=128),
      dict(raster="ref")],
 )
 def test_outside_the_slice_raises(change):
+    """Views and bands, TPU row padding, rasterize_ref, light volumes,
+    lightmaps and the smoke textures are outside the ported slice."""
     _scene, _model, _uniforms, _env, config = headline_host(64, 32)
+    change = dict(change)
+    env_change = change.pop("env", {})
     config = dataclasses.replace(config, **change)
     dev, state, env = _port_frame_inputs(64, 32, 0.0)
+    env = dataclasses.replace(env, **env_change)
     with pytest.raises(NotImplementedError):
         port_frame.render_frame(dev, state, config, env)
 
@@ -195,7 +202,35 @@ SEQUENCES = {
                clip_px_needed_k=[30000, 2000]),
     ],
 }
-TRANSPARENT = ("clip_blend_tighten", "blend_overflow")
+# all passes on a partial interleaved pool: the clip depth grows past 8,
+# the partition engages at a need of 0 and then grows, the particle depth
+# is pinned to its need and the per-layer worklists sized; once geometry
+# covers more than half the screen the sky worklist engages
+_AP = dict(pairs_needed=127366, layers_needed=9, clip_layers_needed=9,
+           blend_layers_needed=2, particle_layers_needed=3, shade_px_needed=496768,
+           shade_px_needed_k=[496768, 257024, 43008, 0], opaque_px_needed=1134080,
+           sky_px_needed=1146240, matq_classic_needed=0,
+           clip_px_needed_k=[320384, 320384, 1920, 256])
+SEQUENCES["all_passes"] = [_stats(**_AP)] + [
+    _stats(**{**_AP, "matq_classic_needed": 210000, "sky_px_needed": 900000})
+] * 5
+# particles deeper than K grow particle_layers alone; blend tightens once
+# clip and particles no longer inherit it
+SEQUENCES["particle_overflow"] = [
+    _stats(pairs_needed=60000, layers_needed=6, clip_layers_needed=2,
+           blend_layers_needed=1, particle_layers_needed=6, shade_px_needed=80000,
+           shade_px_needed_k=[80000, 30000, 9000, 2000], opaque_px_needed=900000,
+           sky_px_needed=1300000, clip_px_needed_k=[40000, 1000, 0, 0]),
+] * 2 + [
+    _stats(pairs_needed=60000, layers_needed=6, clip_layers_needed=2,
+           blend_layers_needed=1, particle_layers_needed=6, shade_px_needed=80000,
+           shade_px_needed_k=[80000, 30000, 9000, 2000, 700, 300, 0, 0],
+           opaque_px_needed=900000, sky_px_needed=1300000,
+           clip_px_needed_k=[40000, 1000, 0, 0]),
+] * 3
+TRANSPARENT = ("clip_blend_tighten", "blend_overflow", "all_passes", "particle_overflow")
+WITH_PARTICLES = ("all_passes", "particle_overflow")
+PARTIAL_POOL = ("all_passes",)
 
 
 @pytest.mark.parametrize("seq", sorted(SEQUENCES))
@@ -218,17 +253,72 @@ def test_fit_caps_matches_bench(monkeypatch, seq):
     monkeypatch.setattr(port_caps, "render_frame_stats", fake("port"))
     monkeypatch.setattr(port_caps, "stats_to_host", lambda s: s)
     transparent = seq in TRANSPARENT
+    particles = seq in WITH_PARTICLES
     config = RenderConfig(width=1920, height=1080, t_cap=1 << 15,
                           t_cap_anim=1 << 6, p_cap=1 << 17,
-                          enable_clip=transparent, enable_blend=transparent)
-    ref = bench.fit_caps({}, None, _ref_config(config), None)
-    port = port_caps.fit_caps({}, None, config, None)
-    for f in ("p_cap", "opaque_px_cap", "sky_px_cap", "clip_layers",
-              "blend_layers", "shade_px_cap", "shade_px_caps", "clip_px_caps"):
+                          enable_clip=transparent, enable_blend=transparent,
+                          enable_lines=particles, enable_particles=particles)
+    # the growers read only whether the scene publishes a partial pool
+    dev = {"matq_capable": None} if seq in PARTIAL_POOL else {}
+    ref = bench.fit_caps(dev, None, _ref_config(config), None)
+    port = port_caps.fit_caps(dev, None, config, None)
+    for f in ("p_cap", "opaque_px_cap", "sky_px_cap", "clip_layers", "blend_layers",
+              "particle_layers", "shade_px_cap", "shade_px_caps", "clip_px_caps",
+              "matq_classic_cap"):
         assert getattr(ref, f) == getattr(port, f), f
     assert seen["ref"] == seen["port"]
     if transparent:
         assert port.shade_px_caps is not None and port.clip_layers is not None
+    if particles:
+        assert port.particle_layers is not None
+    if seq == "all_passes":
+        assert port.matq_classic_cap > 512 and port.sky_px_cap and port.clip_layers == 16
+
+
+def _golden_scene(name, box_glb):
+    """The port's (scene, instances, uniforms, config, env) of the
+    reference's PNG golden `name` (tests/test_goldens.py:51-87), with
+    raster="auto": the binned raster, where the goldens took
+    rasterize_ref (not ported)."""
+    from superconductor_tpu_torch.assets.models import load_model
+    from superconductor_tpu_torch.render.camera import Camera, make_uniforms
+    from superconductor_tpu_torch.render.env import EnvBindings
+    from superconductor_tpu_torch.scene.scene import Scene
+    from superconductor_tpu_torch.utils.procgen import add_pbr_sphere, default_ambient_sh
+
+    m3 = port_math3d
+    scene = Scene()
+    if name == "unlit_box":
+        model = load_model(scene, box_glb, name="box")
+        camera = Camera(position=np.array([0.9, 0.8, 1.8], np.float32))
+        camera.rotation = m3.mat3_to_quat(m3.mat4_inverse(m3.look_at(camera.position, [0, 0, 0]))[:3, :3])
+        uniforms, angle = make_uniforms(camera, 128, 128), 0.4
+        config = RenderConfig(width=128, height=128, t_cap=32, t_cap_anim=8, raster="auto")
+        env = EnvBindings(clear_color=(0.1, 0.15, 0.3))
+    else:
+        model = add_pbr_sphere(scene, stacks=32, slices=32)
+        camera = Camera(position=np.array([0.0, 0.25, 2.3], np.float32))
+        uniforms, angle = make_uniforms(camera, 160, 120), 0.6
+        config = RenderConfig(width=160, height=120, t_cap=4096, t_cap_anim=8, raster="auto")
+        env = EnvBindings(ambient_sh=default_ambient_sh(), clear_color=(0.1, 0.12, 0.25))
+    sim = m3.Similarity(rotation=m3.quat_from_axis_angle([0, 1, 0], angle))
+    state = port_build(scene, [(model, sim)], uniforms, device="cpu")
+    return scene_to_torch(scene, "cpu"), state, config, env
+
+
+@pytest.mark.parametrize("name", ["unlit_box", "pbr_sphere"])
+def test_reference_png_golden_through_the_port(name, box_glb):
+    """tests/goldens/unlit_box.png and pbr_sphere.png, the reference's own
+    goldens, rendered by the port on the CPU: PSNR >= 40 dB, the goldens'
+    bar (tests/test_goldens.py:48)."""
+    import imageio.v3 as iio
+
+    dev, state, config, env = _golden_scene(name, box_glb)
+    img = port_frame.render_frame(dev, state, config, env)[0].numpy()
+    golden = iio.imread(os.path.join(REPO, "tests", "goldens", f"{name}.png"))
+    assert golden.shape == img.shape
+    db = psnr(golden, img)
+    assert db >= 40.0, db
 
 
 @pytest.mark.parametrize("block_jax", [True, False])

@@ -7,16 +7,70 @@ content, camera uniforms, culling and host math on the same inputs.
 parity tests build the reference side of a scene with it."""
 
 import contextlib
+import ctypes
+import fcntl
+import glob
 import os
 import re
+import shlex
 import subprocess
 import sys
+import tempfile
 import textwrap
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "superconductor_tpu_torch")
+REF_NATIVE = os.path.join(REPO, "superconductor_tpu", "native")
+
+
+def ensure_reference_native() -> None:
+    """Build the reference's libscnative.so once, under a lock, before any
+    test loads it.
+
+    The reference's loader runs `make` when the library is missing, and
+    make's g++ writes the library in place. Test workers that reach the
+    loader together then race: one opens the file while another's g++ is
+    still writing it ("file too short"), and that worker runs without the
+    library for its whole life -- the hero's ETC1S textures stay on their
+    dummy slots there. Every test module of the port imports this one, and
+    every worker imports every test module while collecting, so the build
+    happens here, once: g++ with the Makefile's command and flags into a
+    temporary file, then an atomic rename. A fresh library that loads is
+    left alone."""
+    lib = os.path.join(REF_NATIVE, "libscnative.so")
+    sources = sorted(glob.glob(os.path.join(REF_NATIVE, "src", "*.cpp")))
+    deps = sources + glob.glob(os.path.join(REF_NATIVE, "src", "*.h"))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "reference_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib) and all(
+            os.path.getmtime(lib) >= os.path.getmtime(f) for f in deps
+        ):
+            try:
+                ctypes.CDLL(lib)
+                return
+            except OSError:
+                pass
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=REF_NATIVE)
+        os.close(fd)
+        try:
+            # the Makefile's rule: $(CXX) $(CXXFLAGS) $(SRCS) -o $@
+            cxx = os.environ.get("CXX", "g++")
+            flags = shlex.split(os.environ.get("CXXFLAGS", "-O2 -fPIC -shared -std=c++17 -Wall"))
+            subprocess.run([cxx, *flags, *sources, "-o", tmp], check=True,
+                           capture_output=True, timeout=600)
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
+ensure_reference_native()
 
 import superconductor_tpu.animation as ref_animation
 import superconductor_tpu.math3d as ref_math3d
@@ -40,9 +94,6 @@ from superconductor_tpu_torch.utils import procgen as port_procgen
 # The test workers share the CPU: torch's default of a thread per core in
 # each of them oversubscribes it many times over.
 torch.set_num_threads(2)
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(REPO, "superconductor_tpu_torch")
 
 REF_HOST = SimpleNamespace(
     Scene=ref_scene.Scene, load_model=ref_load_model,
@@ -266,16 +317,21 @@ def test_make_uniforms_matches_reference(reverse_z):
         assert_same(ur, up)
 
 
-@pytest.mark.parametrize("scene", ["headline", "clip_blend"])
+@pytest.mark.parametrize("scene", ["headline", "clip_blend", "all_passes"])
 def test_scene_builders_match_with_either_host(scene):
-    """scenes.headline_host / clip_blend_host built with the reference's
-    host layer and with the port's give equal scenes, uniforms, env and
-    instances (the other parity tests rely on it)."""
-    from superconductor_tpu_torch.scenes import clip_blend_host, headline_host
+    """scenes.headline_host / clip_blend_host / all_passes_host built with
+    the reference's host layer and with the port's give equal scenes,
+    uniforms, env and instances (the other parity tests rely on it)."""
+    from superconductor_tpu_torch.scenes import all_passes_host, clip_blend_host, headline_host
 
     if scene == "headline":
         ref = headline_host(64, 32, host=REF_HOST)
         port = headline_host(64, 32)
+    elif scene == "all_passes":
+        ref = all_passes_host(64, 32, n_spheres=3, stacks=8, host=REF_HOST)
+        port = all_passes_host(64, 32, n_spheres=3, stacks=8)
+        assert_same(ref[1](0.4), port[1](0.4), "instances")
+        assert_same(ref[5], port[5], "draw keywords")
     else:
         ref = clip_blend_host(64, 32, n_spheres=3, stacks=8, host=REF_HOST)
         port = clip_blend_host(64, 32, n_spheres=3, stacks=8)

@@ -74,7 +74,7 @@ RUNS = (
     ("stack", 1, True), ("stack", 2, True), ("stack", 4, True), ("stack", 8, True),
     ("stack", 4, False), ("stack-forward-z", 2, True), ("stack-forward-z", 8, False),
     ("hero-band-floor", 1, True), ("hero-band-floor", 4, True),
-    ("hero-band-floor", 8, False),
+    ("hero-band-floor", 8, False), ("stack", 16, True), ("hero-band-floor", 16, False),
 )
 
 _REFERENCE_CHILD = textwrap.dedent(
@@ -172,8 +172,10 @@ def test_plain_kbuffer_matches_interpret_kernel(kbuffer_cases, run):
     else:
         assert kb.depth is None and key + "/depth" not in ref
     assert bool((kb.pair[0] >= 0).any())
-    if name.startswith("stack"):  # up to 12 fragments: past every K
+    if name.startswith("stack") and k <= 8:  # up to 12 fragments: past K <= 8
         assert int(layers.max()) > k and bool((kb.pair[k - 1] >= 0).any())
+    elif name.startswith("stack"):  # every fragment held, slots past 12 empty
+        assert bool((kb.pair[11] >= 0).any()) and not bool((kb.pair[12:] >= 0).any())
     kb_w, layers_w = kbuffer_sorted(*args, **kw)
     assert torch.equal(kb_w.pair, kb.pair) and torch.equal(layers_w, layers)
 

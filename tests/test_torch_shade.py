@@ -1,6 +1,7 @@
 """The port's tonemap, texture sampling, g-buffer interpolation and shade
 against the reference's JAX functions (run eagerly, op by op) on identical
-inputs made with numpy or taken from the hero fixture.
+inputs made with numpy or taken from the hero fixture and the all-passes
+scene (whose terrain material only the classic samplers take).
 
 Tolerances and their reasons: elementwise arithmetic is written in the
 reference's operand order, so most results agree to the last bit
@@ -8,12 +9,17 @@ reference's operand order, so most results agree to the last bit
 the exact sRGB encode). Where they do not, the cause is the math library:
 pow, log2 and rsqrt differ between XLA's CPU kernels and torch's by an
 ulp (measured: the sRGB decode, 3e-5 abs on values up to ~390), so
-functions are compared at rtol 1e-5. Shading chains several such
-functions through the tonemap (measured 1.8e-6 abs), so the shaded colour
-is compared at atol 2e-5 on values in [0, 1] (well under one u8 step,
-1/255)."""
+functions are compared at rtol 1e-5. The samplers' lod takes a log2, so
+the trilinear fraction moves by an ulp where the two log2s differ
+(measured on the classic samplers: up to 3e-7 abs on linear slots, 2e-6 on
+sRGB ones where the decode's pow adds its ulp; no level flipped in 8,192
+lanes a slot), hence rtol 1e-5 / atol 1e-6 for every sampler. Shading
+chains several such functions through the tonemap (measured 1.8e-6 abs),
+so the shaded colour is compared at atol 2e-5 on values in [0, 1] (well
+under one u8 step, 1/255)."""
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +37,9 @@ from superconductor_tpu_torch.ops import shade as port_shade
 from superconductor_tpu_torch.ops.geometry import TriangleAttrs, TriangleSetup
 from superconductor_tpu_torch.ops import texture as port_texture
 from superconductor_tpu_torch.ops import tonemap as port_tonemap
+from superconductor_tpu_torch.render import frame as port_frame
 from superconductor_tpu_torch.scene.upload import scene_to_torch
-from superconductor_tpu_torch.scenes import headline_host
+from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL, all_passes_host, headline_host
 from test_torch_host import REF_HOST
 
 # The test workers share the CPU: torch's default of a thread per core in
@@ -221,3 +228,171 @@ def test_shade_matches_reference(inline):
     np.testing.assert_allclose(rgb_p.numpy(), rgb_r, rtol=1e-4, atol=2e-5)
     np.testing.assert_allclose(a_p.numpy(), np.asarray(a_r), rtol=1e-5, atol=1e-6)
     assert (rgb_r[pair >= 0] > 0).any()
+
+
+# --- the classic samplers, the partition, on the all-passes tables -------
+
+@functools.lru_cache(maxsize=None)
+def _all_passes():
+    """The all-passes scene's tables, the reference's (device_arrays) and
+    the port's (scene_to_torch): material 0 is the terrain's (512^2 albedo,
+    256^2 normal: not interleavable), 1-8 the spheres'."""
+    return (all_passes_host(**ALL_PASSES_SMALL, host=REF_HOST)[0].device_arrays(),
+            scene_to_torch(all_passes_host(**ALL_PASSES_SMALL)[0], "cpu"))
+
+
+def _sampler_lanes(seed: int, p: int = 4096):
+    """uv inside and outside [0, 1] and footprints from under a texel to
+    the whole chain (every mip level, and lod < 0)."""
+    rng = np.random.default_rng(seed)
+    scale = (10.0 ** rng.uniform(-5, 0.5, size=(p, 1))).astype(np.float32)
+    return (rng.uniform(-1.0, 2.0, size=(p, 2)).astype(np.float32),
+            (rng.normal(size=(p, 2)) * scale).astype(np.float32),
+            (rng.normal(size=(p, 2)) * scale).astype(np.float32))
+
+
+DESCRIPTOR_PATHS = ("levels", "mip_owh2", "tex_meta", "flat")
+
+
+def _descriptors(path, tex, mtm, mlv, slot):
+    """The tex_desc and keywords of one of sample_trilinear's descriptor
+    paths: the material row's in-register mip table, the mip_owh2 pair
+    rows with the row's meta, the tex_meta + mip_owh2 tables, or the flat
+    per-field tables (two bilinear_level calls)."""
+    if path == "levels":
+        return tex, dict(meta=mtm[..., 6 * slot:6 * slot + 6], levels_owh=mlv[..., slot, :, :])
+    if path == "mip_owh2":
+        return tex, dict(meta=mtm[..., 6 * slot:6 * slot + 6])
+    if path == "tex_meta":
+        return tex, {}
+    return {k: v for k, v in tex.items() if k not in ("tex_meta", "mip_owh", "mip_owh2")}, {}
+
+
+@pytest.mark.parametrize("path", DESCRIPTOR_PATHS)
+@pytest.mark.parametrize("taps", [1, 4])
+@pytest.mark.parametrize("material", ["terrain", "sphere"])
+def test_classic_samplers_match_reference(material, taps, path):
+    """sample_anisotropic (taps 1: trilinear at the isotropic lod; 4: four
+    trilinear taps along the major axis) on all four slots of the
+    terrain's and a clipped sphere's material, through each descriptor path
+    of sample_trilinear, on the same tables: rtol 1e-5 / atol 1e-6 (the
+    lod's log2 and the sRGB decode's pow, module docstring)."""
+    dev_r, dev_p = _all_passes()
+    mat = np.full(4096, 0 if material == "terrain" else 2, np.int32)
+    uv, dx, dy = _sampler_lanes(11 + taps)
+    _pf, pi_r, mtm_r, mlv_r = ref_shade._material_rows(dev_r["materials"], jnp.asarray(mat))
+    _pf, pi_p, mtm_p, mlv_p = port_shade._material_rows(dev_p["materials"], _t(mat))
+    for slot in range(4):
+        desc_r, kw_r = _descriptors(path, dev_r["tex"], mtm_r, mlv_r, slot)
+        desc_p, kw_p = _descriptors(path, dev_p["tex"], mtm_p, mlv_p, slot)
+        ref = np.asarray(ref_texture.sample_anisotropic(
+            ref_texture.ldr_pool(dev_r), desc_r, pi_r[..., slot], jnp.asarray(uv),
+            jnp.asarray(dx), jnp.asarray(dy), taps, **kw_r))
+        port = port_texture.sample_anisotropic(
+            port_texture.ldr_pool(dev_p), desc_p, pi_p[..., slot], _t(uv), _t(dx), _t(dy),
+            taps, **kw_p).numpy()
+        np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6, err_msg=f"slot {slot}")
+
+
+@pytest.mark.parametrize("lod", [None, "varying"])
+def test_sample_cubemap_through_descriptors_matches_reference(lod):
+    """The cubemap sampler without static placement: one bilinear tap at
+    the base level (lod None), or trilinear at a per-lane lod, through the
+    HDR pool's descriptor tables."""
+    _s, _m, _u, env, _c, dev, dev_t, env_t = _hero()
+    rng = np.random.default_rng(8)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    lods = rng.uniform(-1.0, 7.0, size=4096).astype(np.float32)
+    ref = np.asarray(ref_texture.sample_cubemap(
+        ref_texture.hdr_pool(dev), dev["tex_hdr"], env.ibl_cubemap_base, jnp.asarray(d),
+        lod=None if lod is None else jnp.asarray(lods),
+    ))
+    port = port_texture.sample_cubemap(
+        port_texture.hdr_pool(dev_t), dev_t["tex_hdr"], env_t.ibl_cubemap_base, _t(d),
+        lod=None if lod is None else _t(lods),
+    ).numpy()
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
+
+
+def _partition_lanes(seed: int, p: int = 2048):
+    """Lanes on every material of the all-passes scene (numpy seed), a few
+    invalid; -> (lanes, incapable valid lanes)."""
+    capable = np.asarray(_all_passes()[0]["matq_capable"])
+    assert not capable.all() and capable.any()
+    uv, dx, dy = _sampler_lanes(seed, p)
+    rng = np.random.default_rng(seed + 100)
+    lanes = dict(uv=uv, duvdx=dx, duvdy=dy,
+                 material=rng.integers(0, capable.shape[0], size=p).astype(np.int32),
+                 valid=rng.uniform(size=p) > 0.05)
+    return lanes, int(((~capable[lanes["material"]]) & lanes["valid"]).sum())
+
+
+@pytest.mark.parametrize("spill", [False, True])
+@pytest.mark.parametrize("slots", [None, (0,)])
+def test_partition_material_sample_matches_reference(spill, slots):
+    """render/frame.py _partition_material_sample on the same lanes and
+    tables (the reference's tests/test_matq.py:334 and :381 on the
+    all-passes pool): classic_needed equal, the samples at rtol 1e-5 /
+    atol 1e-6. With a classic segment a quarter of the need, the incapable
+    lanes that spill into the interleaved segment read the sentinel row on
+    both sides alike."""
+    from superconductor_tpu.render.frame import _partition_material_sample as ref_partition
+
+    dev_r, dev_p = _all_passes()
+    lanes, need = _partition_lanes(7 + spill)
+    cap = max(1, need // 4) if spill else need + 64
+    s_r, n_r = ref_partition(
+        SimpleNamespace(**{k: jnp.asarray(v) for k, v in lanes.items()}), dev_r,
+        ref_frame.RenderConfig(matq_classic_cap=cap), 1, slots=slots)
+    s_p, n_p = port_frame._partition_material_sample(
+        SimpleNamespace(**{k: _t(v) for k, v in lanes.items()}), dev_p,
+        port_frame.RenderConfig(matq_classic_cap=cap), 1, slots=slots)
+    assert int(n_p) == int(n_r) == need > (cap if spill else 0)
+    np.testing.assert_allclose(s_p.numpy(), np.asarray(s_r), rtol=1e-5, atol=1e-6)
+
+
+def test_classic_shade_and_albedo_alpha_match_reference():
+    """On the partial pool, shade() and albedo_alpha() without pre-sampled
+    textures take the classic sampler for every lane, and with the
+    partition's samples (s16 / albedo4) use them with the material row's
+    factors: the shaded colour at rtol 1e-4 / atol 2e-5, alpha and the
+    cutoff at rtol 1e-5 / atol 1e-6, both ways, against the reference."""
+    from superconductor_tpu.render.frame import _partition_material_sample as ref_partition
+
+    taps = 1  # the samplers' 4-tap path is held in test_classic_samplers_match_reference
+    dev_r, dev_p = _all_passes()
+    lanes, need = _partition_lanes(20 + taps, p=1024)
+    p = lanes["material"].shape[0]
+    rng = np.random.default_rng(30 + taps)
+    normal = rng.normal(size=(p, 3)).astype(np.float32)
+    g = dict(
+        valid=lanes["valid"], world_pos=rng.normal(size=(p, 3)).astype(np.float32),
+        normal=normal, uv=lanes["uv"], lm_uv=np.zeros((p, 2), np.float32),
+        material=lanes["material"], front_facing=rng.uniform(size=p) > 0.3,
+        lightmapped=np.zeros(p, bool),
+        dpdx=(rng.normal(size=(p, 3)) * 1e-2).astype(np.float32),
+        dpdy=(rng.normal(size=(p, 3)) * 1e-2).astype(np.float32),
+        duvdx=lanes["duvdx"], duvdy=lanes["duvdy"],
+    )
+    g_r = ref_shade.GBuffer(**{k: jnp.asarray(v) for k, v in g.items()})
+    g_p = port_shade.GBuffer(**{k: _t(v) for k, v in g.items()})
+    _s, _m, uniforms, env, _c, _dev, _dev_t, env_t = _hero()
+    u = {k: jnp.asarray(v) for k, v in uniforms.as_device_dict().items()}
+    u_t = {k: _t(np.asarray(v, np.float32)) for k, v in uniforms.as_device_dict().items()}
+    cfg_r = ref_frame.RenderConfig(matq_classic_cap=need + 64, aniso_taps=taps)
+    cfg_p = port_frame.RenderConfig(matq_classic_cap=need + 64, aniso_taps=taps)
+    s16_r, _n = ref_partition(g_r, dev_r, cfg_r, taps)
+    s16_p, _n = port_frame._partition_material_sample(g_p, dev_p, cfg_p, taps)
+    for pre in (False, True):
+        rgb_r, a_r = ref_shade.shade(g_r, dev_r, u, 0, env=env, aniso_taps=taps,
+                                     s16=s16_r if pre else None)
+        rgb_p, a_p = port_shade.shade(g_p, dev_p, u_t, 0, env=env_t, aniso_taps=taps,
+                                      s16=s16_p if pre else None)
+        np.testing.assert_allclose(rgb_p.numpy(), np.asarray(rgb_r), rtol=1e-4, atol=2e-5)
+        np.testing.assert_allclose(a_p.numpy(), np.asarray(a_r), rtol=1e-5, atol=1e-6)
+        al_r, c_r = ref_shade.albedo_alpha(g_r, dev_r, aniso_taps=taps,
+                                           albedo4=s16_r[..., 0:4] if pre else None)
+        al_p, c_p = port_shade.albedo_alpha(g_p, dev_p, aniso_taps=taps,
+                                            albedo4=s16_p[..., 0:4] if pre else None)
+        np.testing.assert_allclose(al_p.numpy(), np.asarray(al_r), rtol=1e-5, atol=1e-6)
+        assert np.array_equal(c_p.numpy(), np.asarray(c_r))

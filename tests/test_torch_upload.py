@@ -58,8 +58,20 @@ def _port_scene_of(glb: bytes) -> PortScene:
     return scene
 
 
-@pytest.mark.parametrize("which", ["hero", "box"])
+@pytest.mark.parametrize("which", ["hero", "box", "all_passes"])
 def test_scene_to_torch_bit_exact(which, box_glb):
+    """hero and box: one model; all_passes: the terrain and the sphere ring,
+    whose interleaved pool is partial (matq_capable, the incapable
+    terrain material's sentinel mat_row_mq row)."""
+    if which == "all_passes":
+        from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL, all_passes_host
+        from test_torch_host import REF_HOST
+
+        ref = all_passes_host(**ALL_PASSES_SMALL, host=REF_HOST)[0].device_arrays()
+        port = scene_to_torch(all_passes_host(**ALL_PASSES_SMALL)[0], "cpu")
+        assert "matq_capable" in port and not bool(port["matq_capable"].all())
+        _assert_same_tables(ref, port)
+        return
     if which == "hero":
         with open(HERO, "rb") as f:
             glb = f.read()
