@@ -59,11 +59,14 @@ and checks them:
    on some pixel) and the blend pass's, against their plain versions for
    every K and cluster size, bit for bit, and timed at the frame's K as in
    3 and 5;
-   20 frames timed with CUDA events, with exactly 2 raster and 3 k-buffer
-   launches per frame; the frame against its plain-versions twin
-   (byte-equal); lines and particles each change it; a 256x128 frame (at
-   the capacities stored with its golden) on the card against the CPU
-   frame and the JAX reference's frame in tests/goldens (>= 40 dB);
+   20 frames timed with CUDA events, each pass's launches counted in that
+   run, exactly one a frame for each (2 raster and 3 k-buffer); the frame
+   against its plain-versions twin (byte-equal); the frame with the sky
+   worklist forced on at its sky_px_needed (fit_caps leaves it off here)
+   equal to it byte for byte; lines and particles each change it; a
+   256x128 frame (at the capacities stored with its golden) on the card
+   against the CPU frame and the JAX reference's frame in tests/goldens
+   (>= 40 dB);
 8. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
@@ -82,6 +85,7 @@ CUDA graph of 20 launches).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -347,7 +351,8 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
         one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
         plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
         bound_ms, bound_by, pairs = raster_bound(
-            tri.bbox, bins, width, height, kbuffer_px_bytes(k, want, floor is not None), y_offset
+            tri.bbox, bins, width, height, y_offset=y_offset,
+            **kbuffer_px_bytes(k, want, floor is not None),
         )
         timings[(k, want)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, heaviest=heaviest, pairs=pairs)
@@ -503,19 +508,53 @@ def clip_blend_path(dev, kb_results, cb_raster) -> dict:
     return launches
 
 
-def golden_frame(path: str, make_scene, device, angle: float = 0.3):
-    """The 256x128 frame of `make_scene` on `device` with the capacities
-    stored beside the golden image in `path` (its fitted config)."""
+def all_passes_golden_frame(device):
+    """The 256x128 all-passes frame at angle 0.3 on `device`, with the
+    capacities stored beside the reference's image in ALL_PASSES_GOLDEN."""
     from superconductor_tpu_torch.render.frame import render_frame
-    from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL
+    from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL, all_passes_scene
 
-    golden = np.load(path)
     caps = {k: tuple(v) if isinstance(v, list) else v
-            for k, v in json.loads(str(golden["caps"])).items()}
+            for k, v in json.loads(str(np.load(ALL_PASSES_GOLDEN)["caps"])).items()}
     small = dict(ALL_PASSES_SMALL)
     w, h = small.pop("width"), small.pop("height")
-    scene_dev, build_state, config, env = make_scene(w, h, device, **small)
-    return render_frame(scene_dev, build_state(angle), replace(config, **caps), env)
+    scene_dev, build_state, config, env = all_passes_scene(w, h, device, **small)
+    return render_frame(scene_dev, build_state(0.3), replace(config, **caps), env)
+
+
+@contextlib.contextmanager
+def frame_passes(keep_inputs: bool):
+    """Inside the block, each raster and k-buffer pass of the frame path
+    (render/frame.py _rasterize, _rasterize_kbuffer) appends to
+    passes["raster"] / passes["kbuffer"], in call order, the launches its
+    kernel's wrapper counted during the call and, with `keep_inputs`, the
+    pass's inputs: (tri, init) and (tri, depth_floor, want_depth, K)."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.render import frame as frame_mod
+
+    passes = {"raster": [], "kbuffer": []}
+    real_r, real_k = frame_mod._rasterize, frame_mod._rasterize_kbuffer
+
+    def rec_raster(tri, cfg, band_height, y_offset, init=None):
+        before = raster_mod.rasterize_sorted.LAUNCHES
+        out = real_r(tri, cfg, band_height, y_offset, init=init)
+        passes["raster"].append((raster_mod.rasterize_sorted.LAUNCHES - before,
+                                 (tri, init) if keep_inputs else None))
+        return out
+
+    def rec_kbuffer(tri, cfg, band_height, y_offset, depth_floor, want_depth=True, k=None):
+        before = raster_mod.kbuffer_sorted.LAUNCHES
+        out = real_k(tri, cfg, band_height, y_offset, depth_floor, want_depth=want_depth, k=k)
+        inputs = (tri, depth_floor, want_depth, k or cfg.blend_layers)
+        passes["kbuffer"].append((raster_mod.kbuffer_sorted.LAUNCHES - before,
+                                  inputs if keep_inputs else None))
+        return out
+
+    frame_mod._rasterize, frame_mod._rasterize_kbuffer = rec_raster, rec_kbuffer
+    try:
+        yield passes
+    finally:
+        frame_mod._rasterize, frame_mod._rasterize_kbuffer = real_r, real_k
 
 
 def all_passes_path(dev, shapes: dict) -> dict:
@@ -526,9 +565,10 @@ def all_passes_path(dev, shapes: dict) -> dict:
     (particle quads over the lines' depth, no depth planes), and each other
     pass's kernel at its shape (the clip pass at K = 16), against their
     plain versions at every cluster size, and timed; the frame's launches
-    (2 raster and 3 k-buffer a frame), its plain-versions twin, and the
-    256x128 frame against the CPU and the reference's golden. Returns the
-    launch counts of the timed run."""
+    by pass (one a frame each), its plain-versions twin, the sky worklist
+    forced on, and the 256x128 frame against the CPU and the reference's
+    golden. Returns the launch counts of the timed run, by kernel and by
+    pass."""
     from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
@@ -565,22 +605,9 @@ def all_passes_path(dev, shapes: dict) -> dict:
         raise RuntimeError("the material-path partition did not engage")
 
     # one stats frame, recording the inputs of each raster and k-buffer pass
-    calls = {"raster": [], "kbuffer": []}
-    real_r, real_k = frame_mod._rasterize, frame_mod._rasterize_kbuffer
-
-    def rec_raster(tri, cfg, band_height, y_offset, init=None):
-        calls["raster"].append((tri, init))
-        return real_r(tri, cfg, band_height, y_offset, init=init)
-
-    def rec_kbuffer(tri, cfg, band_height, y_offset, depth_floor, want_depth=True, k=None):
-        calls["kbuffer"].append((tri, depth_floor, want_depth, k or cfg.blend_layers))
-        return real_k(tri, cfg, band_height, y_offset, depth_floor, want_depth=want_depth, k=k)
-
-    frame_mod._rasterize, frame_mod._rasterize_kbuffer = rec_raster, rec_kbuffer
-    try:
+    with frame_passes(keep_inputs=True) as passes:
         img, stats = render_frame_stats(scene_dev, state0, config, env)
-    finally:
-        frame_mod._rasterize, frame_mod._rasterize_kbuffer = real_r, real_k
+    calls = {kind: [inputs for _, inputs in passes[kind]] for kind in passes}
     stats = stats_to_host(stats)
     phase("all_passes", f"stats {stats}")
     if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
@@ -612,14 +639,22 @@ def all_passes_path(dev, shapes: dict) -> dict:
         frames[0] += 1
         return render_frame(scene_dev, state0, config, env)
 
-    frame_ms = cuda_ms(one_frame)
+    with frame_passes(keep_inputs=False) as passes:
+        frame_ms = cuda_ms(one_frame)
     launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
                 "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    by_pass = {}
+    for kind, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER)):
+        counts = [n for n, _ in passes[kind]]
+        if len(counts) != len(names) * frames[0]:
+            raise RuntimeError(f"{len(counts)} {kind} passes over {frames[0]} frames, "
+                               f"expected {len(names)} a frame")
+        by_pass.update({name: sum(counts[i::len(names)]) for i, name in enumerate(names)})
     phase("all_passes", f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
-          f"launches {launches} over {frames[0]} frames")
-    if launches != {"raster_sorted": 2 * frames[0], "kbuffer_sorted": 3 * frames[0]}:
-        raise RuntimeError("the all-passes frame did not launch the raster kernel twice and "
-                           "the k-buffer kernel three times per frame")
+          f"launches {launches} over {frames[0]} frames, by pass {by_pass}")
+    if set(by_pass.values()) != {frames[0]} or sum(by_pass.values()) != sum(launches.values()):
+        raise RuntimeError("the all-passes frame did not launch its kernel once a frame in "
+                           "each of its 2 raster and 3 k-buffer passes")
 
     img = render_frame(scene_dev, state0, config, env)
     frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
@@ -635,6 +670,16 @@ def all_passes_path(dev, shapes: dict) -> dict:
         raise RuntimeError("all-passes frame differs from its plain-kernels twin")
     phase("all_passes", "frame equals its twin rendered with both plain versions byte for byte")
 
+    # the sky worklist, forced on at the frame's own need
+    sky_cap = stats["sky_px_needed"]
+    img_sky, sky_stats = render_frame_stats(scene_dev, state0,
+                                            replace(config, sky_px_cap=sky_cap), env)
+    sky_need = stats_to_host(sky_stats)["sky_px_needed"]
+    phase("all_passes", f"sky worklist at sky_px_cap={sky_cap} of {npx} px: sky_px_needed "
+          f"{sky_need}, frame equal to the full-screen sky's: {torch.equal(img_sky, img)}")
+    if not 0 < sky_cap < npx or sky_need != sky_cap or not torch.equal(img_sky, img):
+        raise RuntimeError("the sky-worklist frame differs from the full-screen sky's")
+
     # lines and particles both change the frame
     for flag in ("enable_lines", "enable_particles"):
         off = render_frame(scene_dev, state0, replace(config, **{flag: False}), env)
@@ -643,8 +688,8 @@ def all_passes_path(dev, shapes: dict) -> dict:
         if changed == 0:
             raise RuntimeError(f"{flag} changed no pixel")
 
-    img_g = golden_frame(ALL_PASSES_GOLDEN, all_passes_scene, dev).cpu()
-    img_c = golden_frame(ALL_PASSES_GOLDEN, all_passes_scene, "cpu")
+    img_g = all_passes_golden_frame(dev).cpu()
+    img_c = all_passes_golden_frame("cpu")
     golden = np.load(ALL_PASSES_GOLDEN)["image"]
     db_cpu = psnr(img_g.numpy(), img_c.numpy())
     db_ref = psnr(img_g.numpy(), golden)
@@ -652,15 +697,17 @@ def all_passes_path(dev, shapes: dict) -> dict:
           f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
     if min(db_cpu, db_ref) < 40.0:
         raise RuntimeError("card frame disagrees with the CPU frame or the reference")
-    return launches
+    return launches, by_pass
 
 
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
-                 raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
+                 ap_by_pass: dict, raster_res: dict, kbuffer_res: dict,
+                 shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the three frames' timed runs, then each all-passes pass at its
-    own shape with its launches in that frame's timed run (one a frame)."""
+    own shape with the launches counted in that pass during the frame's
+    timed run (one a frame)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -680,10 +727,10 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
         entry("kbuffer_sorted", "kbuffer", cb_launches["kbuffer_sorted"] + ap_kbuffer,
               kbuffer_res,
               max(kbuffer_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_KBUFFER))),
-        *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_raster // len(AP_RASTER),
-                shapes[n]) for n in AP_RASTER],
-        *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_kbuffer // len(AP_KBUFFER),
-                shapes[n]) for n in AP_KBUFFER],
+        *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
+          for n in AP_RASTER],
+        *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
+          for n in AP_KBUFFER],
     ]}
 
 
@@ -830,15 +877,15 @@ def main() -> int:
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
     shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER}
-    ap_launches = all_passes_path(dev, shapes)
+    ap_launches, ap_by_pass = all_passes_path(dev, shapes)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
             raise RuntimeError(f"{mod} was imported")
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
-    print(json.dumps(kernels_line(launches, cb_launches, ap_launches, results, kb_results,
-                                  shapes)))
+    print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass, results,
+                                  kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -58,15 +58,23 @@ def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
 
 
 def raster_bound(bbox: torch.Tensor, bins, width: int, height: int, px_bytes: int,
-                 y_offset: int = 0, tile_h: int = 32, tile_w: int = 128):
+                 y_offset: int = 0, busy_px_bytes: int = 0, tile_h: int = 32,
+                 tile_w: int = 128):
     """(bound_ms, bound_by, pairs) of one binned raster call over the
     band [y_offset, y_offset + height). Bytes: 64 B a setup row its tiles
-    hold and 8 B a tile, each read once, and `px_bytes` a pixel of planes
-    read or written once. Operations: EDGE_OPS at each pixel of a row's
-    tile that the row's triangle bounding box (`bbox` (T, 4), inclusive
-    pixels, the binning's) covers -- the pixels any raster of this data
-    must test -- not at every pixel of the tile."""
+    hold and 8 B a tile, each read once; `px_bytes` at every pixel (planes
+    written, or read where an empty tile still copies them, as an init
+    buffer); `busy_px_bytes` only at the pixels of tiles holding a row (a
+    k-buffer's depth floor: an empty tile's output does not depend on it).
+    Operations: EDGE_OPS at each pixel of a row's tile that the row's
+    triangle bounding box (`bbox` (T, 4), inclusive pixels, the binning's)
+    covers -- the pixels any raster of this data must test -- not at every
+    pixel of the tile."""
     ntx, nty = -(-width // tile_w), -(-height // tile_h)
+    busy = (bins.tile_count[:ntx * nty] > 0).reshape(nty, ntx)
+    cols = (width - torch.arange(ntx, device=busy.device) * tile_w).clamp(max=tile_w)
+    rows = (height - torch.arange(nty, device=busy.device) * tile_h).clamp(max=tile_h)
+    busy_px = int((busy * rows[:, None] * cols[None, :]).sum())
     used = bins.tile_of_pair < ntx * nty
     tile = bins.tile_of_pair[used].to(torch.int64)
     box = bbox[bins.order[used].to(torch.int64)].to(torch.int64)
@@ -78,15 +86,18 @@ def raster_bound(bbox: torch.Tensor, bins, width: int, height: int, px_bytes: in
     y1 = torch.minimum(box[:, 3], ty0 + tile_h - 1).clamp(max=y_offset + height - 1)
     edge_px = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
     pairs = int(tile.numel())
-    t_bytes = (pairs * 64 + ntx * nty * 8 + width * height * px_bytes) / PEAK_BYTES * 1e3
+    t_bytes = (pairs * 64 + ntx * nty * 8 + width * height * px_bytes
+               + busy_px * busy_px_bytes) / PEAK_BYTES * 1e3
     t_ops = EDGE_OPS * edge_px / PEAK_FP32_OPS * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
 
-def kbuffer_px_bytes(k: int, want_depth: bool, has_floor: bool) -> int:
-    """Bytes a pixel of one k-buffer call moves: K pair planes (and K depth
-    planes) and `layers` written, the floor read when given."""
-    return 4 * k * (2 if want_depth else 1) + 4 + (4 if has_floor else 0)
+def kbuffer_px_bytes(k: int, want_depth: bool, has_floor: bool) -> dict:
+    """raster_bound's per-pixel bytes of one k-buffer call: K pair planes
+    (and K depth planes) and `layers` written at every pixel, the floor read
+    (when given) only in tiles holding a row."""
+    return dict(px_bytes=4 * k * (2 if want_depth else 1) + 4,
+                busy_px_bytes=4 if has_floor else 0)
 
 
 @contextlib.contextmanager
@@ -185,7 +196,7 @@ def main() -> int:
         setup, bins = binned(part, w, h, config.p_cap)
         counts = bins.tile_count
         bound_ms, bound_by, pairs = raster_bound(part.bbox, bins, w, h,
-                                                 kbuffer_px_bytes(k, want, True))
+                                                 **kbuffer_px_bytes(k, want, True))
         print(f"clip_blend k-buffer {name} K={k} want_depth={want}: {pairs} pairs in "
               f"{int((counts > 0).sum())} of {counts.numel()} tiles, heaviest tile "
               f"{int(counts.max())} rows; bound {bound_ms:.4f} ms ({bound_by})", flush=True)

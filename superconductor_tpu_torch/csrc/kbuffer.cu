@@ -20,8 +20,9 @@
 // and `layers`, which may exceed K (the host's signal to grow K).
 //
 // What bounds it on this card. Bytes set the floor: every pixel writes K
-// pair planes, K depth planes (clip) and `layers` and reads its floor --
-// 149 MB at 1080p for K = 8 with depth planes, 0.045 ms at 3.35 TB/s --
+// pair planes, K depth planes (clip) and `layers`, and a pixel of a tile
+// holding rows reads its floor -- at most 149 MB at 1080p for K = 8 with
+// depth planes, 0.045 ms at 3.35 TB/s --
 // while the rows (64 B each) are small. The work is FP32 issue over (row,
 // pixel) pairs, plus, per accepted fragment, K compares and 2K selects;
 // but the binning leaves the rows very unevenly spread (one clip tile

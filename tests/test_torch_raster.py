@@ -378,6 +378,32 @@ def test_raster_bound_counts_box_pixels_in_tiles():
     assert bound_by == ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def test_raster_bound_charges_floor_bytes_in_busy_tiles():
+    """raster_bound charges `busy_px_bytes` (a k-buffer's depth floor) only
+    at the pixels of tiles holding a row, the ragged last column and row of
+    tiles cut to the band: against a loop over the tiles, on a band where
+    some tiles are empty."""
+    from superconductor_tpu_torch.bench_raster import kbuffer_px_bytes
+
+    tri = _to_port(_hero_tri(256, 128, 0.3))
+    y0, h, w = 8, 120, 300
+    bins = bin_triangles(tri, w, h, 1 << 13, y_offset=y0)
+    ntx, nty = 3, 4
+    busy_px = 0
+    for t in range(ntx * nty):
+        if int(bins.tile_count[t]) > 0:
+            ty, tx = divmod(t, ntx)
+            busy_px += min(128, w - tx * 128) * min(32, h - ty * 32)
+    assert 0 < busy_px < w * h
+    pixel_bytes = kbuffer_px_bytes(4, False, True)
+    assert pixel_bytes == {"px_bytes": 20, "busy_px_bytes": 4}
+    bound_ms, _, pairs = raster_bound(tri.bbox, bins, w, h, y_offset=y0, **pixel_bytes)
+    without, _, _ = raster_bound(tri.bbox, bins, w, h, 20, y0)
+    t_bytes = (pairs * 64 + ntx * nty * 8 + w * h * 20 + busy_px * 4) / 3.35e12 * 1e3
+    assert bound_ms == pytest.approx(max(t_bytes, without), rel=1e-12)
+    assert bound_ms > without
+
+
 def test_build_freshness_follows_headers(tmp_path):
     """build_kernels rebuilds a library older than its source or than any
     csrc/*.cuh beside it (both kernels include raster_common.cuh): checked
