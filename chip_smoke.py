@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives superconductor_tpu_torch's three paths at 1920x1080 on the first
+Drives superconductor_tpu_torch's four paths at 1920x1080 on the first
 CUDA device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
 sky), the clip_blend frame (BASELINE config 3: the helmet plus a ring of
-spheres, alpha-clipped and alpha-blended ones among them) and the
-all-passes frame (dense_terrain.glb, the ring, lines and particles) --
-and checks them:
+spheres, alpha-clipped and alpha-blended ones among them), the
+all-passes frame (dense_terrain.glb, the ring, lines and particles) and
+the stereo-animated frame (BASELINE configs 4 and 5: two eyes of skinned
+tubes and spheres) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
@@ -48,7 +49,11 @@ and checks them:
    both plain versions (byte-equal); the clip pass both keeps and drops
    clip fragments; the blend composite changes the pixels it covers; a
    256x128 frame on the card against the CPU frame and the JAX
-   reference's frame in tests/goldens (>= 40 dB);
+   reference's frame in tests/goldens (>= 40 dB); the same frame rendered
+   on the card and on the CPU with every intermediate of render/frame.py
+   recorded (TRACED: setup rows, bins, raster and k-buffer planes,
+   worklists, g-buffers, albedo alpha, samples, shaded rows, the frame)
+   and the first that differs printed, with its size and the stats;
 7. all_passes (the terrain, the sphere ring, grid lines and particles,
    every pass on): fit_caps, with the material-path partition engaged; a
    stats frame that records each pass's inputs; the raster kernel at the
@@ -67,13 +72,25 @@ and checks them:
    256x128 frame (at the capacities stored with its golden) on the card
    against the CPU frame and the JAX reference's frame in tests/goldens
    (>= 40 dB);
-8. neither jax nor the JAX package (superconductor_tpu) was imported.
+8. stereo (two eyes, six skinned tubes whose joint palettes come from the
+   numpy FK, six spheres): the host time per frame of the palettes and of
+   the frame state's build and upload; fit_caps; the raster kernel
+   against its plain version on each eye's opaque setup and on a band at
+   y_offset 540, at every cluster size, and timed as in 3; 20 frames timed
+   with CUDA events, the raster's launches counted per eye, exactly one a
+   view a frame (num_views x row_chunks = 2) and no k-buffer launch; the
+   frame against its plain-raster twin and against itself in two bands
+   (4 launches), byte for byte; the eyes differ and the animation moves;
+   a 256x128 frame on the card against the CPU frame and the JAX
+   reference's in tests/goldens (>= 40 dB), and its raster="ref" twin on
+   the card equal to it;
+9. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
-The table holds both kernels (launches summed over the three frames'
-timed runs) and the all-passes frame's five passes, each with the
-launches it made in that frame's timed run.
+The table holds both kernels (launches summed over the four frames'
+timed runs), the all-passes frame's five passes and the stereo frame's
+two eyes, each with the launches it made in that frame's timed run.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -110,6 +127,10 @@ CLIP_BLEND_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # rendered with (tests/test_torch_all_passes.py)
 ALL_PASSES_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "tests", "goldens", "torch_all_passes_256x128.npz")
+# the JAX reference's stereo-animated frame at 256x128 and the capacities it
+# was rendered with (tests/test_torch_stereo.py)
+STEREO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "goldens", "torch_stereo_256x128.npz")
 # kernel -> (its source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "raster": ("superconductor_tpu_torch/csrc/raster.cu",
@@ -120,6 +141,17 @@ KERNEL_SOURCES = {
 # the all-passes frame's raster passes and k-buffer passes, in frame order
 AP_RASTER = ("opaque", "lines")
 AP_KBUFFER = ("clip", "particles", "blend")
+# the stereo frame's raster passes: the opaque pass of each eye
+EYES = ("left", "right")
+# render/frame.py names whose results trace_frame records, called in
+# pipeline order: setup rows, bins, the raster planes, the k-buffer planes
+# and layers, worklists, g-buffers, albedo alpha, material samples, sky,
+# shaded rows, the tonemap and the u8 frame
+TRACED = ("_merged_vertex_stage", "_merged_setup_for_view", "bin_triangles",
+          "gather_sorted_setup", "rasterize_sorted", "kbuffer_sorted", "_compact_worklist",
+          "interpolate_gbuffer", "albedo_alpha", "sample_material_interleaved",
+          "sample_skybox", "sample_skybox_at", "shade", "shade_particles",
+          "tonemap_and_encode", "to_u8")
 
 
 def phase(name: str, msg: str) -> None:
@@ -365,6 +397,128 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
     return timings
 
 
+def _tensors(x) -> list:
+    """Every tensor in x (nested tuples, NamedTuples, lists, dicts), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+@contextlib.contextmanager
+def trace_frame():
+    """Inside the block, every call of a TRACED name of render/frame.py
+    appends (name, its result's tensors copied to the CPU) to the list
+    yielded. Of a g-buffer (a result with .valid), and of what is computed
+    from one (a first argument with .valid), only the live lanes are kept:
+    dead lanes hold whatever row 0 gives and are never read."""
+    from superconductor_tpu_torch.render import frame as frame_mod
+
+    records = []
+    real = {name: getattr(frame_mod, name) for name in TRACED}
+
+    def wrap(name, fn):
+        def traced(*args, **kw):
+            out = fn(*args, **kw)
+            live = getattr(out, "valid", None)
+            if live is None and args:
+                live = getattr(args[0], "valid", None)
+            tensors = [t[live] if live is not None and t.shape[:1] == live.shape else t
+                       for t in _tensors(out)]
+            records.append((name, [t.detach().cpu() for t in tensors]))
+            return out
+
+        return traced
+
+    for name, fn in real.items():
+        setattr(frame_mod, name, wrap(name, fn))
+    try:
+        yield records
+    finally:
+        for name, fn in real.items():
+            setattr(frame_mod, name, fn)
+
+
+def traced_differences(card: list, cpu: list) -> list:
+    """The traced results, in call order, where the card's frame differs
+    from the CPU's -> [(name, call number, output index, elements that
+    differ, of how many, max abs difference)]; NaN equals NaN."""
+    if [n for n, _ in card] != [n for n, _ in cpu]:
+        raise RuntimeError("the card's and the CPU's frames took different paths")
+    calls, out = {}, []
+    for (name, a_list), (_, b_list) in zip(card, cpu):
+        calls[name] = calls.get(name, 0) + 1
+        for i, (a, b) in enumerate(zip(a_list, b_list)):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                out.append((name, calls[name], i, a.numel(), a.numel(), float("inf")))
+                continue
+            same = a == b
+            if a.is_floating_point():
+                same |= torch.isnan(a) & torch.isnan(b)
+            if not bool(same.all()):
+                err = (a.double() - b.double()).abs()[~same].max()
+                out.append((name, calls[name], i, int((~same).sum()), a.numel(), float(err)))
+    return out
+
+
+# the elementwise functions of the shading path whose card and CPU results
+# math_ops_card_vs_cpu compares (ops/texture.py sRGB decode and LOD,
+# ops/shade.py, ops/tonemap.py)
+MATH_OPS = {
+    "x ** (1 / 2.2)": lambda x: x ** (1.0 / 2.2),
+    "x ** 2.4": lambda x: x ** 2.4,
+    "x ** 5": lambda x: torch.pow(x, 5.0),
+    "log2": torch.log2,
+    "rsqrt": torch.rsqrt,
+    "sqrt": torch.sqrt,
+    "1 / x": lambda x: 1.0 / x,
+    "sum of 3": lambda x: x.reshape(-1, 3, 2).sum(dim=1),
+}
+
+
+def math_ops_card_vs_cpu(dev) -> dict:
+    """MATH_OPS on the same 3 x 2^19 seeded values in (0, 4] on the card and
+    on the CPU -> {op: (share of results that differ, most ulp apart)}."""
+    x = torch.rand(3 << 19, generator=torch.Generator().manual_seed(3)) * 4.0 + 1e-3
+    out = {}
+    for name, fn in MATH_OPS.items():
+        a, b = fn(x.to(dev)).cpu(), fn(x)
+        ulp = (a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs()
+        out[name] = (float((a != b).float().mean()), int(ulp.max()))
+    return out
+
+
+def localize_card_cpu_gap(name, make, dev) -> None:
+    """Render the frame make(device) -> (tables, state, config, env) on the
+    card and on the CPU under trace_frame; print the first traced result
+    where they differ, and how many differ by stage, then the stats."""
+    from superconductor_tpu_torch.render.frame import render_frame_stats, stats_to_host
+
+    runs = []
+    for device in (dev, "cpu"):
+        tables, state, config, env = make(device)
+        with trace_frame() as records:
+            img, stats = render_frame_stats(tables, state, config, env)
+        runs.append((records, img.cpu(), stats_to_host(stats)))
+    (card, img_card, stats_card), (cpu, img_cpu, stats_cpu) = runs
+    diffs = traced_differences(card, cpu)
+    db = psnr(img_card.numpy(), img_cpu.numpy())
+    phase(name, f"card vs CPU: {len(card)} traced results, {len(diffs)} outputs "
+          f"differ; frame PSNR {db:.2f} dB")
+    if diffs:
+        first = diffs[0]
+        phase(name, f"first difference: {first[0]} call {first[1]} output {first[2]}: "
+              f"{first[3]} of {first[4]} elements, max abs difference {first[5]!r}")
+        by_stage = {}
+        for d in diffs:
+            by_stage[d[0]] = by_stage.get(d[0], 0) + 1
+        phase(name, f"differing outputs by traced name: {by_stage}")
+    phase(name, f"stats equal card vs CPU: {stats_card == stats_cpu}")
+
+
 def clip_blend_path(dev, kb_results, cb_raster) -> dict:
     """Phases 5 and 6: the raster kernel on the opaque setup and the
     k-buffer kernel against their plain versions, then the 1080p clip_blend
@@ -498,6 +652,15 @@ def clip_blend_path(dev, kb_results, cb_raster) -> dict:
     small_cpu = clip_blend_scene(w, h, "cpu", **small)
     img_g = render_frame(small_gpu[0], small_gpu[1](0.3), small_gpu[2], small_gpu[3]).cpu()
     img_c = render_frame(small_cpu[0], small_cpu[1](0.3), small_cpu[2], small_cpu[3])
+
+    def small_frame(device):
+        tables, build_small, cfg, env_small = clip_blend_scene(w, h, device, **small)
+        return tables, build_small(0.3), cfg, env_small
+
+    localize_card_cpu_gap("clip_blend", small_frame, dev)
+    phase("clip_blend", "elementwise functions, card vs CPU on the same values (share that "
+          "differ, most ulp apart): " + ", ".join(
+              f"{op} {share:.4f} {ulp}" for op, (share, ulp) in math_ops_card_vs_cpu(dev).items()))
     golden = np.load(CLIP_BLEND_GOLDEN)["image"]
     db_cpu = psnr(img_g.numpy(), img_c.numpy())
     db_ref = psnr(img_g.numpy(), golden)
@@ -700,14 +863,173 @@ def all_passes_path(dev, shapes: dict) -> dict:
     return launches, by_pass
 
 
+def stereo_golden_inputs(device, raster="auto"):
+    """(tables, state, config, env) of the 256x128 stereo-animated frame at
+    t = 0 on `device`, with the capacities stored beside the reference's
+    image in STEREO_GOLDEN."""
+    from superconductor_tpu_torch.scenes import STEREO_SMALL, stereo_animated_scene
+
+    caps = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in json.loads(str(np.load(STEREO_GOLDEN)["caps"])).items()}
+    small = dict(STEREO_SMALL)
+    w, h = small.pop("width"), small.pop("height")
+    scene_dev, build, config, env = stereo_animated_scene(w, h, device, **small)
+    return scene_dev, build(0.0), replace(config, raster=raster, **caps), env
+
+
+def stereo_golden_frame(device, raster="auto"):
+    from superconductor_tpu_torch.render.frame import render_frame
+
+    return render_frame(*stereo_golden_inputs(device, raster))
+
+
+def stereo_path(dev, shapes: dict) -> dict:
+    """Phase 8: the stereo-animated frame (two 1080p eyes; six skinned
+    tubes, their joint palettes from the numpy FK each frame, and six
+    spheres): the host time of a frame's palettes and state, fit_caps, the
+    raster kernel against its plain version on each eye's opaque setup
+    (and a band at y_offset = 540) and timed; the frame timed, its raster
+    launches counted per eye (one a view a band: 2 a frame); its
+    plain-raster twin and its row_chunks=2 twin equal byte for byte; the
+    256x128 frame against the CPU's and the reference's golden, and its
+    raster="ref" twin on the card. Returns the raster launches of the timed
+    run, by eye."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.render import frame as frame_mod
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.draws import build_frame_state
+    from superconductor_tpu_torch.render.frame import (
+        _merged_setup_for_view,
+        _merged_vertex_stage,
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+    from superconductor_tpu_torch.scenes import stereo_animated_host
+
+    t0 = time.perf_counter()
+    scene, frame_inputs, uniforms, env, config = stereo_animated_host(WIDTH, HEIGHT)
+    scene_dev = scene_to_torch(scene, dev)
+
+    def build(t):
+        instances, palettes = frame_inputs(t)
+        return build_frame_state(scene, instances, uniforms, joint_palettes=palettes, device=dev)
+
+    state0 = build(0.0)
+    phase("stereo", f"scene on card in {time.perf_counter() - t0:.2f} s; "
+          f"{int(state0.draws_animated.tri_count.sum())} animated and "
+          f"{int(state0.draws_static.tri_count.sum())} static triangles drawn")
+    fk, states = [], []
+    for i in range(N_TIMED):
+        t = 0.05 * (i + 1)
+        t0 = time.perf_counter()
+        instances, palettes = frame_inputs(t)
+        t1 = time.perf_counter()
+        build_frame_state(scene, instances, uniforms, joint_palettes=palettes, device=dev)
+        torch.cuda.synchronize()
+        fk.append((t1 - t0) * 1e3)
+        states.append((time.perf_counter() - t1) * 1e3)
+    print(f"[stereo] host ms per frame (median of {N_TIMED}): palette FK and instances "
+          f"{statistics.median(fk):.3f}, build_frame_state with upload "
+          f"{statistics.median(states):.3f}", flush=True)
+
+    t0 = time.perf_counter()
+    config = fit_caps(scene_dev, state0, config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    phase("stereo", f"fit_caps in {time.perf_counter() - t0:.2f} s: p_cap={config.p_cap} "
+          f"opaque_px_cap={config.opaque_px_cap} sky_px_cap={config.sky_px_cap} "
+          f"num_views={config.num_views} row_chunks={config.row_chunks}")
+    img, stats = render_frame_stats(scene_dev, state0, config, env)
+    phase("stereo", f"stats {stats_to_host(stats)}")
+
+    # --- the raster kernel at each eye's opaque setup ---
+    stages, attrs = _merged_vertex_stage(scene_dev, state0, config)
+    blend = scene_dev["materials"]["blend_mode"][attrs.material]
+    eye_tri = {}
+    for v, eye in enumerate(EYES):
+        tri = _merged_setup_for_view(stages, state0.uniforms["view_proj"][v], config)
+        eye_tri[eye] = tri._replace(valid=tri.valid & (blend == 0))
+        compare_raster(f"stereo-{eye}", eye_tri[eye], WIDTH, HEIGHT, config.p_cap, shapes[eye],
+                       clusters=CLUSTERS, timed=True)
+    compare_raster("stereo-left-band+y_offset", eye_tri["left"], WIDTH, HEIGHT // 2,
+                   config.p_cap, shapes["left"], y_offset=HEIGHT // 2, clusters=CLUSTERS)
+
+    # --- the frame ---
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    frames = [0]
+
+    def one_frame():
+        frames[0] += 1
+        return render_frame(scene_dev, state0, config, env)
+
+    with frame_passes(keep_inputs=False) as passes:
+        frame_ms = cuda_ms(one_frame)
+    launches = raster_mod.rasterize_sorted.LAUNCHES
+    counts = [n for n, _ in passes["raster"]]
+    by_eye = {eye: sum(counts[v::len(EYES)]) for v, eye in enumerate(EYES)}
+    phase("stereo", f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}; two eyes); "
+          f"raster launches {launches} over {frames[0]} frames, by eye {by_eye}; k-buffer "
+          f"launches {raster_mod.kbuffer_sorted.LAUNCHES}")
+    if (len(counts) != len(EYES) * frames[0] or set(by_eye.values()) != {frames[0]}
+            or launches != len(EYES) * frames[0] or raster_mod.kbuffer_sorted.LAUNCHES):
+        raise RuntimeError("the stereo frame did not launch the raster kernel once a view "
+                           "(num_views x row_chunks = 2) a frame")
+
+    img = render_frame(scene_dev, state0, config, env)
+    if img.shape != (2, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
+        raise RuntimeError(f"bad stereo frame {tuple(img.shape)} {img.dtype}")
+    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
+    try:
+        img_plain = render_frame(scene_dev, state0, config, env)
+    finally:
+        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
+    if not torch.equal(img, img_plain):
+        raise RuntimeError("stereo frame differs from its plain-raster twin")
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    img_bands = render_frame(scene_dev, state0, replace(config, row_chunks=2), env)
+    band_launches = raster_mod.rasterize_sorted.LAUNCHES
+    if not torch.equal(img, img_bands) or band_launches != 4:
+        raise RuntimeError(f"the row_chunks=2 stereo frame differs from the row_chunks=1 "
+                           f"one, or launched the raster {band_launches} times, not 4")
+    eyes_differ = int((img[0] != img[1]).any(dim=-1).sum())
+    moved = int((render_frame(scene_dev, build(1.0), config, env) != img).any(dim=-1).sum())
+    phase("stereo", f"frame equals its plain-raster twin and its row_chunks=2 twin (4 "
+          f"launches) byte for byte; the eyes differ at {eyes_differ} px; at t = 1 "
+          f"{moved} px change")
+    if eyes_differ == 0 or moved == 0:
+        raise RuntimeError("the two eyes are equal, or the animation changes nothing")
+
+    localize_card_cpu_gap("stereo", stereo_golden_inputs, dev)
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    img_g = stereo_golden_frame(dev).cpu()
+    img_ref = stereo_golden_frame(dev, raster="ref").cpu()
+    ref_launches = raster_mod.rasterize_sorted.LAUNCHES
+    img_c = stereo_golden_frame("cpu")
+    golden = np.load(STEREO_GOLDEN)["image"]
+    db_cpu = psnr(img_g.numpy(), img_c.numpy())
+    db_ref = psnr(img_g.numpy(), golden)
+    phase("stereo", f"256x128 frame: card vs CPU PSNR {db_cpu:.2f} dB, card vs the JAX "
+          f"reference's frame (tests/goldens) PSNR {db_ref:.2f} dB; its raster=\"ref\" "
+          f"twin on the card equal: {torch.equal(img_g, img_ref)}")
+    if min(db_cpu, db_ref) < 40.0:
+        raise RuntimeError("stereo card frame disagrees with the CPU frame or the reference")
+    if not torch.equal(img_g, img_ref) or ref_launches != 2:
+        raise RuntimeError("the raster=\"ref\" stereo frame differs from the binned "
+                           "raster's, or the frames launched the kernel other than twice")
+    return by_eye
+
+
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
-                 ap_by_pass: dict, raster_res: dict, kbuffer_res: dict,
+                 ap_by_pass: dict, stereo_by_eye: dict, raster_res: dict, kbuffer_res: dict,
                  shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the three frames' timed runs, then each all-passes pass at its
-    own shape with the launches counted in that pass during the frame's
-    timed run (one a frame)."""
+    over the four frames' timed runs, then each all-passes pass and each
+    stereo eye at its own shape with the launches counted in that pass
+    during the frame's timed run (one a frame)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -722,8 +1044,10 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     ap_raster, ap_kbuffer = ap_launches["raster_sorted"], ap_launches["kbuffer_sorted"]
     return {"kernels": [
         entry("raster_sorted", "raster",
-              headline_launches + cb_launches["raster_sorted"] + ap_raster, raster_res,
-              max(raster_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_RASTER))),
+              headline_launches + cb_launches["raster_sorted"] + ap_raster
+              + sum(stereo_by_eye.values()), raster_res,
+              max(raster_res["max_abs_err"],
+                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES))),
         entry("kbuffer_sorted", "kbuffer", cb_launches["kbuffer_sorted"] + ap_kbuffer,
               kbuffer_res,
               max(kbuffer_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_KBUFFER))),
@@ -731,6 +1055,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
           for n in AP_KBUFFER],
+        *[entry(f"raster_sorted[stereo {eye}]", "raster", stereo_by_eye[eye], shapes[eye])
+          for eye in EYES],
     ]}
 
 
@@ -876,16 +1202,17 @@ def main() -> int:
     cb_launches = clip_blend_path(dev, kb_results, cb_raster)
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
-    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER}
+    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES}
     ap_launches, ap_by_pass = all_passes_path(dev, shapes)
+    stereo_by_eye = stereo_path(dev, shapes)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
             raise RuntimeError(f"{mod} was imported")
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
-    print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass, results,
-                                  kb_results, shapes)))
+    print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
+                                  stereo_by_eye, results, kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from .geometry import ragged_owner
-from .raster_ref import VisibilityBuffer
+from .raster_ref import VisibilityBuffer, _tie
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
@@ -194,8 +194,7 @@ def fragment_z(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     def edge(i):
         a, b, c = col(3 * i), col(3 * i + 1), col(3 * i + 2)
         e = a * px + b * py + c
-        tie = (a > 0) | ((a == 0) & (b > 0))
-        return e, (e > 0) | ((e == 0) & tie)
+        return e, (e > 0) | ((e == 0) & _tie(a, b))
 
     e0, ok0 = edge(0)
     e1, ok1 = edge(1)

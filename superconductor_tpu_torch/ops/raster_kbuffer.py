@@ -4,7 +4,9 @@
 Each pixel keeps its K nearest accepted fragments, slot 0 nearest; the
 clip resolve evaluates alpha on them, the blend composite shades them back
 to front. ``KBuffer``, ``empty_kbuffer`` and ``kbuffer_insert`` are the
-reference's per-fragment insert; ``kbuffer_sorted_plain`` is the plain
+reference's per-fragment insert; ``rasterize_kbuffer_ref`` is its
+brute-force K-layer raster (``raster="ref"``, plain torch: the reference
+compiles it with XLA); ``kbuffer_sorted_plain`` is the plain
 version of the binned k-buffer raster ``kbuffer_pallas_sorted``
 (``raster_pallas.py:456``, kernel ``_kbuffer_kernel`` :314), whose CUDA
 kernel is ``csrc/kbuffer.cu`` behind ``ops/raster.py`` ``kbuffer_sorted``.
@@ -17,8 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .raster import _tile_grid, fragment_z, tile_pixel_centres
-
-_Z_ONE_BITS = 0x3F800000  # bits of 1.0f: the largest accepted z
+from .raster_ref import band_chunks, nearness_bits
 
 
 class KBuffer(NamedTuple):
@@ -62,9 +63,7 @@ def _nearness_key(z: torch.Tensor, pos: torch.Tensor, reverse_z: bool) -> torch.
     """i64 key ordering fragments as the kernel's insertion shift leaves
     them: nearer first, and among equal depths the later sorted position
     first. z in [0, 1] (-0.0 compares equal to 0.0), pos >= 0."""
-    bits = torch.where(z == 0, 0, z.contiguous().view(torch.int32))
-    near = bits if reverse_z else _Z_ONE_BITS - bits
-    return (near.to(torch.int64) << 32) | pos.to(torch.int64)
+    return (nearness_bits(z, reverse_z) << 32) | pos.to(torch.int64)
 
 
 def kbuffer_sorted_plain(
@@ -159,3 +158,50 @@ def kbuffer_sorted_plain(
         pair=from_tiles(pos),
     )
     return kb, from_tiles(layers[:, None, :])[0]
+
+
+def rasterize_kbuffer_ref(
+    tri,
+    height: int,
+    width: int,
+    k: int = 4,
+    reverse_z: bool = True,
+    chunk: int = 32,
+    depth_floor: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
+):
+    """Brute-force K-layer raster over the band [y_offset, y_offset +
+    height) (reference ops/raster_kbuffer.py:83) -> (KBuffer with ORIGINAL
+    row indices in .pair and its depth planes, layers (H, W) i32). Only
+    fragments nearer than `depth_floor` (None = far) are accepted; layers
+    counts every accepted fragment, those ranked past K included.
+
+    The reference inserts row after row (kbuffer_insert), which keeps per
+    pixel the top K accepted fragments by (nearness, index), both
+    descending. This merges `chunk` rows at a time into that top K with one
+    i64 top-k, each chunk over the pixels its bounding boxes cover
+    (raster_ref.band_chunks)."""
+    dev = tri.setup.device
+    far = 0.0 if reverse_z else 1.0
+    kb = empty_kbuffer(k, height, width, reverse_z, dev)
+    depth, pair = kb.depth, kb.pair
+    key = torch.full((k, height, width), -1, dtype=torch.int64, device=dev)
+    layers = torch.zeros((height, width), dtype=torch.int32, device=dev)
+    if depth_floor is None:
+        depth_floor = torch.full((height, width), far, dtype=torch.float32, device=dev)
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5 + y_offset
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    for ids, y0, y1, x0, x1 in band_chunks(tri, height, width, y_offset, chunk):
+        z, inside = fragment_z(tri.setup[ids], xs[None, x0:x1], ys[y0:y1, None])
+        fl = depth_floor[y0:y1, x0:x1]
+        accept = inside & (z > fl if reverse_z else z < fl)
+        box = (slice(None), slice(y0, y1), slice(x0, x1))
+        layers[box[1:]] += accept.sum(dim=0, dtype=torch.int32)
+        pos = ids.to(torch.int32)[:, None, None].expand(z.shape)
+        cand = torch.where(accept, _nearness_key(z, pos, reverse_z), -1)
+        top, idx = torch.topk(torch.cat([key[box], cand]), k, dim=0)
+        empty = top < 0
+        key[box] = top
+        pair[box] = torch.where(empty, -1, torch.gather(torch.cat([pair[box], pos]), 0, idx))
+        depth[box] = torch.where(empty, far, torch.gather(torch.cat([depth[box], z]), 0, idx))
+    return KBuffer(depth=depth, pair=pair), layers

@@ -1,15 +1,18 @@
 """Where the time of a frame goes on the GPU.
 
     python3 -m superconductor_tpu_torch.profile_frame
-        [--scene headline|clip_blend|all_passes] [--frames 5] [--out build/profile]
+        [--scene headline|clip_blend|all_passes|stereo] [--frames 5] [--out build/profile]
 
 Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline;
 clip_blend: alpha clip + alpha blend; all_passes: the terrain, the sphere
-ring, lines and particles with every pass on), warms up, then traces
+ring, lines and particles with every pass on; stereo: two eyes of the
+skinned tubes and spheres), warms up, then traces
 `--frames` frames with torch.profiler (CPU + CUDA activity). Prints the
 wall time per frame (host clock around synchronised frames), the summed
 device kernel time and the kernel launches per frame, the device's idle
-share, and the top operators by device time; writes the full table and
+share, and the top operators by device time; for stereo also the host
+time per frame of the palette FK and the frame state's build and upload
+(scenes.stereo_animated_scene build(t)); writes the full table and
 a gzipped Chrome trace under `--out` (profile_frame[_<scene>].txt and
 .json.gz). Needs a CUDA device.
 """
@@ -28,7 +31,8 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("headline", "clip_blend", "all_passes"), default="headline")
+    ap.add_argument("--scene", choices=("headline", "clip_blend", "all_passes", "stereo"),
+                    default="headline")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -41,10 +45,10 @@ def main(argv=None) -> int:
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
-    from .scenes import all_passes_scene, clip_blend_scene, headline_scene
+    from .scenes import all_passes_scene, clip_blend_scene, headline_scene, stereo_animated_scene
 
     make = {"headline": headline_scene, "clip_blend": clip_blend_scene,
-            "all_passes": all_passes_scene}[args.scene]
+            "all_passes": all_passes_scene, "stereo": stereo_animated_scene}[args.scene]
     dev, build, config, env = make(args.width, args.height, "cuda")
     state = build(0.0)
     config = fit_caps(dev, state, config, env)
@@ -57,6 +61,13 @@ def main(argv=None) -> int:
         render_frame(dev, state, config, env)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+    if args.scene == "stereo":
+        t0 = time.perf_counter()
+        for i in range(args.frames):
+            build(0.1 * (i + 1))
+        torch.cuda.synchronize()
+        print(f"host: palette FK + frame state build and upload "
+              f"{(time.perf_counter() - t0) * 1e3 / args.frames:.3f} ms/frame")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.frames):

@@ -2,8 +2,11 @@
 and the capacity-stats dict (port of ``superconductor_tpu/render/frame.py``).
 
 The ported slice, in the reference's pass order: merged static + animated
-geometry, the binned tile raster (the CUDA kernels on a GPU, their plain
-versions on the CPU) in sorted-pair mode, the alpha-clip resolve over a
+geometry (the vertex stage once a frame, the edge setup once a view), then
+each view in ``row_chunks`` horizontal bands: the binned tile raster (the
+CUDA kernels on a GPU, their plain versions on the CPU) in sorted-pair
+mode, or with ``raster="ref"`` the brute-force raster that keeps original
+pair ids, the alpha-clip resolve over a
 k-buffer of clip fragments, the IBL skybox (full screen or on the sky
 worklist), the opaque deferred shade on a compacted granule worklist (or
 full screen), the flat-colour lines pass (the raster kernel over the
@@ -34,7 +37,8 @@ from ..ops.geometry import (
 from ..ops.lines import line_geometry
 from ..ops.particles import particle_geometry, shade_particles
 from ..ops.raster import kbuffer_sorted, rasterize_sorted
-from ..ops.raster_ref import VisibilityBuffer
+from ..ops.raster_kbuffer import rasterize_kbuffer_ref
+from ..ops.raster_ref import VisibilityBuffer, rasterize_ref
 from ..ops.shade import (
     GBuffer,
     _material_rows,
@@ -93,13 +97,12 @@ class RenderConfig:
 
     def resolve_raster(self) -> str:
         """'auto' and 'pallas' select the binned tile raster (the kernel on
-        CUDA tensors, its plain version on CPU tensors)."""
+        CUDA tensors, its plain version on CPU tensors); 'ref' the
+        brute-force raster (ops/raster_ref.py), on any device."""
         if self.raster in ("auto", "pallas"):
             return "pallas"
         if self.raster == "ref":
-            raise NotImplementedError(
-                "raster='ref' waits for rasterize_ref (ROADMAP queue 1: rasterize_ref)"
-            )
+            return "ref"
         raise ValueError(f"unknown raster method {self.raster!r}")
 
     def resolve_clip_layers(self) -> int:
@@ -159,8 +162,6 @@ class FrameState(NamedTuple):
 def _check_slice(config: RenderConfig, env) -> None:
     """Raise on every configuration outside the ported slice."""
     unported = [
-        (config.num_views != 1, "num_views > 1: ROADMAP queue 1, views and bands"),
-        (config.row_chunks != 1, "row_chunks > 1: ROADMAP queue 1, views and bands"),
         (config.shade_row_pad != 0, "shade_row_pad: TPU layout mechanics, not ported"),
         (env.lightvol_tex_ids is not None or env.lightmap_tex_ids is not None,
          "light volumes / lightmaps: ROADMAP queue 1, light volumes"),
@@ -175,9 +176,16 @@ def _check_slice(config: RenderConfig, env) -> None:
 
 def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
                y_offset: int, init: Optional[VisibilityBuffer] = None):
-    """Binned raster in sorted-pair mode, walked from `init` (None = far,
-    no pair) -> (VisibilityBuffer with SORTED positions in .pair,
-    pairs_needed i32, bins.order)."""
+    """Visibility raster walked from `init` (None = far, no pair) ->
+    (VisibilityBuffer, pairs_needed i32, order). The binned raster works
+    in sorted-pair mode: SORTED positions in .pair, and bins.order to
+    gather the per-pair tables into that order. raster="ref" leaves
+    original row indices in .pair, needs no bin pairs (0) and returns
+    order None."""
+    if config.resolve_raster() == "ref":
+        vis = rasterize_ref(tri, band_height, config.width, reverse_z=config.reverse_z,
+                            init=init, y_offset=y_offset)
+        return vis, torch.zeros((), dtype=torch.int32, device=tri.setup.device), None
     bins = bin_triangles(
         tri, config.width, band_height, config.p_cap,
         tile_h=config.tile_h, tile_w=config.tile_w, y_offset=y_offset,
@@ -194,11 +202,18 @@ def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
 def _rasterize_kbuffer(tri: TriangleSetup, config: RenderConfig, band_height: int,
                        y_offset: int, depth_floor: torch.Tensor,
                        want_depth: bool = True, k: Optional[int] = None):
-    """K-layer binned raster in sorted-pair mode -> (KBuffer with SORTED
-    positions in .pair, pairs_needed i32, layers_needed i32, bins.order).
-    layers_needed is the most accepted fragments any pixel saw; above k
-    the pass dropped a surface and the host grows that pass's K."""
+    """K-layer raster -> (KBuffer, pairs_needed i32, layers_needed i32,
+    order), in sorted-pair mode as _rasterize (raster="ref": original row
+    indices, depth planes always, pairs 0, order None). layers_needed is
+    the most accepted fragments any pixel saw; above k the pass dropped a
+    surface and the host grows that pass's K."""
     k = k or config.blend_layers
+    if config.resolve_raster() == "ref":
+        kb, layers = rasterize_kbuffer_ref(
+            tri, band_height, config.width, k=k, reverse_z=config.reverse_z,
+            depth_floor=depth_floor, y_offset=y_offset,
+        )
+        return kb, torch.zeros((), dtype=torch.int32, device=tri.setup.device), layers.max(), None
     bins = bin_triangles(
         tri, config.width, band_height, config.p_cap,
         tile_h=config.tile_h, tile_w=config.tile_w, y_offset=y_offset,
@@ -210,6 +225,12 @@ def _rasterize_kbuffer(tri: TriangleSetup, config: RenderConfig, band_height: in
         depth_floor=depth_floor, y_offset=y_offset, want_depth=want_depth,
     )
     return kb, bins.num_pairs, layers.max(), bins.order
+
+
+def _in_order(table: torch.Tensor, order: Optional[torch.Tensor]) -> torch.Tensor:
+    """A per-pair table in the order a raster pass's pair planes index it:
+    gathered into sorted order by bins.order, or as is (order None)."""
+    return table if order is None else table[order]
 
 
 def _worklist_granule(config: RenderConfig, npx: int) -> int:
@@ -432,10 +453,13 @@ def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):
 
 
 def render_view(scene: dict, state: FrameState, view_index: int,
-                config: RenderConfig, env, geometry):
-    """One view -> ((H, W, 4) f32 image, stats dict of i32 tensors).
-    geometry: (merged TriangleSetup, merged TriangleAttrs) of this view."""
-    band_height, y_offset = config.height, 0
+                config: RenderConfig, env, geometry, band_height: Optional[int] = None,
+                y_offset: int = 0):
+    """One view, or its band of rows [y_offset, y_offset + band_height)
+    (None = the whole height) -> ((band_height, W, 4) f32 image, stats dict
+    of i32 tensors). geometry: (merged TriangleSetup, merged TriangleAttrs)
+    of this view."""
+    band_height = band_height or config.height
     u = state.uniforms
     merged_tri, merged_attrs = geometry
     dev = merged_tri.setup.device
@@ -445,7 +469,8 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     # One row per pair: setup | packed attrs | (matq) material row, so the
     # deferred stages fetch a pixel's whole state in one gather; in
     # sorted-pair mode the table is gathered into the raster's sorted order
-    # and indexed by the sorted positions the kernel leaves in vis.pair.
+    # and indexed by the sorted positions the kernel leaves in vis.pair
+    # (raster="ref" leaves original row indices and takes it as is).
     parts = [merged_tri.setup, merged_attrs.packed]
     if "texels_mq" in scene and "mat_row_mq" in mats:
         parts.append(mats["mat_row_mq"][merged_attrs.material])
@@ -454,7 +479,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     # --- pass 1: opaque visibility ---
     opaque_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 0))
     vis, pairs_needed, op_order = _rasterize(opaque_tri, config, band_height, y_offset)
-    vis_row = shade_row[op_order]
+    vis_row = _in_order(shade_row, op_order)
 
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     clip_layers_needed = blend_layers_needed = particle_layers_needed = zero
@@ -499,9 +524,12 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             clip_tri, config, band_height, y_offset, vis.depth,
             k=config.resolve_clip_layers(),
         )
-        # one table: opaque rows at [0, p_cap), clip rows at [p_cap, 2 p_cap)
-        vis_row = torch.cat([vis_row, shade_row[clip_order]])
-        clip_off = config.p_cap
+        # sorted-pair mode: one table, opaque rows at [0, p_cap), clip rows
+        # at [p_cap, 2 p_cap); raster="ref" indexes shade_row itself
+        clip_off = 0
+        if clip_order is not None:
+            vis_row = torch.cat([vis_row, shade_row[clip_order]])
+            clip_off = config.p_cap
         pairs_needed = torch.maximum(pairs_needed, clip_pairs)
         clip_caps = config.resolve_clip_caps()
         found_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
@@ -602,7 +630,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
         line_init = VisibilityBuffer(depth=vis.depth, pair=torch.full_like(vis.pair, -1))
         lvis, line_pairs, l_order = _rasterize(line_tri, config, band_height, y_offset,
                                                init=line_init)
-        line_colors = line_colors[l_order]
+        line_colors = _in_order(line_colors, l_order)
         pairs_needed = torch.maximum(pairs_needed, line_pairs)
         lhit = (lvis.pair >= 0).reshape(-1)
         lcol = line_colors[torch.clamp_min(lvis.pair.reshape(-1), 0)]
@@ -621,7 +649,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             p_tri, config, band_height, y_offset, depth_floor, want_depth=False,
             k=config.resolve_particle_layers(),
         )
-        p_attrs = p_attrs._replace(packed=p_attrs.packed[p_order])
+        p_attrs = p_attrs._replace(packed=_in_order(p_attrs.packed, p_order))
         pairs_needed = torch.maximum(pairs_needed, p_pairs)
 
         def sh_sampler(world_pos):
@@ -656,7 +684,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
         kb, blend_pairs, blend_layers_needed, blend_order = _rasterize_kbuffer(
             blend_tri, config, band_height, y_offset, depth_floor, want_depth=False,
         )
-        blend_row = shade_row[blend_order]
+        blend_row = _in_order(shade_row, blend_order)
         pairs_needed = torch.maximum(pairs_needed, blend_pairs)
 
         def shade_blend_layer(pair_w, safe, live):
@@ -708,17 +736,37 @@ def render_view(scene: dict, state: FrameState, view_index: int,
 
 def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
                       env, with_stats: bool = False):
-    """Frame body -> (V, H, W, 4) u8 [, stats dict]; one view, one band."""
+    """Frame body -> (V, H, W, 4) u8 [, stats dict] (reference
+    render/frame.py:1293-1366): the vertex stage once, each view's edge
+    setup once, and each view in row_chunks bands of height // row_chunks
+    rows, a plain loop where the reference maps over the bands. The stats
+    are the elementwise max over views and bands."""
     _check_slice(config, env)
+    chunks = max(config.row_chunks, 1)
+    if config.height % chunks:
+        raise ValueError(f"height {config.height} is not a multiple of "
+                         f"row_chunks {config.row_chunks}")
+    band_h = config.height // chunks
     stages, merged_attrs = _merged_vertex_stage(scene, state, config)
-    geometry = (
-        _merged_setup_for_view(stages, state.uniforms["view_proj"][0], config),
-        merged_attrs,
-    )
-    img, stats = render_view(scene, state, 0, config, env, geometry=geometry)
-    image = to_u8(img)[None]
+    views, acc = [], None
+    for v in range(config.num_views):
+        geometry = (
+            _merged_setup_for_view(stages, state.uniforms["view_proj"][v], config),
+            merged_attrs,
+        )
+        bands = []
+        for b in range(chunks):
+            img, stats = render_view(scene, state, v, config, env, geometry,
+                                     band_height=band_h, y_offset=b * band_h)
+            bands.append(to_u8(img))
+            if with_stats:
+                acc = stats if acc is None else {
+                    k: torch.maximum(acc[k], stats[k]) for k in acc
+                }
+        views.append(torch.cat(bands))
+    image = torch.stack(views)
     if with_stats:
-        return image, stats
+        return image, acc
     return image
 
 

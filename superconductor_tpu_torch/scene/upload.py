@@ -199,11 +199,15 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
     scene.enforce_texture_budget()
     if scene.lightvol is not None or scene.lightmap_tex is not None:
         raise NotImplementedError(
-            "light volumes / lightmaps wait for ROADMAP queue 1: light volumes"
+            "light volumes / lightmaps wait for ROADMAP queue 1 item 3: light volumes, "
+            "lightmaps and the smoke pool"
         )
     ids = getattr(scene, "smoke_tex", None)
     if scene.quad_pools and ids and ids[0] >= 0:
-        raise NotImplementedError("smoke pools wait for ROADMAP queue 1: particles")
+        raise NotImplementedError(
+            "smoke pools wait for ROADMAP queue 1 item 3: light volumes, lightmaps and "
+            "the smoke pool"
+        )
     d = {k: _np_to_torch(getattr(scene, k).host, device) for k in _VERTEX_KEYS}
     d["texels"] = _np_to_torch(scene.textures.texels.host, device)
     d["texels_hdr"] = _np_to_torch(scene.textures_hdr.texels.host, device)

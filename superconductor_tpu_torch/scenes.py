@@ -24,6 +24,11 @@ particles, every pass on. Its external assets (sponza_cubes, the bcn light
 volume, noon.ktx2, the smoke textures) are left out: the sky is the
 procedural gradient cubemap with constant ambient SH, as in the headline,
 and the particles take the reference's procedural puff.
+
+``stereo_animated_scene`` is ``bench.py`` ``bench_stereo_animated``
+(:887-995, BASELINE configs 4 and 5): two 1080p eyes of six waving skinned
+tubes (the animated vertex stage, joint palettes from the numpy FK every
+frame) and six PBR spheres, all from procedural content.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from . import math3d
 from .assets.models import load_model
 from .ops.geometry import TriangleSetup, _setup_from_clip
-from .render.camera import Camera, make_uniforms
+from .render.camera import Camera, make_stereo_uniforms, make_uniforms
 from .render.draws import build_frame_state, pack_lines, pack_particles
 from .render.env import EnvBindings
 from .render.frame import RenderConfig
@@ -52,9 +57,11 @@ from .scene.scene import (
 from .scene.upload import scene_to_torch
 from .utils.procgen import (
     add_pbr_sphere,
+    add_skinned_tube,
     checker_texture,
     default_ambient_sh,
     gradient_cubemap,
+    wave_joint_palettes,
 )
 
 # The host layer the scenes are built with: the port's own modules. Any
@@ -65,7 +72,8 @@ HOST = SimpleNamespace(
     add_pbr_sphere=add_pbr_sphere, checker_texture=checker_texture,
     default_ambient_sh=default_ambient_sh, build_mip_chain=build_mip_chain,
     Camera=Camera, make_uniforms=make_uniforms, EnvBindings=EnvBindings,
-    math3d=math3d,
+    math3d=math3d, add_skinned_tube=add_skinned_tube,
+    wave_joint_palettes=wave_joint_palettes, make_stereo_uniforms=make_stereo_uniforms,
 )
 
 _FIXTURES = os.path.join(
@@ -298,6 +306,85 @@ def all_passes_scene(width: int = 1920, height: int = 1080, device="cuda",
 
     def build(angle: float):
         return build_frame_state(scene, instances(angle), uniforms, device=device, **draw_kw)
+
+    return dev, build, config, env
+
+
+# the stereo-animated frame of the golden and the card's check against it:
+# spheres cut to 32 stacks and slices; and the CPU parity tests' small one:
+# two tubes of 8 segments x 6 slices and two 8-stack spheres
+STEREO_SMALL = dict(width=256, height=128, stacks=32)
+STEREO_TINY = dict(width=128, height=64, n_tubes=2, n_spheres=2, segments=8, slices=6,
+                   stacks=8)
+
+
+def stereo_animated_host(width: int = 1920, height: int = 1080, n_tubes: int = 6,
+                         n_spheres: int = 6, segments: int = 64, slices: int = 48,
+                         stacks: int = 88, host=HOST):
+    """Host side of the stereo-animated scene -> (scene, frame_inputs,
+    uniforms, env, config), device-free, built with `host`'s modules
+    (bench.py:887-995). One skinned tube and one PBR sphere model, each
+    instanced: the tubes on a circle of radius 3.2, the spheres of radius
+    5.5 at height 1.2 between them. `frame_inputs(t)` -> (instances, joint
+    palettes) at time t: the spheres turned by 0.3 t about +y, tube i
+    waving at phase t + 0.7 i (8 joints, amplitude 0.45). The eyes sit
+    0.032 either side of (0, 1.4, 7), looking at (0, 1, 0)."""
+    m3 = host.math3d
+    scene = host.Scene()
+    tube = host.add_skinned_tube(scene, segments=segments, slices=slices, name="tube")
+    sphere = host.add_pbr_sphere(scene, stacks=stacks, slices=stacks, name="st_sphere")
+    cubemap_base = host.gradient_cubemap(scene)
+    env = host.EnvBindings.from_scene(scene, ambient_sh=host.default_ambient_sh())
+    if env.ibl_cubemap_base != cubemap_base:
+        raise RuntimeError("stereo cubemap is not the scene's IBL cubemap")
+
+    center = np.array([0.0, 1.0, 0.0], np.float32)
+    eye_mid = np.array([0.0, 1.4, 7.0], np.float32)
+    rot = m3.mat3_to_quat(m3.mat4_inverse(m3.look_at(eye_mid, center))[:3, :3])
+    half_ipd = np.array([0.032, 0.0, 0.0], np.float32)
+    left = host.Camera(position=eye_mid - half_ipd, rotation=rot)
+    right = host.Camera(position=eye_mid + half_ipd, rotation=rot)
+    lu = host.make_uniforms(left, width, height)
+    ru = host.make_uniforms(right, width, height)
+    uniforms = host.make_stereo_uniforms(
+        lu.view[0], ru.view[0], lu.projection[0], ru.projection[0],
+        lu.eye[0], ru.eye[0], left.rotation, right.rotation,
+    )
+    config = RenderConfig(
+        width=width, height=height, num_views=2,
+        t_cap=1 << 17, t_cap_anim=1 << 16, p_cap=1 << 19, raster="auto",
+    )
+
+    def frame_inputs(t: float):
+        rot_i = m3.quat_from_axis_angle([0, 1, 0], 0.3 * t)
+        pals = host.wave_joint_palettes(
+            t + 0.7 * np.arange(n_tubes, dtype=np.float32), 8, amp=0.45
+        )
+        instances = []
+        for i in range(n_tubes):
+            a = 2.0 * np.pi * i / n_tubes
+            instances.append((tube, m3.Similarity(
+                translation=[3.2 * np.cos(a), 0.0, 3.2 * np.sin(a)])))
+        for i in range(n_spheres):
+            a = 2.0 * np.pi * (i + 0.5) / n_spheres
+            instances.append((sphere, m3.Similarity(
+                translation=[5.5 * np.cos(a), 1.2, 5.5 * np.sin(a)], rotation=rot_i)))
+        return instances, {i: pals[i] for i in range(n_tubes)}
+
+    return scene, frame_inputs, uniforms, env, config
+
+
+def stereo_animated_scene(width: int = 1920, height: int = 1080, device="cuda", **kw):
+    """-> (dev, build, config, env) of the stereo-animated scene, as
+    headline_scene: build(t) is the FrameState at time t, its joint
+    palettes sampled on the host. `kw`: stereo_animated_host's counts."""
+    scene, frame_inputs, uniforms, env, config = stereo_animated_host(width, height, **kw)
+    dev = scene_to_torch(scene, device)
+
+    def build(t: float):
+        instances, palettes = frame_inputs(t)
+        return build_frame_state(scene, instances, uniforms, joint_palettes=palettes,
+                                 device=device)
 
     return dev, build, config, env
 

@@ -108,21 +108,20 @@ def test_render_config_matches_reference():
         assert port_frame.size_worklist_cap(need) == ref_frame.size_worklist_cap(need)
     assert RenderConfig(raster="auto").resolve_raster() == "pallas"
     assert RenderConfig(raster="pallas").resolve_raster() == "pallas"
-    with pytest.raises(NotImplementedError):
-        RenderConfig(raster="ref").resolve_raster()
+    assert RenderConfig(raster="ref").resolve_raster() == "ref"
+    with pytest.raises(ValueError):
+        RenderConfig(raster="other").resolve_raster()
 
 
 @pytest.mark.parametrize(
     "change",
     [dict(env=dict(lightvol_tex_ids=(0, 0, 0, 0), lightvol_z_layers=1)),
-     dict(env=dict(lightmap_tex_ids=(0, 0, 0, 0))), dict(num_views=2), dict(row_chunks=2),
-     dict(env=dict(smoke_tex_ids=(0, 0, 0))),
-     dict(num_views=2, enable_lines=True, enable_particles=True), dict(shade_row_pad=128),
-     dict(raster="ref")],
+     dict(env=dict(lightmap_tex_ids=(0, 0, 0, 0))),
+     dict(env=dict(smoke_tex_ids=(0, 0, 0))), dict(shade_row_pad=128)],
 )
 def test_outside_the_slice_raises(change):
-    """Views and bands, TPU row padding, rasterize_ref, light volumes,
-    lightmaps and the smoke textures are outside the ported slice."""
+    """TPU row padding, light volumes, lightmaps and the smoke textures are
+    outside the ported slice."""
     _scene, _model, _uniforms, _env, config = headline_host(64, 32)
     change = dict(change)
     env_change = change.pop("env", {})
@@ -276,10 +275,9 @@ def test_fit_caps_matches_bench(monkeypatch, seq):
 
 
 def _golden_scene(name, box_glb):
-    """The port's (scene, instances, uniforms, config, env) of the
-    reference's PNG golden `name` (tests/test_goldens.py:51-87), with
-    raster="auto": the binned raster, where the goldens took
-    rasterize_ref (not ported)."""
+    """The port's (scene tables, FrameState, config, env) of the
+    reference's PNG golden `name` (tests/test_goldens.py:51-87), with the
+    goldens' own raster="ref"."""
     from superconductor_tpu_torch.assets.models import load_model
     from superconductor_tpu_torch.render.camera import Camera, make_uniforms
     from superconductor_tpu_torch.render.env import EnvBindings
@@ -293,13 +291,13 @@ def _golden_scene(name, box_glb):
         camera = Camera(position=np.array([0.9, 0.8, 1.8], np.float32))
         camera.rotation = m3.mat3_to_quat(m3.mat4_inverse(m3.look_at(camera.position, [0, 0, 0]))[:3, :3])
         uniforms, angle = make_uniforms(camera, 128, 128), 0.4
-        config = RenderConfig(width=128, height=128, t_cap=32, t_cap_anim=8, raster="auto")
+        config = RenderConfig(width=128, height=128, t_cap=32, t_cap_anim=8, raster="ref")
         env = EnvBindings(clear_color=(0.1, 0.15, 0.3))
     else:
         model = add_pbr_sphere(scene, stacks=32, slices=32)
         camera = Camera(position=np.array([0.0, 0.25, 2.3], np.float32))
         uniforms, angle = make_uniforms(camera, 160, 120), 0.6
-        config = RenderConfig(width=160, height=120, t_cap=4096, t_cap_anim=8, raster="auto")
+        config = RenderConfig(width=160, height=120, t_cap=4096, t_cap_anim=8, raster="ref")
         env = EnvBindings(ambient_sh=default_ambient_sh(), clear_color=(0.1, 0.12, 0.25))
     sim = m3.Similarity(rotation=m3.quat_from_axis_angle([0, 1, 0], angle))
     state = port_build(scene, [(model, sim)], uniforms, device="cpu")
@@ -309,8 +307,8 @@ def _golden_scene(name, box_glb):
 @pytest.mark.parametrize("name", ["unlit_box", "pbr_sphere"])
 def test_reference_png_golden_through_the_port(name, box_glb):
     """tests/goldens/unlit_box.png and pbr_sphere.png, the reference's own
-    goldens, rendered by the port on the CPU: PSNR >= 40 dB, the goldens'
-    bar (tests/test_goldens.py:48)."""
+    goldens, rendered by the port on the CPU with their raster="ref":
+    PSNR >= 40 dB, the goldens' bar (tests/test_goldens.py:48)."""
     import imageio.v3 as iio
 
     dev, state, config, env = _golden_scene(name, box_glb)

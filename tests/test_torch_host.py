@@ -13,6 +13,7 @@ import glob
 import os
 import re
 import shlex
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -28,49 +29,68 @@ PKG = os.path.join(REPO, "superconductor_tpu_torch")
 REF_NATIVE = os.path.join(REPO, "superconductor_tpu", "native")
 
 
-def ensure_reference_native() -> None:
-    """Build the reference's libscnative.so once, under a lock, before any
-    test loads it.
+def _build_atomically(cmd_out, dst: str) -> None:
+    """Run cmd_out(tmp) to write a file into a temporary path beside dst,
+    then rename it over dst: a reader sees the old file or the whole new
+    one, never a part."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(dst))
+    os.close(fd)
+    try:
+        cmd_out(tmp)
+        os.replace(tmp, dst)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
-    The reference's loader runs `make` when the library is missing, and
-    make's g++ writes the library in place. Test workers that reach the
-    loader together then race: one opens the file while another's g++ is
-    still writing it ("file too short"), and that worker runs without the
-    library for its whole life -- the hero's ETC1S textures stay on their
-    dummy slots there. Every test module of the port imports this one, and
-    every worker imports every test module while collecting, so the build
-    happens here, once: g++ with the Makefile's command and flags into a
-    temporary file, then an atomic rename. A fresh library that loads is
-    left alone."""
-    lib = os.path.join(REF_NATIVE, "libscnative.so")
+
+def pin_reference_native() -> None:
+    """Give the reference's native loader, in this process, a library that
+    nobody writes in place.
+
+    The reference's loader runs `make` when its library is missing, and
+    make's g++ writes superconductor_tpu/native/libscnative.so in place.
+    Test workers reach that loader together while collecting (a JAX-package
+    test module calls it at import, before any port module is collected):
+    one opens the file while another's g++ is still writing it ("file too
+    short"), and the loader remembers the failure for the process's life --
+    the hero's ETC1S textures then stay on their dummy texels. So, under a
+    lock, this builds the library once into build/reference_native/ (g++
+    with the Makefile's command and flags, into a temporary file renamed
+    into place) and hands that file to the loader, replacing whatever it
+    holds; every port test module imports this one. The in-place library
+    is refreshed from the same build, by rename, for processes that load
+    it themselves."""
+    import superconductor_tpu.native as ref_native
+
     sources = sorted(glob.glob(os.path.join(REF_NATIVE, "src", "*.cpp")))
     deps = sources + glob.glob(os.path.join(REF_NATIVE, "src", "*.h"))
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    private = os.path.join(REPO, "build", "reference_native", "libscnative.so")
+    in_place = os.path.join(REF_NATIVE, "libscnative.so")
+
+    def fresh(lib):
+        return os.path.exists(lib) and all(
+            os.path.getmtime(lib) >= os.path.getmtime(f) for f in deps
+        )
+
+    def compile_to(out):
+        # the Makefile's rule: $(CXX) $(CXXFLAGS) $(SRCS) -o $@
+        cxx = os.environ.get("CXX", "g++")
+        flags = shlex.split(os.environ.get("CXXFLAGS", "-O2 -fPIC -shared -std=c++17 -Wall"))
+        subprocess.run([cxx, *flags, *sources, "-o", out], check=True,
+                       capture_output=True, timeout=600)
+
+    os.makedirs(os.path.dirname(private), exist_ok=True)
     with open(os.path.join(REPO, "build", "reference_native.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(lib) and all(
-            os.path.getmtime(lib) >= os.path.getmtime(f) for f in deps
-        ):
-            try:
-                ctypes.CDLL(lib)
-                return
-            except OSError:
-                pass
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=REF_NATIVE)
-        os.close(fd)
-        try:
-            # the Makefile's rule: $(CXX) $(CXXFLAGS) $(SRCS) -o $@
-            cxx = os.environ.get("CXX", "g++")
-            flags = shlex.split(os.environ.get("CXXFLAGS", "-O2 -fPIC -shared -std=c++17 -Wall"))
-            subprocess.run([cxx, *flags, *sources, "-o", tmp], check=True,
-                           capture_output=True, timeout=600)
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        if not fresh(private):
+            _build_atomically(compile_to, private)
+        if not fresh(in_place):
+            _build_atomically(lambda out: shutil.copyfile(private, out), in_place)
+    ref_native._lib = ctypes.CDLL(private)
+    ref_native._lib_tried = True
 
 
-ensure_reference_native()
+pin_reference_native()
 
 import superconductor_tpu.animation as ref_animation
 import superconductor_tpu.math3d as ref_math3d
@@ -103,7 +123,9 @@ REF_HOST = SimpleNamespace(
     default_ambient_sh=ref_procgen.default_ambient_sh,
     build_mip_chain=ref_scene.build_mip_chain, Camera=ref_camera.Camera,
     make_uniforms=ref_camera.make_uniforms, EnvBindings=RefEnvBindings,
-    math3d=ref_math3d,
+    math3d=ref_math3d, add_skinned_tube=ref_procgen.add_skinned_tube,
+    wave_joint_palettes=ref_procgen.wave_joint_palettes,
+    make_stereo_uniforms=ref_camera.make_stereo_uniforms,
 )
 
 
