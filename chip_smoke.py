@@ -84,13 +84,29 @@ tubes and spheres) -- and checks them:
    a 256x128 frame on the card against the CPU frame and the JAX
    reference's in tests/goldens (>= 40 dB), and its raster="ref" twin on
    the card equal to it;
-9. neither jax nor the JAX package (superconductor_tpu) was imported.
+9. lit_passes (the all-passes frame lit as bench.py lights it: the SH
+   light volume, a lightmapped wall and the smoke pool, from seeded data):
+   the scene's time to the card and the sizes of its SH-interleaved and
+   smoke pools, all four present with the smoke pool's static placement
+   bound; fit_caps, with the partition engaged and live lightmapped lanes
+   in the stats frame; the raster kernel at the opaque pass's setup against
+   its plain version at every cluster size, and timed as in 3; 20 frames
+   timed with CUDA events, each pass's launches counted in that run, one a
+   frame for each of the 2 raster and 3 k-buffer passes; the frame against
+   its plain-versions twin and its classic-smoke twin (smoke pool removed),
+   byte for byte, and against its layered-SH twin (SH pools removed) at
+   >= 40 dB; the light volume, the lightmaps and the smoke maps each change
+   it; a 256x128 frame (at the capacities stored with its golden) on the
+   card against the CPU frame and the JAX reference's frame in
+   tests/goldens (>= 40 dB, stats equal);
+10. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
-The table holds both kernels (launches summed over the four frames'
-timed runs), the all-passes frame's five passes and the stereo frame's
-two eyes, each with the launches it made in that frame's timed run.
+The table holds both kernels (launches summed over the five frames'
+timed runs), the all-passes frame's five passes, the stereo frame's two
+eyes and the lit frame's opaque pass, each with the launches it made in
+that frame's timed run.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -131,6 +147,12 @@ ALL_PASSES_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # was rendered with (tests/test_torch_stereo.py)
 STEREO_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "goldens", "torch_stereo_256x128.npz")
+# the JAX reference's lit frame at 256x128, the capacities it was rendered
+# with and its stats (tests/test_torch_lit.py)
+LIT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "goldens", "torch_lit_passes_256x128.npz")
+# the lit frame's SH-interleaved and smoke pools (scene/upload.py)
+LIT_POOLS = ("lv_sh", "lm_sh", "smoke_ab", "smoke_lut")
 # kernel -> (its source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "raster": ("superconductor_tpu_torch/csrc/raster.cu",
@@ -720,6 +742,56 @@ def frame_passes(keep_inputs: bool):
         frame_mod._rasterize, frame_mod._rasterize_kbuffer = real_r, real_k
 
 
+def timed_passes(name, scene_dev, state0, config, env):
+    """N_TIMED frames of the five-pass frame timed with CUDA events, each
+    raster and k-buffer pass's kernel launches counted in that run; fails
+    unless every pass launched its kernel once a frame. -> (frame ms,
+    launches by kernel, launches by pass)."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.render.frame import render_frame
+
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    frames = [0]
+
+    def one_frame():
+        frames[0] += 1
+        return render_frame(scene_dev, state0, config, env)
+
+    with frame_passes(keep_inputs=False) as passes:
+        frame_ms = cuda_ms(one_frame)
+    launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
+                "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    by_pass = {}
+    for kind, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER)):
+        counts = [n for n, _ in passes[kind]]
+        if len(counts) != len(names) * frames[0]:
+            raise RuntimeError(f"{len(counts)} {kind} passes over {frames[0]} frames, "
+                               f"expected {len(names)} a frame")
+        by_pass.update({pname: sum(counts[i::len(names)]) for i, pname in enumerate(names)})
+    phase(name, f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
+          f"launches {launches} over {frames[0]} frames, by pass {by_pass}")
+    if set(by_pass.values()) != {frames[0]} or sum(by_pass.values()) != sum(launches.values()):
+        raise RuntimeError(f"the {name} frame did not launch its kernel once a frame in each "
+                           f"of its 2 raster and 3 k-buffer passes")
+    return frame_ms, launches, by_pass
+
+
+def plain_kernels_frame(scene_dev, state0, config, env):
+    """The frame rendered with both kernels' plain versions."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
+    from superconductor_tpu_torch.render import frame as frame_mod
+
+    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
+    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
+    try:
+        return frame_mod.render_frame(scene_dev, state0, config, env)
+    finally:
+        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
+        frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
+
+
 def all_passes_path(dev, shapes: dict) -> dict:
     """Phase 7: the all-passes frame (the terrain, the sphere ring, grid
     lines and particles; every pass on) at 1920x1080 after fit_caps; the
@@ -733,9 +805,6 @@ def all_passes_path(dev, shapes: dict) -> dict:
     golden. Returns the launch counts of the timed run, by kernel and by
     pass."""
     from superconductor_tpu_torch.bench_raster import CLUSTERS
-    from superconductor_tpu_torch.ops import raster as raster_mod
-    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
-    from superconductor_tpu_torch.render import frame as frame_mod
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.frame import (
         render_frame,
@@ -794,39 +863,10 @@ def all_passes_path(dev, shapes: dict) -> dict:
         shapes[name].update(timings[(k, want)])
 
     # --- the frame ---
-    raster_mod.rasterize_sorted.LAUNCHES = 0
-    raster_mod.kbuffer_sorted.LAUNCHES = 0
-    frames = [0]
-
-    def one_frame():
-        frames[0] += 1
-        return render_frame(scene_dev, state0, config, env)
-
-    with frame_passes(keep_inputs=False) as passes:
-        frame_ms = cuda_ms(one_frame)
-    launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
-                "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
-    by_pass = {}
-    for kind, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER)):
-        counts = [n for n, _ in passes[kind]]
-        if len(counts) != len(names) * frames[0]:
-            raise RuntimeError(f"{len(counts)} {kind} passes over {frames[0]} frames, "
-                               f"expected {len(names)} a frame")
-        by_pass.update({name: sum(counts[i::len(names)]) for i, name in enumerate(names)})
-    phase("all_passes", f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
-          f"launches {launches} over {frames[0]} frames, by pass {by_pass}")
-    if set(by_pass.values()) != {frames[0]} or sum(by_pass.values()) != sum(launches.values()):
-        raise RuntimeError("the all-passes frame did not launch its kernel once a frame in "
-                           "each of its 2 raster and 3 k-buffer passes")
+    _ms, launches, by_pass = timed_passes("all_passes", scene_dev, state0, config, env)
 
     img = render_frame(scene_dev, state0, config, env)
-    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
-    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
-    try:
-        img_plain = render_frame(scene_dev, state0, config, env)
-    finally:
-        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
-        frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
+    img_plain = plain_kernels_frame(scene_dev, state0, config, env)
     if img.shape != (1, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
         raise RuntimeError(f"bad frame {tuple(img.shape)} {img.dtype}")
     if not torch.equal(img, img_plain):
@@ -1022,14 +1062,159 @@ def stereo_path(dev, shapes: dict) -> dict:
     return by_eye
 
 
+def lit_golden_frame(device):
+    """(image, stats) of the 256x128 lit frame at angle 0.3 on `device`,
+    with the capacities stored beside the reference's image in LIT_GOLDEN."""
+    from superconductor_tpu_torch.render.frame import render_frame_stats, stats_to_host
+    from superconductor_tpu_torch.scenes import LIT_PASSES_SMALL, lit_passes_scene
+
+    caps = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in json.loads(str(np.load(LIT_GOLDEN)["caps"])).items()}
+    scene_dev, build_state, config, env = lit_passes_scene(device=device, **LIT_PASSES_SMALL)
+    img, stats = render_frame_stats(scene_dev, build_state(0.3), replace(config, **caps), env)
+    return img.cpu(), stats_to_host(stats)
+
+
+@contextlib.contextmanager
+def lightmapped_lanes():
+    """Inside the block, every g-buffer the frame path interpolates appends
+    its count of live lightmapped lanes to the yielded list."""
+    from superconductor_tpu_torch.render import frame as frame_mod
+
+    counts = []
+    real = frame_mod.interpolate_gbuffer
+
+    def rec(*args, **kw):
+        g = real(*args, **kw)
+        counts.append(int((g.valid & g.lightmapped).sum()))
+        return g
+
+    frame_mod.interpolate_gbuffer = rec
+    try:
+        yield counts
+    finally:
+        frame_mod.interpolate_gbuffer = real
+
+
+def lit_passes_path(dev, shapes: dict) -> dict:
+    """Phase 9: the lit frame (the all-passes scene with the SH light
+    volume, the lightmapped wall and the smoke maps, seeded) at 1920x1080:
+    the pools on the card, fit_caps and the live lightmapped lanes of a
+    stats frame, the raster kernel at the opaque pass's setup against its
+    plain version at every cluster size and timed, the frame timed with
+    its launches counted by pass (one a frame each), its plain-versions,
+    classic-smoke and layered-SH twins, the effect of each lighting input,
+    and the 256x128 frame against the CPU's and the reference's golden.
+    Returns the launches of the timed run, by kernel and by pass."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.draws import build_frame_state
+    from superconductor_tpu_torch.render.frame import (
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+    from superconductor_tpu_torch.scenes import lit_passes_host
+
+    t0 = time.perf_counter()
+    scene, instances, uniforms, env, config, draw_kw = lit_passes_host(WIDTH, HEIGHT)
+    t1 = time.perf_counter()
+    scene_dev = scene_to_torch(scene, dev)
+    state0 = build_frame_state(scene, instances(0.0), uniforms, device=dev, **draw_kw)
+    torch.cuda.synchronize()
+    pools = {k: scene_dev[k] for k in LIT_POOLS if k in scene_dev}
+    phase("lit_passes", f"scene built on the host in {t1 - t0:.2f} s, on card in "
+          f"{time.perf_counter() - t1:.2f} s; " + ", ".join(
+              f"{k} {tuple(v.shape)} {v.dtype} {v.numel() * v.element_size() / 2**20:.1f} MiB"
+              for k, v in pools.items())
+          + f"; smoke_static {env.smoke_static}; {int(state0.draws_static.tri_count.sum())} "
+          f"static triangles drawn")
+    if len(pools) != len(LIT_POOLS) or env.smoke_static is None:
+        raise RuntimeError(f"the lit frame lacks a pool: {sorted(pools)} published, "
+                           f"smoke_static {env.smoke_static}")
+
+    t0 = time.perf_counter()
+    config = fit_caps(scene_dev, state0, config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    phase("lit_passes", f"fit_caps in {time.perf_counter() - t0:.2f} s: p_cap={config.p_cap} "
+          f"clip_layers={config.clip_layers} blend_layers={config.blend_layers} "
+          f"particle_layers={config.particle_layers} shade_px_caps={config.shade_px_caps} "
+          f"opaque_px_cap={config.opaque_px_cap} sky_px_cap={config.sky_px_cap} "
+          f"matq_classic_cap={config.matq_classic_cap}")
+    if not (config.matq_classic_cap or 0) > 0:
+        raise RuntimeError("the material-path partition did not engage")
+
+    # one stats frame, recording each pass's inputs and the lightmapped lanes
+    with frame_passes(keep_inputs=True) as passes, lightmapped_lanes() as lm_lanes:
+        img, stats = render_frame_stats(scene_dev, state0, config, env)
+    calls = {kind: [inputs for _, inputs in passes[kind]] for kind in passes}
+    stats = stats_to_host(stats)
+    phase("lit_passes", f"stats {stats}; live lightmapped lanes {sum(lm_lanes)} "
+          f"(by g-buffer, in call order: {lm_lanes})")
+    if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
+        raise RuntimeError(f"the lit frame made {len(calls['raster'])} raster and "
+                           f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
+    if sum(lm_lanes) == 0:
+        raise RuntimeError("no live lightmapped lane in the lit frame")
+
+    tri, init = calls["raster"][0]
+    compare_raster("lit_passes-opaque", tri, WIDTH, HEIGHT, config.p_cap, shapes["lit_opaque"],
+                   init=init, clusters=CLUSTERS, timed=True)
+
+    # --- the frame ---
+    _ms, launches, by_pass = timed_passes("lit_passes", scene_dev, state0, config, env)
+
+    img = render_frame(scene_dev, state0, config, env)
+    img_plain = plain_kernels_frame(scene_dev, state0, config, env)
+    if img.shape != (1, HEIGHT, WIDTH, 4) or img.dtype != torch.uint8:
+        raise RuntimeError(f"bad frame {tuple(img.shape)} {img.dtype}")
+    without = {name: {k: v for k, v in scene_dev.items() if k not in keys}
+               for name, keys in (("classic smoke", LIT_POOLS[2:]), ("layered SH", LIT_POOLS[:2]))}
+    img_classic = render_frame(without["classic smoke"], state0, config, env)
+    img_layered = render_frame(without["layered SH"], state0, config, env)
+    db_layered = psnr(img.cpu().numpy(), img_layered.cpu().numpy())
+    phase("lit_passes", f"frame vs its plain-kernels twin equal: {torch.equal(img, img_plain)}; "
+          f"vs its classic-smoke twin equal: {torch.equal(img, img_classic)}; vs its "
+          f"layered-SH twin {db_layered:.2f} dB, {int((img != img_layered).sum())} bytes differ")
+    if not torch.equal(img, img_plain) or not torch.equal(img, img_classic):
+        raise RuntimeError("the lit frame differs from its plain-kernels or classic-smoke twin")
+    if db_layered < 40.0:
+        raise RuntimeError("the lit frame disagrees with its layered-SH twin")
+
+    # each lighting input changes the frame
+    for name, off in (("light volume", dict(lightvol_tex_ids=None, lightvol_wh=None)),
+                      ("lightmaps", dict(lightmap_tex_ids=None, lightmap_wh=None)),
+                      ("smoke maps", dict(smoke_tex_ids=None, smoke_static=None))):
+        changed = int((img[0] != render_frame(scene_dev, state0, config,
+                                              replace(env, **off))[0]).any(dim=-1).sum())
+        phase("lit_passes", f"{name} off: {changed} px change")
+        if changed == 0:
+            raise RuntimeError(f"switching off the {name} changed no pixel")
+
+    img_g, stats_g = lit_golden_frame(dev)
+    img_c, stats_c = lit_golden_frame("cpu")
+    golden = np.load(LIT_GOLDEN)
+    stats_ref = json.loads(str(golden["stats"]))
+    db_cpu = psnr(img_g.numpy(), img_c.numpy())
+    db_ref = psnr(img_g.numpy(), golden["image"])
+    phase("lit_passes", f"256x128 frame: card vs CPU PSNR {db_cpu:.2f} dB, card vs the JAX "
+          f"reference's frame (tests/goldens) PSNR {db_ref:.2f} dB; stats equal to the CPU's "
+          f"{stats_g == stats_c} and the reference's {stats_g == stats_ref}")
+    if min(db_cpu, db_ref) < 40.0 or not stats_g == stats_c == stats_ref:
+        raise RuntimeError("the lit card frame disagrees with the CPU frame or the reference")
+    return launches, by_pass
+
+
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
-                 ap_by_pass: dict, stereo_by_eye: dict, raster_res: dict, kbuffer_res: dict,
-                 shapes: dict) -> dict:
+                 ap_by_pass: dict, stereo_by_eye: dict, lit_launches: dict, lit_by_pass: dict,
+                 raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the four frames' timed runs, then each all-passes pass and each
-    stereo eye at its own shape with the launches counted in that pass
-    during the frame's timed run (one a frame)."""
+    over the five frames' timed runs, then each all-passes pass, each
+    stereo eye and the lit frame's opaque pass at its own shape with the
+    launches counted in that pass during the frame's timed run (one a
+    frame)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -1045,10 +1230,11 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     return {"kernels": [
         entry("raster_sorted", "raster",
               headline_launches + cb_launches["raster_sorted"] + ap_raster
-              + sum(stereo_by_eye.values()), raster_res,
+              + sum(stereo_by_eye.values()) + lit_launches["raster_sorted"], raster_res,
               max(raster_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES))),
-        entry("kbuffer_sorted", "kbuffer", cb_launches["kbuffer_sorted"] + ap_kbuffer,
+                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + ("lit_opaque",)))),
+        entry("kbuffer_sorted", "kbuffer",
+              cb_launches["kbuffer_sorted"] + ap_kbuffer + lit_launches["kbuffer_sorted"],
               kbuffer_res,
               max(kbuffer_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_KBUFFER))),
         *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
@@ -1057,6 +1243,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for n in AP_KBUFFER],
         *[entry(f"raster_sorted[stereo {eye}]", "raster", stereo_by_eye[eye], shapes[eye])
           for eye in EYES],
+        entry("raster_sorted[lit_passes opaque]", "raster", lit_by_pass["opaque"],
+              shapes["lit_opaque"]),
     ]}
 
 
@@ -1202,9 +1390,11 @@ def main() -> int:
     cb_launches = clip_blend_path(dev, kb_results, cb_raster)
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
-    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES}
+    shapes = {name: {"max_abs_err": 0.0}
+              for name in AP_RASTER + AP_KBUFFER + EYES + ("lit_opaque",)}
     ap_launches, ap_by_pass = all_passes_path(dev, shapes)
     stereo_by_eye = stereo_path(dev, shapes)
+    lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -1212,7 +1402,8 @@ def main() -> int:
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
-                                  stereo_by_eye, results, kb_results, shapes)))
+                                  stereo_by_eye, lit_launches, lit_by_pass, results,
+                                  kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -2,10 +2,11 @@
 model (port of ``superconductor_tpu/ops/particles.py``).
 
 Each particle is a view-space quad scaled by (scale.x, scale.y), rastered
-by the k-buffer pass and shaded per pixel. Without bound smoke textures
-the reference shades a procedural radial puff (its own branch, not a
-fallback); the smoke-texture branches need the smoke pool and wait for it
-(ROADMAP queue 1).
+by the k-buffer pass and shaded per pixel. Bound smoke textures are
+sampled on the smoke pool (both maps in one row gather, the emissive LUT
+from its own rows) when the scene publishes it, else per slot from the
+LDR pool; without smoke textures the reference shades a procedural radial
+puff (its own branch, not a fallback).
 """
 
 from __future__ import annotations
@@ -17,7 +18,14 @@ import torch
 from .geometry import TriangleSetup, _setup_from_clip, clip_transform
 from .lines import _quad_corner_ids
 from .shade import _normalize, sh_channel_vectors
-from .tonemap import tonemap_and_encode
+from .texture import (
+    TEXFLAG_SRGB,
+    _bilinear_core,
+    ldr_pool,
+    sample_bilinear_level,
+    sample_smoke_interleaved,
+)
+from .tonemap import srgb_to_linear_exact, tonemap_and_encode
 
 
 class ParticleAttrs(NamedTuple):
@@ -100,13 +108,11 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
                     sh_sampler, inline_tonemapping: bool = True,
                     inline_srgb: bool = True):
     """Per-pixel particle shading -> (rgb display-encoded, alpha)
-    (reference ops/particles.py:166, the branch without smoke textures):
-    barycentrics from the quad triangle's setup edges, SH lighting at the
-    interpolated world position, a radial puff for both smoke maps."""
-    if env.smoke_tex_ids is not None:
-        raise NotImplementedError(
-            "smoke textures wait for the smoke pool (ROADMAP queue 1: light volumes)"
-        )
+    (reference ops/particles.py:166): barycentrics from the quad
+    triangle's setup edges, SH lighting at the interpolated world position,
+    the six-way light maps and emissive mask from the smoke maps (or a
+    radial puff without them), the emission from the LUT where the
+    particle asks for it."""
     valid = pair >= 0
     idx = torch.clamp_min(pair, 0).long()
     if attrs.packed is not None:
@@ -117,6 +123,7 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
         p_colour = row[:, 24:27]
         p_emissive = row[:, 27:30]
         p_use_lut = row[:, 30] >= 0.0
+        p_lut_y = torch.clamp_min(row[:, 30], 0.0)
         partner = torch.where(row[:, 31:32] > 0.5, wp_v[:, 1], wp_v[:, 2])
         p_center = 0.5 * (wp_v[:, 0] + partner)
     else:
@@ -127,6 +134,7 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
         p_colour = particles["colour"][pid]
         p_emissive = particles["emissive_colour"][pid]
         p_use_lut = particles["use_emissive_lut"][pid] != 0
+        p_lut_y = particles["lut_y"][pid]
         p_center = particles["center"][pid]
     e = adj[:, :, 0] * px[:, None] + adj[:, :, 1] * py[:, None] + adj[:, :, 2]
     d_val = torch.sum(e, dim=-1)
@@ -138,11 +146,31 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
     normal = _normalize(eye[None, :] - p_center)
     sh = sh_sampler(world_pos)
 
-    # no smoke textures bound: a round puff, alpha from the radial falloff
-    fall = torch.clamp(1.0 - 2.0 * _norm(uv - 0.5), 0.0, 1.0)
-    puff = torch.stack([fall * 0.5] * 3 + [fall], dim=-1)
-    left, bottom, front, emissive_s = puff[..., 0], puff[..., 1], puff[..., 2], puff[..., 3]
-    right, top, back, alpha = left, bottom, front, emissive_s
+    n = pair.shape[0]
+    dev = pair.device
+    smoke_static = env.smoke_static
+    use_smoke_pool = (
+        env.smoke_tex_ids is not None and smoke_static is not None and "smoke_ab" in scene
+    )
+    if use_smoke_pool:
+        s8 = sample_smoke_interleaved(scene["smoke_ab"], smoke_static[0], smoke_static[1],
+                                      smoke_static[2], uv)
+        smoke_a, smoke_b = s8[..., 0:4], s8[..., 4:8]
+    elif env.smoke_tex_ids is not None:
+        # the smoke maps sampled per slot from the LDR pool, level 0
+        lvl = torch.zeros(n, dtype=torch.int32, device=dev)
+        smoke_a, smoke_b = (
+            sample_bilinear_level(ldr_pool(scene), scene["tex"],
+                                  torch.full((n,), t, dtype=torch.int32, device=dev),
+                                  uv, lvl, False)
+            for t in env.smoke_tex_ids[:2]
+        )
+    else:
+        # no smoke textures bound: a round puff, alpha from the radial falloff
+        fall = torch.clamp(1.0 - 2.0 * _norm(uv - 0.5), 0.0, 1.0)
+        smoke_a = smoke_b = torch.stack([fall * 0.5] * 3 + [fall], dim=-1)
+    left, bottom, front, emissive_s = (smoke_a[..., i] for i in range(4))
+    right, top, back, alpha = (smoke_b[..., i] for i in range(4))
 
     red, green, blue = sh_channel_vectors(sh)
     avg_vec = (red + green + blue) / 3.0
@@ -172,8 +200,22 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
     )
     directional = sh[:, 0, :] * rgb_len
     ambient = sh[:, 0, :] * 0.2 * (1.0 - rgb_len)
-    # without the emissive LUT texture the lut term is zero
-    lut = torch.zeros_like(p_emissive)
+    if env.smoke_tex_ids is not None:
+        lut_uv = torch.stack([emissive_s, p_lut_y], dim=-1)
+    if use_smoke_pool:
+        lw, lh, lwr, lflags = smoke_static[3:7]
+        lut = _bilinear_core(scene["smoke_lut"], 0, lw, lh, lwr, lut_uv)[..., :3] * (1.0 / 255.0)
+        if lflags & TEXFLAG_SRGB:
+            lut = srgb_to_linear_exact(lut)
+    elif env.smoke_tex_ids is not None:
+        # the LUT is sRGB-encoded: TEXFLAG_SRGB decodes it
+        lut = sample_bilinear_level(
+            ldr_pool(scene), scene["tex"],
+            torch.full((n,), env.smoke_tex_ids[2], dtype=torch.int32, device=dev),
+            lut_uv, torch.zeros(n, dtype=torch.int32, device=dev), True,
+        )[..., :3]
+    else:
+        lut = torch.zeros_like(p_emissive)
     emission = torch.where(p_use_lut[..., None], lut, emissive_s[..., None]) * p_emissive
     out = (directional * light_map[..., None] + ambient) * p_colour + emission
     out = tonemap_and_encode(out, inline_tonemapping, inline_srgb)

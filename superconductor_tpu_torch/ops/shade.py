@@ -3,11 +3,12 @@
 
 Ported: g-buffer interpolation with analytic screen derivatives, the PBR
 pieces (nonlinear L1 SH irradiance, GGX specular at the SH dominant
-direction, cotangent-frame normal mapping), the constant ambient-SH
-lighting branch, and ``shade`` and the alpha-clip test ``albedo_alpha`` on
-every material path: the interleaved pool (matq), the classic per-slot
-samplers, and textures pre-sampled by the material-path partition. Scenes
-needing light volumes or lightmaps raise NotImplementedError.
+direction, cotangent-frame normal mapping), every SH lighting branch (the
+light volume and the lightmaps, each on its SH-interleaved pool or
+layered through the HDR pool, and the constant ambient fallback), and
+``shade`` and the alpha-clip test ``albedo_alpha`` on every material path:
+the interleaved pool (matq), the classic per-slot samplers, and textures
+pre-sampled by the material-path partition.
 """
 
 from __future__ import annotations
@@ -19,7 +20,16 @@ import numpy as np
 import torch
 
 from .geometry import TriangleAttrs, TriangleSetup
-from .texture import ldr_pool, sample_anisotropic, sample_material_interleaved
+from .texture import (
+    hdr_pool,
+    ldr_pool,
+    sample_3d_from_layers,
+    sample_anisotropic,
+    sample_bilinear_level,
+    sample_lightmap_sh,
+    sample_lightvol_sh,
+    sample_material_interleaved,
+)
 from .tonemap import linear_to_srgb_approx, tonemap_and_encode
 
 MAT_UNLIT = 1
@@ -211,18 +221,54 @@ def compute_cotangent_frame_normal(geo_normal, map_normal_ts, dpdx, dpdy,
 
 
 def sample_spherical_harmonics(gbuf: GBuffer, scene: dict, uniforms: dict, env):
-    """(P, 4, 3) SH per pixel. Only the constant ambient branch (no light
-    volume, no lightmap configured) is ported."""
-    if env.lightvol_tex_ids is not None or env.lightmap_tex_ids is not None:
-        raise NotImplementedError(
-            "SH light volumes / lightmaps wait for ROADMAP queue 1: light volumes"
-        )
+    """(P, 4, 3) SH coefficients per pixel (reference ops/shade.py:291): the
+    light volume at the probe-box coordinates of the world position, the
+    lightmaps at lm_uv where the lane is lightmapped, else the constant
+    ambient. Each texture set is sampled on its SH-interleaved pool when
+    the scene publishes one and its static dims are bound, else layer by
+    layer through the HDR pool; the L1 bands are stored 0..1-encoded and
+    unpacked with * 255/127 - 128/127."""
     p = gbuf.world_pos.shape[0]
-    ambient = torch.tensor(
-        np.asarray(env.ambient_sh, np.float32).reshape(4, 3),
-        device=gbuf.world_pos.device,
-    )
-    return ambient.expand(p, 4, 3)
+    dev = gbuf.world_pos.device
+    scale = 255.0 / 127.0
+    bias = -128.0 / 127.0
+
+    def unpack(taps):
+        return torch.stack(
+            [taps[0]] + [t * scale + bias for t in taps[1:]], dim=-2
+        )
+
+    def layered(tex_ids, sample):
+        return [sample(torch.full((p,), i, dtype=torch.int32, device=dev))[..., :3]
+                for i in tex_ids]
+
+    sh = None
+    if env.lightvol_tex_ids is not None:
+        rescaled = (gbuf.world_pos - uniforms["probes_bottom_left"]) / uniforms["probes_scale"]
+        z_layers = env.lightvol_z_layers
+        if "lv_sh" in scene and env.lightvol_wh is not None:
+            w, h = env.lightvol_wh
+            t12 = sample_lightvol_sh(scene["lv_sh"], w, h, z_layers, rescaled)
+            taps = [t12[..., 3 * i:3 * i + 3] for i in range(4)]
+        else:
+            taps = layered(env.lightvol_tex_ids, lambda tid: sample_3d_from_layers(
+                hdr_pool(scene), scene["tex_hdr"], tid, rescaled, z_layers))
+        sh = unpack(taps)
+    if env.lightmap_tex_ids is not None:
+        if "lm_sh" in scene and env.lightmap_wh is not None:
+            w, h = env.lightmap_wh
+            t12 = sample_lightmap_sh(scene["lm_sh"], w, h, gbuf.lm_uv)
+            taps = [t12[..., 3 * i:3 * i + 3] for i in range(4)]
+        else:
+            lvl = torch.zeros((p,), dtype=torch.int32, device=dev)
+            taps = layered(env.lightmap_tex_ids, lambda tid: sample_bilinear_level(
+                hdr_pool(scene), scene["tex_hdr"], tid, gbuf.lm_uv, lvl, False))
+        sh_lm = unpack(taps)
+        sh = sh_lm if sh is None else torch.where(gbuf.lightmapped[:, None, None], sh_lm, sh)
+    if sh is None:
+        ambient = torch.tensor(np.asarray(env.ambient_sh, np.float32).reshape(4, 3), device=dev)
+        sh = ambient.expand(p, 4, 3)
+    return sh
 
 
 def _unpack_mq_row(row):

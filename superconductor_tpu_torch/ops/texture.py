@@ -7,9 +7,11 @@ decode, isotropic LOD, the classic per-slot samplers
 descriptor paths, ``sample_anisotropic``), the cubemap sampler (static
 placement and through the descriptor tables), and the interleaved
 material sampler (``sample_material_interleaved``: all four material
-textures of a pixel from one 64-channel row per trilinear level). Not
-ported: the wide mq3 rows, the smoke pool and the light-volume /
-lightmap samplers (ROADMAP queue 1).
+textures of a pixel from one 64-channel row per trilinear level), the
+smoke pool sampler (``sample_smoke_interleaved``) and the light-volume /
+lightmap samplers: layered (``sample_3d_from_layers``) and on the
+SH-interleaved pools (``sample_lightvol_sh``, ``sample_lightmap_sh``).
+Not ported: the wide mq3 rows.
 """
 
 from __future__ import annotations
@@ -194,6 +196,31 @@ def mip_level_from_derivatives(dudx, dvdx, dudy, dvdy, tex_w, tex_h):
     return 0.5 * torch.log2(torch.clamp_min(rho2, 1e-12))
 
 
+def sample_smoke_interleaved(pool32, w: int, h: int, wrap_mode: int, uv):
+    """Both smoke maps' level-0 bilinear taps from one (w*h, 32) u8 row
+    gather (Scene.device_smoke rows: [quad_a | quad_b]) at static placement
+    (EnvBindings.smoke_static) -> (P, 8) f32 in [0, 1], the math of two
+    sample_bilinear_level(level=0, decode_srgb=False) calls (reference
+    ops/texture.py:236)."""
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None, None]
+    fy = (y - y0)[..., None, None]
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+    xi = _wrap(x0, w, wrap_mode)
+    yi = _wrap(y0, h, wrap_mode)
+    if wrap_mode == WRAP_CLAMP:
+        fx = torch.where((x0 < 0)[..., None, None], 0.0, fx)
+        fy = torch.where((y0 < 0)[..., None, None], 0.0, fy)
+    q = pool32[yi * w + xi].to(torch.float32)  # (P, 32)
+    qr = q.reshape(*q.shape[:-1], 2, 4, 4)  # (P, slot, corner, ch)
+    out = _lerp4(qr[..., 0, :], qr[..., 1, :], qr[..., 2, :], qr[..., 3, :], fx, fy)
+    return out.reshape(*q.shape[:-1], 8) * (1.0 / 255.0)
+
+
 def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
                    static=None):
     """Cubemap stored as 6 consecutive textures (+X,-X,+Y,-Y,+Z,-Z),
@@ -234,6 +261,75 @@ def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
         lvl = torch.zeros(d.shape[:-1], dtype=torch.int32, device=d.device)
         return sample_bilinear_level(texels_hdr, tex_desc, tex_id, uv, lvl, decode_srgb=False)
     return sample_trilinear(texels_hdr, tex_desc, tex_id, uv, lod, decode_srgb=False)
+
+
+def _layer_pair(z_coord, z_layers: int):
+    """The two layers a z lerp blends and its fraction: layers clamped to
+    [0, z_layers - 1], the fraction left as is (so below the first and
+    above the last layer both taps read the edge layer)."""
+    z = z_coord * z_layers - 0.5
+    z0 = torch.floor(z)
+    zi = torch.clamp(z0.to(torch.int32), 0, z_layers - 1)
+    return zi, torch.clamp(zi + 1, 0, z_layers - 1), (z - z0)[..., None]
+
+
+def sample_3d_from_layers(texels_hdr, tex_desc, tex_id, point, z_layers: int):
+    """A 3D texture stored as z_layers equal-sized mip entries: xy bilinear
+    in the two nearest layers, then a lerp across z (reference
+    ops/texture.py:335)."""
+    zi, zi1, fz = _layer_pair(point[..., 2], z_layers)
+    xy = point[..., :2]
+    a = sample_bilinear_level(texels_hdr, tex_desc, tex_id, xy, zi, decode_srgb=False)
+    b = sample_bilinear_level(texels_hdr, tex_desc, tex_id, xy, zi1, decode_srgb=False)
+    return a * (1 - fz) + b * fz
+
+
+def sample_lightvol_sh(lv_sh, w: int, h: int, z_layers: int, point):
+    """Trilinear sample of the SH-interleaved light volume (w*h*z_layers,
+    48) f16 pool (upload.sh_pool) -> (P, 12) [L0 | Lx | Ly | Lz] rgb: one
+    row gather per z layer at static addressing, the math of
+    sample_3d_from_layers over the four volumes (reference
+    ops/texture.py:358)."""
+    plane, fx, fy = _sh_plane_index(w, h, point[..., 0], point[..., 1])
+    zi, zi1, fz = _layer_pair(point[..., 2], z_layers)
+
+    def tap(zl):
+        return _sh_bilinear(lv_sh[zl * (w * h) + plane], fx, fy)
+
+    return tap(zi) * (1 - fz) + tap(zi1) * fz
+
+
+def sample_lightmap_sh(lm_sh, w: int, h: int, uv):
+    """Bilinear sample of the SH-interleaved lightmap (w*h, 48) pool ->
+    (P, 12): one row gather for all four lightmaps (reference
+    ops/texture.py:383)."""
+    plane, fx, fy = _sh_plane_index(w, h, uv[..., 0], uv[..., 1])
+    return _sh_bilinear(lm_sh[plane], fx, fy)
+
+
+def _sh_plane_index(w: int, h: int, u, v):
+    """Texel index and bilinear fractions on the SH-interleaved pools:
+    static dims, CLAMP wrap with baked neighbours, so the fraction is
+    zeroed at the negative edge as on the quad pool."""
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int32)
+    y0 = y0f.to(torch.int32)
+    xi = torch.clamp(x0, 0, w - 1)
+    yi = torch.clamp(y0, 0, h - 1)
+    fx = torch.where((x0 < 0)[..., None], 0.0, fx)
+    fy = torch.where((y0 < 0)[..., None], 0.0, fy)
+    return yi * w + xi, fx, fy
+
+
+def _sh_bilinear(q, fx, fy):
+    """(P, 48) f16 footprint rows, widened to f32 before the lerp."""
+    q = q.to(torch.float32)
+    return _lerp4(q[..., 0:12], q[..., 12:24], q[..., 24:36], q[..., 36:48], fx, fy)
 
 
 def _matq_bilinear(texels_mq, owh, wrap_mode, uv):

@@ -1,12 +1,14 @@
 """Where the time of a frame goes on the GPU.
 
     python3 -m superconductor_tpu_torch.profile_frame
-        [--scene headline|clip_blend|all_passes|stereo] [--frames 5] [--out build/profile]
+        [--scene headline|clip_blend|all_passes|stereo|lit_passes] [--frames 5]
+        [--out build/profile]
 
 Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline;
 clip_blend: alpha clip + alpha blend; all_passes: the terrain, the sphere
 ring, lines and particles with every pass on; stereo: two eyes of the
-skinned tubes and spheres), warms up, then traces
+skinned tubes and spheres; lit_passes: all_passes with the SH light volume,
+a lightmapped wall and the smoke pool), warms up, then traces
 `--frames` frames with torch.profiler (CPU + CUDA activity). Prints the
 wall time per frame (host clock around synchronised frames), the summed
 device kernel time and the kernel launches per frame, the device's idle
@@ -31,8 +33,8 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("headline", "clip_blend", "all_passes", "stereo"),
-                    default="headline")
+    ap.add_argument("--scene", default="headline",
+                    choices=("headline", "clip_blend", "all_passes", "stereo", "lit_passes"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -45,10 +47,17 @@ def main(argv=None) -> int:
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
-    from .scenes import all_passes_scene, clip_blend_scene, headline_scene, stereo_animated_scene
+    from .scenes import (
+        all_passes_scene,
+        clip_blend_scene,
+        headline_scene,
+        lit_passes_scene,
+        stereo_animated_scene,
+    )
 
     make = {"headline": headline_scene, "clip_blend": clip_blend_scene,
-            "all_passes": all_passes_scene, "stereo": stereo_animated_scene}[args.scene]
+            "all_passes": all_passes_scene, "stereo": stereo_animated_scene,
+            "lit_passes": lit_passes_scene}[args.scene]
     dev, build, config, env = make(args.width, args.height, "cuda")
     state = build(0.0)
     config = fit_caps(dev, state, config, env)

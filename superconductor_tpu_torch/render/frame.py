@@ -14,10 +14,11 @@ opaque depth as its init buffer), the particle composite (the k-buffer
 kernel over the lines' depth), the alpha-blend composite (the k-buffer
 kernel over the same floor), and the tonemap tail. Material textures are
 sampled on the interleaved pool, the classic per-slot samplers, or both
-through the material-path partition on partial pools. Every
-configuration outside the slice raises NotImplementedError naming the
-ROADMAP item that brings it. PyTorch runs eagerly, so there is no jit:
-``render_frame`` and ``render_frame_stats`` are plain functions.
+through the material-path partition on partial pools; lighting comes from
+the SH light volume and lightmaps (ops/shade.py) and particles from the
+smoke maps (ops/particles.py). TPU row padding (``shade_row_pad``) is not
+ported and raises NotImplementedError. PyTorch runs eagerly, so there is
+no jit: ``render_frame`` and ``render_frame_stats`` are plain functions.
 """
 
 from __future__ import annotations
@@ -159,18 +160,13 @@ class FrameState(NamedTuple):
     particles: Optional[dict] = None
 
 
-def _check_slice(config: RenderConfig, env) -> None:
-    """Raise on every configuration outside the ported slice."""
-    unported = [
-        (config.shade_row_pad != 0, "shade_row_pad: TPU layout mechanics, not ported"),
-        (env.lightvol_tex_ids is not None or env.lightmap_tex_ids is not None,
-         "light volumes / lightmaps: ROADMAP queue 1, light volumes"),
-        (env.smoke_tex_ids is not None,
-         "smoke textures: ROADMAP queue 1, the smoke pool (with light volumes)"),
-    ]
-    for bad, why in unported:
-        if bad:
-            raise NotImplementedError(f"outside the ported slice: {why}")
+def _check_slice(config: RenderConfig) -> None:
+    """Raise on the one configuration outside the port, and on an unknown
+    raster method."""
+    if config.shade_row_pad != 0:
+        raise NotImplementedError(
+            "outside the ported slice: shade_row_pad: TPU layout mechanics, not ported"
+        )
     config.resolve_raster()
 
 
@@ -741,7 +737,7 @@ def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
     setup once, and each view in row_chunks bands of height // row_chunks
     rows, a plain loop where the reference maps over the bands. The stats
     are the elementwise max over views and bands."""
-    _check_slice(config, env)
+    _check_slice(config)
     chunks = max(config.row_chunks, 1)
     if config.height % chunks:
         raise ValueError(f"height {config.height} is not a multiple of "

@@ -7,8 +7,12 @@ and texel pools at full capacity (``GrowableArray.host``), the descriptor
 and material tables (host-side ``descriptor_arrays`` / ``material_arrays``
 plus the numpy post-processing of ``device_materials``, :638-700), the
 quad-packed pools (``device_quad``, :187) and the interleaved material pool
-(the non-mq3 path of ``device_matq``, :1072-1241). The quad and matq pools
-are row gathers, done here as torch gathers on ``device``.
+(the non-mq3 path of ``device_matq``, :1072-1241), the SH-interleaved light
+volume and lightmap pools (``device_lightvol_sh`` / ``device_lightmap_sh``,
+:1314-1388) and the smoke pool (``device_smoke``, :1242-1283). The quad,
+matq, SH and smoke pools are row gathers, done here as torch gathers on
+``device``, and published only where the reference publishes them: under
+``quad_pools``.
 
 The one representation change: the u32 index buffers are carried as i32
 (same bits; every index is far below 2**31), because torch has no gather
@@ -19,9 +23,8 @@ reference publishes it: incapable materials' ``mat_row_mq`` rows carry
 their real factors and a count=0 sentinel, and ``matq_capable`` (M,) bool
 marks the capable ones for the material-path partition.
 
-Scenes outside the ported slice raise NotImplementedError instead of
-rendering wrong: the wide mq3 rows, SH-interleaved light volumes /
-lightmaps, and smoke pools.
+The wide mq3 rows are outside the port and raise NotImplementedError
+instead of rendering wrong.
 """
 
 from __future__ import annotations
@@ -193,21 +196,56 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
     return texels_mq, texels_mq_tail, mat_row_mq, capable
 
 
+def sh_pool(pool, texels: torch.Tensor, tex_ids, z: int) -> torch.Tensor:
+    """(w*h*z, 48) f16 SH-interleaved pool of four same-sized HDR textures
+    whose z layers are stored as consecutive mip entries (Scene._device_sh_pool,
+    scene.py:1314-1358): row (z*h*w + y*w + x) holds the rgb of the texel's
+    2x2 bilinear footprint in all four textures, corner-major ([t00: L0 Lx
+    Ly Lz][t10][t01][t11]), clamp wrap baked in. `texels` is the HDR pool
+    on the device."""
+    base0 = pool.tex_mip_base[tex_ids[0]]
+    w, h = pool.mip_w[base0], pool.mip_h[base0]
+    x = np.arange(w, dtype=np.int32)
+    y = np.arange(h, dtype=np.int32)
+    xc = np.minimum(x + 1, w - 1)
+    yc = np.minimum(y + 1, h - 1)
+    cols = []
+    for cx, cy in ((x, y), (xc, y), (x, yc), (xc, yc)):
+        grid = cy[:, None] * w + cx[None, :]  # (h, w)
+        for t in tex_ids:
+            base = pool.tex_mip_base[t]
+            if pool.tex_mip_count[t] != z or (pool.mip_w[base], pool.mip_h[base]) != (w, h):
+                raise ValueError(f"SH texture {t} does not match {w}x{h}x{z}")
+            offs = np.asarray(pool.mip_offset[base:base + z], np.int32)
+            cols.append((offs[:, None, None] + grid[None]).reshape(-1))
+    idx = torch.from_numpy(np.stack(cols)).to(texels.device).long()  # (16, w*h*z)
+    return torch.cat([texels[idx[k]][:, :3] for k in range(16)], dim=1)
+
+
+def smoke_tables(scene: Scene, quad: torch.Tensor):
+    """(smoke_ab (w*h, 32) u8, smoke_lut (lw*lh, 16) u8) or None
+    (Scene.device_smoke, scene.py:1242-1283): both smoke maps' level-0 quad
+    rows side by side, and the LUT's own quad rows. None where the
+    reference publishes none: no smoke textures, or smoke maps whose
+    level-0 dims or wrap differ (then smoke_static_dims is None too)."""
+    dims = scene.smoke_static_dims()
+    if dims is None:
+        return None
+    pool = scene.textures
+    a, b, lut = (pool.tex_mip_base[t] for t in scene.smoke_tex)
+    w, h, lw, lh = dims[0], dims[1], dims[3], dims[4]
+
+    def rows(base, n):
+        i = pool.mip_offset[base] + torch.arange(n, device=quad.device)
+        return quad[i]
+
+    return torch.cat([rows(a, w * h), rows(b, w * h)], dim=1), rows(lut, lw * lh)
+
+
 def scene_to_torch(scene: Scene, device="cuda") -> dict:
     """The reference's ``Scene.device_arrays()`` dict, built from the host
     tables as torch tensors on ``device``."""
     scene.enforce_texture_budget()
-    if scene.lightvol is not None or scene.lightmap_tex is not None:
-        raise NotImplementedError(
-            "light volumes / lightmaps wait for ROADMAP queue 1 item 3: light volumes, "
-            "lightmaps and the smoke pool"
-        )
-    ids = getattr(scene, "smoke_tex", None)
-    if scene.quad_pools and ids and ids[0] >= 0:
-        raise NotImplementedError(
-            "smoke pools wait for ROADMAP queue 1 item 3: light volumes, lightmaps and "
-            "the smoke pool"
-        )
     d = {k: _np_to_torch(getattr(scene, k).host, device) for k in _VERTEX_KEYS}
     d["texels"] = _np_to_torch(scene.textures.texels.host, device)
     d["texels_hdr"] = _np_to_torch(scene.textures_hdr.texels.host, device)
@@ -221,6 +259,11 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
         quad = quad_pool(scene.textures, device)
         d["texels_q"] = quad
         d["texels_hdr_q"] = quad_pool(scene.textures_hdr, device)
+        if scene.lightvol is not None:
+            d["lv_sh"] = sh_pool(scene.textures_hdr, d["texels_hdr"],
+                                 scene.lightvol["tex_ids"], scene.lightvol["z_layers"])
+        if scene.lightmap_tex is not None:
+            d["lm_sh"] = sh_pool(scene.textures_hdr, d["texels_hdr"], scene.lightmap_tex, 1)
         mq: Optional[tuple] = matq_tables(scene, quad, device)
         if mq is not None:
             d["texels_mq"] = mq[0]
@@ -230,6 +273,9 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
             d["materials"]["mat_row_mq"] = mq[2]
             if mq[3] is not None:
                 d["matq_capable"] = mq[3]
+        smoke = smoke_tables(scene, quad)
+        if smoke is not None:
+            d["smoke_ab"], d["smoke_lut"] = smoke
     return d
 
 

@@ -25,6 +25,13 @@ volume, noon.ktx2, the smoke textures) are left out: the sky is the
 procedural gradient cubemap with constant ambient SH, as in the headline,
 and the particles take the reference's procedural puff.
 
+``lit_passes_scene`` is the all-passes scene lit as ``bench.py``
+``all_passes_scene`` lights it (:583-606), from seeded data at the real
+volume's dims: a 96x48x48 SH light volume in the bcn volume's probe box, a
+lightmapped wall (``make_lightmapped_glb``'s quad) lit by four seeded SH
+lightmaps, and two seeded smoke maps with an sRGB emissive LUT that half
+of the particles read.
+
 ``stereo_animated_scene`` is ``bench.py`` ``bench_stereo_animated``
 (:887-995, BASELINE configs 4 and 5): two 1080p eyes of six waving skinned
 tubes (the animated vertex stage, joint palettes from the numpy FK every
@@ -33,7 +40,9 @@ frame) and six PBR spheres, all from procedural content.
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 from types import SimpleNamespace
 
 import numpy as np
@@ -51,6 +60,7 @@ from .scene.scene import (
     BLEND_ALPHA_CLIPPED,
     MAT_DOUBLE_SIDED,
     TEXFLAG_SRGB,
+    WRAP_CLAMP,
     Scene,
     build_mip_chain,
 )
@@ -302,6 +312,191 @@ def all_passes_scene(width: int = 1920, height: int = 1080, device="cuda",
     scene, instances, uniforms, env, config, draw_kw = all_passes_host(
         width, height, n_spheres, stacks, lod_screen_height
     )
+    dev = scene_to_torch(scene, device)
+
+    def build(angle: float):
+        return build_frame_state(scene, instances(angle), uniforms, device=device, **draw_kw)
+
+    return dev, build, config, env
+
+
+# the small lit frame of the CPU parity tests, its golden and the card's
+# check against it: the all-passes cut, with 256^2 lightmaps and smoke maps
+LIT_PASSES_SMALL = dict(ALL_PASSES_SMALL, lightmap_size=256, smoke_size=256)
+
+# bench.py:583-592: the bcn volume's probe box (ProbesArrayInfo centre
+# (0, 6, 0), scale (24, 12, 12)) and dims (tests/test_ktx2.py:22-25)
+LIGHTVOL_BOTTOM_LEFT = (-12.0, 0.0, -6.0)
+LIGHTVOL_SCALE = (24.0, 12.0, 12.0)
+LIGHTVOL_DIMS = (96, 48, 48)  # w, h, z
+
+
+def lightmapped_quad_glb() -> bytes:
+    """A 2x2 quad in the z = 0 plane facing +z, with TEXCOORD_0 over [0, 1]
+    and TEXCOORD_1 (the lightmap uv, which marks it lightmapped) over
+    [0.2, 0.8], and one untextured material (the reference's
+    tests/test_lightmap.py make_lightmapped_glb)."""
+    pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    uv2 = np.array([[0.2, 0.2], [0.8, 0.2], [0.8, 0.8], [0.2, 0.8]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+    blob = pos.tobytes() + uv.tobytes() + uv2.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"},
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "TEXCOORD_0": 1, "TEXCOORD_1": 2},
+            "indices": 3, "material": 0,
+        }]}],
+        "materials": [{"pbrMetallicRoughness": {"metallicFactor": 0.0}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4, "type": "VEC3",
+             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5126, "count": 4, "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5123, "count": 6, "type": "SCALAR"},
+        ],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": 48},
+            {"buffer": 0, "byteOffset": 48, "byteLength": 32},
+            {"buffer": 0, "byteOffset": 80, "byteLength": 32},
+            {"buffer": 0, "byteOffset": 112, "byteLength": 12},
+        ],
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    j = json.dumps(doc).encode()
+    j += b" " * (-len(j) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    out = struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(j) + 8 + len(blob))
+    out += struct.pack("<II", len(j), 0x4E4F534A) + j
+    out += struct.pack("<II", len(blob), 0x004E4942) + blob
+    return out
+
+
+def _sh_set(rng, shape) -> list:
+    """Four seeded SH images (L0, Lx, Ly, Lz) of `shape` (..., h, w): each
+    channel a smooth field (a sinusoid of seeded frequency and phase along
+    the texel grid) under 10% seeded noise. L0 is HDR in [0, 2]; the L1
+    bands are 0..1-encoded at k/255, as an RGBA8 decode gives them; alpha
+    is 1."""
+    axes = np.meshgrid(*[np.linspace(0.0, 1.0, n, dtype=np.float32) for n in shape],
+                       indexing="ij")
+
+    def field():
+        f = rng.uniform(0.5, 2.0, size=len(shape))
+        phase = sum(2.0 * np.pi * fi * a for fi, a in zip(f, axes)) + rng.uniform(0, 2 * np.pi)
+        return 0.5 + 0.45 * np.sin(phase) + 0.05 * rng.uniform(-1.0, 1.0, size=shape)
+
+    out = []
+    for band in range(4):
+        img = np.ones(shape + (4,), np.float32)
+        for c in range(3):
+            img[..., c] = field()
+        if band == 0:
+            img[..., :3] *= 2.0
+        else:
+            img[..., :3] = np.rint(img[..., :3] * 255.0) / np.float32(255.0)
+        out.append(img)
+    return out
+
+
+def _smoke_maps(rng, size: int) -> list:
+    """Two seeded size^2 smoke maps, u8: a = (left, bottom, front,
+    emissive), b = (right, top, back, alpha), each a radial puff under
+    seeded noise."""
+    c = (np.arange(size, dtype=np.float32) + 0.5) / size - 0.5
+    puff = np.clip(1.0 - 2.0 * np.hypot(c[None, :], c[:, None]), 0.0, 1.0)
+    return [
+        np.rint(255.0 * puff[..., None] * rng.uniform(0.4, 1.0, size=(size, size, 4)))
+        .astype(np.uint8)
+        for _ in range(2)
+    ]
+
+
+def _emissive_lut(rng) -> np.ndarray:
+    """A 256x16 sRGB-encoded emissive ramp under seeded noise, u8."""
+    x = np.linspace(0.0, 1.0, 256, dtype=np.float32)
+    ramp = np.stack([x, x ** 1.5, x ** 3, np.ones_like(x)], axis=-1)
+    lut = ramp[None] * rng.uniform(0.8, 1.0, size=(16, 256, 4))
+    return np.rint(255.0 * np.clip(lut, 0.0, 1.0)).astype(np.uint8)
+
+
+def lit_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
+                    stacks: int = 88, lod_screen_height: int = 1080,
+                    lightmap_size: int = 1024, smoke_size: int = 1024, seed: int = 7,
+                    host=HOST):
+    """Host side of the lit scene -> (scene, instances, uniforms, env,
+    config, draw_kw), as all_passes_host, whose scene it extends with what
+    bench.py's all_passes_scene loads from files not in the repository, in
+    seeded data (numpy seed `seed`):
+
+    - the light volume: four 96x48x48 SH volumes (the bcn volume's dims)
+      as HDR textures whose mip entries are the z layers, WRAP_CLAMP (the
+      layout of environment._load_volume_texture), in the bcn probe box;
+    - a lightmapped wall: lightmapped_quad_glb scaled to 12 x 12, behind
+      the sphere ring and turned to face the camera, lit by four
+      lightmap_size^2 SH lightmaps (the Sponza lightmaps' real dims are not
+      in the repository);
+    - smoke: two smoke_size^2 smoke maps (equal dims and wrap, so the smoke
+      pool is published) and a 256x16 sRGB LUT, in the LDR pool with
+      WRAP_CLAMP (the burst textures' real dims are not in the repository).
+
+    One data change from bench.py:641-658: the odd particles set
+    use_emissive_lut with lut_y (k + 0.5) / 16, so the LUT is read. As in
+    the bench, the environment has no ambient SH."""
+    scene, base_instances, uniforms, _env, config, draw_kw = all_passes_host(
+        width, height, n_spheres, stacks, lod_screen_height, host=host
+    )
+    m3 = host.math3d
+    rng = np.random.default_rng(seed)
+    w, h, z = LIGHTVOL_DIMS
+    lv_ids = [scene.textures_hdr.add_texture(list(vol), wrap=WRAP_CLAMP)
+              for vol in _sh_set(rng, (z, h, w))]
+    scene.lightvol = {
+        "tex_ids": lv_ids, "z_layers": z,
+        "bottom_left": np.asarray(LIGHTVOL_BOTTOM_LEFT, np.float32),
+        "scale": np.asarray(LIGHTVOL_SCALE, np.float32),
+    }
+    uniforms.probes_bottom_left = scene.lightvol["bottom_left"]
+    uniforms.probes_scale = scene.lightvol["scale"]
+
+    wall = host.load_model(scene, lightmapped_quad_glb(), name="lightmapped_wall")
+    scene.lightmap_tex = [scene.textures_hdr.add_texture([img], wrap=WRAP_CLAMP)
+                          for img in _sh_set(rng, (lightmap_size, lightmap_size))]
+
+    a, b = _smoke_maps(rng, smoke_size)
+    scene.smoke_tex = (
+        scene.textures.add_texture([a], wrap=WRAP_CLAMP),
+        scene.textures.add_texture([b], wrap=WRAP_CLAMP),
+        scene.textures.add_texture([_emissive_lut(rng)], wrap=WRAP_CLAMP, flags=TEXFLAG_SRGB),
+    )
+    scene._materials_dirty = True
+
+    particles = draw_kw["particles"]
+    particles["use_emissive_lut"][1:16:2] = 1
+    particles["lut_y"][1:16:2] = (np.arange(1, 16, 2, dtype=np.float32) + 0.5) / 16.0
+
+    env = host.EnvBindings.from_scene(scene)
+    if env.lightvol_wh is None or env.lightmap_wh is None or env.smoke_static is None:
+        raise RuntimeError("lit_passes environment is not bound to the scene's tables")
+    wall_pos = np.array([-7.8, 3.0, -3.0], np.float32)
+    to_cam = np.array([8.0, 2.5, 3.0], np.float32) - wall_pos  # the all-passes camera
+    wall_sim = m3.Similarity(
+        translation=wall_pos.tolist(), scale=6.0,
+        rotation=m3.quat_from_axis_angle([0, 1, 0], float(np.arctan2(to_cam[0], to_cam[2]))),
+    )
+
+    def instances(angle: float):
+        return base_instances(angle) + [(wall, wall_sim)]
+
+    return scene, instances, uniforms, env, config, draw_kw
+
+
+def lit_passes_scene(width: int = 1920, height: int = 1080, device="cuda", **kw):
+    """-> (dev, build, config, env) of the lit scene, as headline_scene:
+    build(angle) turns the spheres by `angle` about +y. `kw`:
+    lit_passes_host's sizes."""
+    scene, instances, uniforms, env, config, draw_kw = lit_passes_host(width, height, **kw)
     dev = scene_to_torch(scene, device)
 
     def build(angle: float):

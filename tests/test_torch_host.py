@@ -114,6 +114,15 @@ from superconductor_tpu_torch.utils import procgen as port_procgen
 # The test workers share the CPU: torch's default of a thread per core in
 # each of them oversubscribes it many times over.
 torch.set_num_threads(2)
+# torch computes log2, exp and the like on CPU tensors with oneMKL's vector
+# math, which sets itself up on its first call. When that first call is
+# split over torch's two threads, in a process that has loaded jax and on a
+# busy host, the second thread's half can come from oneMKL's AVX2
+# low-accuracy (VML_EP) kernel instead of the AVX-512 high-accuracy one:
+# log2 up to 2.4e-5 off, on that call only. Make the first calls here, on
+# one thread and then on both, before any test compares a result.
+torch.log2(torch.ones(16))
+torch.log2(torch.ones(1 << 14))
 
 REF_HOST = SimpleNamespace(
     Scene=ref_scene.Scene, load_model=ref_load_model,
@@ -339,14 +348,26 @@ def test_make_uniforms_matches_reference(reverse_z):
         assert_same(ur, up)
 
 
-@pytest.mark.parametrize("scene", ["headline", "clip_blend", "all_passes"])
+@pytest.mark.parametrize("scene", ["headline", "clip_blend", "all_passes", "lit_passes"])
 def test_scene_builders_match_with_either_host(scene):
-    """scenes.headline_host / clip_blend_host / all_passes_host built with
-    the reference's host layer and with the port's give equal scenes,
-    uniforms, env and instances (the other parity tests rely on it)."""
-    from superconductor_tpu_torch.scenes import all_passes_host, clip_blend_host, headline_host
+    """scenes.headline_host / clip_blend_host / all_passes_host /
+    lit_passes_host built with the reference's host layer and with the
+    port's give equal scenes, uniforms, env and instances (the other parity
+    tests rely on it)."""
+    from superconductor_tpu_torch.scenes import (
+        all_passes_host,
+        clip_blend_host,
+        headline_host,
+        lit_passes_host,
+    )
 
-    if scene == "headline":
+    if scene == "lit_passes":
+        kw = dict(n_spheres=3, stacks=8, lightmap_size=16, smoke_size=16)
+        ref = lit_passes_host(64, 32, **kw, host=REF_HOST)
+        port = lit_passes_host(64, 32, **kw)
+        assert_same(ref[1](0.4), port[1](0.4), "instances")
+        assert_same(ref[5], port[5], "draw keywords")
+    elif scene == "headline":
         ref = headline_host(64, 32, host=REF_HOST)
         port = headline_host(64, 32)
     elif scene == "all_passes":

@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from superconductor_tpu.assets.models import load_model
 from superconductor_tpu.scene.scene import Scene
@@ -58,11 +59,24 @@ def _port_scene_of(glb: bytes) -> PortScene:
     return scene
 
 
-@pytest.mark.parametrize("which", ["hero", "box", "all_passes"])
+@pytest.mark.parametrize("which", ["hero", "box", "all_passes", "lit_passes"])
 def test_scene_to_torch_bit_exact(which, box_glb):
     """hero and box: one model; all_passes: the terrain and the sphere ring,
     whose interleaved pool is partial (matq_capable, the incapable
-    terrain material's sentinel mat_row_mq row)."""
+    terrain material's sentinel mat_row_mq row); lit_passes: all_passes
+    with the light volume, the lightmapped wall and the smoke maps, so the
+    SH-interleaved pools (lv_sh, lm_sh) and the smoke pool (smoke_ab,
+    smoke_lut) too."""
+    if which == "lit_passes":
+        from superconductor_tpu_torch.scenes import LIT_PASSES_SMALL, lit_passes_host
+        from test_torch_host import REF_HOST
+
+        ref = lit_passes_host(**LIT_PASSES_SMALL, host=REF_HOST)[0].device_arrays()
+        port = scene_to_torch(lit_passes_host(**LIT_PASSES_SMALL)[0], "cpu")
+        assert {"lv_sh", "lm_sh", "smoke_ab", "smoke_lut", "matq_capable"} <= set(port)
+        assert port["lv_sh"].shape == (96 * 48 * 48, 48) and port["lv_sh"].dtype == torch.float16
+        _assert_same_tables(ref, port)
+        return
     if which == "all_passes":
         from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL, all_passes_host
         from test_torch_host import REF_HOST
@@ -84,12 +98,13 @@ def test_scene_to_torch_bit_exact(which, box_glb):
     _assert_same_tables(ref, arrays_to_torch(ref, "cpu"))
 
 
-def test_scene_to_torch_rejects_unported_scene(box_glb):
-    from superconductor_tpu_torch.utils.procgen import gradient_cubemap
-
-    scene = _port_scene_of(box_glb)
-    gradient_cubemap(scene)  # cubemaps are in the slice
+def test_scene_to_torch_rejects_unported_scene():
+    """The wide mq3 interleaved rows (Scene.matq3x3, off by default) are
+    not ported: a scene that asks for them raises."""
+    with open(HERO, "rb") as f:
+        scene = _port_scene_of(f.read())
     scene_to_torch(scene, "cpu")
-    scene.lightvol = {"tex_ids": [0, 0, 0, 0], "z_layers": 1}
+    scene.matq3x3 = True
+    assert scene.matq_plan()["mq3_ok"]
     with pytest.raises(NotImplementedError):
         scene_to_torch(scene, "cpu")
