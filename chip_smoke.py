@@ -165,6 +165,9 @@ AP_RASTER = ("opaque", "lines")
 AP_KBUFFER = ("clip", "particles", "blend")
 # the stereo frame's raster passes: the opaque pass of each eye
 EYES = ("left", "right")
+# the lit frame's passes: the all-passes frame's, under their own keys
+LIT_RASTER = tuple("lit_" + n for n in AP_RASTER)
+LIT_KBUFFER = tuple("lit_" + n for n in AP_KBUFFER)
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -792,6 +795,28 @@ def plain_kernels_frame(scene_dev, state0, config, env):
         frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
 
 
+def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: str = ""):
+    """Each of the five passes' kernels on the inputs `calls` recorded from
+    a stats frame (frame_passes): the opaque raster, the lines raster (init
+    buffer), the clip, particle and blend k-buffers, each at the K fit_caps
+    pinned to the next power of two of its need, so more than K / 2 layers
+    on some pixel. Every pass is held against its plain version at every
+    cluster size and timed into shapes[prefix + pass]."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+
+    if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
+        raise RuntimeError(f"the {frame} frame made {len(calls['raster'])} raster and "
+                           f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
+    for name, (tri, init) in zip(AP_RASTER, calls["raster"]):
+        compare_raster(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap, shapes[prefix + name],
+                       init=init, clusters=CLUSTERS, timed=True)
+    for name, (tri, floor, want, k) in zip(AP_KBUFFER, calls["kbuffer"]):
+        timings = compare_kbuffer(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap,
+                                  shapes[prefix + name], floor=floor, min_layers=k // 2 + 1,
+                                  clusters=CLUSTERS, timed=[(k, want)])
+        shapes[prefix + name].update(timings[(k, want)])
+
+
 def all_passes_path(dev, shapes: dict) -> dict:
     """Phase 7: the all-passes frame (the terrain, the sphere ring, grid
     lines and particles; every pass on) at 1920x1080 after fit_caps; the
@@ -804,7 +829,6 @@ def all_passes_path(dev, shapes: dict) -> dict:
     forced on, and the 256x128 frame against the CPU and the reference's
     golden. Returns the launch counts of the timed run, by kernel and by
     pass."""
-    from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.frame import (
         render_frame,
@@ -842,25 +866,12 @@ def all_passes_path(dev, shapes: dict) -> dict:
     calls = {kind: [inputs for _, inputs in passes[kind]] for kind in passes}
     stats = stats_to_host(stats)
     phase("all_passes", f"stats {stats}")
-    if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
-        raise RuntimeError(f"the all-passes frame made {len(calls['raster'])} raster and "
-                           f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
     if min(stats["clip_layers_needed"], stats["blend_layers_needed"],
            stats["particle_layers_needed"]) < 1:
         raise RuntimeError("the all-passes frame has no clip, blend or particle fragment")
 
-    # --- each pass's kernel at its shape: the opaque raster, the lines
-    # raster (init buffer), the clip, particle and blend k-buffers, each at
-    # the K fit_caps pinned to the next power of two of its need, so more
-    # than K / 2 layers on some pixel (the clip pass: 9, K = 16) ---
-    for name, (tri, init) in zip(AP_RASTER, calls["raster"]):
-        compare_raster(f"all_passes-{name}", tri, WIDTH, HEIGHT, config.p_cap, shapes[name],
-                       init=init, clusters=CLUSTERS, timed=True)
-    for name, (tri, floor, want, k) in zip(AP_KBUFFER, calls["kbuffer"]):
-        timings = compare_kbuffer(f"all_passes-{name}", tri, WIDTH, HEIGHT, config.p_cap,
-                                  shapes[name], floor=floor, min_layers=k // 2 + 1,
-                                  clusters=CLUSTERS, timed=[(k, want)])
-        shapes[name].update(timings[(k, want)])
+    # --- each pass's kernel at its shape (the clip pass: 9 layers, K = 16) ---
+    compare_passes("all_passes", calls, config.p_cap, shapes)
 
     # --- the frame ---
     _ms, launches, by_pass = timed_passes("all_passes", scene_dev, state0, config, env)
@@ -1100,13 +1111,13 @@ def lit_passes_path(dev, shapes: dict) -> dict:
     """Phase 9: the lit frame (the all-passes scene with the SH light
     volume, the lightmapped wall and the smoke maps, seeded) at 1920x1080:
     the pools on the card, fit_caps and the live lightmapped lanes of a
-    stats frame, the raster kernel at the opaque pass's setup against its
-    plain version at every cluster size and timed, the frame timed with
+    stats frame, each pass's kernel at that frame's inputs (the wall moves
+    the opaque depth every later pass reads) against its plain version at
+    every cluster size and timed, the frame timed with
     its launches counted by pass (one a frame each), its plain-versions,
     classic-smoke and layered-SH twins, the effect of each lighting input,
     and the 256x128 frame against the CPU's and the reference's golden.
     Returns the launches of the timed run, by kernel and by pass."""
-    from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.draws import build_frame_state
     from superconductor_tpu_torch.render.frame import (
@@ -1152,15 +1163,10 @@ def lit_passes_path(dev, shapes: dict) -> dict:
     stats = stats_to_host(stats)
     phase("lit_passes", f"stats {stats}; live lightmapped lanes {sum(lm_lanes)} "
           f"(by g-buffer, in call order: {lm_lanes})")
-    if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
-        raise RuntimeError(f"the lit frame made {len(calls['raster'])} raster and "
-                           f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
     if sum(lm_lanes) == 0:
         raise RuntimeError("no live lightmapped lane in the lit frame")
 
-    tri, init = calls["raster"][0]
-    compare_raster("lit_passes-opaque", tri, WIDTH, HEIGHT, config.p_cap, shapes["lit_opaque"],
-                   init=init, clusters=CLUSTERS, timed=True)
+    compare_passes("lit_passes", calls, config.p_cap, shapes, prefix="lit_")
 
     # --- the frame ---
     _ms, launches, by_pass = timed_passes("lit_passes", scene_dev, state0, config, env)
@@ -1212,9 +1218,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the five frames' timed runs, then each all-passes pass, each
-    stereo eye and the lit frame's opaque pass at its own shape with the
-    launches counted in that pass during the frame's timed run (one a
-    frame)."""
+    stereo eye and each lit pass at its own shape with the launches
+    counted in that pass during the frame's timed run (one a frame)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -1232,19 +1237,22 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
               headline_launches + cb_launches["raster_sorted"] + ap_raster
               + sum(stereo_by_eye.values()) + lit_launches["raster_sorted"], raster_res,
               max(raster_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + ("lit_opaque",)))),
+                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + LIT_RASTER))),
         entry("kbuffer_sorted", "kbuffer",
               cb_launches["kbuffer_sorted"] + ap_kbuffer + lit_launches["kbuffer_sorted"],
               kbuffer_res,
-              max(kbuffer_res["max_abs_err"], *(shapes[n]["max_abs_err"] for n in AP_KBUFFER))),
+              max(kbuffer_res["max_abs_err"],
+                  *(shapes[n]["max_abs_err"] for n in AP_KBUFFER + LIT_KBUFFER))),
         *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
           for n in AP_KBUFFER],
         *[entry(f"raster_sorted[stereo {eye}]", "raster", stereo_by_eye[eye], shapes[eye])
           for eye in EYES],
-        entry("raster_sorted[lit_passes opaque]", "raster", lit_by_pass["opaque"],
-              shapes["lit_opaque"]),
+        *[entry(f"raster_sorted[lit_passes {n}]", "raster", lit_by_pass[n], shapes["lit_" + n])
+          for n in AP_RASTER],
+        *[entry(f"kbuffer_sorted[lit_passes {n}]", "kbuffer", lit_by_pass[n], shapes["lit_" + n])
+          for n in AP_KBUFFER],
     ]}
 
 
@@ -1391,7 +1399,7 @@ def main() -> int:
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
     shapes = {name: {"max_abs_err": 0.0}
-              for name in AP_RASTER + AP_KBUFFER + EYES + ("lit_opaque",)}
+              for name in AP_RASTER + AP_KBUFFER + EYES + LIT_RASTER + LIT_KBUFFER}
     ap_launches, ap_by_pass = all_passes_path(dev, shapes)
     stereo_by_eye = stereo_path(dev, shapes)
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)

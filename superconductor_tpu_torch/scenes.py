@@ -329,6 +329,8 @@ LIT_PASSES_SMALL = dict(ALL_PASSES_SMALL, lightmap_size=256, smoke_size=256)
 LIGHTVOL_BOTTOM_LEFT = (-12.0, 0.0, -6.0)
 LIGHTVOL_SCALE = (24.0, 12.0, 12.0)
 LIGHTVOL_DIMS = (96, 48, 48)  # w, h, z
+# the numpy seed of the lit scene's volume, lightmaps, smoke maps and LUT
+LIT_SEED = 7
 
 
 def lightmapped_quad_glb() -> bytes:
@@ -423,12 +425,11 @@ def _emissive_lut(rng) -> np.ndarray:
 
 def lit_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
                     stacks: int = 88, lod_screen_height: int = 1080,
-                    lightmap_size: int = 1024, smoke_size: int = 1024, seed: int = 7,
-                    host=HOST):
+                    lightmap_size: int = 1024, smoke_size: int = 1024, host=HOST):
     """Host side of the lit scene -> (scene, instances, uniforms, env,
     config, draw_kw), as all_passes_host, whose scene it extends with what
     bench.py's all_passes_scene loads from files not in the repository, in
-    seeded data (numpy seed `seed`):
+    seeded data (numpy seed LIT_SEED):
 
     - the light volume: four 96x48x48 SH volumes (the bcn volume's dims)
       as HDR textures whose mip entries are the z layers, WRAP_CLAMP (the
@@ -448,7 +449,7 @@ def lit_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
         width, height, n_spheres, stacks, lod_screen_height, host=host
     )
     m3 = host.math3d
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(LIT_SEED)
     w, h, z = LIGHTVOL_DIMS
     lv_ids = [scene.textures_hdr.add_texture(list(vol), wrap=WRAP_CLAMP)
               for vol in _sh_set(rng, (z, h, w))]
