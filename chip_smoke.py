@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives superconductor_tpu_torch's four paths at 1920x1080 on the first
-CUDA device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
+Drives superconductor_tpu_torch's paths at 1920x1080 on the first CUDA
+device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
 sky), the clip_blend frame (BASELINE config 3: the helmet plus a ring of
 spheres, alpha-clipped and alpha-blended ones among them), the
 all-passes frame (dense_terrain.glb, the ring, lines and particles) and
 the stereo-animated frame (BASELINE configs 4 and 5: two eyes of skinned
-tubes and spheres) -- and checks them:
+tubes and spheres), the lit frame, and the app layer (the frame server and
+the demo through the ECS) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
@@ -99,14 +100,38 @@ tubes and spheres) -- and checks them:
    it; a 256x128 frame (at the capacities stored with its golden) on the
    card against the CPU frame and the JAX reference's frame in
    tests/goldens (>= 40 dB, stats equal);
-10. neither jax nor the JAX package (superconductor_tpu) was imported.
+10. app (the app layer, python -m superconductor_tpu_torch.serve and
+    .demo, in this process): the frame server on dense_terrain.glb --
+    its capacity probe (a subprocess; a failed probe fails the run), a 5 s
+    selftest at 2 frames in flight and stats_interval 0 with the probe's
+    caps, latency p50 / p90 / p99, frames per second, the host ms per frame
+    of each FrameProfiler scope, and the raster kernel's launches over the
+    timed frames (one a frame a view a band); then the same app settled at
+    stats_interval 1, its frame byte-equal to the frame at stats_interval
+    0, to the frame rendered with both plain versions and to render_frame
+    on a frame state built without the ECS from tables rebuilt whole
+    (scene_to_torch, equal to the app's resident DeviceScene tables); the
+    opaque pass's kernel against its plain version on that frame's inputs
+    at every cluster size, and timed; then the demo for 8 frames on
+    hero_helmet.glb with the skinned ribbon (scenes.skinned_ribbon_glb),
+    debug overlays and particles: 8 PNGs written, the lines raster and the
+    particle k-buffer passes (and the opaque, clip and blend passes)
+    launching their kernel once every rendered frame, each of the five
+    passes' kernels against its plain version on the last frame's inputs at
+    every K and cluster size (lines and particles timed; the particles need
+    more than K / 2 layers on some pixel; the clip and blend inputs are
+    empty, as the content has no such material), and the ribbon's
+    animation changing pixels at one camera;
+11. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
 The table holds both kernels (launches summed over the five frames'
-timed runs), the all-passes frame's five passes, the stereo frame's two
-eyes and the lit frame's opaque pass, each with the launches it made in
-that frame's timed run.
+timed runs and the app phase's server and demo runs), the all-passes and
+lit frames' five passes and the stereo frame's two eyes, each with the
+launches it made in that frame's timed run, the frame server's opaque pass
+(launches over the selftest's timed frames) and the demo's lines and
+particle passes (launches over the demo run).
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -123,8 +148,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -168,6 +195,9 @@ EYES = ("left", "right")
 # the lit frame's passes: the all-passes frame's, under their own keys
 LIT_RASTER = tuple("lit_" + n for n in AP_RASTER)
 LIT_KBUFFER = tuple("lit_" + n for n in AP_KBUFFER)
+# the app phase's passes: the frame server's opaque pass and the demo's five
+APP_RASTER = ("app_opaque",) + tuple("demo_" + n for n in AP_RASTER)
+DEMO_KBUFFER = tuple("demo_" + n for n in AP_KBUFFER)
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -795,26 +825,34 @@ def plain_kernels_frame(scene_dev, state0, config, env):
         frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
 
 
-def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: str = ""):
+def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: str = "",
+                   min_layers: dict = None, timed: tuple = AP_RASTER + AP_KBUFFER):
     """Each of the five passes' kernels on the inputs `calls` recorded from
     a stats frame (frame_passes): the opaque raster, the lines raster (init
     buffer), the clip, particle and blend k-buffers, each at the K fit_caps
     pinned to the next power of two of its need, so more than K / 2 layers
-    on some pixel. Every pass is held against its plain version at every
-    cluster size and timed into shapes[prefix + pass]."""
+    on some pixel (or min_layers[pass] where given; 0 lets the pass be
+    empty, as the demo's clip and blend passes are: its helmet and ribbon
+    have no clip or blend material, so those two are held on empty inputs
+    and show only that they launch). Every pass is held
+    against its plain version at every cluster size; the passes in `timed`
+    are timed into shapes[prefix + pass]."""
     from superconductor_tpu_torch.bench_raster import CLUSTERS
 
     if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
         raise RuntimeError(f"the {frame} frame made {len(calls['raster'])} raster and "
                            f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
+    min_layers = min_layers or {}
     for name, (tri, init) in zip(AP_RASTER, calls["raster"]):
         compare_raster(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap, shapes[prefix + name],
-                       init=init, clusters=CLUSTERS, timed=True)
+                       init=init, clusters=CLUSTERS, timed=name in timed)
     for name, (tri, floor, want, k) in zip(AP_KBUFFER, calls["kbuffer"]):
+        least = min_layers.get(name, k // 2 + 1)
         timings = compare_kbuffer(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap,
-                                  shapes[prefix + name], floor=floor, min_layers=k // 2 + 1,
-                                  clusters=CLUSTERS, timed=[(k, want)])
-        shapes[prefix + name].update(timings[(k, want)])
+                                  shapes[prefix + name], floor=floor, min_layers=least,
+                                  min_rows=min(least, 1), clusters=CLUSTERS,
+                                  timed=[(k, want)] if name in timed else ())
+        shapes[prefix + name].update(timings.get((k, want), {}))
 
 
 def all_passes_path(dev, shapes: dict) -> dict:
@@ -1212,14 +1250,219 @@ def lit_passes_path(dev, shapes: dict) -> dict:
     return launches, by_pass
 
 
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def app_frame_without_ecs(world, dev):
+    """The frame the app's render system last rendered, built without the
+    ECS: the camera's uniforms, culling and draw build of the app's one
+    instance, the scene's tables rebuilt whole (scene_to_torch), then
+    render_frame at the app's config and env. -> (image, the tables)."""
+    from superconductor_tpu_torch.ecs.components import Instance, InstanceOf, ModelComponent
+    from superconductor_tpu_torch.ecs.resources import (
+        CameraResource,
+        RenderSettings,
+        SceneResource,
+    )
+    from superconductor_tpu_torch.render.camera import make_uniforms
+    from superconductor_tpu_torch.render.culling import sphere_culling_params
+    from superconductor_tpu_torch.render.draws import build_frame_state
+    from superconductor_tpu_torch.render.frame import render_frame
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+
+    cam = world.resource(CameraResource)
+    settings = world.resource(RenderSettings)
+    config = settings.config
+    scene = world.resource(SceneResource).scene
+    instances = [(world.get(of.model_entity, ModelComponent).model, inst.similarity)
+                 for _e, inst, of in world.query(Instance, InstanceOf)]
+    uniforms = make_uniforms(cam.camera, config.width, config.height, cam.fov_y, cam.z_near,
+                             reverse_z=config.reverse_z)
+    cull = [sphere_culling_params(uniforms.view_proj[v]) for v in range(config.num_views)]
+    state = build_frame_state(scene, instances, uniforms, cull_params=cull,
+                              screen_height=config.height, device=dev)
+    tables = scene_to_torch(scene, dev)
+    return render_frame(tables, state, config, settings.env), tables
+
+
+def app_path(dev, shapes: dict, smi: str) -> dict:
+    """Phase 10: the app layer at 1920x1080. The port's frame server on
+    dense_terrain.glb (its capacity probe, a subprocess, then a 5 s selftest
+    at 2 frames in flight with stats_interval 0): the probe's caps, latency
+    p50 / p99, throughput, host ms per frame by FrameProfiler scope, and
+    the raster kernel's launches over the timed frames (one a frame a view a
+    band). Then the same app settled at stats_interval 1: its frame byte-equal
+    to the same app's frame at stats_interval 0, to the frame rendered with
+    both plain versions, and to render_frame on a frame state built without
+    the ECS from tables rebuilt whole (which equal the app's resident ones);
+    the opaque pass's kernel against its plain version on that frame's
+    inputs, and timed. Then the port's demo for 8 frames on hero_helmet.glb
+    with the skinned ribbon, debug overlays and particles: the PNGs, the
+    animation moving pixels, the lines raster and particle k-buffer passes
+    launching once a rendered frame, and each pass's kernel against its plain
+    version on the last frame's inputs. Returns the launch counts."""
+    from superconductor_tpu_torch import demo, serve
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.ecs.components import JointsComponent
+    from superconductor_tpu_torch.ecs.resources import (
+        CameraResource,
+        FrameOutput,
+        RenderSettings,
+        SceneResource,
+    )
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.scenes import HERO_GLB, skinned_ribbon_glb
+
+    # --- the frame server ---
+    t0 = time.perf_counter()
+    device = str(dev)
+    server = serve.prepare(serve.parse_args(["--size", f"{WIDTH}x{HEIGHT}", "--device", device]))
+    phase("app", f"capacity probe (a subprocess) in {time.perf_counter() - t0:.2f} s: "
+          f"caps {server.probe}; failure: {server.probe_failed}")
+    if server.probe_failed is not None:
+        raise RuntimeError(f"the capacity probe failed: {server.probe_failed}")
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    report = serve.selftest(server, 5.0, frames_in_flight=2)
+    run_launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
+                    "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    phase("app", f"selftest ({smi}): {report['frames']} frames in {report['seconds']:.3f} s, "
+          f"{report['fps']:.3f} frames/s, latency p50 {report['latency_p50_ms']:.3f} ms, "
+          f"p90 {report['latency_p90_ms']:.3f} ms, p99 {report['latency_p99_ms']:.3f} ms "
+          f"(submit to ready, {report['frames_in_flight']} frames in flight, stats_interval 0)")
+    phase("app", "host ms per frame by FrameProfiler scope: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in report["host_ms_per_frame"].items()))
+    phase("app", f"launches over the timed frames: raster {report['raster_launches']}, "
+          f"k-buffer {report['kbuffer_launches']} ({report['views_x_bands']} view x band a "
+          f"frame); over the whole server run {run_launches}")
+    if report["raster_launches"] != report["frames"] * report["views_x_bands"]:
+        raise RuntimeError("the frame server did not launch the raster kernel once a frame "
+                           "a view a band")
+
+    # --- twins at the settled config, back at the selftest's first pose ---
+    app, w = server.app, server.app.world
+    settings, out = w.resource(RenderSettings), w.resource(FrameOutput)
+    cam = w.resource(CameraResource).camera
+    cam.position, cam.rotation = serve.start_rig().update(1 / 60.0)
+    settings.stats_interval = 1
+    seen = []
+    for _ in range(8):
+        app.update()
+        seen.append(settings.config)
+        if len(seen) >= 3 and seen[-1] == seen[-2] == seen[-3] == out.last_config:
+            break
+    else:
+        raise RuntimeError(f"the app's config did not settle at stats_interval 1: {seen[-1]}")
+    config = settings.config
+    img_1 = out.image
+    settings.stats_interval = 0
+    with frame_passes(keep_inputs=True) as passes:
+        app.update()
+    img_0, state = out.image, out.state
+    arrays = w.resource(SceneResource).device_scene.arrays()
+    img_plain = plain_kernels_frame(arrays, state, config, settings.env)
+    img_free, tables = app_frame_without_ecs(w, dev)
+    fa, fb = _flat(arrays), _flat(tables)
+    tables_equal = sorted(fa) == sorted(fb) and all(  # bit for bit: some rows hold bitcast ints
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape and torch.equal(
+            fa[k].contiguous().reshape(-1).view(torch.uint8),
+            fb[k].contiguous().reshape(-1).view(torch.uint8)) for k in fa)
+    phase("app", f"settled after {len(seen)} frames at stats_interval 1: p_cap={config.p_cap} "
+          f"opaque_px_cap={config.opaque_px_cap} sky_px_cap={config.sky_px_cap} "
+          f"matq_classic_cap={config.matq_classic_cap} blend_layers={config.blend_layers}")
+    phase("app", f"frame at stats_interval 0 vs 1 equal: {torch.equal(img_0, img_1)}; vs "
+          f"its plain-versions twin: {torch.equal(img_0, img_plain)}; vs render_frame "
+          f"without the ECS: {torch.equal(img_0, img_free)}; resident tables equal to "
+          f"scene_to_torch's: {tables_equal} ({len(fa)} tensors)")
+    if img_0.shape != (1, HEIGHT, WIDTH, 4) or img_0.dtype != torch.uint8:
+        raise RuntimeError(f"bad app frame {tuple(img_0.shape)} {img_0.dtype}")
+    if not (torch.equal(img_0, img_1) and torch.equal(img_0, img_plain)
+            and torch.equal(img_0, img_free) and tables_equal):
+        raise RuntimeError("the app's frame differs from one of its twins")
+    if float(img_0[0, :, :, :3].float().std()) < 1.0:
+        raise RuntimeError("the app's frame is flat")
+    if len(passes["raster"]) != 1 or passes["kbuffer"]:
+        raise RuntimeError(f"the app frame made {len(passes['raster'])} raster and "
+                           f"{len(passes['kbuffer'])} k-buffer passes, expected 1 and 0")
+    tri, init = passes["raster"][0][1]
+    compare_raster("app-opaque", tri, WIDTH, HEIGHT, config.p_cap, shapes["app_opaque"],
+                   init=init, clusters=CLUSTERS, timed=True)
+    del server, app, w, passes, arrays, tables
+    torch.cuda.empty_cache()
+
+    # --- the demo ---
+    work = tempfile.mkdtemp(prefix="sc_demo_")
+    ribbon = os.path.join(work, "ribbon.glb")
+    with open(ribbon, "wb") as f:
+        f.write(skinned_ribbon_glb())
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with frame_passes(keep_inputs=True) as passes:
+        app, info = demo.run(["--frames", "8", "--size", f"{WIDTH}x{HEIGHT}", "--model", HERO_GLB,
+                              "--animated-model", ribbon, "--debug-overlays", "--particles",
+                              "--out", work, "--device", device])
+    demo_launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
+                     "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
+    renders = len(passes["raster"]) // 2
+    by_pass = {name: [n for n, _ in passes[kind][i::len(names)]]
+               for kind, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER))
+               for i, name in enumerate(names)}
+    sizes = [os.path.getsize(p) for p in info["paths"]]
+    phase("demo", f"8 frames in {time.perf_counter() - t0:.2f} s ({smi}); host ms a frame "
+          f"incl. readback and PNG: " + ", ".join(f"{1e3 * t:.1f}" for t in info["frame_seconds"])
+          + f"; PNG bytes {sizes}")
+    phase("demo", f"{renders} rendered frames (the model loads included); launches by pass "
+          + ", ".join(f"{k} {sum(v)}" for k, v in by_pass.items()) + f"; by kernel {demo_launches}")
+    if len(sizes) != 8 or min(sizes) < 1000:
+        raise RuntimeError("the demo did not write its 8 PNGs")
+    if (len(passes["raster"]) != 2 * renders or len(passes["kbuffer"]) != 3 * renders
+            or renders < 8 or any(set(v) != {1} for v in by_pass.values())):
+        raise RuntimeError("a demo pass did not launch its kernel once a rendered frame")
+    calls = {kind: [inputs for _, inputs in passes[kind][-n:]]
+             for kind, n in (("raster", 2), ("kbuffer", 3))}
+    config = app.world.resource(RenderSettings).config
+    compare_passes("demo", calls, config.p_cap, shapes, prefix="demo_",
+                   min_layers={"clip": 0, "blend": 0},
+                   timed=("lines", "particles"))
+    del passes, calls
+
+    # the animation moves pixels: the same camera at two animation times
+    w = app.world
+    out = w.resource(FrameOutput)
+    frames = []
+    for t in (0.0, 0.5):
+        for _e, jc in list(w.components.get(JointsComponent, {}).items()):
+            jc.time = t
+        app.update()
+        frames.append(out.image)
+    moved = int((frames[0][0] != frames[1][0]).any(dim=-1).sum())
+    shutil.rmtree(work, ignore_errors=True)
+    phase("demo", f"animation time 0.0 vs 0.5 at one camera: {moved} px change")
+    if moved == 0:
+        raise RuntimeError("the skinned ribbon's animation moved no pixel")
+    return {"app": report, "app_run": run_launches, "demo": demo_launches,
+            "demo_by_pass": {k: sum(v) for k, v in by_pass.items()}}
+
+
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, lit_launches: dict, lit_by_pass: dict,
-                 raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
+                 app: dict, raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the five frames' timed runs, then each all-passes pass, each
-    stereo eye and each lit pass at its own shape with the launches
-    counted in that pass during the frame's timed run (one a frame)."""
+    over the five frames' timed runs and the app phase's server and demo
+    runs, then each all-passes pass, each stereo eye and each lit pass at
+    its own shape with the launches counted in that pass during the frame's
+    timed run (one a frame), the frame server's opaque pass with its
+    launches over the selftest's timed frames, and the demo's lines and
+    particle passes with their launches over the demo run."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -1232,17 +1475,19 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
         }
 
     ap_raster, ap_kbuffer = ap_launches["raster_sorted"], ap_launches["kbuffer_sorted"]
+    app_runs = (app["app_run"], app["demo"])
     return {"kernels": [
         entry("raster_sorted", "raster",
               headline_launches + cb_launches["raster_sorted"] + ap_raster
-              + sum(stereo_by_eye.values()) + lit_launches["raster_sorted"], raster_res,
+              + sum(stereo_by_eye.values()) + lit_launches["raster_sorted"]
+              + sum(r["raster_sorted"] for r in app_runs), raster_res,
               max(raster_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + LIT_RASTER))),
+                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + LIT_RASTER + APP_RASTER))),
         entry("kbuffer_sorted", "kbuffer",
-              cb_launches["kbuffer_sorted"] + ap_kbuffer + lit_launches["kbuffer_sorted"],
-              kbuffer_res,
+              cb_launches["kbuffer_sorted"] + ap_kbuffer + lit_launches["kbuffer_sorted"]
+              + sum(r["kbuffer_sorted"] for r in app_runs), kbuffer_res,
               max(kbuffer_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_KBUFFER + LIT_KBUFFER))),
+                  *(shapes[n]["max_abs_err"] for n in AP_KBUFFER + LIT_KBUFFER + DEMO_KBUFFER))),
         *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
@@ -1253,6 +1498,12 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[lit_passes {n}]", "kbuffer", lit_by_pass[n], shapes["lit_" + n])
           for n in AP_KBUFFER],
+        entry("raster_sorted[app opaque]", "raster", app["app"]["raster_launches"],
+              shapes["app_opaque"]),
+        entry("raster_sorted[demo lines]", "raster", app["demo_by_pass"]["lines"],
+              shapes["demo_lines"]),
+        entry("kbuffer_sorted[demo particles]", "kbuffer", app["demo_by_pass"]["particles"],
+              shapes["demo_particles"]),
     ]}
 
 
@@ -1398,11 +1649,12 @@ def main() -> int:
     cb_launches = clip_blend_path(dev, kb_results, cb_raster)
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
-    shapes = {name: {"max_abs_err": 0.0}
-              for name in AP_RASTER + AP_KBUFFER + EYES + LIT_RASTER + LIT_KBUFFER}
+    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES + LIT_RASTER
+              + LIT_KBUFFER + APP_RASTER + DEMO_KBUFFER}
     ap_launches, ap_by_pass = all_passes_path(dev, shapes)
     stereo_by_eye = stereo_path(dev, shapes)
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
+    app = app_path(dev, shapes, smi)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -1410,7 +1662,7 @@ def main() -> int:
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
-                                  stereo_by_eye, lit_launches, lit_by_pass, results,
+                                  stereo_by_eye, lit_launches, lit_by_pass, app, results,
                                   kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

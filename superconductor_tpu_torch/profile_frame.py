@@ -1,20 +1,25 @@
 """Where the time of a frame goes on the GPU.
 
     python3 -m superconductor_tpu_torch.profile_frame
-        [--scene headline|clip_blend|all_passes|stereo|lit_passes] [--frames 5]
-        [--out build/profile]
+        [--scene headline|clip_blend|all_passes|stereo|lit_passes|app]
+        [--frames 5] [--out build/profile]
 
 Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline;
 clip_blend: alpha clip + alpha blend; all_passes: the terrain, the sphere
 ring, lines and particles with every pass on; stereo: two eyes of the
 skinned tubes and spheres; lit_passes: all_passes with the SH light volume,
-a lightmapped wall and the smoke pool), warms up, then traces
+a lightmapped wall and the smoke pool; app: the frame server's frames,
+python -m superconductor_tpu_torch.serve's app on dense_terrain.glb after
+its capacity probe, the camera moving as in its selftest, each frame one
+App.update()), warms up, then traces
 `--frames` frames with torch.profiler (CPU + CUDA activity). Prints the
 wall time per frame (host clock around synchronised frames), the summed
 device kernel time and the kernel launches per frame, the device's idle
 share, and the top operators by device time; for stereo also the host
 time per frame of the palette FK and the frame state's build and upload
-(scenes.stereo_animated_scene build(t)); writes the full table and
+(scenes.stereo_animated_scene build(t)); for app also the host ms per
+frame of each FrameProfiler scope and the device-synchronising calls per
+frame (torch.cuda.set_sync_debug_mode); writes the full table and
 a gzipped Chrome trace under `--out` (profile_frame[_<scene>].txt and
 .json.gz). Needs a CUDA device.
 """
@@ -31,10 +36,70 @@ import time
 import torch
 
 
+def _app_frames(args):
+    """-> (frame(), config, world): one App.update() of the frame server's app
+    (serve.prepare with its capacity probe) per call, after the model has
+    loaded, the camera stepping as in serve's selftest; config is the
+    served RenderConfig once the first frames have run."""
+    from .ecs.resources import CameraResource, FrameOutput, RenderSettings
+    from .serve import parse_args, prepare, wait_for_models
+
+    server = prepare(parse_args(["--size", f"{args.width}x{args.height}"]))
+    if server.probe_failed:
+        raise SystemExit(f"profile_frame: the capacity probe failed: {server.probe_failed}")
+    app, rig = server.app, server.rig
+    cam = app.world.resource(CameraResource).camera
+    out = app.world.resource(FrameOutput)
+    cam.position, cam.rotation = rig.update(1 / 60.0)
+    wait_for_models(app)
+    n = [0]
+
+    def frame():
+        keys = frozenset(("w", "w+d", "w+a", "s")[(n[0] // 30) % 4].split("+"))
+        rig.apply_keys(keys, dt=1 / 60.0, mouse=(0.5, 0.0))
+        cam.position, cam.rotation = rig.update(1 / 60.0)
+        app.update()
+        n[0] += 1
+        return out.image
+
+    frame()
+    return frame, app.world.resource(RenderSettings).config, app.world
+
+
+def _app_host_report(frame, world, frames: int) -> None:
+    """Print the host ms per frame of each FrameProfiler scope of the
+    render system, and the calls per frame that wait on the device (each
+    a warning under torch.cuda.set_sync_debug_mode("warn"))."""
+    import collections
+    import warnings
+
+    from .utils.profiler import FrameProfiler
+
+    prof = FrameProfiler()
+    world.insert_resource(prof)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(frames):
+                frame()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    world.resources.pop(FrameProfiler)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    print("host ms/frame by scope: " + ", ".join(
+        f"{k} {prof.totals[k] * 1e3 / frames:.3f}" for k in sorted(prof.totals)))
+    print(f"device-synchronising calls: {len(syncs) / frames:.1f}/frame")
+    for msg, count in collections.Counter(m.splitlines()[0][:120] for m in syncs).most_common(5):
+        print(f"  {count / frames:.1f}/frame: {msg}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="headline",
-                    choices=("headline", "clip_blend", "all_passes", "stereo", "lit_passes"))
+                    choices=("headline", "clip_blend", "all_passes", "stereo", "lit_passes",
+                             "app"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -55,21 +120,30 @@ def main(argv=None) -> int:
         stereo_animated_scene,
     )
 
-    make = {"headline": headline_scene, "clip_blend": clip_blend_scene,
-            "all_passes": all_passes_scene, "stereo": stereo_animated_scene,
-            "lit_passes": lit_passes_scene}[args.scene]
-    dev, build, config, env = make(args.width, args.height, "cuda")
-    state = build(0.0)
-    config = fit_caps(dev, state, config, env)
+    if args.scene == "app":
+        frame, config, world = _app_frames(args)
+    else:
+        make = {"headline": headline_scene, "clip_blend": clip_blend_scene,
+                "all_passes": all_passes_scene, "stereo": stereo_animated_scene,
+                "lit_passes": lit_passes_scene}[args.scene]
+        dev, build, config, env = make(args.width, args.height, "cuda")
+        state = build(0.0)
+        config = fit_caps(dev, state, config, env)
+
+        def frame():
+            return render_frame(dev, state, config, env)
+
     for _ in range(3):
-        render_frame(dev, state, config, env)
+        frame()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(args.frames):
-        render_frame(dev, state, config, env)
+        frame()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+    if args.scene == "app":
+        _app_host_report(frame, world, args.frames)
     if args.scene == "stereo":
         t0 = time.perf_counter()
         for i in range(args.frames):
@@ -80,7 +154,7 @@ def main(argv=None) -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.frames):
-            render_frame(dev, state, config, env)
+            frame()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -224,11 +224,15 @@ def build_frame_state(
     particles: Optional[dict] = None,
     sat: Optional[tuple] = None,
     device="cuda",
+    counts_out: Optional[dict] = None,
 ) -> FrameState:
     """Walk instances, cull, select LODs, emit a torch FrameState (the
     reference's numpy path, render/draws.py:398-510). `lines` and
     `particles` are pack_lines / pack_particles dicts; missing ones are
-    empty packs, as in the reference."""
+    empty packs, as in the reference. `counts_out`, when given, receives
+    the host-side triangle and vertex counts of the visible draws
+    ("tris_static", "verts_static", "tris_animated", "verts_animated"),
+    so a caller can size capacities without reading the tensors back."""
     uniq: dict = {}
     inst_uid = np.empty(len(instances), np.int32)
     for inst_index, (model, _s) in enumerate(instances):
@@ -326,6 +330,11 @@ def build_frame_state(
             }
 
         static_c, anim_c = compact(~animated), compact(animated)
+
+    if counts_out is not None:
+        for kind, c in (("static", static_c), ("animated", anim_c)):
+            counts_out["tris_" + kind] = int(np.asarray(c["tri_count"], np.int64).sum())
+            counts_out["verts_" + kind] = int(np.asarray(c["vertex_count"], np.int64).sum())
 
     palette = np.concatenate(palettes, axis=0) if palettes else np.zeros((1, 8), np.float32)
     if palette.shape[0] < _next_pow2(palette.shape[0]):

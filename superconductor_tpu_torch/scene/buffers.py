@@ -1,14 +1,17 @@
 """Growable host arrays and range suballocation (the port's copy of
-``superconductor_tpu/scene/buffers.py``, host side only).
+``superconductor_tpu/scene/buffers.py``).
 
   * ``GrowableArray``: append/insert-able numpy array with doubling
-    growth; ``.host`` holds the content at full capacity.
+    growth; ``.host`` holds the content at full capacity. Writes
+    accumulate a dirty row range, as in the reference; a capacity change
+    marks the whole buffer dirty.
   * ``RangeAllocator`` + ``AllocatedArray``: models allocate contiguous
     vertex/index ranges out of shared mega-buffers and free them on unload.
 
 The reference also keeps a lazily uploaded jax array per buffer
-(``device()``); the port builds its torch tensors from ``.host`` in
-``scene/upload.py`` instead.
+(``device()``); the port keeps its resident torch tensors in
+``scene/upload.py`` ``DeviceScene``, which takes the dirty range with
+``take_dirty()`` and copies only those rows.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ def _next_pow2(n: int) -> int:
 
 
 class GrowableArray:
-    """Append/insert-able array with doubling growth."""
+    """Append/insert-able array with doubling growth and a dirty row
+    range [_dirty_lo, _dirty_hi) (empty when lo >= hi)."""
 
     def __init__(self, shape_tail: Tuple[int, ...], dtype, initial_capacity: int = 1024):
         self.shape_tail = tuple(shape_tail)
@@ -37,6 +41,22 @@ class GrowableArray:
         self.capacity = _next_pow2(initial_capacity)
         self.host = np.zeros((self.capacity, *self.shape_tail), dtype=self.dtype)
         self.length = 0
+        self._dirty_lo = 0
+        self._dirty_hi = self.capacity  # full upload initially
+
+    def _mark_dirty(self, lo: int, hi: int) -> None:
+        if self._dirty_lo >= self._dirty_hi:  # currently clean
+            self._dirty_lo, self._dirty_hi = lo, hi
+        else:
+            self._dirty_lo = min(self._dirty_lo, lo)
+            self._dirty_hi = max(self._dirty_hi, hi)
+
+    def take_dirty(self) -> Tuple[int, int]:
+        """The dirty row range (lo, hi), lo >= hi when clean; the buffer is
+        clean afterwards."""
+        span = (self._dirty_lo, self._dirty_hi)
+        self._dirty_lo, self._dirty_hi = 0, 0
+        return span
 
     def _ensure(self, needed: int) -> None:
         if needed <= self.capacity:
@@ -47,6 +67,7 @@ class GrowableArray:
         new_host[: self.length] = self.host[: self.length]
         self.host = new_host
         self.capacity = new_cap
+        self._mark_dirty(0, new_cap)
 
     def push(self, rows: np.ndarray) -> int:
         """Append rows; returns the start offset."""
@@ -57,6 +78,7 @@ class GrowableArray:
         self._ensure(start + len(rows))
         self.host[start : start + len(rows)] = rows
         self.length = start + len(rows)
+        self._mark_dirty(start, self.length)
         return start
 
     def write(self, offset: int, rows: np.ndarray) -> None:
@@ -64,9 +86,11 @@ class GrowableArray:
         self._ensure(offset + len(rows))
         self.host[offset : offset + len(rows)] = rows
         self.length = max(self.length, offset + len(rows))
+        self._mark_dirty(offset, offset + len(rows))
 
     def clear(self) -> None:
         self.length = 0
+        self._mark_dirty(0, self.capacity)
 
     def __len__(self) -> int:
         return self.length

@@ -6,8 +6,11 @@ The whole scene is a handful of SoA numpy arrays (``.host`` of each
 buffer), the material list, the texture pools with their mip descriptor
 tables, and the registries of models and primitives. The reference
 uploads them as jax arrays (``Scene.device_arrays()``); the port's
-counterpart is ``scene/upload.py`` ``scene_to_torch``, which builds the
-same dict of torch tensors from these tables.
+counterparts are in ``scene/upload.py``: ``scene_to_torch`` builds the
+same dict of torch tensors from these tables, and ``DeviceScene`` keeps
+it resident, uploading only what the dirty ranges and flags kept here
+(``GrowableArray._mark_dirty``, ``TexturePool._desc_dirty``,
+``Scene._materials_dirty``) say changed.
 
   * vertex mega-buffers (positions/normals/uvs/lightmap_uvs), one for
     stationary and one for animated geometry (joints/weights extra);
@@ -104,6 +107,10 @@ class TexturePool:
         # (base, count) to restore (see set_mip_view).
         self._full_view: Dict[int, Tuple[int, int]] = {}
         self._freed: set = set()
+        # Set by every descriptor edit; scene/upload.py DeviceScene
+        # rebuilds the descriptor tables (and the materials' snapshot of
+        # them) when it is set, and clears it.
+        self._desc_dirty = True
 
     @property
     def num_textures(self) -> int:
@@ -144,6 +151,7 @@ class TexturePool:
             self.mip_w.append(w)
             self.mip_h.append(h)
             self._write_nbr_level(offset, h, w, wrap)
+        self._desc_dirty = True
         return tex_id
 
     def _write_nbr_level(self, offset: int, h: int, w: int, wrap: int) -> None:
@@ -194,6 +202,7 @@ class TexturePool:
         assert 0 <= first_level and first_level + count <= full_count
         self.tex_mip_base[tex_id] = base + first_level
         self.tex_mip_count[tex_id] = count
+        self._desc_dirty = True
 
     def restore_mip_view(self, tex_id: int) -> None:
         """Expose the full mip chain again (streaming finished)."""
@@ -201,6 +210,7 @@ class TexturePool:
             base, count = self._full_view.pop(tex_id)
             self.tex_mip_base[tex_id] = base
             self.tex_mip_count[tex_id] = count
+            self._desc_dirty = True
 
     def free_texture(self, tex_id: int) -> None:
         """Return a texture's texel ranges to the pool allocator. The
@@ -223,6 +233,7 @@ class TexturePool:
         self.mip_w[base] = 1
         self.mip_h[base] = 1
         self.tex_mip_count[tex_id] = 1
+        self._desc_dirty = True
 
     def replace_texture(self, tex_id: int, levels: List[np.ndarray]) -> None:
         """Hot-swap texture content (same mip layout) — the analog of
@@ -230,6 +241,7 @@ class TexturePool:
         assert len(levels) == self.tex_mip_count[tex_id]
         for i, lvl in enumerate(levels):
             self.write_level(tex_id, i, lvl)
+        self._desc_dirty = True
 
     def descriptor_arrays(self) -> Dict[str, np.ndarray]:
         n = max(1, len(self.mip_offset))
@@ -472,8 +484,11 @@ class Scene:
         }
         self._add_dummy_textures()
 
-        # Materials.
+        # Materials. _materials_dirty is set by every material edit
+        # (add_material, the texture streamer's swaps); DeviceScene
+        # rebuilds the material tables when it is set, and clears it.
         self.materials: List[MaterialSettings] = []
+        self._materials_dirty = True
 
         # Models / primitives registry (host side).
         self.models: Dict[str, Model] = {}
@@ -497,6 +512,7 @@ class Scene:
 
     def add_material(self, settings: MaterialSettings) -> int:
         self.materials.append(settings)
+        self._materials_dirty = True
         return len(self.materials) - 1
 
     def material_arrays(self) -> Dict[str, np.ndarray]:

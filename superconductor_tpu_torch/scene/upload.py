@@ -25,10 +25,16 @@ marks the capable ones for the material-path partition.
 
 The wide mq3 rows are outside the port and raise NotImplementedError
 instead of rendering wrong.
+
+``DeviceScene`` keeps the same dict resident across frames and uploads
+only what changed (the app loop calls it every frame, where the
+reference calls ``Scene.device_arrays()``); ``scene_to_torch`` rebuilds
+everything and is the oracle it is tested against.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import numpy as np
@@ -95,14 +101,18 @@ def material_tables(scene: Scene) -> dict:
     return arrays
 
 
+def _quad(t: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    n = nbr.long()
+    return torch.cat([t, t[n[:, 0]], t[n[:, 1]], t[n[:, 2]]], dim=1)
+
+
 def quad_pool(pool, device) -> torch.Tensor:
     """(N, 16) quad-packed pool (TexturePool.device_quad, scene.py:187):
     row i = [t[i], t[right], t[down], t[diag]], wrap baked in."""
     if pool.nbr.capacity < pool.texels.capacity:
         pool.nbr._ensure(pool.texels.capacity)
-    t = _np_to_torch(pool.texels.host, device)
-    n = _np_to_torch(pool.nbr.host, device).long()
-    return torch.cat([t, t[n[:, 0]], t[n[:, 1]], t[n[:, 2]]], dim=1)
+    return _quad(_np_to_torch(pool.texels.host, device),
+                 _np_to_torch(pool.nbr.host, device))
 
 
 def _is_const(pool, t: int) -> bool:
@@ -279,4 +289,148 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
     return d
 
 
-__all__ = ["arrays_to_torch", "material_tables", "scene_to_torch"]
+class DeviceScene:
+    """``scene_to_torch(scene, device)``'s dict, kept resident on
+    ``device`` across frames (the reference's cached
+    ``Scene.device_arrays()``, scene.py:1390-1442).
+
+    ``arrays()`` uploads only what changed since its last call:
+
+      * each vertex, index and texel buffer keeps its tensor; the rows of
+        its dirty range (``GrowableArray.take_dirty``) are copied into it
+        in place, and a capacity change (a growth) uploads the buffer
+        whole into a new tensor (the reference's ``GrowableArray.device``,
+        buffers.py:117);
+      * the descriptor tables of a texture pool are rebuilt when its
+        ``_desc_dirty`` is set, the material tables when
+        ``Scene._materials_dirty`` is set or the LDR descriptors were
+        rebuilt (``device_materials``, scene.py:638);
+      * the quad, SH (``lv_sh``, ``lm_sh``), interleaved-material and
+        smoke pools are gathered on the device again only when one of
+        their inputs changed (the reference's keyed caches: ``device_quad``
+        :187, ``device_matq`` :1072, ``device_smoke`` :1242,
+        ``device_lightvol_sh`` / ``device_lightmap_sh`` :1360-1388).
+
+    The dirty state goes to one DeviceScene: the one made last on the
+    scene (``scene._device_scene``), which uploads everything on its first
+    call; an earlier one raises when called again. ``bytes_uploaded`` counts host-to-device bytes (cumulative) and
+    ``last_upload`` the bytes of the last call by key; ``rebuilds`` counts
+    the derived pools' device rebuilds by key.
+    """
+
+    def __init__(self, scene: Scene, device="cuda"):
+        self.scene = scene
+        scene._device_scene = self
+        self.device = torch.device(device)
+        self._res: dict = {}  # buffer key -> resident tensor
+        self._ver: collections.Counter = collections.Counter()  # key -> changes
+        # the pools' descriptor tables (by texel key) and the material tables
+        self._tables: dict = {}
+        self._derived: dict = {}  # pool key -> (input change counts, value)
+        self.bytes_uploaded = 0
+        self.last_upload: dict = {}
+        self.rebuilds: collections.Counter = collections.Counter()
+
+    def _count(self, key: str, nbytes: int) -> None:
+        self.bytes_uploaded += nbytes
+        self.last_upload[key] = self.last_upload.get(key, 0) + nbytes
+        self._ver[key] += 1
+
+    def _buffer(self, key: str, arr) -> torch.Tensor:
+        lo, hi = arr.take_dirty()
+        t = self._res.get(key)
+        if t is None or t.shape[0] != arr.capacity or hi - lo >= arr.capacity:
+            t = self._res[key] = _np_to_torch(arr.host, self.device)
+            self._count(key, arr.host.nbytes)
+        elif hi > lo:
+            rows = arr.host[lo:hi]
+            if rows.dtype == np.uint32:
+                rows = rows.view(np.int32)
+            t[lo:hi].copy_(torch.from_numpy(rows))
+            self._count(key, rows.nbytes)
+        return t
+
+    def _pool_buffers(self, prefix: str, pool):
+        if pool.nbr.capacity < pool.texels.capacity:
+            pool.nbr._ensure(pool.texels.capacity)
+        texels = self._buffer(prefix, pool.texels.array)
+        nbr = self._buffer(prefix + "_nbr", pool.nbr)
+        if pool._desc_dirty or prefix not in self._tables:
+            tables = pool.descriptor_arrays()
+            self._tables[prefix] = arrays_to_torch(tables, self.device)
+            pool._desc_dirty = False
+            self._count("tex" + prefix[len("texels"):],
+                        sum(a.nbytes for a in tables.values()))
+        return texels, nbr
+
+    def _pool(self, key: str, inputs: tuple, build):
+        """The derived pool `key`, rebuilt by build() when `inputs` (the
+        change counts of what it is gathered from) moved."""
+        hit = self._derived.get(key)
+        if hit is None or hit[0] != inputs:
+            hit = self._derived[key] = (inputs, build())
+            self._ver[key] += 1
+            self.rebuilds[key] += 1
+        return hit[1]
+
+    def arrays(self) -> dict:
+        scene, dev = self.scene, self.device
+        if scene._device_scene is not self:
+            raise RuntimeError("a newer DeviceScene took this scene's dirty state")
+        self.last_upload = {}
+        scene.enforce_texture_budget()
+        d = {k: self._buffer(k, getattr(scene, k).array) for k in _VERTEX_KEYS}
+        d["texels"], nbr = self._pool_buffers("texels", scene.textures)
+        d["texels_hdr"], nbr_hdr = self._pool_buffers("texels_hdr", scene.textures_hdr)
+        ver = self._ver
+        # the material rows snapshot the LDR descriptors (mat_tex_meta)
+        if scene._materials_dirty or self._tables.get("materials_tex") != ver["tex"]:
+            tables = material_tables(scene)
+            self._tables["materials"] = {k: _np_to_torch(v, dev) for k, v in tables.items()}
+            self._tables["materials_tex"] = ver["tex"]
+            scene._materials_dirty = False
+            self._count("materials", sum(a.nbytes for a in tables.values()))
+        materials = self._tables["materials"]
+        d["materials"] = materials
+        d["tex"] = self._tables["texels"]
+        d["tex_hdr"] = self._tables["texels_hdr"]
+        if scene.quad_pools:
+            quad = self._pool("texels_q", (ver["texels"], ver["texels_nbr"]),
+                              lambda: _quad(d["texels"], nbr))
+            d["texels_q"] = quad
+            d["texels_hdr_q"] = self._pool(
+                "texels_hdr_q", (ver["texels_hdr"], ver["texels_hdr_nbr"]),
+                lambda: _quad(d["texels_hdr"], nbr_hdr))
+            hdr_in = (ver["texels_hdr"], ver["tex_hdr"])
+            if scene.lightvol is not None:
+                lv = scene.lightvol
+                d["lv_sh"] = self._pool(
+                    "lv_sh", hdr_in + (tuple(lv["tex_ids"]), lv["z_layers"]),
+                    lambda: sh_pool(scene.textures_hdr, d["texels_hdr"],
+                                    lv["tex_ids"], lv["z_layers"]))
+            if scene.lightmap_tex is not None:
+                d["lm_sh"] = self._pool(
+                    "lm_sh", hdr_in + (tuple(scene.lightmap_tex),),
+                    lambda: sh_pool(scene.textures_hdr, d["texels_hdr"],
+                                    scene.lightmap_tex, 1))
+            mq = self._pool(
+                "matq", (ver["texels_q"], ver["tex"], ver["materials"],
+                         scene.matq_pools, scene.matq3x3),
+                lambda: matq_tables(scene, quad, dev))
+            if mq is not None:
+                d["texels_mq"] = mq[0]
+                if mq[1] is not None:
+                    d["texels_mq_tail"] = mq[1]
+                d["materials"] = dict(materials)
+                d["materials"]["mat_row_mq"] = mq[2]
+                if mq[3] is not None:
+                    d["matq_capable"] = mq[3]
+            smoke = self._pool(
+                "smoke", (ver["texels_q"], ver["tex"], tuple(scene.smoke_tex)),
+                lambda: smoke_tables(scene, quad))
+            if smoke is not None:
+                d["smoke_ab"], d["smoke_lut"] = smoke
+        return d
+
+
+__all__ = ["DeviceScene", "arrays_to_torch", "material_tables", "scene_to_torch"]

@@ -41,6 +41,7 @@ frame) and six PBR spheres, all from procedural content.
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
 from types import SimpleNamespace
@@ -373,6 +374,131 @@ def lightmapped_quad_glb() -> bytes:
     out += struct.pack("<II", len(j), 0x4E4F534A) + j
     out += struct.pack("<II", len(blob), 0x004E4942) + blob
     return out
+
+
+def _glb(doc: dict, blob: bytes) -> bytes:
+    """A GLB container of a glTF document and its binary chunk."""
+    j = json.dumps(doc).encode()
+    j += b" " * (-len(j) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    out = struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(j) + 8 + len(blob))
+    out += struct.pack("<II", len(j), 0x4E4F534A) + j
+    out += struct.pack("<II", len(blob), 0x004E4942) + blob
+    return out
+
+
+def box_glb(alpha_mode: str = None, base_color=(1.0, 0.2, 0.1, 1.0)) -> bytes:
+    """A unit cube with one unlit material (the reference's
+    tests/conftest.py make_box_glb): 8 corners, 12 triangles wound CCW
+    outward; alpha_mode None (opaque), 'MASK' or 'BLEND'."""
+    p = np.array([[-0.5, -0.5, -0.5], [0.5, -0.5, -0.5], [0.5, 0.5, -0.5],
+                  [-0.5, 0.5, -0.5], [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5],
+                  [0.5, 0.5, 0.5], [-0.5, 0.5, 0.5]], np.float32)
+    tris = np.array([[4, 5, 6], [4, 6, 7], [1, 0, 3], [1, 3, 2], [5, 1, 2], [5, 2, 6],
+                     [0, 4, 7], [0, 7, 3], [7, 6, 2], [7, 2, 3], [0, 1, 5], [0, 5, 4]],
+                    np.uint16)
+    pos_bytes, idx_bytes = p.tobytes(), tris.tobytes()
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [
+            {"attributes": {"POSITION": 0}, "indices": 1, "material": 0}
+        ]}],
+        "materials": [{
+            "pbrMetallicRoughness": {
+                "baseColorFactor": list(base_color),
+                "metallicFactor": 0.0,
+                "roughnessFactor": 1.0,
+            },
+            "extensions": {"KHR_materials_unlit": {}},
+            **({"alphaMode": alpha_mode} if alpha_mode else {}),
+        }],
+        "extensionsUsed": ["KHR_materials_unlit"],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 8, "type": "VEC3",
+             "min": p.min(0).tolist(), "max": p.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5123, "count": 36, "type": "SCALAR"},
+        ],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos_bytes)},
+            {"buffer": 0, "byteOffset": len(pos_bytes), "byteLength": len(idx_bytes)},
+        ],
+        "buffers": [{"byteLength": len(pos_bytes) + len(idx_bytes)}],
+    }
+    return _glb(doc, pos_bytes + idx_bytes)
+
+
+def skinned_ribbon_glb() -> bytes:
+    """A skinned, animated ribbon (the reference's tests/conftest.py
+    make_skinned_glb): two quads stacked from y = 0 to 2, x = +-0.1, bound
+    to two joints (joint 1 at y = 1), with one unlit green double-sided
+    material; joint 1 turns 90 degrees about z over 1 s (LINEAR)."""
+    pos = np.array([[-0.1, 0, 0], [0.1, 0, 0], [-0.1, 1, 0], [0.1, 1, 0],
+                    [-0.1, 2, 0], [0.1, 2, 0]], np.float32)
+    tris = np.array([[0, 1, 3], [0, 3, 2], [2, 3, 5], [2, 5, 4]], np.uint16)
+    joints = np.array([[0, 0, 0, 0]] * 2 + [[0, 1, 0, 0]] * 2 + [[1, 0, 0, 0]] * 2,
+                      np.uint16)
+    weights = np.array([[1, 0, 0, 0]] * 2 + [[0.5, 0.5, 0, 0]] * 2 + [[1, 0, 0, 0]] * 2,
+                       np.float32)
+    # inverse bind matrices, column-major: joint 0 identity, joint 1
+    # translates y by -1 (flat element 13)
+    ibm = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    ibm[1][3][1] = -1.0
+    s, c = math.sin(math.pi / 4), math.cos(math.pi / 4)
+    rots = np.array([[0, 0, 0, 1], [0, 0, s, c]], np.float32)
+    times = np.array([0.0, 1.0], np.float32)
+
+    blob = b""
+    views, accessors = [], []
+
+    def add(data, ctype, count, type_, **extra):
+        nonlocal blob
+        b = data.tobytes()
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(b)})
+        blob += b + b"\0" * (-len(b) % 4)
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": count, "type": type_, **extra})
+        return len(accessors) - 1
+
+    a_pos = add(pos, 5126, 6, "VEC3", min=pos.min(0).tolist(), max=pos.max(0).tolist())
+    a_idx = add(tris, 5123, 12, "SCALAR")
+    a_joints = add(joints, 5123, 6, "VEC4")
+    a_weights = add(weights, 5126, 6, "VEC4")
+    a_ibm = add(ibm.reshape(2, 16), 5126, 2, "MAT4")
+    a_times = add(times, 5126, 2, "SCALAR", min=[0.0], max=[1.0])
+    a_rots = add(rots, 5126, 2, "VEC4")
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [
+            {"mesh": 0, "skin": 0, "children": [1]},
+            {"children": [2]},  # joint 0 at the origin
+            {"translation": [0, 1, 0]},  # joint 1
+        ],
+        "skins": [{"joints": [1, 2], "inverseBindMatrices": a_ibm}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": a_pos, "JOINTS_0": a_joints, "WEIGHTS_0": a_weights},
+            "indices": a_idx,
+            "material": 0,
+        }]}],
+        "materials": [{
+            "pbrMetallicRoughness": {"baseColorFactor": [0, 1, 0, 1]},
+            "extensions": {"KHR_materials_unlit": {}},
+            "doubleSided": True,
+        }],
+        "extensionsUsed": ["KHR_materials_unlit"],
+        "animations": [{
+            "samplers": [{"input": a_times, "interpolation": "LINEAR", "output": a_rots}],
+            "channels": [{"sampler": 0, "target": {"node": 2, "path": "rotation"}}],
+        }],
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    return _glb(doc, blob)
 
 
 def _sh_set(rng, shape) -> list:
