@@ -8,8 +8,9 @@ sky), the clip_blend frame (BASELINE config 3: the helmet plus a ring of
 spheres, alpha-clipped and alpha-blended ones among them), the
 all-passes frame (dense_terrain.glb, the ring, lines and particles) and
 the stereo-animated frame (BASELINE configs 4 and 5: two eyes of skinned
-tubes and spheres), the lit frame, and the app layer (the frame server and
-the demo through the ECS) -- and checks them:
+tubes and spheres), both of them again sharded over a grid of views and
+bands, the lit frame, and the app layer (the frame server and the demo
+through the ECS) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
@@ -85,7 +86,24 @@ the demo through the ECS) -- and checks them:
    a 256x128 frame on the card against the CPU frame and the JAX
    reference's in tests/goldens (>= 40 dB), and its raster="ref" twin on
    the card equal to it;
-9. lit_passes (the all-passes frame lit as bench.py lights it: the SH
+9. sharded (parallel.render_frame_sharded on the stereo and all-passes
+   frames of 7 and 8, at their fitted caps): the stereo frame on a grid of
+   2 eyes x 4 bands of 270 rows and the all-passes frame on 1 x 4 bands,
+   the cells taking the visible cards in turn (all cuda:0 on one card),
+   each cell rendering the frame's raster tiles that hold its band (rows
+   0-288, 256-544, 512-832, 800-1080); each cell's raster and k-buffer
+   calls against their plain versions bit for bit at every cluster size
+   and every K, each timed at the wrapper's cluster size (device time),
+   one call and the plain version over 5 runs, and the same calls cut to
+   the band's own 270 rows (both kernels at y_offset 270, 540 and 810) bit
+   for bit; each sharded frame byte-equal to its render_frame image (and
+   the pixels printed where render_frame in 4 row_chunks, each band on a
+   tile grid of its own, differs from it), timed
+   with CUDA events (median of 5 after a warm-up), its launches counted
+   per band pass in that run, one a frame in each: 8 raster launches a
+   stereo frame, 4 opaque and 4 lines raster and 4 clip, 4 particle and 4
+   blend k-buffer launches an all-passes frame;
+10. lit_passes (the all-passes frame lit as bench.py lights it: the SH
    light volume, a lightmapped wall and the smoke pool, from seeded data):
    the scene's time to the card and the sizes of its SH-interleaved and
    smoke pools, all four present with the smoke pool's static placement
@@ -100,7 +118,7 @@ the demo through the ECS) -- and checks them:
    it; a 256x128 frame (at the capacities stored with its golden) on the
    card against the CPU frame and the JAX reference's frame in
    tests/goldens (>= 40 dB, stats equal);
-10. app (the app layer, python -m superconductor_tpu_torch.serve and
+11. app (the app layer, python -m superconductor_tpu_torch.serve and
     .demo, in this process): the frame server on dense_terrain.glb --
     its capacity probe (a subprocess; a failed probe fails the run), a 5 s
     selftest at 2 frames in flight and stats_interval 0 with the probe's
@@ -122,14 +140,15 @@ the demo through the ECS) -- and checks them:
     more than K / 2 layers on some pixel; the clip and blend inputs are
     empty, as the content has no such material), and the ribbon's
     animation changing pixels at one camera;
-11. neither jax nor the JAX package (superconductor_tpu) was imported.
+12. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
-The table holds both kernels (launches summed over the five frames'
-timed runs and the app phase's server and demo runs), the all-passes and
-lit frames' five passes and the stereo frame's two eyes, each with the
-launches it made in that frame's timed run, the frame server's opaque pass
+The table holds both kernels (launches summed over the five frames' and
+the two sharded frames' timed runs and the app phase's server and demo
+runs), the all-passes and lit frames' five passes, the stereo frame's two
+eyes and each band pass of the two sharded frames, each with the launches
+it made in that frame's timed run, the frame server's opaque pass
 (launches over the selftest's timed frames) and the demo's lines and
 particle passes (launches over the demo run).
 A kernel's bound_ms is the larger of its bytes (each input read once,
@@ -198,6 +217,15 @@ LIT_KBUFFER = tuple("lit_" + n for n in AP_KBUFFER)
 # the app phase's passes: the frame server's opaque pass and the demo's five
 APP_RASTER = ("app_opaque",) + tuple("demo_" + n for n in AP_RASTER)
 DEMO_KBUFFER = tuple("demo_" + n for n in AP_KBUFFER)
+# the sharded phase: each 1080p view in SHARD_BANDS bands of 270 rows, the
+# stereo frame on a (2, SHARD_BANDS) grid and the all-passes frame on a
+# (1, SHARD_BANDS) one; one key a (view, band) cell's opaque raster, and one
+# a band's pass
+SHARD_BANDS = 4
+SHARD_RUNS = 5  # timed runs of a sharded frame, and of a band's one call and plain version
+SH_STEREO = tuple(f"sharded_{eye}_band{b}" for eye in EYES for b in range(SHARD_BANDS))
+SH_RASTER = tuple(f"sharded_{n}_band{b}" for b in range(SHARD_BANDS) for n in AP_RASTER)
+SH_KBUFFER = tuple(f"sharded_{n}_band{b}" for b in range(SHARD_BANDS) for n in AP_KBUFFER)
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -281,12 +309,15 @@ def fan_setup(width: int, height: int, device, w_scale=(1.0, 2.0)):
 
 
 def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
-                   y_offset=0, init=None, clusters=None, min_rows=1, timed=False):
+                   y_offset=0, init=None, clusters=None, min_rows=1, timed=False,
+                   sweep_sizes=True, runs=N_TIMED):
     """Kernel vs plain on the binned, sorted setup of `tri`, at each cluster
     size in `clusters` (None: the wrapper's RASTER_CLUSTER). The heaviest
-    tile must hold `min_rows` rows. With `timed`, records in `results` the
-    kernel's device time at RASTER_CLUSTER (every size is printed), one
-    call's time, the plain version's, the bound and the heaviest tile."""
+    tile must hold `min_rows` rows (0: the target may be empty). With
+    `timed`, records in `results` the kernel's device time at
+    RASTER_CLUSTER (with `sweep_sizes`, every size and tile variant is
+    printed), one call's time and the plain version's (median of `runs`),
+    the bound and the heaviest tile."""
     from superconductor_tpu_torch.bench_raster import (
         format_sweep,
         graph_ms,
@@ -327,7 +358,7 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
     phase("raster", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
           f"{heaviest} rows, cluster {sizes}: equal (tolerance: bit for bit) "
           f"max_abs_err={err} covered={covered:.4f}")
-    if covered == 0.0:
+    if covered == 0.0 and min_rows > 0:
         raise RuntimeError(f"{name}: nothing covered")
     results["max_abs_err"] = max(results["max_abs_err"], err)
     if timed:
@@ -336,20 +367,22 @@ def compare_raster(name, tri, width, height, p_cap, results, reverse_z=True,
             return graph_ms(lambda: rasterize_sorted(sorted_setup, bins.tile_start, tile_count,
                                                      height, width, **kw))
 
-        times = sweep(run, bins.tile_count, "RASTER_CLUSTER")
-        one_call = cuda_ms(lambda: rasterize_sorted(*args, **kw))
-        plain_ms = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw))
+        times = (sweep(run, bins.tile_count, "RASTER_CLUSTER") if sweep_sizes
+                 else {RASTER_CLUSTER: {"all tiles": run(bins.tile_count)}})
+        one_call = cuda_ms(lambda: rasterize_sorted(*args, **kw), runs)
+        plain_ms = cuda_ms(lambda: rasterize_sorted_plain(*args, **kw), runs)
         bound_ms, bound_by, pairs = raster_bound(tri.bbox, bins, width, height,
                                                  8 if init is None else 16, y_offset)
         ms = times[RASTER_CLUSTER]["all tiles"]
         results.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        one_call_ms=one_call, heaviest=heaviest, pairs=pairs)
         phase("raster", f"{name}: kernel {ms:.4f} ms at cluster {RASTER_CLUSTER} (device "
-              f"time, CUDA graph of 20 launches, median of {N_TIMED} replays); one call "
+              f"time, CUDA graph of 20 launches, median of 20 replays); one call "
               f"{one_call:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
-              f"{N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
+              f"{runs}); bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, heaviest "
               f"tile {heaviest} rows), share {bound_ms / ms:.3f}")
-        phase("raster", f"{name}: " + format_sweep(times))
+        if sweep_sizes:
+            phase("raster", f"{name}: " + format_sweep(times))
     return vp
 
 
@@ -369,13 +402,15 @@ def heavy_init(vis, seed: int):
 
 def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                     y_offset=0, floor=None, min_layers=1, min_rows=1, clusters=None,
-                    timed=()):
+                    timed=(), sweep_sizes=True, runs=N_TIMED):
     """Kernel vs plain for every K and both want_depth on the binned,
     sorted setup of `tri`, at each cluster size in `clusters` (None: the
     wrapper's KBUFFER_CLUSTER). The heaviest tile must hold `min_rows` rows.
-    Times each (K, want_depth) of `timed` at every cluster size, with all
-    tiles, the heaviest tile only, every other tile and every tile empty;
-    returns {(K, want_depth): timings} at KBUFFER_CLUSTER."""
+    Times each (K, want_depth) of `timed` at KBUFFER_CLUSTER and, with
+    `sweep_sizes`, at every cluster size with all tiles, the heaviest tile
+    only, every other tile and every tile empty; one call and the plain
+    version over `runs`. Returns {(K, want_depth): timings} at
+    KBUFFER_CLUSTER."""
     from superconductor_tpu_torch.bench_raster import (
         format_sweep,
         graph_ms,
@@ -433,10 +468,11 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
             return graph_ms(lambda: kbuffer_sorted(sorted_setup, bins.tile_start, tile_count,
                                                    height, width, **kw))
 
-        times = sweep(run, bins.tile_count, "KBUFFER_CLUSTER")
+        times = (sweep(run, bins.tile_count, "KBUFFER_CLUSTER") if sweep_sizes
+                 else {raster_mod.KBUFFER_CLUSTER: {"all tiles": run(bins.tile_count)}})
         ms = times[raster_mod.KBUFFER_CLUSTER]["all tiles"]
-        one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw))
-        plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw))
+        one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw), runs)
+        plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw), runs)
         bound_ms, bound_by, pairs = raster_bound(
             tri.bbox, bins, width, height, y_offset=y_offset,
             **kbuffer_px_bytes(k, want, floor is not None),
@@ -445,10 +481,11 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                                   bound_by=bound_by, heaviest=heaviest, pairs=pairs)
         phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms at cluster "
               f"{raster_mod.KBUFFER_CLUSTER} (device time, CUDA graph of 20 launches, median "
-              f"of {N_TIMED} replays); one call {one_call:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(CUDA events, median of {N_TIMED}); bound {bound_ms:.4f} ms ({bound_by}; "
+              f"of 20 replays); one call {one_call:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(CUDA events, median of {runs}); bound {bound_ms:.4f} ms ({bound_by}; "
               f"{pairs} pairs, heaviest tile {heaviest} rows), share {bound_ms / ms:.3f}")
-        phase("kbuffer", f"{name} K={k} want_depth={want}: " + format_sweep(times))
+        if sweep_sizes:
+            phase("kbuffer", f"{name} K={k} want_depth={want}: " + format_sweep(times))
     return timings
 
 
@@ -746,7 +783,8 @@ def frame_passes(keep_inputs: bool):
     (render/frame.py _rasterize, _rasterize_kbuffer) appends to
     passes["raster"] / passes["kbuffer"], in call order, the launches its
     kernel's wrapper counted during the call and, with `keep_inputs`, the
-    pass's inputs: (tri, init) and (tri, depth_floor, want_depth, K)."""
+    pass's inputs: (tri, init, rows, y_offset) and (tri, depth_floor,
+    want_depth, K, rows, y_offset)."""
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.render import frame as frame_mod
 
@@ -757,13 +795,13 @@ def frame_passes(keep_inputs: bool):
         before = raster_mod.rasterize_sorted.LAUNCHES
         out = real_r(tri, cfg, band_height, y_offset, init=init)
         passes["raster"].append((raster_mod.rasterize_sorted.LAUNCHES - before,
-                                 (tri, init) if keep_inputs else None))
+                                 (tri, init, band_height, y_offset) if keep_inputs else None))
         return out
 
     def rec_kbuffer(tri, cfg, band_height, y_offset, depth_floor, want_depth=True, k=None):
         before = raster_mod.kbuffer_sorted.LAUNCHES
         out = real_k(tri, cfg, band_height, y_offset, depth_floor, want_depth=want_depth, k=k)
-        inputs = (tri, depth_floor, want_depth, k or cfg.blend_layers)
+        inputs = (tri, depth_floor, want_depth, k or cfg.blend_layers, band_height, y_offset)
         passes["kbuffer"].append((raster_mod.kbuffer_sorted.LAUNCHES - before,
                                   inputs if keep_inputs else None))
         return out
@@ -775,38 +813,43 @@ def frame_passes(keep_inputs: bool):
         frame_mod._rasterize, frame_mod._rasterize_kbuffer = real_r, real_k
 
 
-def timed_passes(name, scene_dev, state0, config, env):
-    """N_TIMED frames of the five-pass frame timed with CUDA events, each
-    raster and k-buffer pass's kernel launches counted in that run; fails
-    unless every pass launched its kernel once a frame. -> (frame ms,
-    launches by kernel, launches by pass)."""
+def timed_passes(name, scene_dev, state0, config, env, render=None, raster_names=AP_RASTER,
+                 kbuffer_names=AP_KBUFFER, runs=N_TIMED):
+    """`runs` frames (render_frame, or `render`) timed with CUDA events
+    after a warm-up frame, each raster and k-buffer pass's kernel launches
+    counted in that run; the passes of a frame come in the order of
+    `raster_names` and `kbuffer_names`. Fails unless every pass launched
+    its kernel once a frame. -> (frame ms, launches by kernel, launches by
+    pass)."""
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.render.frame import render_frame
 
+    render = render or render_frame
     raster_mod.rasterize_sorted.LAUNCHES = 0
     raster_mod.kbuffer_sorted.LAUNCHES = 0
     frames = [0]
 
     def one_frame():
         frames[0] += 1
-        return render_frame(scene_dev, state0, config, env)
+        return render(scene_dev, state0, config, env)
 
     with frame_passes(keep_inputs=False) as passes:
-        frame_ms = cuda_ms(one_frame)
+        frame_ms = cuda_ms(one_frame, runs)
     launches = {"raster_sorted": raster_mod.rasterize_sorted.LAUNCHES,
                 "kbuffer_sorted": raster_mod.kbuffer_sorted.LAUNCHES}
     by_pass = {}
-    for kind, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER)):
+    for kind, names in (("raster", raster_names), ("kbuffer", kbuffer_names)):
         counts = [n for n, _ in passes[kind]]
         if len(counts) != len(names) * frames[0]:
             raise RuntimeError(f"{len(counts)} {kind} passes over {frames[0]} frames, "
                                f"expected {len(names)} a frame")
         by_pass.update({pname: sum(counts[i::len(names)]) for i, pname in enumerate(names)})
-    phase(name, f"frame {frame_ms:.3f} ms (CUDA events, median of {N_TIMED}); "
+    phase(name, f"frame {frame_ms:.3f} ms (CUDA events, median of {runs}); "
           f"launches {launches} over {frames[0]} frames, by pass {by_pass}")
     if set(by_pass.values()) != {frames[0]} or sum(by_pass.values()) != sum(launches.values()):
         raise RuntimeError(f"the {name} frame did not launch its kernel once a frame in each "
-                           f"of its 2 raster and 3 k-buffer passes")
+                           f"of its {len(raster_names)} raster and {len(kbuffer_names)} "
+                           f"k-buffer passes")
     return frame_ms, launches, by_pass
 
 
@@ -826,7 +869,8 @@ def plain_kernels_frame(scene_dev, state0, config, env):
 
 
 def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: str = "",
-                   min_layers: dict = None, timed: tuple = AP_RASTER + AP_KBUFFER):
+                   min_layers: dict = None, timed: tuple = AP_RASTER + AP_KBUFFER,
+                   band: bool = False, suffix: str = ""):
     """Each of the five passes' kernels on the inputs `calls` recorded from
     a stats frame (frame_passes): the opaque raster, the lines raster (init
     buffer), the clip, particle and blend k-buffers, each at the K fit_caps
@@ -836,23 +880,32 @@ def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: st
     have no clip or blend material, so those two are held on empty inputs
     and show only that they launch). Every pass is held
     against its plain version at every cluster size; the passes in `timed`
-    are timed into shapes[prefix + pass]."""
+    are timed into shapes[prefix + pass + suffix]. With `band` the calls
+    are one band's of a sharded frame: any pass may be empty there, and
+    each is timed at the wrapper's cluster size only, one call and the
+    plain version over SHARD_RUNS runs."""
     from superconductor_tpu_torch.bench_raster import CLUSTERS
 
     if len(calls["raster"]) != 2 or len(calls["kbuffer"]) != 3:
         raise RuntimeError(f"the {frame} frame made {len(calls['raster'])} raster and "
                            f"{len(calls['kbuffer'])} k-buffer passes, expected 2 and 3")
     min_layers = min_layers or {}
-    for name, (tri, init) in zip(AP_RASTER, calls["raster"]):
-        compare_raster(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap, shapes[prefix + name],
-                       init=init, clusters=CLUSTERS, timed=name in timed)
-    for name, (tri, floor, want, k) in zip(AP_KBUFFER, calls["kbuffer"]):
+    kw = dict(clusters=CLUSTERS)
+    if band:
+        kw.update(sweep_sizes=False, runs=SHARD_RUNS)
+        min_layers = dict.fromkeys(AP_KBUFFER, 0)
+    for name, (tri, init, rows, y0) in zip(AP_RASTER, calls["raster"]):
+        compare_raster(f"{frame}-{name}", tri, WIDTH, rows, p_cap,
+                       shapes[prefix + name + suffix], init=init, y_offset=y0,
+                       min_rows=0 if band else 1, timed=name in timed, **kw)
+    for name, (tri, floor, want, k, rows, y0) in zip(AP_KBUFFER, calls["kbuffer"]):
         least = min_layers.get(name, k // 2 + 1)
-        timings = compare_kbuffer(f"{frame}-{name}", tri, WIDTH, HEIGHT, p_cap,
-                                  shapes[prefix + name], floor=floor, min_layers=least,
-                                  min_rows=min(least, 1), clusters=CLUSTERS,
-                                  timed=[(k, want)] if name in timed else ())
-        shapes[prefix + name].update(timings.get((k, want), {}))
+        key = prefix + name + suffix
+        timings = compare_kbuffer(f"{frame}-{name}", tri, WIDTH, rows, p_cap, shapes[key],
+                                  y_offset=y0, floor=floor, min_layers=least,
+                                  min_rows=min(least, 1),
+                                  timed=[(k, want)] if name in timed else (), **kw)
+        shapes[key].update(timings.get((k, want), {}))
 
 
 def all_passes_path(dev, shapes: dict) -> dict:
@@ -866,7 +919,8 @@ def all_passes_path(dev, shapes: dict) -> dict:
     by pass (one a frame each), its plain-versions twin, the sky worklist
     forced on, and the 256x128 frame against the CPU and the reference's
     golden. Returns the launch counts of the timed run, by kernel and by
-    pass."""
+    pass, and the frame with its inputs (tables, state, fitted config,
+    env, image)."""
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.frame import (
         render_frame,
@@ -949,7 +1003,7 @@ def all_passes_path(dev, shapes: dict) -> dict:
           f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
     if min(db_cpu, db_ref) < 40.0:
         raise RuntimeError("card frame disagrees with the CPU frame or the reference")
-    return launches, by_pass
+    return launches, by_pass, (scene_dev, state0, config, env, img)
 
 
 def stereo_golden_inputs(device, raster="auto"):
@@ -982,7 +1036,8 @@ def stereo_path(dev, shapes: dict) -> dict:
     plain-raster twin and its row_chunks=2 twin equal byte for byte; the
     256x128 frame against the CPU's and the reference's golden, and its
     raster="ref" twin on the card. Returns the raster launches of the timed
-    run, by eye."""
+    run, by eye, and the frame with its inputs (tables, state at t = 0,
+    fitted config, env, image)."""
     from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.render import frame as frame_mod
@@ -1108,7 +1163,120 @@ def stereo_path(dev, shapes: dict) -> dict:
     if not torch.equal(img_g, img_ref) or ref_launches != 2:
         raise RuntimeError("the raster=\"ref\" stereo frame differs from the binned "
                            "raster's, or the frames launched the kernel other than twice")
-    return by_eye
+    return by_eye, (scene_dev, state0, config, env, img)
+
+
+def shard_cells(n: int) -> list:
+    """n grid cells taking the visible cards in turn (every cell cuda:0 on
+    a one-card machine)."""
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def sharded_path(shapes: dict, stereo: tuple, all_passes: tuple) -> dict:
+    """Phase 9: the stereo and all-passes frames of phases 7 and 8 (their
+    tables, states, fitted configs and images) through
+    parallel.render_frame_sharded: 2 eyes x 4 bands and 1 x 4 bands of 270
+    rows, each cell on the frame's 32-row raster tiles that hold its band
+    (parallel.bands.frame_tile_rows: rows 0-288, 256-544, 512-832 and
+    800-1080). Each cell's raster and k-buffer calls against their plain
+    versions bit for bit at every cluster size and K, and timed; the same
+    calls cut to the band's own 270 rows (y_offset 270, 540, 810) bit for
+    bit too; each sharded frame byte-equal to its render_frame image and
+    timed with CUDA events (median of SHARD_RUNS after a warm-up), its
+    launches counted per band pass in that run: one a frame in each.
+    Returns the launches by kernel and by pass of both timed runs."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.ops.raster import VisibilityBuffer
+    from superconductor_tpu_torch.parallel import make_render_mesh, render_frame_sharded
+
+    from superconductor_tpu_torch.render.frame import render_frame
+
+    t0 = time.perf_counter()
+    band_h = HEIGHT // SHARD_BANDS
+    exact = {"max_abs_err": 0.0}
+    launches = {"raster_sorted": 0, "kbuffer_sorted": 0}
+    by_pass = {}
+    for frame, (scene_dev, state0, config, env, img) in (("stereo", stereo),
+                                                         ("all_passes", all_passes)):
+        views = config.num_views
+        mesh = make_render_mesh(shard_cells(views * SHARD_BANDS), num_views=views)
+        with frame_passes(keep_inputs=True) as passes:
+            img_sh = render_frame_sharded(scene_dev, state0, config, env, mesh)
+        calls = {kind: [inputs for _, inputs in passes[kind]] for kind in passes}
+        per_cell = (1, 0) if frame == "stereo" else (len(AP_RASTER), len(AP_KBUFFER))
+        cells = views * SHARD_BANDS
+        if (len(calls["raster"]), len(calls["kbuffer"])) != (cells * per_cell[0],
+                                                             cells * per_cell[1]):
+            raise RuntimeError(f"the sharded {frame} frame made {len(calls['raster'])} raster "
+                               f"and {len(calls['kbuffer'])} k-buffer passes over {cells} cells, "
+                               f"expected {per_cell} a cell")
+        if frame == "stereo":
+            for key, (tri, init, rows, top) in zip(SH_STEREO, calls["raster"]):
+                shapes[key].update(rows=rows, y_offset=top)
+                compare_raster(f"sharded-{key}", tri, WIDTH, rows, config.p_cap, shapes[key],
+                               y_offset=top, init=init, clusters=CLUSTERS, min_rows=0,
+                               timed=True, sweep_sizes=False, runs=SHARD_RUNS)
+            names = (SH_STEREO, ())
+        else:
+            for b in range(SHARD_BANDS):
+                band_calls = {"raster": calls["raster"][2 * b:2 * b + 2],
+                              "kbuffer": calls["kbuffer"][3 * b:3 * b + 3]}
+                compare_passes(f"sharded-all_passes-band{b}", band_calls, config.p_cap, shapes,
+                               prefix="sharded_", suffix=f"_band{b}", band=True)
+                for n, call in zip(AP_RASTER + AP_KBUFFER,
+                                   band_calls["raster"] + band_calls["kbuffer"]):
+                    shapes[f"sharded_{n}_band{b}"].update(rows=call[-2], y_offset=call[-1])
+            names = (SH_RASTER, SH_KBUFFER)
+
+        # the same calls on the band's own rows, where the reference's cells raster
+        for i, (tri, init, rows, top) in enumerate(calls["raster"]):
+            b = i // per_cell[0] % SHARD_BANDS
+            y0 = b * band_h
+            if b == 0:
+                continue
+            cut = slice(y0 - top, y0 - top + band_h)
+            if init is not None:
+                init = VisibilityBuffer(init.depth[cut].contiguous(), init.pair[cut].contiguous())
+            compare_raster(f"sharded-{frame}-raster-call{i}-rows{y0}-{y0 + band_h}", tri, WIDTH,
+                           band_h, config.p_cap, exact, y_offset=y0, init=init,
+                           clusters=CLUSTERS, min_rows=0)
+        for i, (tri, floor, want, k, rows, top) in enumerate(calls["kbuffer"]):
+            b = i // per_cell[1] % SHARD_BANDS
+            y0 = b * band_h
+            if b == 0:
+                continue
+            cut = slice(y0 - top, y0 - top + band_h)
+            compare_kbuffer(f"sharded-{frame}-kbuffer-call{i}-rows{y0}-{y0 + band_h}", tri,
+                            WIDTH, band_h, config.p_cap, exact, y_offset=y0,
+                            floor=floor[cut].contiguous(), min_layers=0, min_rows=0,
+                            clusters=CLUSTERS)
+
+        phase("sharded", f"{frame}: {views} x {SHARD_BANDS} grid of {mesh.devices}; frame "
+              f"{tuple(img_sh.shape)} equal to render_frame's: {torch.equal(img_sh, img)}")
+        if not torch.equal(img_sh, img):
+            diff = (img_sh != img).any(dim=-1)
+            raise RuntimeError(f"the sharded {frame} frame differs from render_frame's at "
+                               f"{int(diff.sum())} px, e.g. {diff.nonzero()[:5].tolist()}")
+        # bands on tile grids of their own (render_frame's row_chunks, the
+        # reference's cell layout) let other pixels outside a sliver's box in
+        own_grid = render_frame(scene_dev, state0, replace(config, row_chunks=SHARD_BANDS), env)
+        phase("sharded", f"{frame}: render_frame in {SHARD_BANDS} row_chunks of {band_h} rows "
+              f"(each on a tile grid from its first row) differs from it at "
+              f"{int((own_grid != img).any(dim=-1).sum())} px")
+
+        def render(*args):
+            return render_frame_sharded(*args, mesh)
+
+        _ms, frame_launches, frame_by_pass = timed_passes(
+            f"sharded {frame}", scene_dev, state0, config, env, render=render,
+            raster_names=names[0], kbuffer_names=names[1], runs=SHARD_RUNS)
+        for k in launches:
+            launches[k] += frame_launches[k]
+        by_pass.update(frame_by_pass)
+    for key in SH_STEREO + SH_RASTER + SH_KBUFFER:
+        shapes[key]["max_abs_err"] = max(shapes[key]["max_abs_err"], exact["max_abs_err"])
+    phase("sharded", f"phase in {time.perf_counter() - t0:.2f} s")
+    return launches, by_pass
 
 
 def lit_golden_frame(device):
@@ -1146,7 +1314,7 @@ def lightmapped_lanes():
 
 
 def lit_passes_path(dev, shapes: dict) -> dict:
-    """Phase 9: the lit frame (the all-passes scene with the SH light
+    """Phase 10: the lit frame (the all-passes scene with the SH light
     volume, the lightmapped wall and the smoke maps, seeded) at 1920x1080:
     the pools on the card, fit_caps and the live lightmapped lanes of a
     stats frame, each pass's kernel at that frame's inputs (the wall moves
@@ -1293,7 +1461,7 @@ def app_frame_without_ecs(world, dev):
 
 
 def app_path(dev, shapes: dict, smi: str) -> dict:
-    """Phase 10: the app layer at 1920x1080. The port's frame server on
+    """Phase 11: the app layer at 1920x1080. The port's frame server on
     dense_terrain.glb (its capacity probe, a subprocess, then a 5 s selftest
     at 2 frames in flight with stats_interval 0): the probe's caps, latency
     p50 / p99, throughput, host ms per frame by FrameProfiler scope, and
@@ -1391,7 +1559,7 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
     if len(passes["raster"]) != 1 or passes["kbuffer"]:
         raise RuntimeError(f"the app frame made {len(passes['raster'])} raster and "
                            f"{len(passes['kbuffer'])} k-buffer passes, expected 1 and 0")
-    tri, init = passes["raster"][0][1]
+    tri, init, _rows, _y0 = passes["raster"][0][1]
     compare_raster("app-opaque", tri, WIDTH, HEIGHT, config.p_cap, shapes["app_opaque"],
                    init=init, clusters=CLUSTERS, timed=True)
     del server, app, w, passes, arrays, tables
@@ -1453,16 +1621,18 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
 
 
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
-                 ap_by_pass: dict, stereo_by_eye: dict, lit_launches: dict, lit_by_pass: dict,
-                 app: dict, raster_res: dict, kbuffer_res: dict, shapes: dict) -> dict:
+                 ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
+                 lit_launches: dict, lit_by_pass: dict, app: dict, raster_res: dict,
+                 kbuffer_res: dict, shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the five frames' timed runs and the app phase's server and demo
-    runs, then each all-passes pass, each stereo eye and each lit pass at
-    its own shape with the launches counted in that pass during the frame's
-    timed run (one a frame), the frame server's opaque pass with its
-    launches over the selftest's timed frames, and the demo's lines and
-    particle passes with their launches over the demo run."""
+    over the five frames' and the two sharded frames' timed runs and the
+    app phase's server and demo runs, then each all-passes pass, each
+    stereo eye, each sharded band pass and each lit pass at its own shape
+    with the launches counted in that pass during the frame's timed run
+    (one a frame), the frame server's opaque pass with its launches over
+    the selftest's timed frames, and the demo's lines and particle passes
+    with their launches over the demo run."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -1476,24 +1646,41 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
 
     ap_raster, ap_kbuffer = ap_launches["raster_sorted"], ap_launches["kbuffer_sorted"]
     app_runs = (app["app_run"], app["demo"])
+    bands = range(SHARD_BANDS)
+
+    def band(key):
+        return f"{WIDTH}x{shapes[key]['rows']} at y_offset {shapes[key]['y_offset']}"
+
     return {"kernels": [
         entry("raster_sorted", "raster",
               headline_launches + cb_launches["raster_sorted"] + ap_raster
-              + sum(stereo_by_eye.values()) + lit_launches["raster_sorted"]
-              + sum(r["raster_sorted"] for r in app_runs), raster_res,
+              + sum(stereo_by_eye.values()) + sh_launches["raster_sorted"]
+              + lit_launches["raster_sorted"] + sum(r["raster_sorted"] for r in app_runs),
+              raster_res,
               max(raster_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_RASTER + EYES + LIT_RASTER + APP_RASTER))),
+                  *(shapes[n]["max_abs_err"]
+                    for n in AP_RASTER + EYES + SH_STEREO + SH_RASTER + LIT_RASTER + APP_RASTER))),
         entry("kbuffer_sorted", "kbuffer",
-              cb_launches["kbuffer_sorted"] + ap_kbuffer + lit_launches["kbuffer_sorted"]
-              + sum(r["kbuffer_sorted"] for r in app_runs), kbuffer_res,
+              cb_launches["kbuffer_sorted"] + ap_kbuffer + sh_launches["kbuffer_sorted"]
+              + lit_launches["kbuffer_sorted"] + sum(r["kbuffer_sorted"] for r in app_runs),
+              kbuffer_res,
               max(kbuffer_res["max_abs_err"],
-                  *(shapes[n]["max_abs_err"] for n in AP_KBUFFER + LIT_KBUFFER + DEMO_KBUFFER))),
+                  *(shapes[n]["max_abs_err"]
+                    for n in AP_KBUFFER + SH_KBUFFER + LIT_KBUFFER + DEMO_KBUFFER))),
         *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
           for n in AP_KBUFFER],
         *[entry(f"raster_sorted[stereo {eye}]", "raster", stereo_by_eye[eye], shapes[eye])
           for eye in EYES],
+        *[entry(f"raster_sorted[sharded stereo {eye} {band(f'sharded_{eye}_band{b}')}]",
+                "raster", sh_by_pass[f"sharded_{eye}_band{b}"],
+                shapes[f"sharded_{eye}_band{b}"])
+          for eye in EYES for b in bands],
+        *[entry(f"{kernel}_sorted[sharded all_passes {n} {band(f'sharded_{n}_band{b}')}]",
+                kernel, sh_by_pass[f"sharded_{n}_band{b}"], shapes[f"sharded_{n}_band{b}"])
+          for b in bands for kernel, names in (("raster", AP_RASTER), ("kbuffer", AP_KBUFFER))
+          for n in names],
         *[entry(f"raster_sorted[lit_passes {n}]", "raster", lit_by_pass[n], shapes["lit_" + n])
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[lit_passes {n}]", "kbuffer", lit_by_pass[n], shapes["lit_" + n])
@@ -1649,10 +1836,12 @@ def main() -> int:
     cb_launches = clip_blend_path(dev, kb_results, cb_raster)
     results["max_abs_err"] = max(results["max_abs_err"], cb_raster["max_abs_err"])
 
-    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES + LIT_RASTER
-              + LIT_KBUFFER + APP_RASTER + DEMO_KBUFFER}
-    ap_launches, ap_by_pass = all_passes_path(dev, shapes)
-    stereo_by_eye = stereo_path(dev, shapes)
+    shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES + SH_STEREO
+              + SH_RASTER + SH_KBUFFER + LIT_RASTER + LIT_KBUFFER + APP_RASTER + DEMO_KBUFFER}
+    ap_launches, ap_by_pass, ap_frame = all_passes_path(dev, shapes)
+    stereo_by_eye, stereo_frame = stereo_path(dev, shapes)
+    sh_launches, sh_by_pass = sharded_path(shapes, stereo_frame, ap_frame)
+    del ap_frame, stereo_frame
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
     app = app_path(dev, shapes, smi)
 
@@ -1662,8 +1851,8 @@ def main() -> int:
     phase("imports", "neither jax nor superconductor_tpu was imported")
 
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
-                                  stereo_by_eye, lit_launches, lit_by_pass, app, results,
-                                  kb_results, shapes)))
+                                  stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
+                                  lit_by_pass, app, results, kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

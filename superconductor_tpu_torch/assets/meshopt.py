@@ -1,8 +1,9 @@
-"""EXT_meshopt_compression decode (vertex/index codecs + filters): the
-port's copy of ``superconductor_tpu/assets/meshopt.py``, decoding through
-the scnative C++ decoder (``native/src/meshopt.cpp``) only. The
-reference's numpy decoders and encoders (its test-support round trip) are
-not copied: the port always has the library, or raises.
+"""EXT_meshopt_compression (vertex/index codecs + filters): the port's
+copy of ``superconductor_tpu/assets/meshopt.py``. It decodes through the
+scnative C++ decoder (``native/src/meshopt.cpp``) only: the port always
+has the library, or raises, so the reference's pure-Python decoders are
+not copied. The encoders are, byte for byte: they author fixtures and
+round-trip the decoder.
 
 Codec notes (meshopt format):
   * vertex codec v0: byte-plane delta encoding in blocks of up to 256
@@ -21,6 +22,134 @@ import ctypes
 import numpy as np
 
 from ..native import load_native
+
+
+VERTEX_HEADER = 0xA0
+INDEX_HEADER = 0xE0
+BYTE_GROUP_SIZE = 16
+BLOCK_SIZE_BYTES = 8192
+BLOCK_MAX_VERTICES = 256
+
+
+def _block_size(stride: int) -> int:
+    result = (BLOCK_SIZE_BYTES // stride) & ~(BYTE_GROUP_SIZE - 1)
+    return min(max(result, BYTE_GROUP_SIZE), BLOCK_MAX_VERTICES)
+
+
+def _zigzag8(v):
+    v = v & 0xFF
+    return ((v << 1) ^ (0xFF if v & 0x80 else 0)) & 0xFF
+
+
+# ---------------------------------------------------------------------------
+# Encoders
+# ---------------------------------------------------------------------------
+
+
+def encode_vertex_buffer(vertices: np.ndarray) -> bytes:
+    """Independent encoder for round-trip testing (always uses the widest
+    group encoding that fits; not size-optimal, format-conformant)."""
+    count, stride = vertices.shape
+    v = vertices.astype(np.uint8)
+    out = bytearray([VERTEX_HEADER | 0])
+    block = _block_size(stride)
+    # The tail carries the seed vertex the decoder starts from; encode
+    # deltas relative to it (we seed with vertex 0, like meshoptimizer).
+    seed = v[0].copy() if count else np.zeros(stride, np.uint8)
+    last = seed.astype(np.int32).copy()
+    offset = 0
+    while offset < count:
+        n = min(count - offset, block)
+        rounded = (n + 15) & ~15
+        for k in range(stride):
+            deltas = np.zeros(rounded, np.uint8)
+            p = int(last[k])
+            for i in range(n):
+                cur = int(v[offset + i, k])
+                deltas[i] = _zigzag8(cur - p)
+                p = cur
+            last[k] = int(v[offset + n - 1, k])
+            # encode groups
+            ngroups = rounded // 16
+            header = bytearray((ngroups + 3) // 4)
+            payload = bytearray()
+            for g in range(ngroups):
+                grp = deltas[g * 16 : g * 16 + 16]
+                if not grp.any():
+                    sel = 0
+                elif grp.max() < 15:
+                    sel = 2
+                    b = bytearray()
+                    for j in range(0, 16, 2):
+                        b.append((int(grp[j]) << 4) | int(grp[j + 1]))
+                    payload += b
+                else:
+                    sel = 3
+                    payload += grp.tobytes()
+                header[g // 4] |= sel << ((g % 4) * 2)
+            out += header + payload
+        offset += n
+    out += bytes(max(stride, 32) - stride)  # tail padding to tail_size
+    out += seed.tobytes()
+    return bytes(out)
+
+
+def _encode_vbyte(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        if v < 0x80:
+            out.append(v)
+            return bytes(out)
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+
+
+SEQUENCE_HEADER = 0xD0
+
+
+def encode_index_sequence(indices: np.ndarray) -> bytes:
+    """Conformant index sequence encoder (baseline picked by smaller
+    absolute delta; 4-byte zero tail like meshoptimizer's)."""
+    out = bytearray([SEQUENCE_HEADER | 1])
+    last = [0, 0]
+    for idx in np.asarray(indices, np.uint32).reshape(-1):
+        idx = int(idx)
+        d0, d1 = idx - last[0], idx - last[1]
+        current = 0 if abs(d0) <= abs(d1) else 1
+        d = idx - last[current]
+        zz = (d << 1) if d >= 0 else ((-d << 1) - 1)
+        out += _encode_vbyte((zz << 1) | current)
+        last[current] = idx
+    out += b"\0" * 4
+    return bytes(out)
+
+
+def encode_index_buffer(indices: np.ndarray) -> bytes:
+    """Trivial conformant encoder: every triangle uses the 0xff escape with
+    explicit indices (large output, exercises the explicit-decode path)."""
+    indices = np.asarray(indices, np.uint32).reshape(-1)
+    ntri = len(indices) // 3
+    code = bytearray()
+    aux = bytearray()
+    last = 0
+    for t in range(ntri):
+        code.append(0xFF)
+        aux.append(0xFF)  # feb=15, fec=15: all explicit
+        for k in range(3):
+            v = int(indices[t * 3 + k])
+            d = v - last
+            aux += _encode_vbyte(((d << 1) ^ (d >> 63)) & 0xFFFFFFFF if d < 0 else (d << 1))
+            last = v
+    out = bytearray([INDEX_HEADER | 1])
+    out += code
+    out += aux
+    out += bytes(16)  # codeaux table (unused by this encoder)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
 
 
 def _filter_octahedral(data: np.ndarray, stride: int) -> np.ndarray:

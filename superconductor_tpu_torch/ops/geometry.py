@@ -267,6 +267,39 @@ def geometry_view_setup(
     )
 
 
+def geometry_pass(
+    draws: DrawList,
+    indices: torch.Tensor,
+    positions: torch.Tensor,
+    normals: torch.Tensor,
+    uvs: torch.Tensor,
+    lm_uvs: Optional[torch.Tensor],
+    tri_material: torch.Tensor,
+    materials: dict,
+    view_proj: torch.Tensor,  # (4, 4)
+    width: int,
+    height: int,
+    t_cap: int,
+    v_cap: Optional[int] = None,
+    flip_viewport: bool = False,
+    joint_palette: Optional[torch.Tensor] = None,
+    joint_indices: Optional[torch.Tensor] = None,
+    joint_weights: Optional[torch.Tensor] = None,
+):
+    """Full geometry stage of one view -> (TriangleSetup, TriangleAttrs):
+    geometry_vertex_stage + geometry_view_setup (reference :319, without its
+    double_sided_from_material, which no caller sets). Multi-view callers
+    call the two halves and share the VertexStage across views, as
+    render/frame.py does."""
+    stage = geometry_vertex_stage(
+        draws, indices, positions, normals, uvs, lm_uvs, tri_material, materials, t_cap,
+        v_cap=v_cap, joint_palette=joint_palette, joint_indices=joint_indices,
+        joint_weights=joint_weights,
+    )
+    tri = geometry_view_setup(stage, view_proj, width, height, flip_viewport=flip_viewport)
+    return tri, stage.attrs
+
+
 def pack_attrs(attrs: TriangleAttrs) -> TriangleAttrs:
     """Fill TriangleAttrs.packed (reference pack_attrs, :367)."""
     t = attrs.material.shape[0]

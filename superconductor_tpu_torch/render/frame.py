@@ -371,6 +371,16 @@ def _merged_setup_for_view(stages, view_proj: torch.Tensor, config: RenderConfig
     )
 
 
+def _merged_geometry(scene: dict, state: FrameState, view_proj: torch.Tensor,
+                     config: RenderConfig):
+    """Static + animated geometry of one view as one pair list -> (merged
+    TriangleSetup, merged TriangleAttrs): the vertex stage plus this view's
+    setup (reference :763; render_frame_impl runs the two halves itself so
+    that views and bands share the vertex stage)."""
+    stages, merged_attrs = _merged_vertex_stage(scene, state, config)
+    return _merged_setup_for_view(stages, view_proj, config), merged_attrs
+
+
 def _granule_count(mask: torch.Tensor, gr: int) -> torch.Tensor:
     """Covered pixel count, dilated to whole granules when gr > 1."""
     if gr > 1:
@@ -449,14 +459,17 @@ def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):
 
 
 def render_view(scene: dict, state: FrameState, view_index: int,
-                config: RenderConfig, env, geometry, band_height: Optional[int] = None,
+                config: RenderConfig, env, geometry=None, band_height: Optional[int] = None,
                 y_offset: int = 0):
     """One view, or its band of rows [y_offset, y_offset + band_height)
     (None = the whole height) -> ((band_height, W, 4) f32 image, stats dict
     of i32 tensors). geometry: (merged TriangleSetup, merged TriangleAttrs)
-    of this view."""
+    of this view; None computes it here, on the scene's device (reference
+    :807), as each band of render_frame_sharded does."""
     band_height = band_height or config.height
     u = state.uniforms
+    if geometry is None:
+        geometry = _merged_geometry(scene, state, u["view_proj"][view_index], config)
     merged_tri, merged_attrs = geometry
     dev = merged_tri.setup.device
     mats = scene["materials"]
@@ -773,6 +786,16 @@ def render_frame(scene: dict, state: FrameState, config: RenderConfig, env):
 def render_frame_stats(scene: dict, state: FrameState, config: RenderConfig, env):
     """(image, stats) -- the variant the growth loops read."""
     return render_frame_impl(scene, state, config, env, with_stats=True)
+
+
+def frame_capacity_stats(scene: dict, state: FrameState, config: RenderConfig):
+    """(num_triangles, num_bin_pairs) i32 tensors the frame's first view
+    needs, binned at p_cap 1 so the count is the need, not the capacity
+    (reference :1404); compare with t_cap / p_cap through
+    utils.profiler.frame_capacity_report once a scene or camera change."""
+    tri, _attrs = _merged_geometry(scene, state, state.uniforms["view_proj"][0], config)
+    bins = bin_triangles(tri, config.width, config.height, 1)
+    return tri.num_valid, bins.num_pairs
 
 
 def stats_to_host(stats: dict) -> dict:

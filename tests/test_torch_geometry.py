@@ -221,9 +221,10 @@ def test_geometry_ragged_expansion_matches_repeat():
 
 
 def test_box_geometry_pass_matches_reference(box_glb):
-    """A draw list made with each package's make_draw_list, through the
-    vertex stage and view setup: bit-exact against the eager reference
-    (tests/test_raster_pallas.py's box at 96x256)."""
+    """A draw list made with each package's make_draw_list, through each
+    package's geometry_pass (the vertex stage and the view setup):
+    bit-exact against the eager reference (tests/test_raster_pallas.py's
+    box at 96x256)."""
     import jax.numpy as jnp
 
     from superconductor_tpu.assets.models import load_model
@@ -250,12 +251,12 @@ def test_box_geometry_pass_matches_reference(box_glb):
         ref_geom.make_draw_list(*args, **kw), *[dev[k] for k in keys],
         jnp.asarray(uniforms.view_proj[0]), 256, 96, t_cap=16,
     )
-    stage = port_geom.geometry_vertex_stage(
-        port_geom.make_draw_list(*args, **kw, device="cpu"), *[dev_t[k] for k in keys], 16
+    tri_p, attrs_p = port_geom.geometry_pass(
+        port_geom.make_draw_list(*args, **kw, device="cpu"), *[dev_t[k] for k in keys],
+        torch.from_numpy(uniforms.view_proj[0]), 256, 96, t_cap=16,
     )
-    tri_p = port_geom.geometry_view_setup(stage, torch.from_numpy(uniforms.view_proj[0]), 256, 96)
     for f in tri_r._fields:
         a, b = np.asarray(getattr(tri_r, f)), getattr(tri_p, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True), f
-    assert np.array_equal(np.asarray(attrs_r.packed), stage.attrs.packed.numpy())
+    assert np.array_equal(np.asarray(attrs_r.packed), attrs_p.packed.numpy())
     assert np.asarray(tri_r.valid).sum() == 6
