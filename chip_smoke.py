@@ -35,6 +35,9 @@ through the ECS) -- and checks them:
    against the opaque_px_needed stat; non-black sky and helmet; and a
    256x128 frame on the card against the same frame on the CPU and
    against the JAX reference's frame stored in tests/goldens (>= 40 dB);
+   the 1080p frame with its material pool as the wide mq3 rows
+   (Scene.matq3x3) >= 40 dB from it, and with shade_row_pad=128 equal to
+   it byte for byte, each timed;
 5. the raster kernel on the clip_blend frame's opaque setup, timed as in
    3; the k-buffer kernel against its plain version on the card, bit for
    bit in every depth plane, pair plane and layers count, for K in {1, 2,
@@ -74,9 +77,19 @@ through the ECS) -- and checks them:
    256x128 frame (at the capacities stored with its golden) on the card
    against the CPU frame and the JAX reference's frame in tests/goldens
    (>= 40 dB);
+   deep_k: the all-passes frame with 40 particles stacked along its view
+   ray (two at one depth), fit_caps growing particle_layers to 64; the
+   particle pass's k-buffer kernel on that frame's inputs against its plain
+   version, bit for bit, at K = 3 (the next template's first planes, every
+   cluster size), 24, 32 and 64 (the deep path), each timed with its bound;
+   the 2,044-row tile at K = 3, 5, 12, 24, 32 and 64 in both z directions;
+   the frame's launches by pass (one a frame each) and its plain-versions
+   twin, byte for byte;
 8. stereo (two eyes, six skinned tubes whose joint palettes come from the
-   numpy FK, six spheres): the host time per frame of the palettes and of
-   the frame state's build and upload; fit_caps; the raster kernel
+   native FK walk each frame, six spheres): the host time per frame of the
+   palettes on the native and the numpy FK and the largest ulp gap between
+   the two, the native draws against the numpy walk's (every column) and
+   each one's build and upload time; fit_caps; the raster kernel
    against its plain version on each eye's opaque setup and on a band at
    y_offset 540, at every cluster size, and timed as in 3; 20 frames timed
    with CUDA events, the raster's launches counted per eye, exactly one a
@@ -139,18 +152,23 @@ through the ECS) -- and checks them:
     every K and cluster size (lines and particles timed; the particles need
     more than K / 2 layers on some pixel; the clip and blend inputs are
     empty, as the content has no such material), and the ribbon's
-    animation changing pixels at one camera;
-12. neither jax nor the JAX package (superconductor_tpu) was imported.
+    animation changing pixels at one camera; the server frame's native
+    draws against the numpy walk's, and each one's build time;
+12. roofline: the card's ceilings (utils/roofline.py): bf16 matmul
+    TFLOP/s, stream GB/s, random-row gather Mrows/s and the dispatch
+    floor, each by the dispatch-count slope of CUDA-event times;
+13. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
-The table holds both kernels (launches summed over the five frames' and
+The table holds both kernels (launches summed over the six frames' and
 the two sharded frames' timed runs and the app phase's server and demo
 runs), the all-passes and lit frames' five passes, the stereo frame's two
 eyes and each band pass of the two sharded frames, each with the launches
 it made in that frame's timed run, the frame server's opaque pass
 (launches over the selftest's timed frames) and the demo's lines and
-particle passes (launches over the demo run).
+particle passes (launches over the demo run), and the deep_k frame's
+particle pass at K = 64 (launches in that frame's timed run).
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -221,6 +239,9 @@ DEMO_KBUFFER = tuple("demo_" + n for n in AP_KBUFFER)
 # stereo frame on a (2, SHARD_BANDS) grid and the all-passes frame on a
 # (1, SHARD_BANDS) one; one key a (view, band) cell's opaque raster, and one
 # a band's pass
+DEEP_PARTICLES = 40  # particles stacked along the all-passes view ray: K grows to 64
+DEEP_KS = (3, 24, 32, 64)  # deep_k: the particle pass's kernel at each K, timed
+DEEP_CHECK_KS = (3, 5, 12, 24, 32, 64)  # deep_k: the heavy tile at each K, bit for bit
 SHARD_BANDS = 4
 SHARD_RUNS = 5  # timed runs of a sharded frame, and of a band's one call and plain version
 SH_STEREO = tuple(f"sharded_{eye}_band{b}" for eye in EYES for b in range(SHARD_BANDS))
@@ -402,10 +423,12 @@ def heavy_init(vis, seed: int):
 
 def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                     y_offset=0, floor=None, min_layers=1, min_rows=1, clusters=None,
-                    timed=(), sweep_sizes=True, runs=N_TIMED):
-    """Kernel vs plain for every K and both want_depth on the binned,
-    sorted setup of `tri`, at each cluster size in `clusters` (None: the
-    wrapper's KBUFFER_CLUSTER). The heaviest tile must hold `min_rows` rows.
+                    timed=(), sweep_sizes=True, runs=N_TIMED, ks=None):
+    """Kernel vs plain for every K of `ks` (None: the templates, KBUFFER_KS)
+    and both want_depth on the binned, sorted setup of `tri`, at each
+    cluster size in `clusters` (None: the wrapper's KBUFFER_CLUSTER; a K
+    above 16 runs the deep path, which has no cluster, at the first size
+    only). The heaviest tile must hold `min_rows` rows.
     Times each (K, want_depth) of `timed` at KBUFFER_CLUSTER and, with
     `sweep_sizes`, at every cluster size with all tiles, the heaviest tile
     only, every other tile and every tile empty; one call and the plain
@@ -433,12 +456,13 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
     sorted_setup = gather_sorted_setup(tri, bins).contiguous()
     args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
     clusters = clusters or (raster_mod.KBUFFER_CLUSTER,)
-    for k in KBUFFER_KS:
+    ks = ks or KBUFFER_KS
+    for k in ks:
         for want in (True, False):
             kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
                       want_depth=want)
             pkb, players = kbuffer_sorted_plain(*args, **kw)
-            for cluster in clusters:
+            for cluster in (clusters if k <= KBUFFER_KS[-1] else clusters[:1]):
                 with kernel_constants(KBUFFER_CLUSTER=cluster):
                     kb, layers = kbuffer_sorted(*args, **kw)
                 torch.cuda.synchronize()
@@ -455,7 +479,7 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
     deepest = int(layers.max())
     sizes = ",".join(map(str, clusters))
     phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
-          f"{heaviest} rows, K={','.join(map(str, KBUFFER_KS))} x want_depth, cluster {sizes}: "
+          f"{heaviest} rows, K={','.join(map(str, ks))} x want_depth, cluster {sizes}: "
           f"equal (tolerance: bit for bit); max layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
     if deepest < min_layers:
         raise RuntimeError(f"{name}: at most {deepest} layers, expected >= {min_layers}")
@@ -609,6 +633,73 @@ def localize_card_cpu_gap(name, make, dev) -> None:
             by_stage[d[0]] = by_stage.get(d[0], 0) + 1
         phase(name, f"differing outputs by traced name: {by_stage}")
     phase(name, f"stats equal card vs CPU: {stats_card == stats_cpu}")
+
+
+@contextlib.contextmanager
+def host_mode(mode: str):
+    """Inside the block the host takes one path: "native" (the port's
+    default: the draw build, FK walk and channel sampler of
+    native/src/framestate.cpp) or "numpy" (animation's _joint_update_fn
+    and _anim_sample_fn set to False and SC_TPU_NO_NATIVE_DRAWS set)."""
+    from superconductor_tpu_torch import animation
+
+    saved = (animation._joint_update_fn, animation._anim_sample_fn,
+             os.environ.get("SC_TPU_NO_NATIVE_DRAWS"))
+    if mode == "numpy":
+        animation._joint_update_fn = animation._anim_sample_fn = False
+        os.environ["SC_TPU_NO_NATIVE_DRAWS"] = "1"
+    try:
+        yield
+    finally:
+        animation._joint_update_fn, animation._anim_sample_fn = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("SC_TPU_NO_NATIVE_DRAWS", None)
+        else:
+            os.environ["SC_TPU_NO_NATIVE_DRAWS"] = saved[2]
+
+
+def max_ulp_gap(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in ulps between two f32 arrays' elements (the
+    bit patterns mapped onto one ordered integer line, -0.0 on 0.0)."""
+
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i >= 0, i, -(i & 0x7FFFFFFF))
+
+    return int(np.abs(ordered(a) - ordered(b)).max()) if a.size else 0
+
+
+def draws_equal(a, b) -> bool:
+    """Two FrameStates' static and animated draws and joint palettes equal
+    on every column (torch.equal)."""
+    return all(
+        torch.equal(getattr(getattr(a, d), f), getattr(getattr(b, d), f))
+        for d in ("draws_static", "draws_animated")
+        for f in getattr(a, d)._fields
+    ) and torch.equal(a.joint_palette, b.joint_palette)
+
+
+def host_draws(name: str, build) -> dict:
+    """build() -> FrameState, on both host paths: the native draws against
+    the numpy walk's (every column), and build's host ms on each path
+    (median of N_TIMED, the upload synchronised). Fails when they differ."""
+    ms, states = {}, {}
+    for mode in ("native", "numpy"):
+        with host_mode(mode):
+            times = []
+            for _ in range(N_TIMED):
+                t0 = time.perf_counter()
+                states[mode] = build()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms[mode] = statistics.median(times)
+    equal = draws_equal(states["native"], states["numpy"])
+    phase("host", f"{name}: native draws equal the numpy walk's on every column: {equal}; "
+          f"build_frame_state host ms a frame (median of {N_TIMED}, with upload): native "
+          f"{ms['native']:.3f}, numpy {ms['numpy']:.3f} ({smi_line()})")
+    if not equal:
+        raise RuntimeError(f"{name}: the native draws differ from the numpy walk's")
+    return ms
 
 
 def clip_blend_path(dev, kb_results, cb_raster) -> dict:
@@ -1006,6 +1097,139 @@ def all_passes_path(dev, shapes: dict) -> dict:
     return launches, by_pass, (scene_dev, state0, config, env, img)
 
 
+def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
+    """Phase deep_k: the all-passes frame at 1080p with DEEP_PARTICLES
+    particles stacked along its view ray (two at one depth), fit_caps from
+    the all-passes frame's caps growing particle_layers to 64; the particle
+    pass's k-buffer kernel on the stats frame's inputs against its plain
+    version at every K of DEEP_KS (K = 3 at every cluster size) and timed
+    (device time and bound, shapes["deep_k<K>"]); the 2,044-row tile at
+    every K of DEEP_CHECK_KS in both z directions over a floor; the frame's
+    launches by pass in its timed run and its plain-versions twin, byte
+    for byte. Returns the launches of the timed run, by kernel and by
+    pass."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.frame import (
+        render_frame,
+        render_frame_stats,
+        stats_to_host,
+    )
+    from superconductor_tpu_torch.scenes import all_passes_scene, heavy_tile_setup
+
+    t0 = time.perf_counter()
+    scene_dev, build_state, config, env = all_passes_scene(WIDTH, HEIGHT, dev,
+                                                           deep_particles=DEEP_PARTICLES)
+    state0 = build_state(0.0)
+    phase("deep_k", f"scene on card in {time.perf_counter() - t0:.2f} s: the all-passes "
+          f"frame with {DEEP_PARTICLES} particles along the view ray")
+    t0 = time.perf_counter()
+    config = fit_caps(scene_dev, state0, ap_config, env,
+                      log=lambda s, g: phase("fit_caps", f"{s} grow={g or None}"))
+    phase("deep_k", f"fit_caps from the all-passes caps in {time.perf_counter() - t0:.2f} s: "
+          f"particle_layers={config.particle_layers} clip_layers={config.clip_layers} "
+          f"blend_layers={config.blend_layers} p_cap={config.p_cap}")
+    if config.particle_layers != 64:
+        raise RuntimeError(f"fit_caps grew particle_layers to {config.particle_layers}, not 64")
+    with frame_passes(keep_inputs=True) as passes:
+        _img, stats = render_frame_stats(scene_dev, state0, config, env)
+    stats = stats_to_host(stats)
+    phase("deep_k", f"stats {stats}")
+    if stats["particle_layers_needed"] < DEEP_PARTICLES:
+        raise RuntimeError("the particle stack does not reach its depth at any pixel")
+    tri, floor, want, k, rows, y0 = passes["kbuffer"][AP_KBUFFER.index("particles")][1]
+    if k != 64:
+        raise RuntimeError(f"the particle pass ran at K={k}, not 64")
+    res = {"max_abs_err": 0.0}
+    timings = compare_kbuffer("deep_k-particles", tri, WIDTH, rows, config.p_cap, res,
+                              y_offset=y0, floor=floor, min_layers=DEEP_PARTICLES,
+                              clusters=CLUSTERS, ks=DEEP_KS, sweep_sizes=False,
+                              timed=[(kk, want) for kk in DEEP_KS])
+    for kk in DEEP_KS:
+        shapes[f"deep_k{kk}"] = dict(timings[(kk, want)], max_abs_err=res["max_abs_err"])
+    phase("deep_k", f"particle pass ({smi_line()}): " + "; ".join(
+        f"K={kk} {shapes[f'deep_k{kk}']['ms']:.4f} ms, bound "
+        f"{shapes[f'deep_k{kk}']['bound_ms']:.4f} ms ({shapes[f'deep_k{kk}']['bound_by']}), "
+        f"plain {shapes[f'deep_k{kk}']['plain_ms']:.4f} ms" for kk in DEEP_KS))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    heavy_floor = torch.rand((96, 320), generator=gen, device=dev) * 0.35 + 0.15
+    for reverse_z in (True, False):
+        compare_kbuffer("deep_k-heavy-tile" + ("" if reverse_z else "-forward-z"),
+                        heavy_tile_setup(320, 96, dev, reverse_z=reverse_z), 320, 96, 4096,
+                        res, reverse_z=reverse_z,
+                        floor=heavy_floor if reverse_z else 1.0 - heavy_floor,
+                        min_layers=9, min_rows=2000, clusters=CLUSTERS, ks=DEEP_CHECK_KS)
+
+    _ms, launches, by_pass = timed_passes("deep_k", scene_dev, state0, config, env)
+    img = render_frame(scene_dev, state0, config, env)
+    img_plain = plain_kernels_frame(scene_dev, state0, config, env)
+    if img.shape != (1, HEIGHT, WIDTH, 4) or not torch.equal(img, img_plain):
+        raise RuntimeError("the deep_k frame differs from its plain-kernels twin")
+    phase("deep_k", "frame (particle_layers 64) equals its twin rendered with both plain "
+          "versions byte for byte")
+    return launches, by_pass
+
+
+def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> None:
+    """The headline frame with its material pool as the wide mq3 rows
+    (Scene.matq3x3: one 208 B row a trilinear sample) at the fitted caps:
+    >= 40 dB from the default frame, and its frame time; and with
+    shade_row_pad=128: byte-equal to the default frame, and its time."""
+    from superconductor_tpu_torch import math3d
+    from superconductor_tpu_torch.render.draws import build_frame_state
+    from superconductor_tpu_torch.render.frame import render_frame
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+    from superconductor_tpu_torch.scenes import headline_host
+
+    scene, model, uniforms, _env, _config = headline_host(WIDTH, HEIGHT)
+    scene.matq3x3 = True
+    dev_mq3 = scene_to_torch(scene, dev)
+    width = dev_mq3["texels_mq"].shape[-1]
+    sim = math3d.Similarity(rotation=math3d.quat_from_axis_angle([0, 1, 0], 0.0))
+    state = build_frame_state(scene, [(model, sim)], uniforms, device=dev)
+    img_mq3 = render_frame(dev_mq3, state, config, env)
+    db = psnr(img_mq3.cpu().numpy(), img.cpu().numpy())
+    padded = replace(config, shade_row_pad=128)
+    img_pad = render_frame(scene_dev, state0, padded, env)
+    runs = {"default": (scene_dev, state0, config), "mq3": (dev_mq3, state, config),
+            "pad": (scene_dev, state0, padded)}
+    ms = {name: [] for name in runs}
+    for name in ("default", "mq3", "pad", "pad", "mq3", "default"):  # in turns
+        tables, st, cfg = runs[name]
+        ms[name].append(cuda_ms(lambda: render_frame(tables, st, cfg, env), N_TIMED // 2))
+    ms = {name: statistics.median(v) for name, v in ms.items()}
+    phase("headline", f"matq3x3 ({width} B rows): PSNR vs the default frame {db:.2f} dB; "
+          f"shade_row_pad=128: byte-equal to pad 0: {torch.equal(img_pad, img)}; frame ms "
+          f"(CUDA events, two runs of {N_TIMED // 2} in turns, the median of each taken, "
+          f"the median of the two): default {ms['default']:.3f}, mq3 {ms['mq3']:.3f}, pad "
+          f"{ms['pad']:.3f} (the headline's own run: {frame_ms:.3f}; {smi_line()})")
+    if width != 208 or db < 40.0 or not torch.equal(img_pad, img):
+        raise RuntimeError("the mq3 frame is under 40 dB from the default one, or the padded "
+                           "frame differs from it")
+
+
+def roofline_path(dev) -> None:
+    """Phase roofline: the card's ceilings (utils/roofline.py
+    probe_ceilings: chained bf16 4096^2 matmuls, a chained elementwise map
+    over 256 MB, chained random-row gathers from a 256 MB table, a
+    one-element add), each by the dispatch-count slope of CUDA-event
+    times."""
+    from superconductor_tpu_torch.utils.roofline import probe_ceilings
+
+    t0 = time.perf_counter()
+    c = probe_ceilings(device=dev)
+    g = c["probes"]["gather"]
+    phase("roofline", f"({smi_line()}) matmul {c['matmul_tflops']:.1f} TFLOP/s (bf16), "
+          f"stream {c['stream_gbps']:.1f} GB/s, gather {c['gather_mrows_per_s']:.1f} Mrows/s "
+          f"({c['gather_gbps']:.1f} GB/s payload, 32 B rows), dispatch floor "
+          f"{c['dispatch_floor_ms'] * 1e3:.2f} us; slopes between n "
+          f"{ {k: [round(x, 4) for x in v['check_ms']] for k, v in c['probes'].items()} }; "
+          f"in {time.perf_counter() - t0:.2f} s")
+    if not all(v and v > 0 for v in (c["matmul_tflops"], c["stream_gbps"],
+                                     c["gather_mrows_per_s"], g["ms_per_dispatch"])):
+        raise RuntimeError(f"a ceiling probe measured no positive rate: {c}")
+
+
 def stereo_golden_inputs(device, raster="auto"):
     """(tables, state, config, env) of the 256x128 stereo-animated frame at
     t = 0 on `device`, with the capacities stored beside the reference's
@@ -1065,19 +1289,30 @@ def stereo_path(dev, shapes: dict) -> dict:
     phase("stereo", f"scene on card in {time.perf_counter() - t0:.2f} s; "
           f"{int(state0.draws_animated.tri_count.sum())} animated and "
           f"{int(state0.draws_static.tri_count.sum())} static triangles drawn")
-    fk, states = [], []
-    for i in range(N_TIMED):
-        t = 0.05 * (i + 1)
-        t0 = time.perf_counter()
-        instances, palettes = frame_inputs(t)
-        t1 = time.perf_counter()
-        build_frame_state(scene, instances, uniforms, joint_palettes=palettes, device=dev)
-        torch.cuda.synchronize()
-        fk.append((t1 - t0) * 1e3)
-        states.append((time.perf_counter() - t1) * 1e3)
-    print(f"[stereo] host ms per frame (median of {N_TIMED}): palette FK and instances "
-          f"{statistics.median(fk):.3f}, build_frame_state with upload "
-          f"{statistics.median(states):.3f}", flush=True)
+    # --- the host paths: native (the default) against numpy ---
+    fk_ms, palettes_by = {}, {}
+    for mode in ("native", "numpy"):
+        with host_mode(mode):
+            fk = []
+            for i in range(N_TIMED):
+                t0 = time.perf_counter()
+                frame_inputs(0.05 * (i + 1))
+                fk.append((time.perf_counter() - t0) * 1e3)
+            palettes_by[mode] = frame_inputs(0.5)[1]
+        fk_ms[mode] = statistics.median(fk)
+    keys = list(palettes_by["native"])
+    gap = max(max_ulp_gap(palettes_by["native"][k], palettes_by["numpy"][k]) for k in keys)
+    abs_gap = max(float(np.abs(palettes_by["native"][k] - palettes_by["numpy"][k]).max())
+                  for k in keys)
+    differ = sum(int((palettes_by["native"][k] != palettes_by["numpy"][k]).sum()) for k in keys)
+    total = sum(palettes_by["native"][k].size for k in keys)
+    phase("host", f"stereo: palette FK and instances host ms a frame (median of {N_TIMED}): "
+          f"native {fk_ms['native']:.3f}, numpy {fk_ms['numpy']:.3f}; native vs numpy "
+          f"palettes at t = 0.5: {differ} of {total} values differ, the largest gap {gap} "
+          f"ulp, {abs_gap:.3g} abs ({smi_line()})")
+    instances, palettes = frame_inputs(0.5)
+    host_draws("stereo", lambda: build_frame_state(scene, instances, uniforms,
+                                                   joint_palettes=palettes, device=dev))
 
     t0 = time.perf_counter()
     config = fit_caps(scene_dev, state0, config, env,
@@ -1428,11 +1663,10 @@ def _flat(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def app_frame_without_ecs(world, dev):
-    """The frame the app's render system last rendered, built without the
-    ECS: the camera's uniforms, culling and draw build of the app's one
-    instance, the scene's tables rebuilt whole (scene_to_torch), then
-    render_frame at the app's config and env. -> (image, the tables)."""
+def app_frame_state_fn(world, dev):
+    """A function building, without the ECS, the frame state the app's
+    render system builds: the camera's uniforms, culling and the draw build
+    of the app's instances."""
     from superconductor_tpu_torch.ecs.components import Instance, InstanceOf, ModelComponent
     from superconductor_tpu_torch.ecs.resources import (
         CameraResource,
@@ -1442,22 +1676,32 @@ def app_frame_without_ecs(world, dev):
     from superconductor_tpu_torch.render.camera import make_uniforms
     from superconductor_tpu_torch.render.culling import sphere_culling_params
     from superconductor_tpu_torch.render.draws import build_frame_state
-    from superconductor_tpu_torch.render.frame import render_frame
-    from superconductor_tpu_torch.scene.upload import scene_to_torch
 
     cam = world.resource(CameraResource)
-    settings = world.resource(RenderSettings)
-    config = settings.config
+    config = world.resource(RenderSettings).config
     scene = world.resource(SceneResource).scene
     instances = [(world.get(of.model_entity, ModelComponent).model, inst.similarity)
                  for _e, inst, of in world.query(Instance, InstanceOf)]
     uniforms = make_uniforms(cam.camera, config.width, config.height, cam.fov_y, cam.z_near,
                              reverse_z=config.reverse_z)
     cull = [sphere_culling_params(uniforms.view_proj[v]) for v in range(config.num_views)]
-    state = build_frame_state(scene, instances, uniforms, cull_params=cull,
-                              screen_height=config.height, device=dev)
-    tables = scene_to_torch(scene, dev)
-    return render_frame(tables, state, config, settings.env), tables
+    return lambda: build_frame_state(scene, instances, uniforms, cull_params=cull,
+                                     screen_height=config.height, device=dev)
+
+
+def app_frame_without_ecs(world, dev):
+    """The frame the app's render system last rendered, built without the
+    ECS (app_frame_state_fn), the scene's tables rebuilt whole
+    (scene_to_torch), then render_frame at the app's config and env. ->
+    (image, the tables)."""
+    from superconductor_tpu_torch.ecs.resources import RenderSettings, SceneResource
+    from superconductor_tpu_torch.render.frame import render_frame
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+
+    settings = world.resource(RenderSettings)
+    state = app_frame_state_fn(world, dev)()
+    tables = scene_to_torch(world.resource(SceneResource).scene, dev)
+    return render_frame(tables, state, settings.config, settings.env), tables
 
 
 def app_path(dev, shapes: dict, smi: str) -> dict:
@@ -1556,6 +1800,7 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
         raise RuntimeError("the app's frame differs from one of its twins")
     if float(img_0[0, :, :, :3].float().std()) < 1.0:
         raise RuntimeError("the app's frame is flat")
+    host_draws("app", app_frame_state_fn(w, dev))
     if len(passes["raster"]) != 1 or passes["kbuffer"]:
         raise RuntimeError(f"the app frame made {len(passes['raster'])} raster and "
                            f"{len(passes['kbuffer'])} k-buffer passes, expected 1 and 0")
@@ -1622,17 +1867,19 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
 
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
-                 lit_launches: dict, lit_by_pass: dict, app: dict, raster_res: dict,
-                 kbuffer_res: dict, shapes: dict) -> dict:
+                 lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
+                 deep_by_pass: dict, raster_res: dict, kbuffer_res: dict,
+                 shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the five frames' and the two sharded frames' timed runs and the
+    over the six frames' and the two sharded frames' timed runs and the
     app phase's server and demo runs, then each all-passes pass, each
     stereo eye, each sharded band pass and each lit pass at its own shape
     with the launches counted in that pass during the frame's timed run
     (one a frame), the frame server's opaque pass with its launches over
     the selftest's timed frames, and the demo's lines and particle passes
-    with their launches over the demo run."""
+    with their launches over the demo run, and the deep_k frame's particle
+    pass at K = 64 with its launches in that frame's timed run."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -1655,18 +1902,21 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
         entry("raster_sorted", "raster",
               headline_launches + cb_launches["raster_sorted"] + ap_raster
               + sum(stereo_by_eye.values()) + sh_launches["raster_sorted"]
-              + lit_launches["raster_sorted"] + sum(r["raster_sorted"] for r in app_runs),
+              + lit_launches["raster_sorted"] + sum(r["raster_sorted"] for r in app_runs)
+              + deep_launches["raster_sorted"],
               raster_res,
               max(raster_res["max_abs_err"],
                   *(shapes[n]["max_abs_err"]
                     for n in AP_RASTER + EYES + SH_STEREO + SH_RASTER + LIT_RASTER + APP_RASTER))),
         entry("kbuffer_sorted", "kbuffer",
               cb_launches["kbuffer_sorted"] + ap_kbuffer + sh_launches["kbuffer_sorted"]
-              + lit_launches["kbuffer_sorted"] + sum(r["kbuffer_sorted"] for r in app_runs),
+              + lit_launches["kbuffer_sorted"] + sum(r["kbuffer_sorted"] for r in app_runs)
+              + deep_launches["kbuffer_sorted"],
               kbuffer_res,
               max(kbuffer_res["max_abs_err"],
                   *(shapes[n]["max_abs_err"]
-                    for n in AP_KBUFFER + SH_KBUFFER + LIT_KBUFFER + DEMO_KBUFFER))),
+                    for n in AP_KBUFFER + SH_KBUFFER + LIT_KBUFFER + DEMO_KBUFFER),
+                  *(shapes[f"deep_k{k}"]["max_abs_err"] for k in DEEP_KS))),
         *[entry(f"raster_sorted[all_passes {n}]", "raster", ap_by_pass[n], shapes[n])
           for n in AP_RASTER],
         *[entry(f"kbuffer_sorted[all_passes {n}]", "kbuffer", ap_by_pass[n], shapes[n])
@@ -1691,6 +1941,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
               shapes["demo_lines"]),
         entry("kbuffer_sorted[demo particles]", "kbuffer", app["demo_by_pass"]["particles"],
               shapes["demo_particles"]),
+        entry("kbuffer_sorted[deep_k particles K=64]", "kbuffer", deep_by_pass["particles"],
+              shapes["deep_k64"]),
     ]}
 
 
@@ -1830,6 +2082,7 @@ def main() -> int:
           f"JAX reference's frame (tests/goldens) PSNR {db_ref:.2f} dB")
     if min(db_cpu, db_ref) < 40.0:
         raise RuntimeError("card frame disagrees with the CPU frame or the reference")
+    headline_variants(dev, scene_dev, state0, config, env, img, frame_ms)
 
     kb_results = {"max_abs_err": 0.0}
     cb_raster = {"max_abs_err": 0.0}
@@ -1839,11 +2092,13 @@ def main() -> int:
     shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES + SH_STEREO
               + SH_RASTER + SH_KBUFFER + LIT_RASTER + LIT_KBUFFER + APP_RASTER + DEMO_KBUFFER}
     ap_launches, ap_by_pass, ap_frame = all_passes_path(dev, shapes)
+    deep_launches, deep_by_pass = deep_k_path(dev, ap_frame[2], shapes)
     stereo_by_eye, stereo_frame = stereo_path(dev, shapes)
     sh_launches, sh_by_pass = sharded_path(shapes, stereo_frame, ap_frame)
     del ap_frame, stereo_frame
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
     app = app_path(dev, shapes, smi)
+    roofline_path(dev)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -1852,7 +2107,8 @@ def main() -> int:
 
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
-                                  lit_by_pass, app, results, kb_results, shapes)))
+                                  lit_by_pass, app, deep_launches, deep_by_pass, results,
+                                  kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

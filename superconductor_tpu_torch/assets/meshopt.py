@@ -1,9 +1,11 @@
 """EXT_meshopt_compression (vertex/index codecs + filters): the port's
-copy of ``superconductor_tpu/assets/meshopt.py``. It decodes through the
-scnative C++ decoder (``native/src/meshopt.cpp``) only: the port always
-has the library, or raises, so the reference's pure-Python decoders are
-not copied. The encoders are, byte for byte: they author fixtures and
-round-trip the decoder.
+copy of ``superconductor_tpu/assets/meshopt.py``. ``decode_buffer_view``
+(the glTF loader's path) decodes through the scnative C++ decoder
+(``native/src/meshopt.cpp``): the port always has the library, or raises.
+The reference's pure-Python decoders (``decode_vertex_buffer``,
+``decode_index_buffer``, ``decode_index_sequence``) and its encoders are
+copied byte for byte: the encoders author fixtures, and both round-trip
+the native decoder.
 
 Codec notes (meshopt format):
   * vertex codec v0: byte-plane delta encoding in blocks of up to 256
@@ -26,6 +28,7 @@ from ..native import load_native
 
 VERTEX_HEADER = 0xA0
 INDEX_HEADER = 0xE0
+SEQUENCE_HEADER = 0xD0
 BYTE_GROUP_SIZE = 16
 BLOCK_SIZE_BYTES = 8192
 BLOCK_MAX_VERTICES = 256
@@ -39,6 +42,245 @@ def _block_size(stride: int) -> int:
 def _zigzag8(v):
     v = v & 0xFF
     return ((v << 1) ^ (0xFF if v & 0x80 else 0)) & 0xFF
+
+
+# ---------------------------------------------------------------------------
+# Pure-Python decoders (the reference's, byte for byte): a reference for the
+# native decoder and a decode of a single buffer without the library
+# ---------------------------------------------------------------------------
+
+
+def _unzigzag8(v):
+    return ((v >> 1) ^ (-(v & 1))) & 0xFF
+
+
+def _decode_bytes_group(data: bytes, pos: int, sel: int):
+    out = np.zeros(16, np.uint8)
+    if sel == 0:
+        return out, pos
+    if sel == 1:  # 2-bit packed, sentinel 3 -> full byte
+        packed = data[pos : pos + 4]
+        pos += 4
+        for j in range(16):
+            v = (packed[j // 4] >> (6 - 2 * (j % 4))) & 3
+            if v == 3:
+                v = data[pos]
+                pos += 1
+            out[j] = v
+        return out, pos
+    if sel == 2:  # 4-bit packed, sentinel 15 -> full byte
+        packed = data[pos : pos + 8]
+        pos += 8
+        for j in range(16):
+            v = (packed[j // 2] >> (4 - 4 * (j % 2))) & 15
+            if v == 15:
+                v = data[pos]
+                pos += 1
+            out[j] = v
+        return out, pos
+    out[:] = np.frombuffer(data[pos : pos + 16], np.uint8)
+    return out, pos + 16
+
+
+def _decode_bytes(data: bytes, pos: int, size: int):
+    assert size % BYTE_GROUP_SIZE == 0
+    ngroups = size // BYTE_GROUP_SIZE
+    header_size = (ngroups + 3) // 4
+    header = data[pos : pos + header_size]
+    pos += header_size
+    out = np.zeros(size, np.uint8)
+    for g in range(ngroups):
+        sel = (header[g // 4] >> ((g % 4) * 2)) & 3
+        group, pos = _decode_bytes_group(data, pos, sel)
+        out[g * 16 : g * 16 + 16] = group
+    return out, pos
+
+
+def decode_vertex_buffer(data: bytes, count: int, stride: int) -> np.ndarray:
+    """-> (count, stride) uint8."""
+    if not data or (data[0] & 0xF0) != VERTEX_HEADER:
+        raise ValueError("bad vertex codec header")
+    version = data[0] & 0x0F
+    if version != 0:
+        raise ValueError(f"unsupported vertex codec version {version}")
+    last = np.frombuffer(data[len(data) - stride :], np.uint8).astype(np.int32).copy()
+    out = np.zeros((count, stride), np.uint8)
+    pos = 1
+    block = _block_size(stride)
+    offset = 0
+    while offset < count:
+        n = min(count - offset, block)
+        rounded = (n + 15) & ~15
+        for k in range(stride):
+            deltas, pos = _decode_bytes(data, pos, rounded)
+            vals = np.zeros(n, np.int32)
+            p = int(last[k])
+            for i in range(n):
+                p = (p + _unzigzag8(int(deltas[i]))) & 0xFF
+                vals[i] = p
+            out[offset : offset + n, k] = vals
+            last[k] = vals[-1]
+        offset += n
+    return out
+
+
+def _decode_vbyte(data: bytes, pos: int):
+    result = 0
+    shift = 0
+    while True:
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        shift += 7
+        if b < 0x80:
+            break
+    return result, pos
+
+
+def decode_index_buffer(data: bytes, index_count: int) -> np.ndarray:
+    """-> (index_count,) uint32 (triangle list)."""
+    if not data or (data[0] & 0xF0) != INDEX_HEADER:
+        raise ValueError("bad index codec header")
+    version = data[0] & 0x0F
+    if version > 1:
+        raise ValueError(f"unsupported index codec version {version}")
+    fecmax = 13 if version >= 1 else 15
+
+    ntri = index_count // 3
+    code = data[1 : 1 + ntri]
+    pos = 1 + ntri  # aux data stream
+    codeaux = data[len(data) - 16 :]
+
+    out = np.zeros(index_count, np.uint32)
+    edgefifo = [(0, 0)] * 16
+    vertexfifo = [0] * 16
+    eoff = 0
+    voff = 0
+    next_v = 0
+    last = 0
+
+    def push_edge(a, b):
+        nonlocal eoff
+        edgefifo[eoff & 15] = (a, b)
+        eoff += 1
+
+    def push_vertex(v, cond=True):
+        nonlocal voff
+        if cond:
+            vertexfifo[voff & 15] = v
+            voff += 1
+
+    def decode_index(p, last):
+        v, p = _decode_vbyte(data, p)
+        d = (v >> 1) ^ (-(v & 1))
+        return last + d, p
+
+    for t in range(ntri):
+        codetri = code[t]
+        if codetri < 0xF0:
+            fe = codetri >> 4
+            a, b = edgefifo[(eoff - 1 - fe) & 15]
+            fec = codetri & 15
+            if fec < fecmax:
+                if fec == 0:
+                    c = next_v
+                    next_v += 1
+                else:
+                    c = vertexfifo[(voff - 1 - fec) & 15]
+                push_vertex(c, fec == 0)
+            else:
+                # v1: 13 = last, 14/15 = explicit delta-coded index
+                if fec == 13:
+                    c = last
+                else:
+                    c, pos = decode_index(pos, last)
+                    last = c
+                push_vertex(c)
+            push_edge(c, b)
+            push_edge(a, c)
+        else:
+            if codetri < 0xFE:
+                cod = codeaux[codetri & 15]
+                feb = cod >> 4
+                fec = cod & 15
+                # a is always a new vertex
+                a = next_v
+                next_v += 1
+                if feb == 0:
+                    b = next_v
+                    next_v += 1
+                else:
+                    b = vertexfifo[(voff - feb) & 15]
+                if fec == 0:
+                    c = next_v
+                    next_v += 1
+                else:
+                    c = vertexfifo[(voff - fec) & 15]
+                push_vertex(a)
+                push_vertex(b, feb == 0)
+                push_vertex(c, fec == 0)
+            else:
+                # 0xfe / 0xff: explicit codeaux byte from the data stream
+                codeaux_b = data[pos]
+                pos += 1
+                fea = 0 if codetri == 0xFE else 15
+                feb = codeaux_b >> 4
+                fec = codeaux_b & 15
+                if fea == 0:
+                    a = next_v
+                    next_v += 1
+                else:
+                    a, pos = decode_index(pos, last)
+                    last = a
+                if feb == 0:
+                    b = next_v
+                    next_v += 1
+                elif feb < 15:
+                    b = vertexfifo[(voff - feb) & 15]
+                else:
+                    b, pos = decode_index(pos, last)
+                    last = b
+                if fec == 0:
+                    c = next_v
+                    next_v += 1
+                elif fec < 15:
+                    c = vertexfifo[(voff - fec) & 15]
+                else:
+                    c, pos = decode_index(pos, last)
+                    last = c
+                push_vertex(a)
+                push_vertex(b, feb == 0)
+                push_vertex(c, fec == 0)
+            push_edge(b, a)
+            push_edge(c, b)
+            push_edge(a, c)
+        out[t * 3 + 0] = a
+        out[t * 3 + 1] = b
+        out[t * 3 + 2] = c
+    return out
+
+
+def decode_index_sequence(data: bytes, index_count: int) -> np.ndarray:
+    """Index SEQUENCE codec (meshopt mode 2, arbitrary topology): per
+    index one vbyte v — bit 0 selects one of two running baselines, the
+    rest is a zigzag delta applied to (and stored back into) it."""
+    if not data or (data[0] & 0xF0) != SEQUENCE_HEADER:
+        raise ValueError("bad index sequence header")
+    version = data[0] & 0x0F
+    if version > 1:
+        raise ValueError(f"unsupported index sequence version {version}")
+    pos = 1
+    last = [0, 0]
+    out = np.zeros(index_count, np.uint32)
+    for i in range(index_count):
+        v, pos = _decode_vbyte(data, pos)
+        current = v & 1
+        v >>= 1
+        d = (v >> 1) ^ (-(v & 1))
+        last[current] = (last[current] + d) & 0xFFFFFFFF
+        out[i] = last[current]
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +344,6 @@ def _encode_vbyte(v: int) -> bytes:
             return bytes(out)
         out.append((v & 0x7F) | 0x80)
         v >>= 7
-
-
-SEQUENCE_HEADER = 0xD0
 
 
 def encode_index_sequence(indices: np.ndarray) -> bytes:

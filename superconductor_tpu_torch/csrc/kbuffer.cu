@@ -79,6 +79,17 @@
 // bound, and each step in S adds launch time (the wrapper's S = 2 weighs
 // the two).
 //
+// Other K. A K up to 16 that is not a template runs the next template up
+// (the wrapper, ops/raster.py kbuffer_sorted, keeps its first K planes: the
+// insert's total order makes the top K a prefix of the top K'). A K above 16
+// runs kbuffer_deep_kernel: its slots no longer fit registers or a block's
+// shared memory (smem_bytes<32> at kPix = 2 passes the 227 KB a block may
+// take), so each pixel keeps its list in the output planes in device
+// memory, one thread a pixel, walking its tile's rows in order through the
+// same TMA ring. Bytes: every accepted fragment reads up to K slots and
+// shifts the ones behind it, through L1 and L2. A simple kernel that is
+// right; it has no cluster split or 8x8 rejection.
+//
 // Bit-exactness with the reference: __fmul_rn / __fadd_rn in its order and
 // an IEEE divide (__fdiv_rn); build with -fmad=false, never fast-math.
 
@@ -425,9 +436,107 @@ cudaError_t dispatch(bool reverse_z, const void* setup, int num_rows,
                                  pair_out, layers_out, s);
 }
 
+// K > 16: 512 threads own 4 rows x 128 columns of a tile, one pixel each.
+// A pixel's occupied slots are its first min(layers, K) slots of the depth
+// and pair planes (depth_out is never null here: the wrapper gives scratch
+// planes when the caller wants none), sorted nearest first, so the slots
+// strictly nearer than a new fragment are a prefix and its rank is their
+// count -- the same insert as the template kernel's, slot by slot.
+template <bool kReverseZ>
+__global__ void __launch_bounds__(kThreads)
+kbuffer_deep_kernel(const float4* __restrict__ setup, int num_rows,
+                    const int* __restrict__ tile_start,
+                    const int* __restrict__ tile_count, int ntx, int height,
+                    int width, int y_offset, int k,
+                    const float* __restrict__ floor_depth,
+                    float* __restrict__ depth_out, int* __restrict__ pair_out,
+                    int* __restrict__ layers_out) {
+  constexpr int kBandH = kThreads / kTileW;  // 4 rows
+  constexpr int kBands = kTileH / kBandH;
+  __shared__ __align__(128) float4 ring[2][kChunk * 4];
+  __shared__ __align__(8) uint64_t bar[2];
+
+  const int tx = blockIdx.x;
+  const int ty = blockIdx.y / kBands;
+  const int t = ty * ntx + tx;
+  const int x = tx * kTileW + static_cast<int>(threadIdx.x) % kTileW;
+  const int y = ty * kTileH + (blockIdx.y % kBands) * kBandH +
+                static_cast<int>(threadIdx.x) / kTileW;
+  const bool live = x < width && y < height;
+  int pb, pe;
+  tile_part(tile_start, tile_count, t, num_rows, 1, 1, 0, &pb, &pe);
+
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y + y_offset) + 0.5f;
+  const float far_depth = kReverseZ ? 0.0f : 1.0f;
+  const long long plane = static_cast<long long>(height) * width;
+  const long long at = static_cast<long long>(y) * width + x;
+  float floor_z = far_depth;
+  if (floor_depth != nullptr && live && pe > pb) floor_z = floor_depth[at];
+  float* depth = depth_out + at;
+  int* pos = pair_out + at;
+  int layers = 0;
+
+  ring_walk(setup, pb, pe, ring, bar, [&](const float4* rows, int r0, int cnt) {
+    if (!live) return;
+    for (int r = 0; r < cnt; ++r) {
+      const float4 q0 = rows[r * 4 + 0];
+      const float4 q1 = rows[r * 4 + 1];
+      const float4 q2 = rows[r * 4 + 2];
+      const float e0 = edge(q0.x, q0.y, q0.z, px, py);
+      const float e1 = edge(q0.w, q1.x, q1.y, px, py);
+      const float e2 = edge(q1.z, q1.w, q2.x, px, py);
+      if (!(e0 > fill_threshold(q0.x, q0.y) && e1 > fill_threshold(q0.w, q1.x) &&
+            e2 > fill_threshold(q1.z, q1.w))) {
+        continue;
+      }
+      const float4 q3 = rows[r * 4 + 3];
+      const float wsum = dot3(e0, e1, e2, q3.x, q3.y, q3.z);
+      if (!(wsum > 0.0f)) continue;
+      const float zsum = dot3(e0, e1, e2, q2.y, q2.z, q2.w);
+      const float z = __fdiv_rn(zsum, wsum);
+      if (!(z >= 0.0f && z <= 1.0f && nearer<kReverseZ>(z, floor_z))) continue;
+      const int held = layers < k ? layers : k;
+      int rank = 0;
+      while (rank < held && nearer<kReverseZ>(depth[rank * plane], z)) ++rank;
+      layers += 1;
+      if (rank == k) continue;
+      for (int i = (held < k ? held : k - 1); i > rank; --i) {
+        depth[i * plane] = depth[(i - 1) * plane];
+        pos[i * plane] = pos[(i - 1) * plane];
+      }
+      depth[rank * plane] = z;
+      pos[rank * plane] = r0 + r;
+    }
+  });
+
+  if (!live) return;
+  layers_out[at] = layers;
+  for (int i = layers < k ? layers : k; i < k; ++i) {
+    depth[i * plane] = far_depth;
+    pos[i * plane] = -1;
+  }
+}
+
+template <bool kReverseZ>
+cudaError_t launch_deep(const void* setup, int num_rows, const void* tile_start,
+                        const void* tile_count, int ntx, int nty, int height,
+                        int width, int y_offset, int k, const void* floor_depth,
+                        void* depth_out, void* pair_out, void* layers_out,
+                        cudaStream_t stream) {
+  constexpr int kBands = kTileH / (kThreads / kTileW);
+  kbuffer_deep_kernel<kReverseZ><<<dim3(ntx, nty * kBands, 1), kThreads, 0, stream>>>(
+      static_cast<const float4*>(setup), num_rows,
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
+      ntx, height, width, y_offset, k, static_cast<const float*>(floor_depth),
+      static_cast<float*>(depth_out), static_cast<int*>(pair_out),
+      static_cast<int*>(layers_out));
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Bytes of dynamic shared memory a block of the K-slot kernel takes, or -1
+// Bytes of dynamic shared memory a block of the K-slot template takes, or -1
 // for another k.
 extern "C" int sc_kbuffer_smem_bytes(int k) {
   switch (k) {
@@ -440,15 +549,18 @@ extern "C" int sc_kbuffer_smem_bytes(int k) {
   }
 }
 
-// Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128
-// and k must be 1, 2, 4, 8 or 16; `cluster` (1..8) blocks share a band, and a
-// tile is split only into parts of more than `min_part_rows` (>= 1) rows.
-// The caller checks shapes, dtypes, devices and 16-byte alignment of
-// `setup`. floor_depth (H, W) may be null (every floor at far); depth_out
-// (K, H, W) may be null (no depth planes). Launches on `stream`, allocates
-// nothing, does not synchronise. Returns the launch's cudaError_t code (0 =
-// launched), or cudaErrorInvalidValue for another k, cluster or
-// min_part_rows.
+// Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128.
+// k is 1, 2, 4, 8 or 16 (the templates; a caller wanting another K up to 16
+// passes the next of them and keeps the first K planes) or above 16 (the
+// deep kernel, which needs depth_out and ignores cluster and
+// min_part_rows); `cluster` (1..8) blocks share a band, and a tile is split
+// only into parts of more than `min_part_rows` (>= 1) rows. The caller
+// checks shapes, dtypes, devices and 16-byte alignment of `setup`.
+// floor_depth (H, W) may be null (every floor at far); depth_out (K, H, W)
+// may be null (no depth planes) for k <= 16. Launches on `stream`,
+// allocates nothing, does not synchronise. Returns the launch's cudaError_t
+// code (0 = launched), or cudaErrorInvalidValue for another k, cluster or
+// min_part_rows, or a null depth_out above 16.
 extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
                                  const void* tile_start,
                                  const void* tile_count, int ntx, int nty,
@@ -490,7 +602,16 @@ extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
                          floor_depth, depth_out, pair_out, layers_out, s);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (k <= 16 || depth_out == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      err = rz ? launch_deep<true>(setup, num_rows, tile_start, tile_count, ntx,
+                                   nty, height, width, y_offset, k, floor_depth,
+                                   depth_out, pair_out, layers_out, s)
+               : launch_deep<false>(setup, num_rows, tile_start, tile_count,
+                                    ntx, nty, height, width, y_offset, k,
+                                    floor_depth, depth_out, pair_out,
+                                    layers_out, s);
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);

@@ -25,9 +25,6 @@ differs is where the tables live and how stats reach the host:
   * the steady-state stats check reads the previous frame's stats from
     an asynchronous copy to pinned host memory (``_HostStats``), waiting
     on that frame's CUDA event only;
-  * a k-buffer depth grown past the kernel's largest template
-    (``ops/raster.py`` KBUFFER_KS) raises, naming the pass and the K,
-    on the binned raster path, rather than fall back to the plain version;
   * with a ``utils.profiler.FrameProfiler`` resource in the world,
     ``render`` times its host phases under its scopes.
 
@@ -343,24 +340,6 @@ class _HostStats:
         return out
 
 
-def _check_kbuffer_ks(grow: dict, config) -> None:
-    """The k-buffer kernel has templates up to KBUFFER_KS[-1] layers: a
-    pass grown past that raises on the binned path (the kernel's), rather
-    than render with the plain version."""
-    from ..ops.raster import KBUFFER_KS
-
-    if config.resolve_raster() != "pallas":
-        return
-    for key, pass_name in (("blend_layers", "blend"), ("clip_layers", "clip"),
-                           ("particle_layers", "particle")):
-        k = grow.get(key)
-        if k is not None and k > KBUFFER_KS[-1]:
-            raise ValueError(
-                f"the {pass_name} pass needs a k-buffer of K={k}; the k-buffer "
-                f"kernel's templates stop at K={KBUFFER_KS[-1]}"
-            )
-
-
 def device_arrays(world: World) -> dict:
     """The scene's tables on RenderSettings.device (the reference's
     scene.device_arrays()), kept resident by the SceneResource's
@@ -674,7 +653,6 @@ def render(world: World) -> None:
     if grow:
         from dataclasses import replace
 
-        _check_kbuffer_ks(grow, config)
         log.warning(
             "frame capacity exceeded (bin pairs %d/%d, k-layers %d/%d, "
             "shade px %d/%d); growing %s and re-rendering",

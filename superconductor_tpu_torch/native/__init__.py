@@ -1,8 +1,9 @@
 """Native host-side codecs: the port's copy of ``superconductor_tpu/native``.
 
 ``libscnative.so`` is built from the C++ sources in ``src/`` (BPTC BC6H/BC7,
-ASTC LDR/HDR, ETC1S block decode, meshopt vertex/index decode) with g++ at
-first use, into the repository's ``build/`` directory. The build writes a
+ASTC LDR/HDR, ETC1S block decode, meshopt vertex/index decode, and the
+frame-state code framestate.cpp: draws, joint FK, channel sampling) with
+g++ at first use, into the repository's ``build/`` directory. The build writes a
 temporary file and renames it into place, so processes that build at once
 (parallel test workers) never load a half-written library.
 

@@ -66,7 +66,10 @@ RASTER_CLUSTER = 4
 RASTER_MIN_PART_ROWS = 32
 KBUFFER_CLUSTER = 2
 KBUFFER_MIN_PART_ROWS = 32
-KBUFFER_KS = (1, 2, 4, 8, 16)  # the k-buffer kernel's template depths
+# The k-buffer kernel's template depths. Another K up to 16 runs the next
+# of them and keeps its first K planes; a K above 16 runs the kernel's deep
+# path (csrc/kbuffer.cu kbuffer_deep_kernel).
+KBUFFER_KS = (1, 2, 4, 8, 16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -151,7 +154,7 @@ def _kernel_fn(name: str):
 
 def kbuffer_smem_bytes(k: int) -> int:
     """Dynamic shared memory (bytes) a block of the K-slot k-buffer kernel
-    takes, from the built library (-1 for a k it does not take)."""
+    takes, from the built library (-1 for a k it has no template for)."""
     fn = _library("kbuffer").sc_kbuffer_smem_bytes
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
     return int(fn(int(k)))
@@ -283,9 +286,12 @@ def kbuffer_sorted(
     """K-layer raster of tile-sorted setup rows in front of depth_floor
     (H, W) (None = far) -> (KBuffer with SORTED positions in .pair and
     .depth None unless want_depth, layers (H, W) i32). CUDA tensors launch
-    the kernel, CPU tensors run kbuffer_sorted_plain. The kernel splits
-    heavy tiles by the module's KBUFFER_CLUSTER and KBUFFER_MIN_PART_ROWS;
-    the result does not depend on them."""
+    the kernel, CPU tensors run kbuffer_sorted_plain. Any k >= 1: a k up to
+    16 that is not in KBUFFER_KS runs the next template and returns its
+    first k planes (views of the template's, contiguous); a k above 16 runs
+    the deep path, with scratch depth planes when not want_depth. The
+    templates split heavy tiles by the module's KBUFFER_CLUSTER and
+    KBUFFER_MIN_PART_ROWS; the result does not depend on them."""
     from .raster_kbuffer import KBuffer, kbuffer_sorted_plain
 
     dev = sorted_setup.device
@@ -299,8 +305,8 @@ def kbuffer_sorted(
         raise ValueError(f"kbuffer_sorted: unsupported device {dev}")
     if (tile_h, tile_w) != KERNEL_TILE:
         raise ValueError(f"the k-buffer kernel takes {KERNEL_TILE} tiles, got {(tile_h, tile_w)}")
-    if k not in KBUFFER_KS:
-        raise ValueError(f"the k-buffer kernel takes k in {KBUFFER_KS}, got {k}")
+    if k < 1:
+        raise ValueError(f"the k-buffer kernel takes k >= 1, got {k}")
     if height <= 0 or width <= 0:
         raise ValueError("empty raster target")
     ntx, nty = _tile_grid(height, width, tile_h, tile_w)
@@ -315,16 +321,18 @@ def kbuffer_sorted(
         _check(depth_floor, "depth_floor", torch.float32, (height, width), dev)
         floor_ptr = depth_floor.data_ptr()
     launch = _kernel_fn("kbuffer")
+    k = int(k)
+    planes = k if k > KBUFFER_KS[-1] else next(t for t in KBUFFER_KS if t >= k)
     depth = None
-    if want_depth:
-        depth = torch.empty((k, height, width), dtype=torch.float32, device=dev)
-    pair = torch.empty((k, height, width), dtype=torch.int32, device=dev)
+    if want_depth or k > KBUFFER_KS[-1]:
+        depth = torch.empty((planes, height, width), dtype=torch.float32, device=dev)
+    pair = torch.empty((planes, height, width), dtype=torch.int32, device=dev)
     layers = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             sorted_setup.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
-            ntx, nty, height, width, int(y_offset), int(k), int(bool(reverse_z)),
+            ntx, nty, height, width, int(y_offset), planes, int(bool(reverse_z)),
             KBUFFER_CLUSTER, KBUFFER_MIN_PART_ROWS, floor_ptr,
             None if depth is None else depth.data_ptr(), pair.data_ptr(), layers.data_ptr(),
             stream,
@@ -332,7 +340,8 @@ def kbuffer_sorted(
     if err != 0:
         raise RuntimeError(f"k-buffer kernel launch failed: cudaError_t {err}")
     kbuffer_sorted.LAUNCHES += 1
-    return KBuffer(depth=depth, pair=pair), layers
+    depth = depth[:k] if want_depth else None
+    return KBuffer(depth=depth, pair=pair[:k]), layers
 
 
 kbuffer_sorted.LAUNCHES = 0

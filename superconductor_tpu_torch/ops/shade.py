@@ -64,16 +64,21 @@ def interpolate_gbuffer(
     tri: TriangleSetup,
     attrs: TriangleAttrs,
     shade_row: Optional[torch.Tensor] = None,
+    row_cols: Optional[int] = None,
 ) -> GBuffer:
     """Gather the winner's setup (+ packed attribute, + material) row and
     interpolate perspective-correctly; barycentrics are recomputed from the
-    edge functions, derivatives differentiate N(p)/D(p) analytically."""
+    edge functions, derivatives differentiate N(p)/D(p) analytically.
+    `row_cols`: the real columns of a padded shade_row (shade_row_pad),
+    sliced off after the gather."""
     valid = pair >= 0
     p = torch.clamp_min(pair, 0)
     av32 = None
     mat_tail = None
     if shade_row is not None:
         row = shade_row[p]
+        if row_cols is not None:
+            row = row[:, :row_cols]
         setup = row[:, 0:16]
         av32 = row[:, 16:48]
         if row.shape[-1] > 48:

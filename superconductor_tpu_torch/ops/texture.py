@@ -7,11 +7,10 @@ decode, isotropic LOD, the classic per-slot samplers
 descriptor paths, ``sample_anisotropic``), the cubemap sampler (static
 placement and through the descriptor tables), and the interleaved
 material sampler (``sample_material_interleaved``: all four material
-textures of a pixel from one 64-channel row per trilinear level), the
-smoke pool sampler (``sample_smoke_interleaved``) and the light-volume /
+textures of a pixel from one 64-channel row per trilinear level, or from
+one wide 208-channel mq3 row for both levels), the smoke pool sampler (``sample_smoke_interleaved``) and the light-volume /
 lightmap samplers: layered (``sample_3d_from_layers``) and on the
 SH-interleaved pools (``sample_lightvol_sh``, ``sample_lightmap_sh``).
-Not ported: the wide mq3 rows.
 """
 
 from __future__ import annotations
@@ -355,6 +354,66 @@ def _matq_bilinear(texels_mq, owh, wrap_mode, uv):
     return out.reshape(*q.shape[:-1], 16)
 
 
+def _mq3_levels(texels_mq3, a_owh, b_owh, self_pair, wrap_mode, uv):
+    """Both trilinear levels of all four material slots from ONE gather of
+    the wide (N, 208) pool (scene/upload.py matq_tables mq3 rows: level-L
+    quad, then level-(L+1) 3x3, self-paired at the chain end) -> raw
+    (a16, b16) (P, 16) f32, the values _matq_bilinear gives at a_owh and
+    b_owh: the level-b 2x2 is picked from the baked 3x3 by the floor(x/2)
+    grid correspondence (clean halving chains: matq_plan mq3_ok)."""
+    off, w, h = a_owh[..., 0], a_owh[..., 1], a_owh[..., 2]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    fx = (x - torch.floor(x))[..., None, None]
+    fy = (y - torch.floor(y))[..., None, None]
+    xi = _wrap(x0, w, wrap_mode)
+    yi = _wrap(y0, h, wrap_mode)
+    clamped = wrap_mode == WRAP_CLAMP
+    fx = torch.where((clamped & (x0 < 0))[..., None, None], 0.0, fx)
+    fy = torch.where((clamped & (y0 < 0))[..., None, None], 0.0, fy)
+    row = texels_mq3[off + yi * w + xi].to(torch.float32)  # (P, 208)
+    lead = row.shape[:-1]
+    qr = row[..., :64].reshape(*lead, 4, 4, 4)
+    a16 = _lerp4(qr[..., 0, :], qr[..., 1, :], qr[..., 2, :], qr[..., 3, :], fx, fy)
+
+    wb, hb = b_owh[..., 1], b_owh[..., 2]
+    xb = uv[..., 0] * wb - 0.5
+    yb = uv[..., 1] * hb - 0.5
+    x1 = torch.floor(xb).to(torch.int32)
+    y1 = torch.floor(yb).to(torch.int32)
+    fx1 = (xb - torch.floor(xb))[..., None, None]
+    fy1 = (yb - torch.floor(yb))[..., None, None]
+    fx1 = torch.where((clamped & (x1 < 0))[..., None, None], 0.0, fx1)
+    fy1 = torch.where((clamped & (y1 < 0))[..., None, None], 0.0, fy1)
+
+    def window_pos(v1, v0, vi, vb_dim):
+        # the level-b tap's place in the baked 3-window, for REPEAT
+        # (unwrapped-consistent) and CLAMP (edge-duplicated); p0 in {0, 1},
+        # p1 in {1, 2} by construction
+        c_rep = torch.where(self_pair, v0, v0 >> 1)
+        p0_rep = v1 - (c_rep - 1)
+        c_cl = torch.where(self_pair, vi, vi >> 1)
+        p0_cl = torch.minimum(torch.clamp_min(v1, 0), vb_dim - 1) - (c_cl - 1)
+        p1_cl = torch.minimum(torch.clamp_min(v1 + 1, 0), vb_dim - 1) - (c_cl - 1)
+        p0 = torch.clamp(torch.where(clamped, p0_cl, p0_rep), 0, 2)
+        p1 = torch.clamp(torch.where(clamped, p1_cl, p0_rep + 1), 0, 2)
+        return p0, p1
+
+    px0, px1 = window_pos(x1, x0, xi, wb)
+    py0, py1 = window_pos(y1, y0, yi, hb)
+    t3 = row[..., 64:].reshape(-1, 4, 9, 4)  # (P, slot, yy * 3 + xx, ch)
+    lanes = torch.arange(t3.shape[0], device=row.device)
+
+    def at(py, px):  # -> (..., slot, ch)
+        cell = (py * 3 + px).reshape(-1).long()
+        return t3[lanes, :, cell].reshape(*lead, 4, 4)
+
+    b16 = _lerp4(at(py0, px0), at(py0, px1), at(py1, px0), at(py1, px1), fx1, fy1)
+    return a16.reshape(*lead, 16), b16.reshape(*lead, 16)
+
+
 def _matq_srgb(out16, mask):
     """Per-slot sRGB decode by mask bit (bit s = slot s), alpha linear."""
     o = out16.reshape(*out16.shape[:-1], 4, 4)
@@ -371,9 +430,9 @@ def sample_material_interleaved(
     """All four material textures of each pixel, two row gathers (one per
     trilinear level). meta (P, 4) i32 [wrap, srgb_mask, count, pad]; owh
     (P, L, 4) i32 per level (offset, w, h, tail_offset). Returns (P, 16)
-    f32 [albedo | normal | mr | emissive] RGBA."""
-    if texels_mq.shape[-1] == 208:
-        raise NotImplementedError("wide mq3 rows are not ported")
+    f32 [albedo | normal | mr | emissive] RGBA. Wide (N, 208) mq3 rows give
+    both levels from one gather (_mq3_levels)."""
+    wide = texels_mq.shape[-1] == 208
     wrap_mode, mask, count = meta[..., 0], meta[..., 1], meta[..., 2]
     w = owh[..., 0, 1].to(torch.float32)
     h = owh[..., 0, 2].to(torch.float32)
@@ -387,11 +446,14 @@ def sample_material_interleaved(
         f = torch.where((l0 < 0)[..., None], 0.0, f)
         a_owh = _select_level(owh, lvl)
         b_owh = _select_level(owh, torch.minimum(torch.clamp_min(l0 + 1, 0), count - 1))
-        a = _matq_bilinear(texels_mq, a_owh, wrap_mode, uv_t)
-        if texels_tail is not None and owh.shape[-1] >= 4:
+        if wide:
+            a, b = _mq3_levels(texels_mq, a_owh, b_owh, l0 >= count - 1, wrap_mode, uv_t)
+        elif texels_tail is not None and owh.shape[-1] >= 4:
+            a = _matq_bilinear(texels_mq, a_owh, wrap_mode, uv_t)
             b_towh = torch.cat([b_owh[..., 3:4], b_owh[..., 1:3]], dim=-1)
             b = _matq_bilinear(texels_tail, b_towh, wrap_mode, uv_t)
         else:
+            a = _matq_bilinear(texels_mq, a_owh, wrap_mode, uv_t)
             b = _matq_bilinear(texels_mq, b_owh, wrap_mode, uv_t)
         a = a * (1.0 / 255.0)
         b = b * (1.0 / 255.0)

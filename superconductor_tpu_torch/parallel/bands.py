@@ -30,7 +30,7 @@ import torch
 
 from ..ops.tonemap import to_u8
 from ..render.env import EnvBindings
-from ..render.frame import FrameState, RenderConfig, _check_slice, render_view
+from ..render.frame import FrameState, RenderConfig, render_view
 
 
 class RenderMesh(NamedTuple):
@@ -107,7 +107,7 @@ def render_frame_sharded(scene: dict, state: FrameState, config: RenderConfig,
         raise ValueError(f"config.num_views {config.num_views} != the mesh's {n_views} views")
     if config.height % n_bands:
         raise ValueError(f"height {config.height} is not a multiple of {n_bands} bands")
-    _check_slice(config)
+    config.resolve_raster()  # raises on an unknown method
     band_h = config.height // n_bands
     out = mesh[0, 0]
     replicas = {}

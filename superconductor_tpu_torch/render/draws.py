@@ -1,14 +1,17 @@
 """Host-side per-frame draw-list building -> a torch FrameState.
 
 Port of ``superconductor_tpu/render/draws.py`` ``build_frame_state`` (:311)
-and its helpers, on the reference's numpy path (the optional native
-``framestate.cpp`` path gives the same draws). Culling is the port's copy
-of the reference's host module (``render/culling.py``); only the final
-arrays become torch tensors on ``device``.
+and its helpers. As in the reference, the candidate walk runs in C++
+(``native/framestate.py``, ``sc_build_draws``) unless ``sat`` is given or
+``SC_TPU_NO_NATIVE_DRAWS`` is set; the numpy walk gives the same draws.
+Culling is the port's copy of the reference's host module
+(``render/culling.py``); only the final arrays become torch tensors on
+``device``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +23,17 @@ from ..scene.scene import Model, Scene
 from . import culling
 from .camera import Uniforms
 from .frame import FrameState
+
+
+def _framestate_native() -> bool:
+    """Whether to take the C++ draw build: SC_TPU_NO_NATIVE_DRAWS=1 forces
+    the numpy path. A library that cannot be built raises (the reference
+    falls back to numpy instead)."""
+    if os.environ.get("SC_TPU_NO_NATIVE_DRAWS"):
+        return False
+    from ..native.framestate import available
+
+    return available()
 
 
 def _next_pow2(n: int) -> int:
@@ -134,9 +148,19 @@ _FLAT_KEYS = ("prim8", "radius", "material", "animated", "n_lods",
               "bbox_min", "bbox_max")
 
 
+_BIG_TABLE_CACHE: dict = {}
+
+
 def _big_tables(mas: list) -> dict:
     """Concatenated per-model SoA tables for a frame's unique model list
-    (LOD tables padded to the frame's deepest chain)."""
+    (LOD tables padded to the frame's deepest chain), with the u8 views and
+    flag the native draw build reads. Cached, as in the reference, on the
+    identity of the per-model cache dicts (Model.invalidate_frame_cache()
+    drops a model's dict and so changes the key); bounded at 64 entries."""
+    key = tuple(id(ma) for ma in mas)
+    hit = _BIG_TABLE_CACHE.get(key)
+    if hit is not None:
+        return hit[1]  # hit[0] pins the ma dicts so their ids stay unique
     lmax = max(ma["lod_cov"].shape[1] for ma in mas)
     tables = {k: np.concatenate([ma[k] for ma in mas]) for k in _FLAT_KEYS}
     for k in _LOD_KEYS:
@@ -147,6 +171,12 @@ def _big_tables(mas: list) -> dict:
     counts = np.array([ma["prim8"].shape[0] for ma in mas], np.int32)
     tables["prim_counts"] = counts
     tables["prim_base"] = np.concatenate([[0], counts.cumsum()[:-1]]).astype(np.int32)
+    tables["animated_u8"] = np.ascontiguousarray(tables["animated"]).view(np.uint8)
+    tables["lod_lightmapped_u8"] = np.ascontiguousarray(tables["lod_lightmapped"]).view(np.uint8)
+    tables["any_lods"] = bool((tables["n_lods"] > 1).any())
+    if len(_BIG_TABLE_CACHE) >= 64:
+        _BIG_TABLE_CACHE.clear()
+    _BIG_TABLE_CACHE[key] = (list(mas), tables)
     return tables
 
 
@@ -226,8 +256,10 @@ def build_frame_state(
     device="cuda",
     counts_out: Optional[dict] = None,
 ) -> FrameState:
-    """Walk instances, cull, select LODs, emit a torch FrameState (the
-    reference's numpy path, render/draws.py:398-510). `lines` and
+    """Walk instances, cull, select LODs, emit a torch FrameState
+    (reference render/draws.py:311): natively (sc_build_draws) unless `sat`
+    is given or SC_TPU_NO_NATIVE_DRAWS is set, else the numpy walk
+    (:398-510), which gives the same draws. `lines` and
     `particles` are pack_lines / pack_particles dicts; missing ones are
     empty packs, as in the reference. `counts_out`, when given, receives
     the host-side triangle and vertex counts of the visible draws
@@ -254,7 +286,25 @@ def build_frame_state(
     static_c = anim_c = _no_draws()
     palettes: List[np.ndarray] = []
     inst_pal_offset = np.zeros(len(instances), np.int32)
-    if n_cand:
+    if n_cand and sat is None and _framestate_native():
+        from ..native.framestate import build_draws_native
+
+        inst8 = np.ascontiguousarray(
+            np.stack([s.to_array() for (_m, s) in instances]), np.float32
+        )
+        eye = np.asarray(uniforms.eye[0], np.float32)
+        aspect = 1920 / screen_height
+        y = np.tan(np.radians(59.0) / 2.0)
+        static_c, anim_c, inst_visible = build_draws_native(
+            inst8, inst_uid, tables,
+            [cp.planes for cp in cull_params] if cull_params else None,
+            tables["any_lods"], eye, float(y * y * aspect),
+            copy=False,  # views of the shared scratch: _pack_compact copies them
+        )
+        palettes, inst_pal_offset = _register_palettes(
+            instances, joint_palettes, inst_visible
+        )
+    elif n_cand:
         ends = counts.cumsum()
         cand_inst = np.repeat(np.arange(len(instances), dtype=np.int32), counts)
         prim_row = (

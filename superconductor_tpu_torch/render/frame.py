@@ -16,9 +16,11 @@ kernel over the same floor), and the tonemap tail. Material textures are
 sampled on the interleaved pool, the classic per-slot samplers, or both
 through the material-path partition on partial pools; lighting comes from
 the SH light volume and lightmaps (ops/shade.py) and particles from the
-smoke maps (ops/particles.py). TPU row padding (``shade_row_pad``) is not
-ported and raises NotImplementedError. PyTorch runs eagerly, so there is
-no jit: ``render_frame`` and ``render_frame_stats`` are plain functions.
+smoke maps (ops/particles.py). ``shade_row_pad`` pads the per-pair shade
+row to a multiple of its columns and every gather slices the pad off, as
+in the reference: the same frame, another row layout. PyTorch runs
+eagerly, so there is no jit: ``render_frame`` and ``render_frame_stats``
+are plain functions.
 """
 
 from __future__ import annotations
@@ -158,16 +160,6 @@ class FrameState(NamedTuple):
     joint_palette: torch.Tensor  # (J, 8)
     lines: Optional[dict] = None
     particles: Optional[dict] = None
-
-
-def _check_slice(config: RenderConfig) -> None:
-    """Raise on the one configuration outside the port, and on an unknown
-    raster method."""
-    if config.shade_row_pad != 0:
-        raise NotImplementedError(
-            "outside the ported slice: shade_row_pad: TPU layout mechanics, not ported"
-        )
-    config.resolve_raster()
 
 
 def _rasterize(tri: TriangleSetup, config: RenderConfig, band_height: int,
@@ -484,6 +476,12 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     if "texels_mq" in scene and "mat_row_mq" in mats:
         parts.append(mats["mat_row_mq"][merged_attrs.material])
     shade_row = torch.cat(parts, dim=1)
+    row_cols = None
+    if config.shade_row_pad > 0:  # reference render/frame.py:826-831
+        row_cols = shade_row.shape[1]
+        pad = -row_cols % config.shade_row_pad
+        if pad:
+            shade_row = torch.nn.functional.pad(shade_row, (0, pad))
 
     # --- pass 1: opaque visibility ---
     opaque_tri = merged_tri._replace(valid=merged_tri.valid & (blend_mode == 0))
@@ -552,7 +550,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             raw_k = wlk.take(kb.pair[k].reshape(-1))
             pair_k = torch.where(livek & (raw_k >= 0), raw_k + clip_off, -1)
             g = interpolate_gbuffer(pair_k, pxc, pyc, merged_tri, merged_attrs,
-                                    shade_row=vis_row)
+                                    shade_row=vis_row, row_cols=row_cols)
             a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps,
                                      albedo4=sampled(g, slots=(0,)))
             cur_found = wlk.take(found_p) != 0
@@ -605,7 +603,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             torch.full((), -1, dtype=torch.int32, device=dev),
         )
         g = interpolate_gbuffer(pair_w, opx, opy, merged_tri, merged_attrs,
-                                shade_row=vis_row)
+                                shade_row=vis_row, row_cols=row_cols)
         rgb_w, _ = shade(
             g, scene, u, view_index, env=env,
             inline_tonemapping=config.inline_tonemapping,
@@ -616,7 +614,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
     else:
         px, py = _pixel_centers(config, band_height, y_offset, dev)
         gbuf = interpolate_gbuffer(vis.pair.reshape(-1), px, py, merged_tri,
-                                   merged_attrs, shade_row=vis_row)
+                                   merged_attrs, shade_row=vis_row, row_cols=row_cols)
         opaque_px_needed = _granule_count(gbuf.valid, gr)
         rgb, _ = shade(
             gbuf, scene, u, view_index, env=env,
@@ -699,7 +697,7 @@ def render_view(scene: dict, state: FrameState, view_index: int,
         def shade_blend_layer(pair_w, safe, live):
             bpx, bpy = _px_py_at(safe, config.width, y_offset)
             g = interpolate_gbuffer(pair_w, bpx, bpy, merged_tri, merged_attrs,
-                                    shade_row=blend_row)
+                                    shade_row=blend_row, row_cols=row_cols)
             lrgb, la = shade(
                 g, scene, u, view_index, env=env,
                 inline_tonemapping=config.inline_tonemapping,
@@ -750,7 +748,7 @@ def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
     setup once, and each view in row_chunks bands of height // row_chunks
     rows, a plain loop where the reference maps over the bands. The stats
     are the elementwise max over views and bands."""
-    _check_slice(config)
+    config.resolve_raster()  # raises on an unknown method
     chunks = max(config.row_chunks, 1)
     if config.height % chunks:
         raise ValueError(f"height {config.height} is not a multiple of "

@@ -7,7 +7,7 @@ and texel pools at full capacity (``GrowableArray.host``), the descriptor
 and material tables (host-side ``descriptor_arrays`` / ``material_arrays``
 plus the numpy post-processing of ``device_materials``, :638-700), the
 quad-packed pools (``device_quad``, :187) and the interleaved material pool
-(the non-mq3 path of ``device_matq``, :1072-1241), the SH-interleaved light
+(``device_matq``, :1072-1241, the wide mq3 rows included), the SH-interleaved light
 volume and lightmap pools (``device_lightvol_sh`` / ``device_lightmap_sh``,
 :1314-1388) and the smoke pool (``device_smoke``, :1242-1283). The quad,
 matq, SH and smoke pools are row gathers, done here as torch gathers on
@@ -22,9 +22,6 @@ A partial interleaved pool (some materials incapable) is published as the
 reference publishes it: incapable materials' ``mat_row_mq`` rows carry
 their real factors and a count=0 sentinel, and ``matq_capable`` (M,) bool
 marks the capable ones for the material-path partition.
-
-The wide mq3 rows are outside the port and raise NotImplementedError
-instead of rendering wrong.
 
 ``DeviceScene`` keeps the same dict resident across frames and uploads
 only what changed (the app loop calls it every frame, where the
@@ -138,11 +135,46 @@ def _fill_slot_index(idx: np.ndarray, pool, ids, dims, offsets) -> None:
                 )
 
 
-def matq_tables(scene: Scene, quad: torch.Tensor, device):
-    """(texels_mq (N, 64) u8, texels_mq_tail or None, mat_row_mq (M, 24+4L)
-    f32, matq_capable (M,) bool or None) or None -- the non-mq3 path of
-    Scene.device_matq (scene.py:1072-1241); matq_capable only for a
-    partial pool (scene.py:1428-1438)."""
+def _fill_mq3_index(idx3: np.ndarray, pool, ids, dims, wrap, offsets) -> None:
+    """Write one chain's texel-pool rows into idx3 (4, 9, rows): per level-l
+    texel (y, x) and slot, the 3x3 of level l + 1 around (y >> 1, x >> 1)
+    (the last level pairs with itself: around (y, x)), wrap baked in --
+    the level-b footprint of the mq3 trilinear (device_matq, scene.py:
+    1117-1149)."""
+    count = len(dims)
+    for l, (h, w) in enumerate(dims):
+        off = offsets[l]
+        lb = l + 1 if l + 1 < count else l
+        hb, wb = dims[lb]
+        y, x = np.mgrid[0:h, 0:w].astype(np.int32)
+        cy = (y >> 1) if lb != l else y
+        cx = (x >> 1) if lb != l else x
+        for dy in range(3):
+            for dx in range(3):
+                ys, xs = cy + dy - 1, cx + dx - 1
+                if wrap == WRAP_REPEAT:
+                    ys, xs = ys % hb, xs % wb
+                else:
+                    ys, xs = np.clip(ys, 0, hb - 1), np.clip(xs, 0, wb - 1)
+                flat = (ys * wb + xs).reshape(-1)
+                for s, t in enumerate(ids):
+                    if _is_const(pool, t):
+                        idx3[s, dy * 3 + dx, off:off + h * w] = pool.mip_offset[pool.tex_mip_base[t]]
+                    else:
+                        idx3[s, dy * 3 + dx, off:off + h * w] = (
+                            pool.mip_offset[pool.tex_mip_base[t] + lb] + flat
+                        )
+
+
+def matq_tables(scene: Scene, quad: torch.Tensor, texels: torch.Tensor, device):
+    """(texels_mq, texels_mq_tail or None, mat_row_mq (M, 24+4L) f32,
+    matq_capable (M,) bool or None) or None -- Scene.device_matq
+    (scene.py:1072-1241); matq_capable only for a partial pool
+    (scene.py:1428-1438). texels_mq is (N, 64) u8 quad rows with a tail
+    pool, or, when scene.matq3x3 and the plan's mq3_ok, the wide (N, 208)
+    u8 mq3 rows (the four slots' quad rows of level l, then for each slot
+    the 3x3 texels of level l + 1 from `texels`, the (T, 4) u8 pool) with
+    no tail pool."""
     if not (scene.quad_pools and scene.matq_pools):
         return None
     plan = scene.matq_plan()
@@ -151,23 +183,27 @@ def matq_tables(scene: Scene, quad: torch.Tensor, device):
     for ids, _, _ in plan["chains"]:
         if any(t in scene.textures._full_view for t in ids):
             return None
-    if scene.matq3x3 and plan["mq3_ok"]:
-        raise NotImplementedError(
-            "wide mq3 interleaved rows are not ported (ROADMAP: do not port)"
-        )
+    mq3 = scene.matq3x3 and plan["mq3_ok"]
     pool = scene.textures
 
     def gather(idx: np.ndarray) -> torch.Tensor:
         i = torch.from_numpy(idx).to(device).long()
         return torch.cat([quad[i[0]], quad[i[1]], quad[i[2]], quad[i[3]]], dim=1)
 
-    idx = np.empty((4, plan["total_rows"]), np.int32)
+    total = plan["total_rows"]
+    idx = np.empty((4, total), np.int32)
     for c, (ids, dims, _) in enumerate(plan["chains"]):
         _fill_slot_index(idx, pool, ids, dims, plan["offsets"][c])
     texels_mq = gather(idx)
+    if mq3:
+        idx3 = np.empty((4, 9, total), np.int32)
+        for c, (ids, dims, wrap) in enumerate(plan["chains"]):
+            _fill_mq3_index(idx3, pool, ids, dims, wrap, plan["offsets"][c])
+        i3 = torch.from_numpy(idx3.reshape(36, total)).to(device).long()
+        texels_mq = torch.cat([texels_mq, *(texels[i3[r]] for r in range(36))], dim=1)
 
     texels_mq_tail = None
-    if plan["tail_total"] > 0:
+    if not mq3 and plan["tail_total"] > 0:
         idx_t = np.empty((4, plan["tail_total"]), np.int32)
         for c, (ids, dims, _) in enumerate(plan["chains"]):
             _fill_slot_index(idx_t, pool, ids, dims, plan["tail_offsets"][c])
@@ -274,7 +310,7 @@ def scene_to_torch(scene: Scene, device="cuda") -> dict:
                                  scene.lightvol["tex_ids"], scene.lightvol["z_layers"])
         if scene.lightmap_tex is not None:
             d["lm_sh"] = sh_pool(scene.textures_hdr, d["texels_hdr"], scene.lightmap_tex, 1)
-        mq: Optional[tuple] = matq_tables(scene, quad, device)
+        mq: Optional[tuple] = matq_tables(scene, quad, d["texels"], device)
         if mq is not None:
             d["texels_mq"] = mq[0]
             if mq[1] is not None:
@@ -416,7 +452,7 @@ class DeviceScene:
             mq = self._pool(
                 "matq", (ver["texels_q"], ver["tex"], ver["materials"],
                          scene.matq_pools, scene.matq3x3),
-                lambda: matq_tables(scene, quad, dev))
+                lambda: matq_tables(scene, quad, d["texels"], dev))
             if mq is not None:
                 d["texels_mq"] = mq[0]
                 if mq[1] is not None:

@@ -250,9 +250,37 @@ def clip_blend_scene(width: int = 1920, height: int = 1080, device="cuda",
 ALL_PASSES_SMALL = dict(width=256, height=128, stacks=32, lod_screen_height=128)
 
 
-def all_passes_overlays() -> dict:
+ALL_PASSES_EYE = (8.0, 2.5, 3.0)  # the all-passes camera, aimed at ALL_PASSES_TARGET
+ALL_PASSES_TARGET = (0.0, 1.2, 0.0)
+DEEP_SEED = 43
+
+
+def deep_particle_stack(n: int) -> list:
+    """`n` particles stacked along the all-passes camera's view ray, at
+    seeded fractions 0.1-0.45 of the way to its target (in front of the
+    ring and the terrain), the second at the first's depth: a pixel near
+    the frame's centre holds every one of them (particle_layers_needed
+    >= n)."""
+    eye, target = np.array(ALL_PASSES_EYE), np.array(ALL_PASSES_TARGET)
+    ts = np.sort(np.random.default_rng(DEEP_SEED).uniform(0.1, 0.45, size=n))
+    if n > 1:
+        ts[1] = ts[0]
+    return [
+        {
+            "center": list(eye + t * (target - eye)),
+            "scale": [0.3, 0.3],
+            "colour": [0.5 + 0.5 * t, 0.6, 0.9 - t],
+            "emissive_colour": [0.2, 0.1, 0.05],
+        }
+        for t in ts
+    ]
+
+
+def all_passes_overlays(deep_particles: int = 0) -> dict:
     """The all-passes frame's 22 grid lines (colour ids 0-21) and 16
-    particles (bench.py:641-658), as build_frame_state keywords."""
+    particles (bench.py:641-658), as build_frame_state keywords; with
+    `deep_particles`, that many more stacked along the view ray
+    (deep_particle_stack)."""
     lines = pack_lines(
         [[[g, 0.02, -5], [g, 0.02, 5]] for g in range(-5, 6)]
         + [[[-5, 0.02, g], [5, 0.02, g]] for g in range(-5, 6)],
@@ -266,18 +294,20 @@ def all_passes_overlays() -> dict:
             "emissive_colour": [0.3, 0.2, 0.1],
         }
         for k in range(16)
-    ])
+    ] + deep_particle_stack(deep_particles))
     return {"lines": lines, "particles": particles}
 
 
 def all_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
-                    stacks: int = 88, lod_screen_height: int = 1080, host=HOST):
+                    stacks: int = 88, lod_screen_height: int = 1080, host=HOST,
+                    deep_particles: int = 0):
     """Host side of the all-passes scene -> (scene, instances, uniforms,
     env, config, draw_kw), device-free, built with `host`'s modules.
     `instances(angle)` lists the (model, Similarity) draws -- the terrain
     at translation (0, -0.6, 0), scale 1.6, and the ring turned by `angle`
     about +y -- and `draw_kw` the build_frame_state keywords: the lines,
-    the particles and the LOD screen height."""
+    the particles (deep_particles more along the view ray) and the LOD
+    screen height."""
     m3 = host.math3d
     scene = host.Scene()
     with open(TERRAIN_GLB, "rb") as f:
@@ -286,8 +316,8 @@ def all_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
     spheres = _sphere_ring(scene, host, n_spheres, stacks)
     scene._materials_dirty = True
 
-    cam = host.Camera(position=np.array([8.0, 2.5, 3.0], np.float32))
-    _aim(cam, [0, 1.2, 0], m3)
+    cam = host.Camera(position=np.array(ALL_PASSES_EYE, np.float32))
+    _aim(cam, list(ALL_PASSES_TARGET), m3)
     uniforms = host.make_uniforms(cam, width, height)
     env = host.EnvBindings.from_scene(scene, ambient_sh=host.default_ambient_sh())
     if env.ibl_cubemap_base != cubemap_base:
@@ -302,16 +332,17 @@ def all_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
         ground = m3.Similarity(translation=[0.0, -0.6, 0.0], scale=1.6)
         return [(terrain, ground)] + _ring_instances(spheres, angle, m3)
 
-    draw_kw = dict(all_passes_overlays(), screen_height=lod_screen_height)
+    draw_kw = dict(all_passes_overlays(deep_particles), screen_height=lod_screen_height)
     return scene, instances, uniforms, env, config, draw_kw
 
 
 def all_passes_scene(width: int = 1920, height: int = 1080, device="cuda",
-                     n_spheres: int = 8, stacks: int = 88, lod_screen_height: int = 1080):
+                     n_spheres: int = 8, stacks: int = 88, lod_screen_height: int = 1080,
+                     deep_particles: int = 0):
     """-> (dev, build, config, env) of the all-passes scene, as
     headline_scene: build(angle) turns the spheres by `angle` about +y."""
     scene, instances, uniforms, env, config, draw_kw = all_passes_host(
-        width, height, n_spheres, stacks, lod_screen_height
+        width, height, n_spheres, stacks, lod_screen_height, deep_particles=deep_particles
     )
     dev = scene_to_torch(scene, device)
 
@@ -607,7 +638,7 @@ def lit_passes_host(width: int = 1920, height: int = 1080, n_spheres: int = 8,
     if env.lightvol_wh is None or env.lightmap_wh is None or env.smoke_static is None:
         raise RuntimeError("lit_passes environment is not bound to the scene's tables")
     wall_pos = np.array([-7.8, 3.0, -3.0], np.float32)
-    to_cam = np.array([8.0, 2.5, 3.0], np.float32) - wall_pos  # the all-passes camera
+    to_cam = np.array(ALL_PASSES_EYE, np.float32) - wall_pos
     wall_sim = m3.Similarity(
         translation=wall_pos.tolist(), scale=6.0,
         rotation=m3.quat_from_axis_angle([0, 1, 0], float(np.arctan2(to_cam[0], to_cam[2]))),
@@ -712,14 +743,15 @@ def stereo_animated_scene(width: int = 1920, height: int = 1080, device="cuda", 
 
 
 def quad_stack_setup(width: int, height: int, device="cuda",
-                     reverse_z: bool = True) -> TriangleSetup:
-    """Setup rows of twelve double-sided quads stacked over one region that
-    straddles tile borders: three exact copies of one quad (equal z at
-    every pixel), quads at mixed homogeneous w, and a few at depths drawn
-    from a numpy seed, so a pixel holds up to 12 accepted fragments."""
+                     reverse_z: bool = True, extra: int = 9) -> TriangleSetup:
+    """Setup rows of 3 + `extra` (twelve by default) double-sided quads
+    stacked over one region that straddles tile borders: three exact copies
+    of one quad (equal z at every pixel), quads at mixed homogeneous w, and
+    the rest at depths drawn from a numpy seed, so a pixel holds up to 3 +
+    `extra` accepted fragments."""
     rng = np.random.default_rng(21)
     quads = [((-0.6, -0.5, 0.5, 0.6), 0.4, 1.0)] * 3
-    for i in range(9):
+    for i in range(extra):
         x0, y0 = rng.uniform(-0.8, -0.3, size=2)
         x1, y1 = rng.uniform(0.2, 0.8, size=2)
         z = [0.3, 0.55, 0.55][i % 3] if i < 6 else float(rng.uniform(0.1, 0.9))

@@ -236,20 +236,23 @@ def test_albedo_alpha_matches_reference(taps):
 
 
 def test_albedo_alpha_outside_the_slice_raises():
-    """The wide mq3 interleaved rows are not ported (ROADMAP: do not
-    port): the interleaved sampler raises on them. The pre-sampled albedo
-    of the material partition and the classic samplers, which raised
-    before they were ported, give the interleaved path's alpha here (the
-    scene's pool is whole) to 2e-6 abs: the classic per-slot lerp and the
-    interleaved row's differ in association only (the reference's
-    tests/test_matq.py:377 holds the same)."""
+    """albedo_alpha on the wide mq3 rows (Scene.matq3x3) equals it on the
+    64 B rows bit for bit: both sample every level exactly (the
+    reference's tests/test_matq.py:154). The classic samplers give the
+    interleaved path's alpha here (the scene's pool is whole) to 2e-6
+    abs: the classic per-slot lerp and the interleaved row's differ in
+    association only (the reference's tests/test_matq.py:377 holds the
+    same)."""
     g = port_shade.GBuffer(*[None if x is None else torch.from_numpy(np.array(x))
                              for x in _gbuffer()])
     _, dev_p = _tables()
-    wide = dict(dev_p, texels_mq=torch.zeros((4, 208), dtype=torch.uint8))
-    with pytest.raises(NotImplementedError):
-        port_shade.albedo_alpha(g, wide)
+    scene = clip_blend_host(**CLIP_BLEND_SMALL)[0]
+    scene.matq3x3 = True
+    wide = scene_to_torch(scene, "cpu")
+    assert wide["texels_mq"].shape[-1] == 208
     a, cutoff = port_shade.albedo_alpha(g, dev_p)
+    a_w, cutoff_w = port_shade.albedo_alpha(g, wide)
+    assert torch.equal(a_w, a) and torch.equal(cutoff_w, cutoff)
     classic = {k: v for k, v in dev_p.items() if k != "texels_mq"}
     a_c, cutoff_c = port_shade.albedo_alpha(g, classic)
     np.testing.assert_allclose(a_c.numpy(), a.numpy(), rtol=0, atol=2e-6)

@@ -2,7 +2,8 @@
 (assets/basislz.py) and the three meshopt encoders (assets/meshopt.py) on
 seeded inputs give the reference's bytes exactly, and each result decodes
 through the port's own decoders (the scnative library) to what the
-reference's decoders give."""
+reference's decoders give; the port's pure-Python meshopt decoders
+round-trip the encoders' streams as the reference's do."""
 
 import numpy as np
 import pytest
@@ -97,3 +98,32 @@ def test_meshopt_encoders_match_reference(case):
         assert data == ref_meshopt.encode_index_sequence(idx)
     out = meshopt.decode_buffer_view(data, mode, len(idx), 4)
     assert np.array_equal(out.view(np.uint32), idx)
+
+
+@pytest.mark.parametrize("case", ["vertex-12", "vertex-16", "index-buffer", "index-sequence"])
+def test_meshopt_python_decoders_round_trip(case):
+    """The pure-Python decoders (decode_vertex_buffer, decode_index_buffer,
+    decode_index_sequence) take the encoders' streams back to the input,
+    equal to the reference's Python decoders and the port's native decode
+    (decode_buffer_view)."""
+    if case.startswith("vertex"):
+        stride = int(case.split("-")[1])
+        verts = _vertices(stride)
+        data = meshopt.encode_vertex_buffer(verts)
+        out = meshopt.decode_vertex_buffer(data, len(verts), stride)
+        assert np.array_equal(out, verts)
+        assert np.array_equal(out, ref_meshopt.decode_vertex_buffer(data, len(verts), stride))
+        native = meshopt.decode_buffer_view(data, "ATTRIBUTES", len(verts), stride)
+        assert np.array_equal(native.reshape(verts.shape), out)
+        return
+    idx = _indices()
+    if case == "index-buffer":
+        data, mode, fn = meshopt.encode_index_buffer(idx), "TRIANGLES", "decode_index_buffer"
+    else:
+        data, mode, fn = meshopt.encode_index_sequence(idx), "INDICES", "decode_index_sequence"
+    out = getattr(meshopt, fn)(data, len(idx))
+    assert np.array_equal(np.asarray(out, np.uint32), idx)
+    ref = getattr(ref_meshopt, fn)(data, len(idx))
+    assert np.asarray(out).dtype == np.asarray(ref).dtype and np.array_equal(out, ref)
+    native = meshopt.decode_buffer_view(data, mode, len(idx), 4)
+    assert np.array_equal(native.view(np.uint32), np.asarray(out, np.uint32))

@@ -11,13 +11,16 @@
   reference runs in a child process whose XLA CPU backend is capped at
   AVX (without FMA contraction its depths round op by op, as the port's
   do: the bounding-box lines lie on the ribbon's plane and would otherwise
-  flip depth ties; tests/test_torch_raster.py) and on its numpy joint FK
-  (test_torch_host.numpy_joint_update). The settled RenderConfigs are
+  flip depth ties; tests/test_torch_raster.py), once with both packages'
+  joint FK on the native walk (their default) and once on the numpy one
+  (test_torch_host.joint_path). The settled RenderConfigs are
   equal field by field, the joint palettes bit for bit, and every frame is
   >= 40 dB from the reference's (the goldens bar, tests/test_goldens.py:48)
   with an equal stats dict.
-* The growth loop's port-specific rules: a k-buffer depth grown past the
-  kernel's largest template raises, naming the pass and the K.
+* Growth past the k-buffer kernel's templates: 20 quads stacked along the
+  view ray grow the blend, clip or particle pass to K = 32 through the
+  port's App on the binned path and through the reference's, with equal
+  configs, stats and frames.
 """
 
 import dataclasses
@@ -28,12 +31,13 @@ import sys
 import tempfile
 import textwrap
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-import test_torch_host  # noqa: F401  (pins the reference's native library)
+from test_torch_host import JOINT_PATHS, joint_path  # (also pins the reference's native library)
 from superconductor_tpu.utils.metrics import psnr
 from superconductor_tpu_torch.assets.fetch import MemoryClient
 from superconductor_tpu_torch.ecs import debugging, systems
@@ -50,6 +54,7 @@ from superconductor_tpu_torch.ecs.resources import (
     CameraResource,
     FrameOutput,
     LineBuffer,
+    ParticleBuffer,
     RenderSettings,
 )
 from superconductor_tpu_torch.ecs.systems import CorePlugin
@@ -195,17 +200,136 @@ def test_ecs_zero_read_mode_matches_default():
 
 # --- the port's own rules ---------------------------------------------------
 
+DEEP = dict(width=64, height=64, frames=2, n=20, seed=41)
+PORT_APP = SimpleNamespace(
+    App=App, Stage=Stage, CorePlugin=CorePlugin, MemoryClient=MemoryClient,
+    RenderConfig=RenderConfig, Instance=Instance, InstanceOf=InstanceOf, ModelUrl=ModelUrl,
+    ModelComponent=ModelComponent, ParticleBuffer=ParticleBuffer, Similarity=Similarity,
+)
+
+def deep_stack(ns, pass_name: str, raster: str, **plugin_kw):
+    """An App over DEEP["n"] quads stacked along the view ray of the
+    camera at the origin, at seeded depths, two of them at one depth: unit
+    boxes seen face on
+    (alpha-blended or alpha-clipped), or particles in front of an opaque
+    box. `ns` names the App's classes (the port's or the reference's)."""
+    rng = np.random.default_rng(DEEP["seed"])
+    zs = np.sort(rng.uniform(-9.0, -2.5, size=DEEP["n"]))
+    zs[7] = zs[6]
+    mode = {"blend": "BLEND", "clip": "MASK", "particle": None}[pass_name]
+    glb = box_glb(alpha_mode=mode, base_color=(1.0, 0.2, 0.1, 0.5))
+    app = ns.App()
+    app.add_plugin(ns.CorePlugin(
+        config=ns.RenderConfig(width=DEEP["width"], height=DEEP["height"], t_cap=512,
+                               t_cap_anim=64, raster=raster),
+        client=ns.MemoryClient({"box.glb": glb}), **plugin_kw))
+    w = app.world
+    box_e = w.spawn(ns.ModelUrl("box.glb"))
+    if pass_name == "particle":
+        w.spawn(ns.Instance(ns.Similarity(translation=[0.0, 0.0, -12.0], scale=6.0)),
+                ns.InstanceOf(box_e))
+
+        def push(world):
+            pb = world.get_resource(ns.ParticleBuffer)
+            for z in zs:
+                pb.push(center=[0.0, 0.0, float(z)], scale=[0.8, 0.8],
+                        colour=[0.85, 0.85, 0.9], emissive_colour=[0.3, 0.2, 0.1])
+
+        app.add_system(ns.Stage.INSTANCE_BUFFERING, push)
+    else:
+        for z in zs:
+            w.spawn(ns.Instance(ns.Similarity(translation=[0.0, 0.0, float(z)])),
+                    ns.InstanceOf(box_e))
+    deadline = time.time() + 120
+    while w.get(box_e, ns.ModelComponent) is None:
+        assert time.time() < deadline, "the model did not load"
+        for fn in app._systems[ns.Stage.ASSET_LOADING]:
+            fn(w)
+        time.sleep(0.01)
+    return app
+
+
+_DEEP_CHILD = textwrap.dedent(
+    """
+    import dataclasses, json, sys
+    from types import SimpleNamespace
+    import numpy as np
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, "tests")
+    from test_torch_ecs import DEEP, deep_stack
+    from superconductor_tpu.assets.fetch import MemoryClient
+    from superconductor_tpu.ecs.app import App, Stage
+    from superconductor_tpu.ecs.components import Instance, InstanceOf, ModelComponent, ModelUrl
+    from superconductor_tpu.ecs.resources import FrameOutput, ParticleBuffer, RenderSettings
+    from superconductor_tpu.ecs.systems import CorePlugin
+    from superconductor_tpu.math3d import Similarity
+    from superconductor_tpu.render.frame import RenderConfig, stats_to_host
+
+    ns = SimpleNamespace(**{k: v for k, v in globals().items() if k[0].isupper()})
+    app = deep_stack(ns, sys.argv[2], "pallas")
+    images, stats, configs = [], [], []
+    for _ in range(DEEP["frames"]):
+        app.update()
+        fo = app.world.resource(FrameOutput)
+        images.append(np.asarray(fo.image))
+        stats.append(stats_to_host(fo.pending_stats[0]))
+        configs.append(dataclasses.asdict(app.world.resource(RenderSettings).config))
+    np.savez(sys.argv[1], images=np.stack(images),
+             meta=json.dumps({"stats": stats, "configs": configs}))
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def deep_reference():
+    """The three deep stacks through the reference's App (raster="pallas":
+    its interpret-mode k-buffer kernel), one child process a pass, run
+    together; each child's XLA CPU backend is capped at AVX, so its depths
+    round op by op as the port's do (tests/test_torch_kbuffer.py)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
+        env.pop("PYTHONPATH", None)
+        children = {
+            name: subprocess.Popen(
+                [sys.executable, "-c", _DEEP_CHILD, os.path.join(tmp, f"{name}.npz"), name],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for name in ("blend", "clip", "particle")
+        }
+        out = {}
+        for name, child in children.items():
+            log, _ = child.communicate(timeout=600)
+            assert child.returncode == 0, log
+            ref = np.load(os.path.join(tmp, f"{name}.npz"))
+            meta = json.loads(str(ref["meta"]))
+            out[name] = (ref["images"], meta["stats"], meta["configs"])
+        return out
+
+
 @pytest.mark.parametrize("key, pass_name", [
     ("blend_layers", "blend"), ("clip_layers", "clip"), ("particle_layers", "particle"),
 ])
-def test_kbuffer_growth_past_the_kernel_templates_raises(key, pass_name):
-    """On the binned path a K past the k-buffer kernel's largest template
-    (KBUFFER_KS[-1] = 16) raises, naming the pass and the K; raster="ref"
-    needs no template and grows freely, as the reference does."""
-    with pytest.raises(ValueError, match=f"the {pass_name} pass needs a k-buffer of K=32"):
-        systems._check_kbuffer_ks({key: 32}, RenderConfig(raster="auto"))
-    systems._check_kbuffer_ks({key: 16}, RenderConfig(raster="auto"))
-    systems._check_kbuffer_ks({key: 32}, RenderConfig(raster="ref"))
+def test_kbuffer_growth_past_the_kernel_templates_raises(deep_reference, key, pass_name):
+    """A pass grows past the k-buffer kernel's largest template (16) as the
+    reference's does: DEEP["n"] = 20 quads along the view ray (two at one
+    depth) make the App grow the pass's K to 32 on the binned path
+    (raster="auto": kbuffer_sorted, its plain version on CPU tensors) and
+    re-render, and every frame's config, stats and image equal the
+    reference App's (raster="pallas") -- the image bit for bit."""
+    app = deep_stack(PORT_APP, pass_name, "auto", device="cpu")
+    images_r, stats_r, configs_r = deep_reference[pass_name]
+    for i in range(DEEP["frames"]):
+        app.update()
+        out = app.world.resource(FrameOutput)
+        config = dataclasses.asdict(app.world.resource(RenderSettings).config)
+        config_r = dict(configs_r[i], raster="auto")
+        assert json.loads(json.dumps(config)) == config_r, i
+        assert config[key] == 32, (i, config[key])
+        stats = out.pending_stats[0].result()
+        assert stats == stats_r[i], i
+        assert stats[f"{pass_name}_layers_needed"] == DEEP["n"], i
+        assert np.array_equal(out.image.numpy(), images_r[i]), i
 
 
 def test_host_stats_equal_stats_to_host():
@@ -243,7 +367,8 @@ _REFERENCE_CHILD = textwrap.dedent(
     from superconductor_tpu.math3d import Similarity
     from superconductor_tpu.render.frame import RenderConfig, stats_to_host
 
-    animation._joint_update_fn = False  # the numpy FK, as the port's
+    if sys.argv[3] == "numpy":
+        animation._joint_update_fn = False  # the numpy FK; "native" is the default
     script = json.loads(sys.argv[2])
     app = App()
     app.add_plugin(CorePlugin(
@@ -322,23 +447,37 @@ def _run_port():
 
 @pytest.fixture(scope="module")
 def reference_run():
+    """mode -> the script through the reference's App, one child process
+    for each joint path (JOINT_PATHS), run together."""
     with tempfile.TemporaryDirectory() as tmp:
-        dst = os.path.join(tmp, "reference.npz")
         env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
         env.pop("PYTHONPATH", None)
-        out = subprocess.run(
-            [sys.executable, "-c", _REFERENCE_CHILD, dst, json.dumps(_SCRIPT)],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
-        )
-        assert out.returncode == 0, out.stdout + out.stderr
-        ref = np.load(dst)
-        meta = json.loads(str(ref["meta"]))
-        return ref["images"], ref["palettes"], meta["stats"], meta["configs"]
+        children = {
+            mode: subprocess.Popen(
+                [sys.executable, "-c", _REFERENCE_CHILD, os.path.join(tmp, f"{mode}.npz"),
+                 json.dumps(_SCRIPT), mode],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for mode in JOINT_PATHS
+        }
+        out = {}
+        for mode, child in children.items():
+            log, _ = child.communicate(timeout=600)
+            assert child.returncode == 0, log
+            ref = np.load(os.path.join(tmp, f"{mode}.npz"))
+            meta = json.loads(str(ref["meta"]))
+            out[mode] = (ref["images"], ref["palettes"], meta["stats"], meta["configs"])
+        return out
 
 
-def test_app_matches_reference_app(reference_run):
-    images_r, palettes_r, stats_r, configs_r = reference_run
-    images_p, palettes_p, stats_p, configs_p = _run_port()
+@pytest.mark.parametrize("mode", JOINT_PATHS)
+def test_app_matches_reference_app(reference_run, mode):
+    """The port's App against the reference's, both with their joint FK on
+    one path (test_torch_host.joint_path): the native walk, each package's
+    default, or the numpy one."""
+    images_r, palettes_r, stats_r, configs_r = reference_run[mode]
+    with joint_path(mode):
+        images_p, palettes_p, stats_p, configs_p = _run_port()
     assert len(images_p) == len(images_r) == _SCRIPT["frames"]
     # the growth loop settles on the same config, frame by frame (tuples
     # arrive from the child as JSON lists)

@@ -2,7 +2,7 @@
 port against the reference's render_frame_stats (raster="pallas", the
 Pallas kernel in interpret mode on CPU) with the same config; the
 reference's two PNG goldens rendered by the port; the RenderConfig
-contract; the slice guard; fit_caps against bench.fit_caps; and a
+contract; shade_row_pad and the wide mq3 rows; fit_caps against bench.fit_caps; and a
 jax-free process rendering a frame."""
 
 import dataclasses
@@ -113,14 +113,53 @@ def test_render_config_matches_reference():
         RenderConfig(raster="other").resolve_raster()
 
 
+def _hero_frames(matq3x3=False, **change):
+    """The 256x128 hero at 0.3 rad through the reference (in process,
+    raster="pallas") and the port with the same config change and
+    Scene.matq3x3 on both sides -> (ref image, ref stats, port image,
+    port stats, port tables)."""
+    scene, model, uniforms, env, config = headline_host(256, 128, host=REF_HOST)
+    config = dataclasses.replace(config, p_cap=1 << 13, **change)
+    scene.matq3x3 = matq3x3
+    sim = Similarity(rotation=quat_from_axis_angle([0, 1, 0], 0.3))
+    img_r, stats_r = ref_frame.render_frame_stats(
+        scene.device_arrays(), ref_build(scene, [(model, sim)], uniforms),
+        _ref_config(config), env,
+    )
+    p_scene, p_model, p_uniforms, p_env, _ = headline_host(256, 128)
+    p_scene.matq3x3 = matq3x3
+    dev_p = scene_to_torch(p_scene, "cpu")
+    p_sim = port_math3d.Similarity(rotation=port_math3d.quat_from_axis_angle([0, 1, 0], 0.3))
+    state_p = port_build(p_scene, [(p_model, p_sim)], p_uniforms, device="cpu")
+    img_p, stats_p = port_frame.render_frame_stats(dev_p, state_p, config, p_env)
+    return (np.asarray(img_r), ref_frame.stats_to_host(stats_r), img_p.numpy(),
+            port_frame.stats_to_host(stats_p), dev_p)
+
+
 @pytest.mark.parametrize("change", [dict(shade_row_pad=128)])
 def test_outside_the_slice_raises(change):
-    """TPU row padding is outside the port."""
-    _scene, _model, _uniforms, _env, config = headline_host(64, 32)
-    config = dataclasses.replace(config, **change)
-    dev, state, env = _port_frame_inputs(64, 32, 0.0)
-    with pytest.raises(NotImplementedError):
-        port_frame.render_frame(dev, state, config, env)
+    """shade_row_pad (the reference's TPU lane padding of the shade row,
+    sliced off after each gather): the padded port frame equals the pad-0
+    frame byte for byte, and is >= 40 dB from the reference's padded frame
+    with an equal stats dict."""
+    img_r, stats_r, img_p, stats_p, _ = _hero_frames(**change)
+    _, _, img_0, stats_0, _ = _hero_frames()
+    assert np.array_equal(img_p, img_0) and stats_p == stats_0
+    assert psnr(img_r, img_p) >= 40.0
+    assert stats_p == stats_r and stats_p["opaque_px_needed"] > 0
+
+
+def test_hero_frame_with_mq3_rows_matches_reference():
+    """Scene.matq3x3: the hero's material pool as wide (N, 208) mq3 rows
+    on both sides; the frame is >= 40 dB from the reference's with an
+    equal stats dict, and from the port's 64 B-row frame."""
+    img_r, stats_r, img_p, stats_p, dev_p = _hero_frames(matq3x3=True)
+    assert dev_p["texels_mq"].shape[-1] == 208 and "texels_mq_tail" not in dev_p
+    assert psnr(img_r, img_p) >= 40.0
+    assert stats_p == stats_r
+    _, _, img_64, stats_64, dev_64 = _hero_frames()
+    assert dev_64["texels_mq"].shape[-1] == 64
+    assert psnr(img_64, img_p) >= 40.0 and stats_64 == stats_p
 
 
 def _stats(**kw):

@@ -133,10 +133,9 @@ def test_setup_rows_bit_exact_on_hero(hero, angle):
 
 def _skinned_geometry(jit: bool):
     """A skinned tube bent by a joint palette, through both packages, each
-    building it with its own host layer. The port has no native FK walk
-    (framestate.cpp is not in its library), so the reference's palette
-    takes its numpy path too (tests/test_torch_host.py holds the two
-    palettes equal)."""
+    building it with its own host layer, its palette from the numpy FK on
+    both sides (tests/test_torch_host.py holds the palettes equal on each
+    FK path)."""
     sides = []
     for scene_cls, procgen, m3, camera in (
         (Scene, ref_procgen, ref_math3d, ref_camera),

@@ -138,17 +138,35 @@ REF_HOST = SimpleNamespace(
 )
 
 
+JOINT_PATHS = ("native", "numpy")
+
+
 @contextlib.contextmanager
-def numpy_joint_update():
-    """Run the reference's joint-palette code on its numpy path: its native
-    FK walk (sc_joint_update in framestate.cpp) has no counterpart in the
-    port's library, and rounds differently by an ulp."""
-    saved = ref_animation._joint_update_fn
-    ref_animation._joint_update_fn = False
+def joint_path(mode: str):
+    """Run both packages' joint-palette code on one path: "native" (the FK
+    walk sc_joint_update of framestate.cpp, each package's default) or
+    "numpy" (each animation module's _joint_update_fn set to False, the
+    reference's own switch). The two paths round an ulp apart, so a
+    comparison of the packages runs one path on both sides."""
+    import superconductor_tpu_torch.animation as port_animation
+
+    mods = (ref_animation, port_animation)
+    saved = [m._joint_update_fn for m in mods]
+    if mode == "numpy":
+        for m in mods:
+            m._joint_update_fn = False
+    elif mode != "native":
+        raise ValueError(mode)
     try:
         yield
     finally:
-        ref_animation._joint_update_fn = saved
+        for m, fn in zip(mods, saved):
+            m._joint_update_fn = fn
+
+
+def numpy_joint_update():
+    """Both packages' joint palettes on the numpy FK (joint_path("numpy"))."""
+    return joint_path("numpy")
 
 
 def test_ref_host_has_the_port_host_names():
@@ -320,17 +338,22 @@ def test_procgen_matches_reference():
     assert_same(RefEnvBindings.from_scene(ref), PortEnvBindings.from_scene(port))
 
 
-def test_skinned_content_matches_reference_numpy_path():
-    """add_skinned_tube and the waving joint palettes: the port (numpy FK)
-    equals the reference on its numpy path bit for bit."""
+@pytest.mark.parametrize("mode", JOINT_PATHS)
+def test_skinned_content_matches_reference_numpy_path(mode):
+    """add_skinned_tube and the waving joint palettes bit for bit, with the
+    FK on one path on both sides: the native walk (each package's default)
+    or the numpy one. The two paths differ by an ulp somewhere."""
     ref, port = ref_scene.Scene(), port_scene.Scene()
     assert_same(ref_procgen.add_skinned_tube(ref, segments=6, slices=5),
                 port_procgen.add_skinned_tube(port, segments=6, slices=5))
     assert_same(ref, port, "scene")
     ts = np.linspace(0.0, 3.0, 7, dtype=np.float32)
-    with numpy_joint_update():
-        assert_same(ref_procgen.wave_joint_palettes(ts, 8, amp=0.6),
-                    port_procgen.wave_joint_palettes(ts, 8, amp=0.6))
+    with joint_path(mode):
+        pal = port_procgen.wave_joint_palettes(ts, 8, amp=0.6)
+        assert_same(ref_procgen.wave_joint_palettes(ts, 8, amp=0.6), pal)
+    with joint_path("numpy" if mode == "native" else "native"):
+        other = port_procgen.wave_joint_palettes(ts, 8, amp=0.6)
+    assert not np.array_equal(pal, other)
 
 
 @pytest.mark.parametrize("reverse_z", [True, False])

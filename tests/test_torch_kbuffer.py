@@ -64,6 +64,8 @@ def _cases() -> dict:
         "stack": dict(tri=quad_stack_setup(200, 80, "cpu"), width=200, height=80, p_cap=512),
         "stack-forward-z": dict(tri=quad_stack_setup(200, 80, "cpu", reverse_z=False), width=200,
                                 height=80, p_cap=512, reverse_z=False),
+        "deep-stack": dict(tri=quad_stack_setup(200, 80, "cpu", extra=21), width=200, height=80,
+                           p_cap=1024),
         "hero-band-floor": dict(tri=_hero_setup(256, 128), width=256, height=64,
                                 p_cap=1 << 13, y_offset=40, floor=band_floor),
     }
@@ -75,6 +77,9 @@ RUNS = (
     ("stack", 4, False), ("stack-forward-z", 2, True), ("stack-forward-z", 8, False),
     ("hero-band-floor", 1, True), ("hero-band-floor", 4, True),
     ("hero-band-floor", 8, False), ("stack", 16, True), ("hero-band-floor", 16, False),
+    # K off the kernel's templates: below 16 and past it
+    ("stack", 3, True), ("hero-band-floor", 3, False), ("deep-stack", 3, True),
+    ("deep-stack", 24, True), ("deep-stack", 32, False), ("hero-band-floor", 24, True),
 )
 
 _REFERENCE_CHILD = textwrap.dedent(
@@ -172,10 +177,12 @@ def test_plain_kbuffer_matches_interpret_kernel(kbuffer_cases, run):
     else:
         assert kb.depth is None and key + "/depth" not in ref
     assert bool((kb.pair[0] >= 0).any())
-    if name.startswith("stack") and k <= 8:  # up to 12 fragments: past K <= 8
+    most = {"stack": 12, "stack-forward-z": 12, "deep-stack": 24}.get(name)
+    if most and k < most:  # more fragments than K
         assert int(layers.max()) > k and bool((kb.pair[k - 1] >= 0).any())
-    elif name.startswith("stack"):  # every fragment held, slots past 12 empty
-        assert bool((kb.pair[11] >= 0).any()) and not bool((kb.pair[12:] >= 0).any())
+    elif most:  # every fragment held, the slots past them empty
+        assert int(layers.max()) == most
+        assert bool((kb.pair[most - 1] >= 0).any()) and not bool((kb.pair[most:] >= 0).any())
     kb_w, layers_w = kbuffer_sorted(*args, **kw)
     assert torch.equal(kb_w.pair, kb.pair) and torch.equal(layers_w, layers)
 
@@ -407,3 +414,52 @@ def test_kbuffer_kernel_split_matches_plain_on_card(monkeypatch):
                                 assert torch.equal(layers, players)
                                 if want:
                                     assert torch.equal(kb.depth, pkb.depth)
+
+
+@pytest.mark.gpu
+def test_kbuffer_kernel_takes_every_k_on_card(monkeypatch):
+    """K off the kernel's templates on the card: K = 3, 5 and 12 (the next
+    template's first K planes, at every cluster size) and K = 24, 32 and 64
+    (the deep path), with and without depth planes, bit for bit against
+    the plain version, on every case and on the heavy tile in both z
+    directions under a floor; the 24-quad stack holds more than 16
+    fragments at a pixel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the k-buffer kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    runs = []
+    for name, c in _cases().items():
+        tri = TriangleSetup(*[x.to(dev) for x in c["tri"]])
+        y0 = c.get("y_offset", 0)
+        bins = bin_triangles(tri, c["width"], c["height"], c["p_cap"], y_offset=y0)
+        floor = None if c.get("floor") is None else torch.from_numpy(c["floor"]).to(dev)
+        runs.append(((gather_sorted_setup(tri, bins).contiguous(), bins.tile_start,
+                      bins.tile_count, c["height"], c["width"]),
+                     dict(reverse_z=c.get("reverse_z", True), depth_floor=floor, y_offset=y0)))
+    for reverse_z in (True, False):
+        sorted_setup, bins, height, width = _split_case("heavy", reverse_z)
+        runs.append(((sorted_setup.to(dev), bins.tile_start.to(dev), bins.tile_count.to(dev),
+                      height, width),
+                     dict(reverse_z=reverse_z,
+                          depth_floor=_split_floor(height, width, reverse_z).to(dev))))
+    deepest = 0
+    for args, base in runs:
+        for k in (3, 5, 12, 24, 32, 64):
+            for want in (True, False):
+                kw = dict(base, k=k, want_depth=want)
+                pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
+                deepest = max(deepest, int(players.max()))
+                for cluster in ((1, 2, 4, 8) if k < 16 else (raster_mod.KBUFFER_CLUSTER,)):
+                    monkeypatch.setattr(raster_mod, "KBUFFER_CLUSTER", cluster)
+                    before = kbuffer_sorted.LAUNCHES
+                    kb, layers = kbuffer_sorted(*args, **kw)
+                    torch.cuda.synchronize()
+                    assert kbuffer_sorted.LAUNCHES == before + 1
+                    assert kb.pair.shape == (k, args[3], args[4]) and kb.pair.is_contiguous()
+                    assert torch.equal(kb.pair, pkb.pair), (k, cluster)
+                    assert torch.equal(layers, players), (k, cluster)
+                    if want:
+                        assert torch.equal(kb.depth, pkb.depth), (k, cluster)
+                    else:
+                        assert kb.depth is None
+    assert deepest > 16

@@ -140,6 +140,76 @@ def test_sample_material_interleaved_matches_reference(taps):
     np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
 
 
+def _matq_scene(mod, size, wrap):
+    """One material of four seeded size^2 textures, albedo and emissive
+    sRGB (the reference's tests/test_matq.py _full_material_scene), in
+    scene module `mod`."""
+    scene = mod.Scene()
+    ids = []
+    for seed, flags in ((1, mod.TEXFLAG_SRGB), (2, 0), (3, 0), (4, mod.TEXFLAG_SRGB)):
+        img = np.random.default_rng(seed).integers(0, 255, (size, size, 4), np.uint8)
+        ids.append(scene.textures.add_texture(mod.build_mip_chain(img), wrap=wrap, flags=flags))
+    scene.add_material(mod.MaterialSettings(
+        albedo_tex=ids[0], normal_tex=ids[1], metallic_roughness_tex=ids[2], emissive_tex=ids[3],
+    ))
+    return scene
+
+
+# the reference's tests/test_matq.py:141-195: (size, wrap, taps, seed,
+# derivative scale); the last two push lod past the chain end, where the
+# second level pairs with the last one
+MQ3_CASES = {
+    "real-slots": (64, 0, 1, 9, 0.2),
+    "clamp-1-tap": (32, 1, 1, 11, 0.2),
+    "clamp-4-taps": (32, 1, 4, 11, 0.2),
+    "self-pair-repeat": (32, 0, 1, 13, 4.0),
+    "self-pair-clamp": (32, 1, 1, 13, 4.0),
+}
+
+
+@pytest.mark.parametrize("mq3", [True, False])
+@pytest.mark.parametrize("case", sorted(MQ3_CASES))
+def test_mq3_sampling_matches_classic_and_reference(case, mq3):
+    """sample_material_interleaved on the wide mq3 rows (Scene.matq3x3)
+    and on the 64 B rows equals the port's four classic per-slot samples
+    bit for bit, as the reference's two paths agree in its own tests; and
+    the reference's interleaved sample at the samplers' rtol 1e-5 / atol
+    1e-6 (the lod's log2)."""
+    from superconductor_tpu.scene import scene as ref_scene_mod
+    from superconductor_tpu_torch.scene import scene as port_scene_mod
+
+    size, wrap, taps, seed, dscale = MQ3_CASES[case]
+    ref_sc, port_sc = _matq_scene(ref_scene_mod, size, wrap), _matq_scene(port_scene_mod, size, wrap)
+    ref_sc.matq3x3 = port_sc.matq3x3 = mq3
+    dev, dev_t = ref_sc.device_arrays(), scene_to_torch(port_sc, "cpu")
+    assert dev_t["texels_mq"].shape[-1] == (208 if mq3 else 64)
+    rng = np.random.default_rng(seed)
+    p = 4096
+    mat = np.zeros(p, np.int32)
+    uv = rng.uniform(-1.5, 2.5, (p, 2)).astype(np.float32)
+    dx = rng.uniform(-dscale, dscale, (p, 2)).astype(np.float32)
+    dy = rng.uniform(-dscale, dscale, (p, 2)).astype(np.float32)
+    _pf, _pi, meta, owh = ref_shade._material_rows_mq(dev["materials"], jnp.asarray(mat))
+    ref = np.asarray(ref_texture.sample_material_interleaved(
+        dev["texels_mq"], meta, owh, jnp.asarray(uv), jnp.asarray(dx), jnp.asarray(dy), taps,
+        texels_tail=dev.get("texels_mq_tail"),
+    ))
+    m = dev_t["materials"]
+    _pf, _pi, meta_t, owh_t = port_shade._material_rows_mq(m, _t(mat))
+    port = port_texture.sample_material_interleaved(
+        dev_t["texels_mq"], meta_t, owh_t, _t(uv), _t(dx), _t(dy), taps,
+        texels_tail=dev_t.get("texels_mq_tail"),
+    ).numpy()
+    _pfc, pic, mtm, mlv = port_shade._material_rows(m, _t(mat))
+    for slot in range(4):
+        classic = port_texture.sample_anisotropic(
+            port_texture.ldr_pool(dev_t), dev_t["tex"], pic[..., slot], _t(uv), _t(dx), _t(dy),
+            taps, meta=mtm[..., 6 * slot:6 * slot + 6], levels_owh=mlv[..., slot, :, :],
+        ).numpy()
+        np.testing.assert_array_equal(port[:, 4 * slot:4 * slot + 4], classic, err_msg=str(slot))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
+
+
 @functools.lru_cache(maxsize=None)
 def _hero_gbuffer_inputs():
     """Shade rows of the hero at 256x128 (reference geometry, jitted: these

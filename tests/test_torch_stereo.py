@@ -7,7 +7,9 @@ rows and rasters round op by op, as the port's do; tests/test_torch_raster.py):
 * the stereo box of tests/test_stereo.py:21 (96x96, ipd 0.3, the per-eye
   culling union, raster="ref"), with its parallax;
 * the stereo-animated scene (scenes.stereo_animated_host, bench.py:887) cut
-  to two tubes of 8 x 6 and two spheres at 128x64, two views in two bands;
+  to two tubes of 8 x 6 and two spheres at 128x64, two views in two bands,
+  its palettes from the native FK and, in a second frame, the numpy one,
+  each on both sides;
 * two views of the small all-passes scene with lines and particles on;
 * the 256x128 stereo-animated frame stored in tests/goldens, which
   chip_smoke.py holds the card's frame against.
@@ -54,7 +56,7 @@ from superconductor_tpu_torch.scenes import (
     stereo_animated_host,
 )
 from superconductor_tpu_torch import math3d
-from test_torch_host import REF_HOST, assert_same
+from test_torch_host import JOINT_PATHS, REF_HOST, assert_same, joint_path
 
 # The test workers share the CPU: torch's default of a thread per core in
 # each of them oversubscribes it many times over.
@@ -117,7 +119,7 @@ _REFERENCE_CHILD = textwrap.dedent(
     from superconductor_tpu.render.draws import build_frame_state
     from superconductor_tpu_torch.scenes import STEREO_SMALL, STEREO_TINY, stereo_animated_host
     import test_torch_stereo as T
-    from test_torch_host import REF_HOST, numpy_joint_update
+    from test_torch_host import REF_HOST, joint_path
 
     caps = json.loads(sys.argv[2])
     out = {}
@@ -137,9 +139,11 @@ _REFERENCE_CHILD = textwrap.dedent(
     state = build_frame_state(scene, instances, uniforms, cull_params=culls)
     render("box", scene, state, config, ref_frame.EnvBindings())
 
-    for name, kw, t in (("tiny", STEREO_TINY, T.T_TINY), ("golden", STEREO_SMALL, T.T_GOLDEN)):
+    for name, kw, t, mode in (("tiny", STEREO_TINY, T.T_TINY, "native"),
+                              ("tiny-numpy", STEREO_TINY, T.T_TINY, "numpy"),
+                              ("golden", STEREO_SMALL, T.T_GOLDEN, "native")):
         scene, frame_inputs, uniforms, env, config = stereo_animated_host(**kw, host=REF_HOST)
-        with numpy_joint_update():
+        with joint_path(mode):
             instances, palettes = frame_inputs(t)
             state = build_frame_state(scene, instances, uniforms, joint_palettes=palettes)
         render(name, scene, state, config, env)
@@ -157,6 +161,7 @@ def _reference_child():
     """Starts the reference's four frames in the AVX-capped child with the
     module's first test; `reference(name)` waits for it."""
     caps = {**CAPS, "golden": _golden_caps()}
+    caps["tiny-numpy"] = caps["tiny"]
     with tempfile.TemporaryDirectory() as tmp:
         dst = os.path.join(tmp, "reference.npz")
         env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
@@ -204,11 +209,13 @@ def _inputs(name):
         scene, instances, uniforms, env, config, draw_kw = _ap_stereo_host(HOST, port_stereo)
         state = build_frame_state(scene, instances(0.3), uniforms, device="cpu", **draw_kw)
         return scene_to_torch(scene, "cpu"), state, config, env
-    kw, t = (STEREO_TINY, T_TINY) if name == "tiny" else (STEREO_SMALL, T_GOLDEN)
+    tiny = name.startswith("tiny")
+    kw, t = (STEREO_TINY, T_TINY) if tiny else (STEREO_SMALL, T_GOLDEN)
     scene, frame_inputs, uniforms, env, config = stereo_animated_host(**kw)
-    instances, palettes = frame_inputs(t)
+    with joint_path("numpy" if name.endswith("-numpy") else "native"):
+        instances, palettes = frame_inputs(t)
     state = build_frame_state(scene, instances, uniforms, joint_palettes=palettes, device="cpu")
-    if name == "tiny":
+    if tiny:
         config = dataclasses.replace(config, row_chunks=2)
     return scene_to_torch(scene, "cpu"), state, config, env
 
@@ -224,7 +231,7 @@ def _fit(name):
 
 def _config(name, **kw):
     dev, state, config, env = _inputs(name)
-    caps = {**CAPS, "golden": _golden_caps()}.get(name, {})
+    caps = {**CAPS, "golden": _golden_caps()}.get(name.replace("-numpy", ""), {})
     return dataclasses.replace(config, **{**caps, **kw})
 
 
@@ -341,11 +348,13 @@ def test_stereo_box_matches_reference(reference):
     assert stats["pairs_needed"] == 0 and stats["opaque_px_needed"] > 0
 
 
-def test_stereo_animated_frame_matches_reference(reference):
-    """Two tubes of 8 x 6 (skinned, palettes from the numpy FK on both
-    sides) and two spheres at 128x64, two views of two bands each: stats
-    maxed over the four (view, band) renders equal the reference's."""
-    img, stats = _assert_matches(reference, "tiny")
+@pytest.mark.parametrize("mode", JOINT_PATHS)
+def test_stereo_animated_frame_matches_reference(reference, mode):
+    """Two tubes of 8 x 6 (skinned, palettes from one FK path on both
+    sides: the native walk, each package's default, or the numpy one) and
+    two spheres at 128x64, two views of two bands each: stats maxed over
+    the four (view, band) renders equal the reference's."""
+    img, stats = _assert_matches(reference, "tiny" if mode == "native" else "tiny-numpy")
     assert img.shape == (2, 64, 128, 4)
     assert stats["pairs_needed"] > 0 and not np.array_equal(img[0], img[1])
 

@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from superconductor_tpu.assets.models import load_model
+from superconductor_tpu.scene import scene as ref_scene_mod
 from superconductor_tpu.scene.scene import Scene
 from superconductor_tpu_torch.assets.models import load_model as port_load_model
+from superconductor_tpu_torch.scene import scene as port_scene_mod
 from superconductor_tpu_torch.scene.scene import Scene as PortScene
 from superconductor_tpu_torch.scene.upload import arrays_to_torch, scene_to_torch
 
@@ -98,13 +100,45 @@ def test_scene_to_torch_bit_exact(which, box_glb):
     _assert_same_tables(ref, arrays_to_torch(ref, "cpu"))
 
 
+def _material_scene(mod, size: int):
+    """A scene (of scene module `mod`) with one material of four seeded
+    size^2 textures (the reference's tests/test_matq.py
+    _full_material_scene)."""
+    scene = mod.Scene()
+    ids = []
+    for seed, flags in ((1, mod.TEXFLAG_SRGB), (2, 0), (3, 0), (4, mod.TEXFLAG_SRGB)):
+        img = np.random.default_rng(seed).integers(0, 255, (size, size, 4), np.uint8)
+        ids.append(scene.textures.add_texture(mod.build_mip_chain(img), wrap=0, flags=flags))
+    scene.add_material(mod.MaterialSettings(
+        albedo_tex=ids[0], normal_tex=ids[1], metallic_roughness_tex=ids[2], emissive_tex=ids[3],
+    ))
+    return scene
+
+
 def test_scene_to_torch_rejects_unported_scene():
-    """The wide mq3 interleaved rows (Scene.matq3x3, off by default) are
-    not ported: a scene that asks for them raises."""
+    """The wide mq3 interleaved rows (Scene.matq3x3, off by default): on
+    the hero (a plan with mq3_ok) scene_to_torch publishes (N, 208) rows
+    and no tail pool, every table bit for bit against the reference's
+    device_arrays() with matq3x3 set, and DeviceScene gives the same
+    tables; a plan without mq3_ok keeps the 64 B rows and its tail pool,
+    as the reference does."""
+    from superconductor_tpu_torch.scene.upload import DeviceScene
+
     with open(HERO, "rb") as f:
-        scene = _port_scene_of(f.read())
-    scene_to_torch(scene, "cpu")
-    scene.matq3x3 = True
-    assert scene.matq_plan()["mq3_ok"]
-    with pytest.raises(NotImplementedError):
-        scene_to_torch(scene, "cpu")
+        glb = f.read()
+    ref, port = _scene_of(glb), _port_scene_of(glb)
+    ref.matq3x3 = port.matq3x3 = True
+    assert port.matq_plan()["mq3_ok"]
+    tables = scene_to_torch(port, "cpu")
+    assert tables["texels_mq"].shape == (port.matq_plan()["total_rows"], 208)
+    assert "texels_mq_tail" not in tables
+    _assert_same_tables(ref.device_arrays(), tables)
+    _assert_same_tables(ref.device_arrays(), DeviceScene(port, "cpu").arrays())
+
+    # 48^2 textures: the chain's 3 -> 1 step is not a clean halving
+    ref, port = _material_scene(ref_scene_mod, 48), _material_scene(port_scene_mod, 48)
+    ref.matq3x3 = port.matq3x3 = True
+    assert port.matq_plan() is not None and not port.matq_plan()["mq3_ok"]
+    tables = scene_to_torch(port, "cpu")
+    assert tables["texels_mq"].shape[-1] == 64 and "texels_mq_tail" in tables
+    _assert_same_tables(ref.device_arrays(), tables)
