@@ -15,8 +15,8 @@ through the ECS) -- and checks them:
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
    process each, at once) and prints the seconds, the compiler's
-   registers, shared memory and spills of every template variant, and the
-   k-buffer kernel's dynamic shared memory per K;
+   registers, shared memory and spills of every kernel variant, and the
+   k-buffer kernel's dynamic shared memory per template K;
 3. raster kernel against its plain torch version on the card, which must
    agree bit for bit in depth and pair: the binned setup of the headline
    frame, a fan of edge-sharing triangles with pixel centres on the
@@ -79,12 +79,18 @@ through the ECS) -- and checks them:
    (>= 40 dB);
    deep_k: the all-passes frame with 40 particles stacked along its view
    ray (two at one depth), fit_caps growing particle_layers to 64; the
+   deep kernel's band and shared memory at each K and its largest K; the
    particle pass's k-buffer kernel on that frame's inputs against its plain
-   version, bit for bit, at K = 3 (the next template's first planes, every
-   cluster size), 24, 32 and 64 (the deep path), each timed with its bound;
-   the 2,044-row tile at K = 3, 5, 12, 24, 32 and 64 in both z directions;
-   the frame's launches by pass (one a frame each) and its plain-versions
-   twin, byte for byte;
+   version, bit for bit, at K = 3 (the next template's first planes), 17,
+   24, 32, 64 and 128 (the deep kernel), at every cluster size, each timed
+   with its bound and share (every cluster size and tile variant); the
+   global-memory kernel on the same inputs at K = 24, 32 and 64, equal to
+   the deep kernel and timed beside it; the peak memory of a K = 64 call
+   without depth planes (its pair planes and layers only); the 2,044-row
+   tile at K = 3, 5, 12, 17, 24, 32, 64, 128 and one past the deep
+   kernel's largest K in both z directions, with and without a floor, at
+   every cluster size; the frame's launches by pass (one a frame each)
+   and its plain-versions twin, byte for byte;
 8. stereo (two eyes, six skinned tubes whose joint palettes come from the
    native FK walk each frame, six spheres): the host time per frame of the
    palettes on the native and the numpy FK and the largest ulp gap between
@@ -98,7 +104,11 @@ through the ECS) -- and checks them:
    (4 launches), byte for byte; the eyes differ and the animation moves;
    a 256x128 frame on the card against the CPU frame and the JAX
    reference's in tests/goldens (>= 40 dB), and its raster="ref" twin on
-   the card equal to it;
+   the card equal to it; its g-buffer lanes traced: every
+   interpolate_gbuffer intermediate from the card frame's inputs on both
+   devices, with the three-term sums by torch.sum and in the fixed order
+   the port takes, the first that differs named, and the frame card vs
+   CPU with each;
 9. sharded (parallel.render_frame_sharded on the stereo and all-passes
    frames of 7 and 8, at their fitted caps): the stereo frame on a grid of
    2 eyes x 4 bands of 270 rows and the all-passes frame on 1 x 4 bands,
@@ -168,7 +178,8 @@ eyes and each band pass of the two sharded frames, each with the launches
 it made in that frame's timed run, the frame server's opaque pass
 (launches over the selftest's timed frames) and the demo's lines and
 particle passes (launches over the demo run), and the deep_k frame's
-particle pass at K = 64 (launches in that frame's timed run).
+particle pass at K = 64, the deep kernel (launches in that frame's timed
+run).
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -240,8 +251,9 @@ DEMO_KBUFFER = tuple("demo_" + n for n in AP_KBUFFER)
 # (1, SHARD_BANDS) one; one key a (view, band) cell's opaque raster, and one
 # a band's pass
 DEEP_PARTICLES = 40  # particles stacked along the all-passes view ray: K grows to 64
-DEEP_KS = (3, 24, 32, 64)  # deep_k: the particle pass's kernel at each K, timed
-DEEP_CHECK_KS = (3, 5, 12, 24, 32, 64)  # deep_k: the heavy tile at each K, bit for bit
+DEEP_KS = (3, 17, 24, 32, 64, 128)  # deep_k: the particle pass's kernel at each K, timed
+DEEP_CHECK_KS = (3, 5, 12, 17, 24, 32, 64, 128)  # deep_k: the heavy tile at each K, bit for bit
+DEEP_GLOBAL_KS = (24, 32, 64)  # deep_k: the global-memory kernel timed beside the deep one
 SHARD_BANDS = 4
 SHARD_RUNS = 5  # timed runs of a sharded frame, and of a band's one call and plain version
 SH_STEREO = tuple(f"sharded_{eye}_band{b}" for eye in EYES for b in range(SHARD_BANDS))
@@ -426,14 +438,16 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                     timed=(), sweep_sizes=True, runs=N_TIMED, ks=None):
     """Kernel vs plain for every K of `ks` (None: the templates, KBUFFER_KS)
     and both want_depth on the binned, sorted setup of `tri`, at each
-    cluster size in `clusters` (None: the wrapper's KBUFFER_CLUSTER; a K
-    above 16 runs the deep path, which has no cluster, at the first size
-    only). The heaviest tile must hold `min_rows` rows.
-    Times each (K, want_depth) of `timed` at KBUFFER_CLUSTER and, with
-    `sweep_sizes`, at every cluster size with all tiles, the heaviest tile
-    only, every other tile and every tile empty; one call and the plain
-    version over `runs`. Returns {(K, want_depth): timings} at
-    KBUFFER_CLUSTER."""
+    cluster size in `clusters` (None: the wrapper's, KBUFFER_CLUSTER for a
+    template K and KBUFFER_DEEP_CLUSTER above 16; a K above
+    KBUFFER_DEEP_MAX_K runs the global-memory kernel, which has no
+    cluster, at the first size only). The heaviest tile must hold
+    `min_rows` rows.
+    Times each (K, want_depth) of `timed` at the wrapper's cluster size
+    and, with `sweep_sizes`, at every cluster size with all tiles, the
+    heaviest tile only, every other tile and every tile empty; one call and
+    the plain version over `runs`. Returns {(K, want_depth): timings} at
+    the wrapper's cluster size."""
     from superconductor_tpu_torch.bench_raster import (
         format_sweep,
         graph_ms,
@@ -455,15 +469,19 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
         raise RuntimeError(f"{name}: heaviest tile {heaviest} rows < {min_rows}")
     sorted_setup = gather_sorted_setup(tri, bins).contiguous()
     args = (sorted_setup, bins.tile_start, bins.tile_count, height, width)
-    clusters = clusters or (raster_mod.KBUFFER_CLUSTER,)
     ks = ks or KBUFFER_KS
+
+    def constant(k):  # the wrapper's cluster size constant at K = k
+        return "KBUFFER_CLUSTER" if k <= KBUFFER_KS[-1] else "KBUFFER_DEEP_CLUSTER"
+
     for k in ks:
+        sizes_k = clusters or (getattr(raster_mod, constant(k)),)
         for want in (True, False):
             kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, y_offset=y_offset,
                       want_depth=want)
             pkb, players = kbuffer_sorted_plain(*args, **kw)
-            for cluster in (clusters if k <= KBUFFER_KS[-1] else clusters[:1]):
-                with kernel_constants(KBUFFER_CLUSTER=cluster):
+            for cluster in (sizes_k if k <= raster_mod.KBUFFER_DEEP_MAX_K else sizes_k[:1]):
+                with kernel_constants(**{constant(k): cluster}):
                     kb, layers = kbuffer_sorted(*args, **kw)
                 torch.cuda.synchronize()
                 same = torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
@@ -477,7 +495,7 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
                                        f"kernel != plain ({diff} pair values differ)")
                 results["max_abs_err"] = max(results["max_abs_err"], err)
     deepest = int(layers.max())
-    sizes = ",".join(map(str, clusters))
+    sizes = ",".join(map(str, clusters)) if clusters else "the wrapper's"
     phase("kbuffer", f"{name}: {width}x{height} pairs={int(bins.num_pairs)} heaviest tile "
           f"{heaviest} rows, K={','.join(map(str, ks))} x want_depth, cluster {sizes}: "
           f"equal (tolerance: bit for bit); max layers {deepest}, covered {float((layers > 0).float().mean()):.4f}")
@@ -492,9 +510,10 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
             return graph_ms(lambda: kbuffer_sorted(sorted_setup, bins.tile_start, tile_count,
                                                    height, width, **kw))
 
-        times = (sweep(run, bins.tile_count, "KBUFFER_CLUSTER") if sweep_sizes
-                 else {raster_mod.KBUFFER_CLUSTER: {"all tiles": run(bins.tile_count)}})
-        ms = times[raster_mod.KBUFFER_CLUSTER]["all tiles"]
+        at = getattr(raster_mod, constant(k))
+        times = (sweep(run, bins.tile_count, constant(k)) if sweep_sizes
+                 else {at: {"all tiles": run(bins.tile_count)}})
+        ms = times[at]["all tiles"]
         one_call = cuda_ms(lambda: kbuffer_sorted(*args, **kw), runs)
         plain_ms = cuda_ms(lambda: kbuffer_sorted_plain(*args, **kw), runs)
         bound_ms, bound_by, pairs = raster_bound(
@@ -504,7 +523,7 @@ def compare_kbuffer(name, tri, width, height, p_cap, results, reverse_z=True,
         timings[(k, want)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, heaviest=heaviest, pairs=pairs)
         phase("kbuffer", f"{name} K={k} want_depth={want}: kernel {ms:.4f} ms at cluster "
-              f"{raster_mod.KBUFFER_CLUSTER} (device time, CUDA graph of 20 launches, median "
+              f"{at} (device time, CUDA graph of 20 launches, median "
               f"of 20 replays); one call {one_call:.4f} ms, plain {plain_ms:.4f} ms "
               f"(CUDA events, median of {runs}); bound {bound_ms:.4f} ms ({bound_by}; "
               f"{pairs} pairs, heaviest tile {heaviest} rows), share {bound_ms / ms:.3f}")
@@ -1102,13 +1121,20 @@ def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
     particles stacked along its view ray (two at one depth), fit_caps from
     the all-passes frame's caps growing particle_layers to 64; the particle
     pass's k-buffer kernel on the stats frame's inputs against its plain
-    version at every K of DEEP_KS (K = 3 at every cluster size) and timed
-    (device time and bound, shapes["deep_k<K>"]); the 2,044-row tile at
-    every K of DEEP_CHECK_KS in both z directions over a floor; the frame's
-    launches by pass in its timed run and its plain-versions twin, byte
-    for byte. Returns the launches of the timed run, by kernel and by
-    pass."""
-    from superconductor_tpu_torch.bench_raster import CLUSTERS
+    version at every K of DEEP_KS and every cluster size, timed (device
+    time, bound and share, shapes["deep_k<K>"], and at every cluster size
+    with every tile variant); the global-memory kernel on the same inputs
+    at each K of DEEP_GLOBAL_KS, bit for bit against the deep kernel and
+    timed beside it; the peak memory of a K = 64 call without depth planes;
+    the 2,044-row tile at every K of DEEP_CHECK_KS and at
+    KBUFFER_DEEP_MAX_K + 1 (the global-memory kernel) in both z directions,
+    over a floor and without one, and timed at K = 24 and 64 by cluster
+    size; the frame's launches by pass in its timed run and its
+    plain-versions twin, byte for byte. Returns the launches of the timed
+    run, by kernel and by pass."""
+    from superconductor_tpu_torch.bench_raster import CLUSTERS, graph_ms
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.frame import (
         render_frame,
@@ -1140,25 +1166,76 @@ def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
     tri, floor, want, k, rows, y0 = passes["kbuffer"][AP_KBUFFER.index("particles")][1]
     if k != 64:
         raise RuntimeError(f"the particle pass ran at K={k}, not 64")
+    # a deep block of P pixels takes the 8 KB ring and P (8K + 4) bytes
+    smem = raster_mod.kbuffer_smem_bytes
+    most = raster_mod.KBUFFER_DEEP_MAX_K
+    phase("deep_k", "deep kernel blocks: " + ", ".join(
+        f"K={kk} {(smem(kk) - 8192) // (8 * kk + 4)} px, {smem(kk)} B"
+        for kk in DEEP_KS if kk > 16)
+        + f"; largest K {most} ({smem(most)} B; K={most + 1}: {smem(most + 1)})")
+    if smem(most) <= 0 or smem(most + 1) != -1:
+        raise RuntimeError("KBUFFER_DEEP_MAX_K is not the deep kernel's largest K")
     res = {"max_abs_err": 0.0}
     timings = compare_kbuffer("deep_k-particles", tri, WIDTH, rows, config.p_cap, res,
                               y_offset=y0, floor=floor, min_layers=DEEP_PARTICLES,
-                              clusters=CLUSTERS, ks=DEEP_KS, sweep_sizes=False,
+                              clusters=CLUSTERS, ks=DEEP_KS,
                               timed=[(kk, want) for kk in DEEP_KS])
     for kk in DEEP_KS:
         shapes[f"deep_k{kk}"] = dict(timings[(kk, want)], max_abs_err=res["max_abs_err"])
-    phase("deep_k", f"particle pass ({smi_line()}): " + "; ".join(
-        f"K={kk} {shapes[f'deep_k{kk}']['ms']:.4f} ms, bound "
-        f"{shapes[f'deep_k{kk}']['bound_ms']:.4f} ms ({shapes[f'deep_k{kk}']['bound_by']}), "
-        f"plain {shapes[f'deep_k{kk}']['plain_ms']:.4f} ms" for kk in DEEP_KS))
+
+    # the global-memory kernel beside the deep one, on the same inputs
+    bins = bin_triangles(tri, WIDTH, rows, config.p_cap, y_offset=y0)
+    args = (gather_sorted_setup(tri, bins).contiguous(), bins.tile_start, bins.tile_count,
+            rows, WIDTH)
+    for kk in DEEP_GLOBAL_KS:
+        kw = dict(k=kk, depth_floor=floor, y_offset=y0, want_depth=want)
+        kb, layers = raster_mod.kbuffer_sorted(*args, **kw)
+        gkb, glayers = raster_mod.kbuffer_sorted_global(*args, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(kb.pair, gkb.pair) and torch.equal(layers, glayers)):
+            raise RuntimeError(f"deep_k K={kk}: the global-memory kernel != the deep kernel")
+        shapes[f"deep_k{kk}"]["global_ms"] = graph_ms(
+            lambda: raster_mod.kbuffer_sorted_global(*args, **kw))
+    phase("deep_k", f"particle pass ({smi_line()}; device time, CUDA graph of 20 launches, "
+          f"median of 20 replays): " + "; ".join(
+              f"K={kk} {shapes[f'deep_k{kk}']['ms']:.4f} ms, bound "
+              f"{shapes[f'deep_k{kk}']['bound_ms']:.4f} ms ({shapes[f'deep_k{kk}']['bound_by']}), "
+              f"share {shapes[f'deep_k{kk}']['bound_ms'] / shapes[f'deep_k{kk}']['ms']:.3f}, "
+              f"plain {shapes[f'deep_k{kk}']['plain_ms']:.4f} ms"
+              + (f", global-memory kernel {shapes[f'deep_k{kk}']['global_ms']:.4f} ms"
+                 if kk in DEEP_GLOBAL_KS else "") for kk in DEEP_KS))
+
+    # no depth planes: a K = 64 call's peak is its pair planes and layers
+    kw = dict(k=64, depth_floor=floor, y_offset=y0, want_depth=False)
+    raster_mod.kbuffer_sorted(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    kb, layers = raster_mod.kbuffer_sorted(*args, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    planes = 65 * rows * WIDTH * 4
+    phase("deep_k", f"K=64 want_depth=False: the call allocates {peak} B at its peak; its "
+          f"64 pair planes and layers are {planes} B, 64 depth planes would add "
+          f"{64 * rows * WIDTH * 4} B")
+    if not planes <= peak < planes + (64 << 20):
+        raise RuntimeError("a K = 64 call without depth planes allocated more than its planes")
+
     gen = torch.Generator(device=dev).manual_seed(5)
     heavy_floor = torch.rand((96, 320), generator=gen, device=dev) * 0.35 + 0.15
     for reverse_z in (True, False):
-        compare_kbuffer("deep_k-heavy-tile" + ("" if reverse_z else "-forward-z"),
-                        heavy_tile_setup(320, 96, dev, reverse_z=reverse_z), 320, 96, 4096,
-                        res, reverse_z=reverse_z,
-                        floor=heavy_floor if reverse_z else 1.0 - heavy_floor,
-                        min_layers=9, min_rows=2000, clusters=CLUSTERS, ks=DEEP_CHECK_KS)
+        heavy = heavy_tile_setup(320, 96, dev, reverse_z=reverse_z)
+        for with_floor in (True, False):
+            # timed once: where a cluster split pays, a 2,044-row tile
+            timed = [(24, False), (64, False)] if reverse_z and with_floor else ()
+            compare_kbuffer("deep_k-heavy-tile" + ("" if reverse_z else "-forward-z")
+                            + ("" if with_floor else "-no-floor"), heavy, 320, 96, 4096, res,
+                            reverse_z=reverse_z,
+                            floor=(heavy_floor if reverse_z else 1.0 - heavy_floor)
+                            if with_floor else None, min_layers=9, min_rows=2000,
+                            clusters=CLUSTERS,
+                            ks=DEEP_CHECK_KS + (raster_mod.KBUFFER_DEEP_MAX_K + 1,),
+                            timed=timed)
 
     _ms, launches, by_pass = timed_passes("deep_k", scene_dev, state0, config, env)
     img = render_frame(scene_dev, state0, config, env)
@@ -1248,6 +1325,118 @@ def stereo_golden_frame(device, raster="auto"):
     from superconductor_tpu_torch.render.frame import render_frame
 
     return render_frame(*stereo_golden_inputs(device, raster))
+
+
+def gbuffer_steps(pair, px, py, tri, attrs, shade_row=None, row_cols=None, sum3=None):
+    """ops/shade.py interpolate_gbuffer's intermediates, op by op in its
+    order -> [(name, tensor)], with sum3(x, dim) for its three-term sums
+    (None: shade._sum3, the fixed order (x0 + x1) + x2)."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    sum3 = sum3 or shade_mod._sum3
+    p = torch.clamp_min(pair, 0)
+    if shade_row is not None:
+        row = shade_row[p]
+        row = row[:, :row_cols] if row_cols is not None else row
+        setup, av32 = row[:, 0:16], row[:, 16:48]
+    else:
+        setup = tri.setup[p]
+        av32 = attrs.packed[p] if attrs.packed is not None else None
+    adj = setup[:, 0:9].reshape(-1, 3, 3)
+    dx, dy = adj[:, :, 0], adj[:, :, 1]
+    a_px = dx * px[:, None]
+    b_py = dy * py[:, None]
+    e = (a_px + b_py) + adj[:, :, 2]
+    d_val, d_dx, d_dy = sum3(e, -1), sum3(dx, -1), sum3(dy, -1)
+    inv_d = 1.0 / torch.where(d_val == 0, 1.0, d_val)
+    bary = e * inv_d[:, None]
+    steps = [("e: a*px", a_px), ("e: b*py", b_py), ("e", e), ("d_val: sum of e", d_val),
+             ("d_dx", d_dx), ("d_dy", d_dy), ("inv_d", inv_d), ("bary", bary)]
+    if av32 is not None:
+        views = {"world_pos": av32[:, 0:9].reshape(-1, 3, 3),
+                 "normal": av32[:, 9:18].reshape(-1, 3, 3),
+                 "uv": av32[:, 18:24].reshape(-1, 3, 2), "lm_uv": av32[:, 24:30].reshape(-1, 3, 2)}
+    else:
+        views = {"world_pos": attrs.world_pos[p], "normal": attrs.normal[p], "uv": attrs.uv[p],
+                 "lm_uv": attrs.lm_uv[p]}
+    for name, av in views.items():
+        prod = av * bary[..., None]
+        steps += [(f"interp {name}: av * bary", prod), (f"interp {name}: sum", sum3(prod, -2))]
+    for name in ("world_pos", "uv"):
+        av = views[name]
+        n_val = sum3(e[..., None] * av, -2)
+        n_dx = sum3(dx[..., None] * av, -2)
+        n_dy = sum3(dy[..., None] * av, -2)
+        ddx = (n_dx - n_val * (d_dx * inv_d)[..., None]) * inv_d[..., None]
+        ddy = (n_dy - n_val * (d_dy * inv_d)[..., None]) * inv_d[..., None]
+        steps += [(f"deriv {name}: n_val", n_val), (f"deriv {name}: n_dx", n_dx),
+                  (f"deriv {name}: n_dy", n_dy), (f"deriv {name}: ddx", ddx),
+                  (f"deriv {name}: ddy", ddy)]
+    return steps
+
+
+def trace_gbuffer_lanes(dev) -> None:
+    """The stereo 256x128 frame's g-buffer lanes on the card and the CPU:
+    every interpolate_gbuffer call of the card's frame recorded, and its
+    intermediates (gbuffer_steps) computed from the same inputs on both
+    devices, once with torch.sum for the three-term sums and once with the
+    fixed order of shade._sum3; the first intermediate that differs on a
+    live lane is printed for each. Then the frame on both devices with each
+    form, and the PSNR between them."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+    from superconductor_tpu_torch.render import frame as frame_mod
+    from superconductor_tpu_torch.render.frame import render_frame
+
+    calls = []
+    real = frame_mod.interpolate_gbuffer
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    frame_mod.interpolate_gbuffer = rec
+    try:
+        render_frame(*stereo_golden_inputs(dev))
+    finally:
+        frame_mod.interpolate_gbuffer = real
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*[to_cpu(v) for v in x])
+        return x
+
+    forms = {"torch.sum": lambda x, dim: torch.sum(x, dim=dim), "fixed order": None}
+    for form, sum3 in forms.items():
+        first, differ = None, 0
+        for i, (args, kw) in enumerate(calls):
+            live = (args[0] >= 0).cpu()
+            card = gbuffer_steps(*args, **kw, sum3=sum3)
+            cpu = gbuffer_steps(*[to_cpu(a) for a in args],
+                                **{k: to_cpu(v) for k, v in kw.items()}, sum3=sum3)
+            for (name, a), (_, b) in zip(card, cpu):
+                a, b = a.cpu()[live], b[live]
+                n = int((a != b).sum())
+                if n:
+                    differ += 1
+                    if first is None:
+                        first = (i, name, n, a.numel(), float((a - b).abs().max()))
+        phase("stereo", f"g-buffer lanes, sums by {form}: {len(calls)} interpolate_gbuffer "
+              f"calls, {differ} intermediates differ card vs CPU on live lanes; first: "
+              + ("none" if first is None else
+                 f"call {first[0]} {first[1]!r}: {first[2]} of {first[3]} values, max abs "
+                 f"difference {first[4]!r}"))
+    saved = shade_mod._sum3
+    try:
+        for form, sum3 in forms.items():
+            shade_mod._sum3 = sum3 or saved
+            a, b = render_frame(*stereo_golden_inputs(dev)).cpu(), render_frame(
+                *stereo_golden_inputs("cpu"))
+            phase("stereo", f"256x128 frame with the g-buffer sums by {form}: card vs CPU "
+                  f"PSNR {psnr(a.numpy(), b.numpy()):.2f} dB")
+    finally:
+        shade_mod._sum3 = saved
 
 
 def stereo_path(dev, shapes: dict) -> dict:
@@ -1382,6 +1571,7 @@ def stereo_path(dev, shapes: dict) -> dict:
         raise RuntimeError("the two eyes are equal, or the animation changes nothing")
 
     localize_card_cpu_gap("stereo", stereo_golden_inputs, dev)
+    trace_gbuffer_lanes(dev)
     raster_mod.rasterize_sorted.LAUNCHES = 0
     img_g = stereo_golden_frame(dev).cpu()
     img_ref = stereo_golden_frame(dev, raster="ref").cpu()

@@ -82,14 +82,64 @@
 // Other K. A K up to 16 that is not a template runs the next template up
 // (the wrapper, ops/raster.py kbuffer_sorted, keeps its first K planes: the
 // insert's total order makes the top K a prefix of the top K'). A K above 16
-// runs kbuffer_deep_kernel: its slots no longer fit registers or a block's
-// shared memory (smem_bytes<32> at kPix = 2 passes the 227 KB a block may
-// take), so each pixel keeps its list in the output planes in device
-// memory, one thread a pixel, walking its tile's rows in order through the
-// same TMA ring. Bytes: every accepted fragment reads up to K slots and
-// shifts the ones behind it, through L1 and L2. A simple kernel that is
-// right; it has no cluster split or 8x8 rejection.
-//
+// runs kbuffer_deep_kernel: its 2K + 3 live values a pixel no longer fit
+// registers, and smem_bytes<32> at kPix = 2 passes the 227 KB a block may
+// take. Bytes bound it as they bound the templates (K pair planes, K depth
+// planes when wanted, and `layers`, written at every pixel), so its design
+// writes each of them once and nothing else:
+// * Lists on chip. A block of P threads owns a band of P pixels of a tile,
+//   one a thread, row-major (P / 128 rows of 128 columns, or P columns of one
+//   row below 128), and keeps each pixel's slots in shared memory,
+//   slot-major ([slot][pixel]: a warp's 32 pixels hit 32 banks), with its
+//   count: P (8K + 4) bytes beside the 8 KB ring (deep_smem_bytes).
+//   deep_band_px takes the largest P in {512, ..., 32} of which two blocks
+//   fit an SM (512 up to K = 25, 256 up to 52, 128 up to 104, 64 up to 209,
+//   32 up to 419), else P = 32 at one block an SM: the largest K the kernel
+//   takes is 875.
+// * The insert is the templates' sorted insert, run on the list in shared
+//   memory from its end: each held slot that is not strictly nearer than
+//   the new fragment moves back one (the last falls off when the list is
+//   full), and the fragment lands in the gap; a full list whose last slot
+//   is strictly nearer drops it at once. An unsorted list that replaces its
+//   farthest entry would save the shifts but needs a rescan for the new
+//   farthest on every replacement and a sort of every list at the end; the
+//   shifts fall only on the few pixels a deep stack covers, and a sorted
+//   list is written and merged as it stands.
+// * Writes. At the end each thread writes its pixel's K pair planes, K depth
+//   planes only when depth_out is non-null, and `layers`, once: a warp
+//   stores 128 contiguous bytes of a plane. A band of an empty tile writes
+//   far / -1 / 0 without touching shared memory. No scratch planes.
+// * Row rejection. A warp's 32 pixels are one segment of a row: for 32 rows
+//   at a time, lane i tests row i against that 32x1 rectangle
+//   (raster_common.cuh rect_keeps) and the warp walks the rows it keeps, in
+//   order, two at a time: both rows' fill tests and depth work without
+//   branches between them, so their dependent chains overlap, then the
+//   inserts in row order.
+// * Cluster split, as the templates: a tile of more than min_part_rows rows
+//   is cut into parts (tile_part) over a cluster of S blocks, and each block
+//   walks its part into its own lists. After cluster.sync() block s takes a
+//   share of the band's pixels, which no other block reads in its lists,
+//   and merges every other part's list into its own there, in place from
+//   the back, by the templates' kByPos rule (nearer, or at an equal depth
+//   the larger position, ahead): the other part's entries come through
+//   distributed shared memory 8 at a time, loaded together, and its own
+//   from local shared memory. Different parts hold different positions, so
+//   that order is total: the merge is the whole walk's list bit for bit,
+//   whatever S or the order of the parts, and `layers` is the sum of the
+//   parts' counts.
+// What still bounds it (measured at 1080p on an H100, PERF.md): on a pass
+// whose tiles are mostly empty, the empty bands' writes, near the bytes
+// bound; at K below 32, the busy bands' walks, each kept row a chain of
+// dependent FP32 operations, an IEEE divide and an insert whose shifts
+// follow one another. A cluster split pays on a tile of thousands of rows;
+// on lighter tiles its extra blocks cost more than the shorter walks save,
+// so the wrapper's default is one block a band.
+// A K above 875 runs kbuffer_global_kernel: each pixel's list in its output
+// planes in device memory (scratch depth planes when the caller wants
+// none), one thread a pixel, no rejection or split; the deep kernel's
+// predecessor for every K above 16, exported as sc_kbuffer_global so that
+// the two can be timed side by side.
+
 // Bit-exactness with the reference: __fmul_rn / __fadd_rn in its order and
 // an IEEE divide (__fdiv_rn); build with -fmad=false, never fast-math.
 
@@ -436,21 +486,321 @@ cudaError_t dispatch(bool reverse_z, const void* setup, int num_rows,
                                  pair_out, layers_out, s);
 }
 
-// K > 16: 512 threads own 4 rows x 128 columns of a tile, one pixel each.
-// A pixel's occupied slots are its first min(layers, K) slots of the depth
-// and pair planes (depth_out is never null here: the wrapper gives scratch
-// planes when the caller wants none), sorted nearest first, so the slots
-// strictly nearer than a new fragment are a prefix and its rank is their
-// count -- the same insert as the template kernel's, slot by slot.
-template <bool kReverseZ>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kSmSmem = 233472;       // shared memory of an SM
+constexpr int kBlockSmem = 232448;    // the most a block may take
+constexpr int kBlockReserved = 1024;  // what the runtime keeps of it a block
+
+// dynamic shared memory of a deep block of px pixels at k slots: the ring,
+// then k depths, k positions and the count of every pixel
+__host__ __device__ constexpr long long deep_smem_bytes(int px, int k) {
+  return kRingBytes + static_cast<long long>(px) * (8LL * k + 4);
+}
+
+// Pixels a block of the deep kernel owns at k slots: the largest of 512,
+// 256, ..., 32 of which two blocks fit an SM, else 32 when one block fits,
+// else 0 (the global-memory kernel).
+int deep_band_px(int k) {
+  for (int px = 512; px >= 32; px /= 2) {
+    if (2 * (deep_smem_bytes(px, k) + kBlockReserved) <= kSmSmem) return px;
+  }
+  return deep_smem_bytes(32, k) <= kBlockSmem ? 32 : 0;
+}
+
+// K > 16 (header: "Other K"). Thread q owns pixel q of the band, its slot i
+// at list_z / list_p[i * kPx + q], nearest first; only its first min(count,
+// k) slots are held.
+template <int kPx, bool kReverseZ, bool kWantDepth>
+__global__ void __launch_bounds__(kPx, 1024 / kPx)
 kbuffer_deep_kernel(const float4* __restrict__ setup, int num_rows,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ tile_count, int ntx, int height,
-                    int width, int y_offset, int k,
+                    int width, int y_offset, int k, int min_part_rows,
                     const float* __restrict__ floor_depth,
                     float* __restrict__ depth_out, int* __restrict__ pair_out,
                     int* __restrict__ layers_out) {
+  constexpr int kCols = kPx < kTileW ? kPx : kTileW;
+  constexpr int kRows = kPx / kCols;
+  constexpr int kAcross = kTileW / kCols;  // bands across a tile
+  constexpr int kDown = kTileH / kRows;    // bands down a tile
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4(*ring)[kChunk * 4] = reinterpret_cast<float4(*)[kChunk * 4]>(smem);
+  float* list_z = reinterpret_cast<float*>(smem + kRingBytes);
+  int* list_p = reinterpret_cast<int*>(list_z + k * kPx);
+  int* list_n = list_p + k * kPx;
+  __shared__ __align__(8) uint64_t bar[2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int band = blockIdx.x / S;
+  const int tx = band / kAcross;
+  const int ty = blockIdx.y / kDown;
+  const int band_x = tx * kTileW + (band % kAcross) * kCols;
+  const int band_y = ty * kTileH + (blockIdx.y % kDown) * kRows;
+  const int t = ty * ntx + tx;
+
+  int pb, pe;
+  const int parts = tile_part(tile_start, tile_count, t, num_rows, S,
+                              min_part_rows, rank, &pb, &pe);
+  if (parts == 1 && rank != 0) return;  // uniform over the cluster
+
+  const int q = threadIdx.x;
+  const int x = band_x + q % kCols;
+  const int y = band_y + q / kCols;
+  const bool live = x < width && y < height;
+  const long long plane = static_cast<long long>(height) * width;
+  const long long at = static_cast<long long>(y) * width + x;
+  const float far_depth = kReverseZ ? 0.0f : 1.0f;
+
+  if (parts == 1 && pe == pb) {  // an empty tile
+    if (live) {
+      layers_out[at] = 0;
+      for (int i = 0; i < k; ++i) {
+        pair_out[i * plane + at] = -1;
+        if (kWantDepth) depth_out[i * plane + at] = far_depth;
+      }
+    }
+    return;
+  }
+
+  float floor_z = far_depth;
+  if (floor_depth != nullptr && live && pe > pb) floor_z = floor_depth[at];
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y + y_offset) + 0.5f;
+  const int lane = q & 31;
+  const int seg = q - lane;  // the warp's 32 pixels: one segment of a row
+  const int seg_x = band_x + seg % kCols;
+  const int seg_y = band_y + seg / kCols + y_offset;
+  float* zq = list_z + q;
+  int* pq = list_p + q;
+  int layers = 0;
+
+  ring_walk(setup, pb, pe, ring, bar, [&](const float4* rows, int r0, int cnt) {
+    for (int g = 0; g < cnt; g += 32) {
+      bool keep = false;
+      if (g + lane < cnt) {
+        keep = rect_keeps<32, 1>(rows[(g + lane) * 4 + 0], rows[(g + lane) * 4 + 1],
+                                 rows[(g + lane) * 4 + 2].x, seg_x, seg_y);
+      }
+      unsigned mine = __ballot_sync(0xffffffffu, keep);
+      while (mine != 0u) {  // uniform over the warp
+        // two kept rows at a time (the second is the first again when none
+        // is left): the fill tests and the depth work of both without
+        // branches between them, so their chains overlap; the inserts
+        // then go in row order
+        const int ra = g + __ffs(mine) - 1;
+        mine &= mine - 1u;
+        const bool two = mine != 0u;
+        const int rb = two ? g + __ffs(mine) - 1 : ra;
+        if (two) mine &= mine - 1u;
+        float e[2][3];
+        bool inside[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* row = rows + (h == 0 ? ra : rb) * 4;
+          const float4 q0 = row[0];
+          const float4 q1 = row[1];
+          const float c2 = row[2].x;
+          e[h][0] = edge(q0.x, q0.y, q0.z, px, py);
+          e[h][1] = edge(q0.w, q1.x, q1.y, px, py);
+          e[h][2] = edge(q1.z, q1.w, c2, px, py);
+          inside[h] = live && e[h][0] > fill_threshold(q0.x, q0.y) &&
+                      e[h][1] > fill_threshold(q0.w, q1.x) &&
+                      e[h][2] > fill_threshold(q1.z, q1.w);
+        }
+        inside[1] = inside[1] && two;
+        if (!(inside[0] || inside[1])) continue;
+        float z[2];
+        bool ok[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* row = rows + (h == 0 ? ra : rb) * 4;
+          const float4 q2 = row[2];
+          const float4 q3 = row[3];
+          const float wsum = dot3(e[h][0], e[h][1], e[h][2], q3.x, q3.y, q3.z);
+          const float zsum = dot3(e[h][0], e[h][1], e[h][2], q2.y, q2.z, q2.w);
+          z[h] = __fdiv_rn(zsum, wsum);
+          ok[h] = inside[h] && wsum > 0.0f && z[h] >= 0.0f && z[h] <= 1.0f &&
+                  nearer<kReverseZ>(z[h], floor_z);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!ok[h]) continue;
+          const int held = layers < k ? layers : k;
+          layers += 1;
+          // rank k: every held slot strictly nearer
+          if (held == k && nearer<kReverseZ>(zq[(k - 1) * kPx], z[h])) continue;
+          int i = held < k ? held : k - 1;
+          while (i > 0 && !nearer<kReverseZ>(zq[(i - 1) * kPx], z[h])) {
+            zq[i * kPx] = zq[(i - 1) * kPx];
+            pq[i * kPx] = pq[(i - 1) * kPx];
+            --i;
+          }
+          zq[i * kPx] = z[h];
+          pq[i * kPx] = r0 + (h == 0 ? ra : rb);
+        }
+      }
+    }
+  });
+
+  if (parts == 1) {
+    if (live) {
+      layers_out[at] = layers;
+      const int held = layers < k ? layers : k;
+      for (int i = 0; i < k; ++i) {
+        pair_out[i * plane + at] = i < held ? pq[i * kPx] : -1;
+        if (kWantDepth) depth_out[i * plane + at] = i < held ? zq[i * kPx] : far_depth;
+      }
+    }
+    return;
+  }
+
+  // split band: block `rank` merges, for its share [rank P / S, (rank + 1)
+  // P / S) of the band's pixels, every other part's list into its own, in
+  // place, then writes them. Only this block reads its own lists there.
+  list_n[q] = layers;
+  cluster.sync();
+  const int m = rank * kPx / S + q;
+  const int mx = band_x + m % kCols;
+  const int my = band_y + m / kCols;
+  if (m < (rank + 1) * kPx / S && mx < width && my < height) {
+    float* za = list_z + m;
+    int* pa = list_p + m;
+    int count = list_n[m];
+    int held = count < k ? count : k;
+    for (int s = 0; s < parts; ++s) {
+      if (s == rank) continue;
+      const int n = cluster.map_shared_rank(list_n, s)[m];
+      count += n;
+      const float* zb = cluster.map_shared_rank(list_z, s) + m;
+      const int* pb_s = cluster.map_shared_rank(list_p, s) + m;
+      // merge from the back: slot `out` takes whichever of a's and b's
+      // last unmerged entries is behind the other; slots past k drop
+      int ia = held - 1, ib = (n < k ? n : k) - 1;
+      int out = ia + ib + 1;
+      held = out + 1 < k ? out + 1 : k;
+      while (ib >= 0) {  // then a's unmerged entries are in place
+        float bz[8];  // the next 8 of b, loaded together from the other block
+        int bp[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (ib - j >= 0) {
+            bz[j] = zb[(ib - j) * kPx];
+            bp[j] = pb_s[(ib - j) * kPx];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (ib - j < 0) break;
+          while (ia >= 0 && (nearer<kReverseZ>(bz[j], za[ia * kPx]) ||
+                             (bz[j] == za[ia * kPx] && bp[j] > pa[ia * kPx]))) {
+            if (out < k) {
+              za[out * kPx] = za[ia * kPx];
+              pa[out * kPx] = pa[ia * kPx];
+            }
+            --ia;
+            --out;
+          }
+          if (out < k) {
+            za[out * kPx] = bz[j];
+            pa[out * kPx] = bp[j];
+          }
+          --out;
+        }
+        ib -= 8;
+      }
+    }
+    const long long at_m = static_cast<long long>(my) * width + mx;
+    layers_out[at_m] = count;
+    for (int i = 0; i < k; ++i) {
+      pair_out[i * plane + at_m] = i < held ? pa[i * kPx] : -1;
+      if (kWantDepth) depth_out[i * plane + at_m] = i < held ? za[i * kPx] : far_depth;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its lists
+}
+
+template <int kPx, bool kReverseZ, bool kWantDepth>
+cudaError_t launch_deep(const void* setup, int num_rows, const void* tile_start,
+                        const void* tile_count, int ntx, int nty, int height,
+                        int width, int y_offset, int k, int cluster,
+                        int min_part_rows, const void* floor_depth,
+                        void* depth_out, void* pair_out, void* layers_out,
+                        cudaStream_t stream) {
+  constexpr int kCols = kPx < kTileW ? kPx : kTileW;
+  constexpr int kRows = kPx / kCols;
+  const int smem = static_cast<int>(deep_smem_bytes(kPx, k));
+  auto kernel = kbuffer_deep_kernel<kPx, kReverseZ, kWantDepth>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntx * (kTileW / kCols) * cluster, nty * (kTileH / kRows), 1);
+  cfg.blockDim = dim3(kPx, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float4*>(setup), num_rows,
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
+      ntx, height, width, y_offset, k, min_part_rows,
+      static_cast<const float*>(floor_depth), static_cast<float*>(depth_out),
+      static_cast<int*>(pair_out), static_cast<int*>(layers_out));
+}
+
+template <int kPx>
+cudaError_t dispatch_deep(bool reverse_z, const void* setup, int num_rows,
+                          const void* tile_start, const void* tile_count,
+                          int ntx, int nty, int height, int width,
+                          int y_offset, int k, int cluster, int min_part_rows,
+                          const void* floor_depth, void* depth_out,
+                          void* pair_out, void* layers_out, cudaStream_t s) {
+  const bool want_depth = depth_out != nullptr;
+  if (reverse_z && want_depth) {
+    return launch_deep<kPx, true, true>(setup, num_rows, tile_start, tile_count,
+                                        ntx, nty, height, width, y_offset, k,
+                                        cluster, min_part_rows, floor_depth,
+                                        depth_out, pair_out, layers_out, s);
+  } else if (reverse_z) {
+    return launch_deep<kPx, true, false>(setup, num_rows, tile_start, tile_count,
+                                         ntx, nty, height, width, y_offset, k,
+                                         cluster, min_part_rows, floor_depth,
+                                         depth_out, pair_out, layers_out, s);
+  } else if (want_depth) {
+    return launch_deep<kPx, false, true>(setup, num_rows, tile_start, tile_count,
+                                         ntx, nty, height, width, y_offset, k,
+                                         cluster, min_part_rows, floor_depth,
+                                         depth_out, pair_out, layers_out, s);
+  }
+  return launch_deep<kPx, false, false>(setup, num_rows, tile_start, tile_count,
+                                        ntx, nty, height, width, y_offset, k,
+                                        cluster, min_part_rows, floor_depth,
+                                        depth_out, pair_out, layers_out, s);
+}
+
+// K beyond the deep kernel (header: "Other K"): 512 threads own 4 rows x 128
+// columns of a tile, one pixel each. A pixel's occupied slots are its first
+// min(layers, K) slots of the depth and pair planes (depth_out is never null
+// here: the wrapper gives scratch planes when the caller wants none), sorted
+// nearest first, so the slots strictly nearer than a new fragment are a
+// prefix and its rank is their count -- the same insert as the template
+// kernel's, slot by slot.
+template <bool kReverseZ>
+__global__ void __launch_bounds__(kThreads)
+kbuffer_global_kernel(const float4* __restrict__ setup, int num_rows,
+                      const int* __restrict__ tile_start,
+                      const int* __restrict__ tile_count, int ntx, int height,
+                      int width, int y_offset, int k,
+                      const float* __restrict__ floor_depth,
+                      float* __restrict__ depth_out, int* __restrict__ pair_out,
+                      int* __restrict__ layers_out) {
   constexpr int kBandH = kThreads / kTileW;  // 4 rows
   constexpr int kBands = kTileH / kBandH;
   __shared__ __align__(128) float4 ring[2][kChunk * 4];
@@ -519,13 +869,14 @@ kbuffer_deep_kernel(const float4* __restrict__ setup, int num_rows,
 }
 
 template <bool kReverseZ>
-cudaError_t launch_deep(const void* setup, int num_rows, const void* tile_start,
-                        const void* tile_count, int ntx, int nty, int height,
-                        int width, int y_offset, int k, const void* floor_depth,
-                        void* depth_out, void* pair_out, void* layers_out,
-                        cudaStream_t stream) {
+cudaError_t launch_global(const void* setup, int num_rows,
+                          const void* tile_start, const void* tile_count,
+                          int ntx, int nty, int height, int width,
+                          int y_offset, int k, const void* floor_depth,
+                          void* depth_out, void* pair_out, void* layers_out,
+                          cudaStream_t stream) {
   constexpr int kBands = kTileH / (kThreads / kTileW);
-  kbuffer_deep_kernel<kReverseZ><<<dim3(ntx, nty * kBands, 1), kThreads, 0, stream>>>(
+  kbuffer_global_kernel<kReverseZ><<<dim3(ntx, nty * kBands, 1), kThreads, 0, stream>>>(
       static_cast<const float4*>(setup), num_rows,
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       ntx, height, width, y_offset, k, static_cast<const float*>(floor_depth),
@@ -536,8 +887,9 @@ cudaError_t launch_deep(const void* setup, int num_rows, const void* tile_start,
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block of the K-slot template takes, or -1
-// for another k.
+// Bytes of dynamic shared memory a block of the K-slot kernel takes: the
+// template's for 1, 2, 4, 8 and 16, the deep kernel's above 16, and -1 for
+// another k or a k above 875 (the global-memory kernel takes none).
 extern "C" int sc_kbuffer_smem_bytes(int k) {
   switch (k) {
     case 1: return smem_bytes<1>();
@@ -545,22 +897,25 @@ extern "C" int sc_kbuffer_smem_bytes(int k) {
     case 4: return smem_bytes<4>();
     case 8: return smem_bytes<8>();
     case 16: return smem_bytes<16>();
-    default: return -1;
+    default: break;
   }
+  const int px = k > 16 ? deep_band_px(k) : 0;
+  return px > 0 ? static_cast<int>(deep_smem_bytes(px, k)) : -1;
 }
 
 // Plain C entry point (loaded with ctypes). Tile shape is fixed at 32x128.
 // k is 1, 2, 4, 8 or 16 (the templates; a caller wanting another K up to 16
 // passes the next of them and keeps the first K planes) or above 16 (the
-// deep kernel, which needs depth_out and ignores cluster and
-// min_part_rows); `cluster` (1..8) blocks share a band, and a tile is split
-// only into parts of more than `min_part_rows` (>= 1) rows. The caller
-// checks shapes, dtypes, devices and 16-byte alignment of `setup`.
-// floor_depth (H, W) may be null (every floor at far); depth_out (K, H, W)
-// may be null (no depth planes) for k <= 16. Launches on `stream`,
-// allocates nothing, does not synchronise. Returns the launch's cudaError_t
-// code (0 = launched), or cudaErrorInvalidValue for another k, cluster or
-// min_part_rows, or a null depth_out above 16.
+// deep kernel up to 875, the global-memory kernel above it, which needs
+// depth_out and ignores cluster and min_part_rows); `cluster` (1..8) blocks
+// share a band, and a tile is split only into parts of more than
+// `min_part_rows` (>= 1) rows. The caller checks shapes, dtypes, devices
+// and 16-byte alignment of `setup`. floor_depth (H, W) may be null (every
+// floor at far); depth_out (K, H, W) may be null (no depth planes) for k up
+// to 875. Launches on `stream`, allocates nothing, does not synchronise.
+// Returns the launch's cudaError_t code (0 = launched), or
+// cudaErrorInvalidValue for another k, cluster or min_part_rows, or a null
+// depth_out above 875.
 extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
                                  const void* tile_start,
                                  const void* tile_count, int ntx, int nty,
@@ -601,18 +956,57 @@ extern "C" int sc_kbuffer_sorted(const void* setup, int num_rows,
                          height, width, y_offset, cluster, min_part_rows,
                          floor_depth, depth_out, pair_out, layers_out, s);
       break;
-    default:
-      if (k <= 16 || depth_out == nullptr) {
-        return static_cast<int>(cudaErrorInvalidValue);
+    default: {
+      if (k <= 16) return static_cast<int>(cudaErrorInvalidValue);
+      auto deep = dispatch_deep<32>;
+      switch (deep_band_px(k)) {
+        case 512: deep = dispatch_deep<512>; break;
+        case 256: deep = dispatch_deep<256>; break;
+        case 128: deep = dispatch_deep<128>; break;
+        case 64: deep = dispatch_deep<64>; break;
+        case 32: break;
+        default:
+          if (depth_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+          err = rz ? launch_global<true>(setup, num_rows, tile_start, tile_count,
+                                         ntx, nty, height, width, y_offset, k,
+                                         floor_depth, depth_out, pair_out,
+                                         layers_out, s)
+                   : launch_global<false>(setup, num_rows, tile_start,
+                                          tile_count, ntx, nty, height, width,
+                                          y_offset, k, floor_depth, depth_out,
+                                          pair_out, layers_out, s);
+          if (err == cudaSuccess) err = cudaGetLastError();
+          return static_cast<int>(err);
       }
-      err = rz ? launch_deep<true>(setup, num_rows, tile_start, tile_count, ntx,
-                                   nty, height, width, y_offset, k, floor_depth,
-                                   depth_out, pair_out, layers_out, s)
-               : launch_deep<false>(setup, num_rows, tile_start, tile_count,
-                                    ntx, nty, height, width, y_offset, k,
-                                    floor_depth, depth_out, pair_out,
-                                    layers_out, s);
+      err = deep(rz, setup, num_rows, tile_start, tile_count, ntx, nty, height,
+                 width, y_offset, k, cluster, min_part_rows, floor_depth,
+                 depth_out, pair_out, layers_out, s);
+    }
   }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// The global-memory kernel at any k >= 1, for timing beside the kernel
+// sc_kbuffer_sorted runs (the same arguments without cluster and
+// min_part_rows; depth_out must not be null).
+extern "C" int sc_kbuffer_global(const void* setup, int num_rows,
+                                 const void* tile_start,
+                                 const void* tile_count, int ntx, int nty,
+                                 int height, int width, int y_offset, int k,
+                                 int reverse_z, const void* floor_depth,
+                                 void* depth_out, void* pair_out,
+                                 void* layers_out, void* stream) {
+  if (k < 1 || depth_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      reverse_z != 0
+          ? launch_global<true>(setup, num_rows, tile_start, tile_count, ntx,
+                                nty, height, width, y_offset, k, floor_depth,
+                                depth_out, pair_out, layers_out, s)
+          : launch_global<false>(setup, num_rows, tile_start, tile_count, ntx,
+                                 nty, height, width, y_offset, k, floor_depth,
+                                 depth_out, pair_out, layers_out, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }

@@ -1,7 +1,7 @@
 // Device helpers shared by the binned rasterizers raster.cu and kbuffer.cu:
-// the tile shape, the exact edge arithmetic, the per-8x8 row rejection, the
-// map from a thread to its pixels, and the TMA ring's mbarrier and
-// bulk-copy wrappers.
+// the tile shape, the exact edge arithmetic, the row rejection per 8x8 block
+// or rectangle, the map from a thread to its pixels, and the TMA ring's
+// mbarrier and bulk-copy wrappers.
 //
 // Setup row layout (16 f32, 64 B, read as four float4):
 //   q0 = a0 b0 c0 a1 | q1 = b1 c1 a2 b2 | q2 = c2 zc0 zc1 zc2 |
@@ -67,6 +67,22 @@ __device__ __forceinline__ bool block_keeps(const float4& q0, const float4& q1,
   const float xh = static_cast<float>(x0 + 7) + 0.5f;
   const float yl = static_cast<float>(y0) + 0.5f;
   const float yh = static_cast<float>(y0 + 7) + 0.5f;
+  return corner_ok(q0.x, q0.y, q0.z, xl, xh, yl, yh) &&
+         corner_ok(q0.w, q1.x, q1.y, xl, xh, yl, yh) &&
+         corner_ok(q1.z, q1.w, c2, xl, xh, yl, yh);
+}
+
+// block_keeps for a rectangle of kW x kH pixels whose top-left pixel is
+// (x0, y0), y0 already offset: the same corner test at its own corners, so
+// exact for the same reason. Pixels of the rectangle past the target's edge
+// only make it keep more.
+template <int kW, int kH>
+__device__ __forceinline__ bool rect_keeps(const float4& q0, const float4& q1,
+                                           float c2, int x0, int y0) {
+  const float xl = static_cast<float>(x0) + 0.5f;
+  const float xh = static_cast<float>(x0 + kW - 1) + 0.5f;
+  const float yl = static_cast<float>(y0) + 0.5f;
+  const float yh = static_cast<float>(y0 + kH - 1) + 0.5f;
   return corner_ok(q0.x, q0.y, q0.z, xl, xh, yl, yh) &&
          corner_ok(q0.w, q1.x, q1.y, xl, xh, yl, yh) &&
          corner_ok(q1.z, q1.w, c2, xl, xh, yl, yh);

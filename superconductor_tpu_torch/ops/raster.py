@@ -13,14 +13,17 @@ positions (-1 = miss) in their pair planes; the caller remaps them.
 * ``kbuffer_sorted`` -- the K nearest fragments in front of a depth floor
   and the accepted-fragment count. A CUDA tensor launches
   ``csrc/kbuffer.cu``; a CPU tensor runs ``raster_kbuffer.kbuffer_sorted_plain``.
+  ``kbuffer_sorted_global`` runs the same file's global-memory kernel at any
+  K, which ``kbuffer_sorted`` runs only above ``KBUFFER_DEEP_MAX_K``.
 * ``build_kernels`` -- compile the CUDA libraries (idempotent; one nvcc per
   stale source, all started together) into ``build/``; they are loaded
   with ctypes at first use.
 
-Neither wrapper falls back: anything its kernel does not take raises. Each
+No wrapper falls back: anything its kernel does not take raises. Each
 plain version equals its kernel, and the reference's interpret-mode
-kernel, bit for bit. ``rasterize_sorted.LAUNCHES`` and
-``kbuffer_sorted.LAUNCHES`` count kernel launches (never plain calls).
+kernel, bit for bit. ``rasterize_sorted.LAUNCHES``,
+``kbuffer_sorted.LAUNCHES`` and ``kbuffer_sorted_global.LAUNCHES`` count
+kernel launches (never plain calls).
 """
 
 from __future__ import annotations
@@ -56,27 +59,41 @@ KERNEL_TILE = (32, 128)  # kTileH, kTileW in csrc/raster_common.cuh
 # and the fewest rows a tile part holds before the tile is split. 4 is the
 # fastest on the headline frame's opaque pass and within 2% of 8 on the
 # clip_blend frame's (PERF.md); 8 pays for its idle blocks on light tiles.
-# csrc/kbuffer.cu: the same two for a band of a tile. 2 is within 2% of
-# the fastest (4) on the clip_blend frame's clip pass (K=8) and 8-13%
-# faster than 4 on its blend pass (K=1, 4); it launches half the idle
-# blocks (PERF.md). The wrappers read all four at each call
-# (bench_raster.kernel_constants sets them for a sweep); no result depends
-# on them.
+# csrc/kbuffer.cu's templates (K <= 16): the same two for a band of a
+# tile. 2 is within 2% of the fastest (4) on the clip_blend frame's clip
+# pass (K=8) and 8-13% faster than 4 on its blend pass (K=1, 4); it
+# launches half the idle blocks (PERF.md). The wrappers read all five
+# constants at each call (bench_raster.kernel_constants sets them for a
+# sweep); no result depends on them.
 RASTER_CLUSTER = 4
 RASTER_MIN_PART_ROWS = 32
 KBUFFER_CLUSTER = 2
 KBUFFER_MIN_PART_ROWS = 32
+# csrc/kbuffer.cu's deep kernel (K > 16): blocks of a cluster sharing a
+# band. 1 is the fastest on the deep_k frame's particle pass at every K
+# from 17 to 128, whose heaviest tile holds 86 rows: most of its time is
+# empty tiles writing K + 1 planes, which a cluster only adds blocks to
+# (PERF.md).
+KBUFFER_DEEP_CLUSTER = 1
 # The k-buffer kernel's template depths. Another K up to 16 runs the next
-# of them and keeps its first K planes; a K above 16 runs the kernel's deep
-# path (csrc/kbuffer.cu kbuffer_deep_kernel).
+# of them and keeps its first K planes; a K above 16 runs the deep kernel
+# (csrc/kbuffer.cu kbuffer_deep_kernel: lists in shared memory, up to
+# KBUFFER_DEEP_MAX_K) or, above that, the global-memory kernel, which keeps
+# the lists in the depth and pair planes and so needs depth planes.
 KBUFFER_KS = (1, 2, 4, 8, 16)
+KBUFFER_DEEP_MAX_K = 875  # csrc/kbuffer.cu deep_band_px: 32 pixels fill a block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> (kernel library, argument types)
 _SIGNATURES = {
-    "raster": ("sc_raster_sorted",
-               [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
-    "kbuffer": ("sc_kbuffer_sorted",
-                [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "sc_raster_sorted": ("raster",
+                         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "sc_kbuffer_sorted": ("kbuffer",
+                          [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _P]),
+    "sc_kbuffer_global": ("kbuffer",
+                          [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "sc_kbuffer_smem_bytes": ("kbuffer", [_I]),
 }
 _libs: dict = {}
 
@@ -142,9 +159,9 @@ def _library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _kernel_fn(name: str):
-    """The C entry point of kernel `name`."""
-    symbol, argtypes = _SIGNATURES[name]
+def _kernel_fn(symbol: str):
+    """The C entry point `symbol` of its kernel library."""
+    name, argtypes = _SIGNATURES[symbol]
     fn = getattr(_library(name), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -154,10 +171,9 @@ def _kernel_fn(name: str):
 
 def kbuffer_smem_bytes(k: int) -> int:
     """Dynamic shared memory (bytes) a block of the K-slot k-buffer kernel
-    takes, from the built library (-1 for a k it has no template for)."""
-    fn = _library("kbuffer").sc_kbuffer_smem_bytes
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
-    return int(fn(int(k)))
+    takes, from the built library: the template's (K in KBUFFER_KS), the
+    deep kernel's (16 < K <= KBUFFER_DEEP_MAX_K), else -1."""
+    return int(_kernel_fn("sc_kbuffer_smem_bytes")(int(k)))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -249,7 +265,7 @@ def rasterize_sorted(
         _check(init.depth, "init.depth", torch.float32, (height, width), dev)
         _check(init.pair, "init.pair", torch.int32, (height, width), dev)
         init_depth, init_pair = init.depth.data_ptr(), init.pair.data_ptr()
-    launch = _kernel_fn("raster")
+    launch = _kernel_fn("sc_raster_sorted")
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     pair = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -289,20 +305,78 @@ def kbuffer_sorted(
     the kernel, CPU tensors run kbuffer_sorted_plain. Any k >= 1: a k up to
     16 that is not in KBUFFER_KS runs the next template and returns its
     first k planes (views of the template's, contiguous); a k above 16 runs
-    the deep path, with scratch depth planes when not want_depth. The
-    templates split heavy tiles by the module's KBUFFER_CLUSTER and
-    KBUFFER_MIN_PART_ROWS; the result does not depend on them."""
-    from .raster_kbuffer import KBuffer, kbuffer_sorted_plain
+    the deep kernel, which allocates no depth planes when not want_depth,
+    up to KBUFFER_DEEP_MAX_K, and above it the global-memory kernel, with
+    scratch depth planes when not want_depth. The templates split heavy
+    tiles by the module's KBUFFER_CLUSTER, the deep kernel by
+    KBUFFER_DEEP_CLUSTER, both by KBUFFER_MIN_PART_ROWS; the result does
+    not depend on them."""
+    from .raster_kbuffer import kbuffer_sorted_plain
 
-    dev = sorted_setup.device
-    if dev.type == "cpu":
+    if sorted_setup.device.type == "cpu":
         return kbuffer_sorted_plain(
             sorted_setup, tile_start, tile_count, height, width, k=k, tile_h=tile_h,
             tile_w=tile_w, reverse_z=reverse_z, depth_floor=depth_floor,
             y_offset=y_offset, want_depth=want_depth,
         )
+    k = int(k)
+    planes = k if k > KBUFFER_KS[-1] else next(t for t in KBUFFER_KS if t >= k)
+    out = _kbuffer_launch(
+        "sc_kbuffer_sorted", sorted_setup, tile_start, tile_count, height, width, k, planes,
+        tile_h, tile_w, reverse_z, depth_floor, y_offset,
+        want_depth or planes > KBUFFER_DEEP_MAX_K, want_depth,
+        (KBUFFER_CLUSTER if planes <= KBUFFER_KS[-1] else KBUFFER_DEEP_CLUSTER,
+         KBUFFER_MIN_PART_ROWS),
+    )
+    kbuffer_sorted.LAUNCHES += 1
+    return out
+
+
+kbuffer_sorted.LAUNCHES = 0
+
+
+def kbuffer_sorted_global(
+    sorted_setup: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    height: int,
+    width: int,
+    k: int = 4,
+    reverse_z: bool = True,
+    depth_floor: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
+    want_depth: bool = True,
+):
+    """kbuffer_sorted's result from csrc/kbuffer.cu's global-memory kernel
+    at any k >= 1 (CUDA tensors only; depth planes are always allocated, as
+    its lists live in them): what kbuffer_sorted runs above
+    KBUFFER_DEEP_MAX_K, callable below it to time the deep kernel against
+    it. Counts its launches in kbuffer_sorted_global.LAUNCHES."""
+    out = _kbuffer_launch(
+        "sc_kbuffer_global", sorted_setup, tile_start, tile_count, height, width, int(k),
+        int(k), *KERNEL_TILE, reverse_z, depth_floor, y_offset, True, want_depth, (),
+    )
+    kbuffer_sorted_global.LAUNCHES += 1
+    return out
+
+
+kbuffer_sorted_global.LAUNCHES = 0
+
+
+def _kbuffer_launch(symbol, sorted_setup, tile_start, tile_count, height, width, k, planes,
+                    tile_h, tile_w, reverse_z, depth_floor, y_offset, depth_planes,
+                    want_depth, split):
+    """Check the inputs of a k-buffer kernel, allocate `planes` pair planes
+    (and depth planes when `depth_planes`) and `layers`, and launch the C
+    entry point `symbol` on the current stream with `split` (cluster size
+    and min_part_rows, or nothing) after the reverse-z flag -> (KBuffer of
+    the first k planes, .depth None unless want_depth, layers). Raises on
+    anything the kernel does not take and on a failed launch."""
+    from .raster_kbuffer import KBuffer
+
+    dev = sorted_setup.device
     if dev.type != "cuda":
-        raise ValueError(f"kbuffer_sorted: unsupported device {dev}")
+        raise ValueError(f"the k-buffer kernel runs on CUDA tensors, not {dev}")
     if (tile_h, tile_w) != KERNEL_TILE:
         raise ValueError(f"the k-buffer kernel takes {KERNEL_TILE} tiles, got {(tile_h, tile_w)}")
     if k < 1:
@@ -320,11 +394,9 @@ def kbuffer_sorted(
     if depth_floor is not None:
         _check(depth_floor, "depth_floor", torch.float32, (height, width), dev)
         floor_ptr = depth_floor.data_ptr()
-    launch = _kernel_fn("kbuffer")
-    k = int(k)
-    planes = k if k > KBUFFER_KS[-1] else next(t for t in KBUFFER_KS if t >= k)
+    launch = _kernel_fn(symbol)
     depth = None
-    if want_depth or k > KBUFFER_KS[-1]:
+    if depth_planes:
         depth = torch.empty((planes, height, width), dtype=torch.float32, device=dev)
     pair = torch.empty((planes, height, width), dtype=torch.int32, device=dev)
     layers = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -332,19 +404,13 @@ def kbuffer_sorted(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             sorted_setup.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
-            ntx, nty, height, width, int(y_offset), planes, int(bool(reverse_z)),
-            KBUFFER_CLUSTER, KBUFFER_MIN_PART_ROWS, floor_ptr,
-            None if depth is None else depth.data_ptr(), pair.data_ptr(), layers.data_ptr(),
-            stream,
+            ntx, nty, height, width, int(y_offset), planes, int(bool(reverse_z)), *split,
+            floor_ptr, None if depth is None else depth.data_ptr(), pair.data_ptr(),
+            layers.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"k-buffer kernel launch failed: cudaError_t {err}")
-    kbuffer_sorted.LAUNCHES += 1
-    depth = depth[:k] if want_depth else None
-    return KBuffer(depth=depth, pair=pair[:k]), layers
-
-
-kbuffer_sorted.LAUNCHES = 0
+    return KBuffer(depth=depth[:k] if want_depth else None, pair=pair[:k]), layers
 
 
 def rasterize_sorted_plain(

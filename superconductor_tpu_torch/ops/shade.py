@@ -57,6 +57,15 @@ def _bitcast_i32(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
 
+def _sum3(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of x's three entries along `dim` as (x0 + x1) + x2: the order
+    the CPU's reductions (torch's and XLA's) take, written out so that no
+    device's reduction order rounds the g-buffer apart (as clip_transform
+    writes out its dot order)."""
+    a, b, c = x.unbind(dim)
+    return (a + b) + c
+
+
 def interpolate_gbuffer(
     pair: torch.Tensor,
     px: torch.Tensor,
@@ -93,9 +102,9 @@ def interpolate_gbuffer(
     dx = adj[:, :, 0]
     dy = adj[:, :, 1]
     e = adj[:, :, 0] * px[:, None] + adj[:, :, 1] * py[:, None] + adj[:, :, 2]
-    d_val = torch.sum(e, dim=-1)
-    d_dx = torch.sum(dx, dim=-1)
-    d_dy = torch.sum(dy, dim=-1)
+    d_val = _sum3(e, -1)
+    d_dx = _sum3(dx, -1)
+    d_dy = _sum3(dy, -1)
     inv_d = 1.0 / torch.where(d_val == 0, 1.0, d_val)
     bary = e * inv_d[:, None]
 
@@ -115,12 +124,12 @@ def interpolate_gbuffer(
         lightmapped = attrs.lightmapped[p]
 
     def interp(av):
-        return torch.sum(av * bary[..., None], dim=-2)
+        return _sum3(av * bary[..., None], -2)
 
     def deriv(av):
-        n_val = torch.sum(e[..., None] * av, dim=-2)
-        n_dx = torch.sum(dx[..., None] * av, dim=-2)
-        n_dy = torch.sum(dy[..., None] * av, dim=-2)
+        n_val = _sum3(e[..., None] * av, -2)
+        n_dx = _sum3(dx[..., None] * av, -2)
+        n_dy = _sum3(dy[..., None] * av, -2)
         ddx = (n_dx - n_val * (d_dx * inv_d)[..., None]) * inv_d[..., None]
         ddy = (n_dy - n_val * (d_dy * inv_d)[..., None]) * inv_d[..., None]
         return ddx, ddy

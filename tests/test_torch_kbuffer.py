@@ -2,10 +2,12 @@
 tile-sorted setup rows: kbuffer_sorted_plain bit for bit in every depth
 plane, pair plane and the layers count against kbuffer_pallas_sorted(...,
 interpret=True) run without FMA contraction (see the kbuffer_cases
-fixture); kbuffer_insert bit for bit against the reference's. The CUDA
+fixture); kbuffer_insert bit for bit against the reference's, and so a
+numpy model of the deep kernel's (K > 16) sorted insert. The CUDA
 kernel's split of heavy tiles into parts merged by top K is modelled with
-the plain version (bit for bit against the whole walk). The CUDA kernel
-against the plain version (bit for bit) runs only where there is a card."""
+the plain version (bit for bit against the whole walk), for the templates'
+merge and the deep kernel's. The CUDA kernel against the plain version
+(bit for bit) runs only where there is a card."""
 
 import functools
 import os
@@ -25,8 +27,11 @@ from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_se
 from superconductor_tpu_torch.ops.geometry import TriangleSetup
 from superconductor_tpu_torch.ops import raster as raster_mod
 from superconductor_tpu_torch.ops.raster import (
+    KBUFFER_DEEP_MAX_K,
     KBUFFER_KS,
+    kbuffer_smem_bytes,
     kbuffer_sorted,
+    kbuffer_sorted_global,
     rasterize_sorted_plain,
 )
 from superconductor_tpu_torch.render.draws import build_frame_state
@@ -80,6 +85,8 @@ RUNS = (
     # K off the kernel's templates: below 16 and past it
     ("stack", 3, True), ("hero-band-floor", 3, False), ("deep-stack", 3, True),
     ("deep-stack", 24, True), ("deep-stack", 32, False), ("hero-band-floor", 24, True),
+    # the smallest deep K
+    ("deep-stack", 17, True), ("deep-stack", 17, False),
 )
 
 _REFERENCE_CHILD = textwrap.dedent(
@@ -201,18 +208,55 @@ def test_stack_holds_equal_depth_ties():
     assert bool((p[:-1][tie] > p[1:][tie]).all())
 
 
-@pytest.mark.parametrize("reverse_z", [True, False])
-def test_kbuffer_insert_matches_reference(reverse_z):
-    """Twelve inserts of random candidates (depths drawn from a small set,
-    so ties are common; random accept masks; numpy seed) into K=4: depth
-    and pair bit for bit after every insert."""
-    rng = np.random.default_rng(23 + reverse_z)
-    h, w, k = 6, 5, 4
+def _deep_insert(zs, ps, layers, z, p, reverse_z):
+    """One accepted fragment (z, p) into one pixel's list zs, ps (K,) as
+    csrc/kbuffer.cu kbuffer_deep_kernel inserts it, in place -> the new
+    count: a full list whose last slot is strictly nearer drops it;
+    otherwise, from the end of the held slots (the last one, which falls
+    off, when full), every slot not strictly nearer moves back one and the
+    fragment lands in the gap."""
+    k = zs.shape[0]
+
+    def nearer(a, b):
+        return a > b if reverse_z else a < b
+
+    held = min(layers, k)
+    if held == k and nearer(zs[k - 1], z):
+        return layers + 1
+    i = held if held < k else k - 1
+    while i > 0 and not nearer(zs[i - 1], z):
+        zs[i], ps[i] = zs[i - 1], ps[i - 1]
+        i -= 1
+    zs[i], ps[i] = z, p
+    return layers + 1
+
+
+# (reverse_z, K); the ids of the K = 4 cases are those of reverse_z alone
+INSERT_CASES = [(True, 4), (False, 4), (True, 17), (False, 24), (True, 64), (False, 64)]
+
+
+@pytest.mark.parametrize(
+    "reverse_z,k", INSERT_CASES,
+    ids=[str(rz) if k == 4 else f"{rz}-k{k}" for rz, k in INSERT_CASES],
+)
+def test_kbuffer_insert_matches_reference(reverse_z, k):
+    """K + 16 (at least twelve) inserts of random candidates (depths drawn
+    from a small set, so ties are common, -0.0 among them under reverse z;
+    random accept masks; numpy seed) into K slots: depth and pair bit for
+    bit after every insert, and so the deep kernel's insert (_deep_insert)
+    at every pixel, held with the count of accepted fragments past K."""
+    rng = np.random.default_rng(23 + reverse_z + k)
+    h, w = 6, 5
     ref = ref_kbuffer.empty_kbuffer(k, h, w, reverse_z)
     port = port_kbuffer.empty_kbuffer(k, h, w, reverse_z, device="cpu")
-    for i in range(12):
-        z = rng.choice(np.float32([0.1, 0.25, 0.25, 0.5, 0.75]), size=(h, w))
-        accept = rng.uniform(size=(h, w)) < 0.7
+    far = np.float32(0.0 if reverse_z else 1.0)
+    deep_z = np.full((h, w, k), far, np.float32)
+    deep_p = np.full((h, w, k), -1, np.int32)
+    deep_n = np.zeros((h, w), np.int64)
+    values = np.float32([0.1, 0.25, 0.25, 0.5, 0.75] + ([-0.0] if reverse_z else []))
+    for i in range(max(12, k + 16)):
+        z = rng.choice(values, size=(h, w))
+        accept = rng.uniform(size=(h, w)) < (0.7 if k == 4 else 0.9)
         pair = np.full((h, w), i, np.int32)
         ref = ref_kbuffer.kbuffer_insert(ref, jnp.asarray(z), jnp.asarray(pair),
                                          jnp.asarray(accept), reverse_z)
@@ -220,16 +264,32 @@ def test_kbuffer_insert_matches_reference(reverse_z):
                                            torch.from_numpy(accept), reverse_z)
         assert np.array_equal(np.asarray(ref.depth), port.depth.numpy())
         assert np.array_equal(np.asarray(ref.pair), port.pair.numpy())
+        if k > 16:
+            for y, x in zip(*np.nonzero(accept)):
+                deep_n[y, x] = _deep_insert(deep_z[y, x], deep_p[y, x], deep_n[y, x],
+                                            z[y, x], i, reverse_z)
+            ref_depth = np.asarray(ref.depth)
+            assert np.array_equal(np.moveaxis(deep_p, -1, 0), np.asarray(ref.pair))
+            assert np.array_equal(np.moveaxis(deep_z, -1, 0).view(np.int32),
+                                  ref_depth.view(np.int32))
     assert (port.pair.numpy() >= 0).all()
+    if k > 16:
+        assert (deep_n > k).all()
 
 
 def test_kbuffer_sorted_rejects_what_the_kernel_does_not_take():
     """Off the CPU the wrapper launches the kernel or raises: an unknown
-    device type raises before any build."""
+    device type raises before any build. The global-memory kernel's
+    wrapper has no plain version at all: a CPU tensor raises too."""
     setup = torch.zeros((4, 16), device="meta")
     ts = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         kbuffer_sorted(setup, ts, ts, 32, 128, k=4)
+    for dev in ("meta", "cpu"):
+        setup = torch.zeros((4, 16), device=dev)
+        ts = torch.zeros((1,), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError):
+            kbuffer_sorted_global(setup, ts, ts, 32, 128, k=24)
 
 
 @pytest.mark.gpu
@@ -275,10 +335,14 @@ def test_kbuffer_kernel_matches_plain_on_card():
 @functools.lru_cache(maxsize=None)
 def _split_case(name, reverse_z):
     """(sorted setup, bins, height, width) of the 12-quad stack (equal-z
-    copies, up to 12 layers) or of one tile of 2,044 rows holding every
-    small triangle twice, the exact copies ~1,000 rows apart."""
+    copies, up to 12 layers), of the 73-quad stack (up to 73 layers, tiles
+    of 72-146 rows), or of one tile of 2,044 rows holding every small
+    triangle twice, the exact copies ~1,000 rows apart."""
     if name == "stack":
         tri, width, height, p_cap = quad_stack_setup(200, 80, "cpu", reverse_z=reverse_z), 200, 80, 512
+    elif name == "deep-stack":
+        tri = quad_stack_setup(200, 80, "cpu", reverse_z=reverse_z, extra=70)
+        width, height, p_cap = 200, 80, 2048
     else:
         tri, width, height, p_cap = heavy_tile_setup(320, 96, "cpu", reverse_z=reverse_z), 320, 96, 4096
     bins = bin_triangles(tri, width, height, p_cap)
@@ -310,12 +374,13 @@ def _merge_insert(depth, pair, z, p, reverse_z):
 
 
 @functools.lru_cache(maxsize=None)
-def _part_lists(name, reverse_z, with_floor, parts):
+def _part_lists(name, reverse_z, with_floor, parts, k=8):
     """Every tile's rows of a split case cut into `parts` contiguous parts
     as the kernel cuts them, each part walked alone by the plain version
-    from empty slots under the same floor, at K = 8 -> [(depth, pair,
-    layers)] by part. A part's top K is the first K slots of its top 8
-    (its list is sorted by the total order), so every K takes these."""
+    from empty slots under the same floor, at K = k -> [(depth, pair,
+    layers)] by part. A part's top K is the first K slots of its top k
+    (its list is sorted by the total order), so every K up to k takes
+    these."""
     sorted_setup, bins, height, width = _split_case(name, reverse_z)
     floor = _split_floor(height, width, reverse_z) if with_floor else None
     count = bins.tile_count.to(torch.int64)
@@ -324,7 +389,7 @@ def _part_lists(name, reverse_z, with_floor, parts):
         lo = bins.tile_start + (count * s // parts).to(torch.int32)
         n = (count * (s + 1) // parts - count * s // parts).to(torch.int32)
         kb, layers = port_kbuffer.kbuffer_sorted_plain(
-            sorted_setup, lo, n, height, width, k=8, reverse_z=reverse_z, depth_floor=floor
+            sorted_setup, lo, n, height, width, k=k, reverse_z=reverse_z, depth_floor=floor
         )
         out.append((kb.depth, kb.pair, layers))
     return out
@@ -367,6 +432,81 @@ def test_kbuffer_split_merge_equals_whole_walk(name, reverse_z, with_floor, k):
         assert torch.equal(layers, whole_layers), parts
 
 
+def _deep_merge(part_lists, k, reverse_z, base=0):
+    """csrc/kbuffer.cu kbuffer_deep_kernel's merge of a split band, in
+    numpy: part `base`'s sorted list (its first min(layers, K) slots) takes
+    every other part's, in order, each merged in from the back: the next
+    slot down takes whichever of the two lists' last unmerged entries is
+    behind the other (the other nearer or, at an equal depth, -0.0 == 0.0,
+    holding the larger sorted position), slots past K drop, and once the
+    other list is used up the rest stand where they are. Empty slots hold
+    far / -1; layers is the sum of the parts' counts."""
+    far = np.float32(0.0 if reverse_z else 1.0)
+
+    def nearer(a, b):
+        return a > b if reverse_z else a < b
+
+    def held_list(i):
+        d, p, n = part_lists[i]
+        return d.numpy()[:k].copy(), p.numpy()[:k].copy(), np.minimum(n.numpy(), k)
+
+    az, ap, na = held_list(base)
+    count = sum(n.numpy() for _, _, n in part_lists)
+    for s in range(len(part_lists)):
+        if s == base:
+            continue
+        bz, bp, nb = held_list(s)
+        src_z, src_p = az.copy(), ap.copy()  # the kernel's writes never pass an unread slot
+        ia, ib = na - 1, nb - 1
+        out = ia + ib + 1
+        na = np.minimum(out + 1, k)
+        while bool((ib >= 0).any()):
+            live = ib >= 0
+            a_z = np.take_along_axis(src_z, np.clip(ia, 0, None)[None], 0)[0]
+            a_p = np.take_along_axis(src_p, np.clip(ia, 0, None)[None], 0)[0]
+            b_z = np.take_along_axis(bz, np.clip(ib, 0, None)[None], 0)[0]
+            b_p = np.take_along_axis(bp, np.clip(ib, 0, None)[None], 0)[0]
+            a_behind = (ia >= 0) & (nearer(b_z, a_z) | ((b_z == a_z) & (b_p > a_p)))
+            z, p = np.where(a_behind, a_z, b_z), np.where(a_behind, a_p, b_p)
+            put = live & (out < k)
+            ys, xs = np.nonzero(put)
+            az[out[put], ys, xs], ap[out[put], ys, xs] = z[put], p[put]
+            ia = ia - (live & a_behind)
+            ib = ib - (live & ~a_behind)
+            out = out - live
+    empty = np.arange(k)[:, None, None] >= na[None]
+    az, ap = np.where(empty, far, az), np.where(empty, -1, ap)
+    return torch.from_numpy(az), torch.from_numpy(ap.astype(np.int32)), torch.from_numpy(count)
+
+
+@pytest.mark.parametrize("k", [17, 24, 64])
+@pytest.mark.parametrize("with_floor", [False, True])
+@pytest.mark.parametrize("reverse_z", [True, False])
+@pytest.mark.parametrize("name", ["deep-stack", "heavy"])
+def test_kbuffer_deep_split_merge_equals_whole_walk(name, reverse_z, with_floor, k):
+    """The deep kernel's split (K > 16): every tile cut into 2, 3 and 8
+    contiguous parts, the parts' lists merged by _deep_merge into the first
+    part's and into the last's, gives the whole walk's depth, pair and
+    layers planes bit for bit: on the 73-quad stack more fragments than K
+    at a pixel, on the heavy tile equal-z copies in different parts."""
+    sorted_setup, bins, height, width = _split_case(name, reverse_z)
+    floor = _split_floor(height, width, reverse_z) if with_floor else None
+    whole, whole_layers = port_kbuffer.kbuffer_sorted_plain(
+        sorted_setup, bins.tile_start, bins.tile_count, height, width, k=k,
+        reverse_z=reverse_z, depth_floor=floor,
+    )
+    if name == "deep-stack":
+        assert bool((whole.pair[k - 1] >= 0).any()) and int(whole_layers.max()) > k
+    for parts in (2, 3, 8):
+        for base in (0, parts - 1):
+            depth, pair, layers = _deep_merge(
+                _part_lists(name, reverse_z, with_floor, parts, k=64), k, reverse_z, base
+            )
+            assert torch.equal(depth.view(torch.int32), whole.depth.view(torch.int32)), parts
+            assert torch.equal(pair, whole.pair), parts
+            assert torch.equal(layers, whole_layers), parts
+
+
 def test_kbuffer_split_case_ties_across_parts():
     """In the heavy tile, cut in two as the kernel cuts it, some pixel holds
     two equal-z fragments from different parts (the later one first) and
@@ -387,25 +527,27 @@ def test_kbuffer_split_case_ties_across_parts():
 @pytest.mark.gpu
 def test_kbuffer_kernel_split_matches_plain_on_card(monkeypatch):
     """The kernel's cluster split on the card: every cluster size and split
-    threshold, on the heavy tile and the stack, both z directions, with and
-    without a floor, every K, with and without depth planes, bit for bit
-    against the plain version."""
+    threshold, on the heavy tile, the stack and the 73-quad stack, both z
+    directions, with and without a floor, every template K and the deep
+    kernel's K = 17, 24, 32, 64 and 128, with and without depth planes, bit
+    for bit against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the k-buffer kernel has no CPU mode)")
     dev = torch.device("cuda")
-    for name in ("heavy", "stack"):
+    for name in ("heavy", "stack", "deep-stack"):
         for reverse_z in (True, False):
             sorted_setup, bins, height, width = _split_case(name, reverse_z)
             args = (sorted_setup.to(dev), bins.tile_start.to(dev), bins.tile_count.to(dev),
                     height, width)
             for floor in (None, _split_floor(height, width, reverse_z).to(dev)):
-                for k in KBUFFER_KS:
+                for k in KBUFFER_KS + (17, 24, 32, 64, 128):
                     for want in (True, False):
                         kw = dict(k=k, reverse_z=reverse_z, depth_floor=floor, want_depth=want)
                         pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
                         for cluster in (1, 2, 4, 8):
                             for min_part_rows in (1, 32):
                                 monkeypatch.setattr(raster_mod, "KBUFFER_CLUSTER", cluster)
+                                monkeypatch.setattr(raster_mod, "KBUFFER_DEEP_CLUSTER", cluster)
                                 monkeypatch.setattr(raster_mod, "KBUFFER_MIN_PART_ROWS",
                                                     min_part_rows)
                                 kb, layers = kbuffer_sorted(*args, **kw)
@@ -419,11 +561,15 @@ def test_kbuffer_kernel_split_matches_plain_on_card(monkeypatch):
 @pytest.mark.gpu
 def test_kbuffer_kernel_takes_every_k_on_card(monkeypatch):
     """K off the kernel's templates on the card: K = 3, 5 and 12 (the next
-    template's first K planes, at every cluster size) and K = 24, 32 and 64
-    (the deep path), with and without depth planes, bit for bit against
-    the plain version, on every case and on the heavy tile in both z
-    directions under a floor; the 24-quad stack holds more than 16
-    fragments at a pixel."""
+    template's first K planes) and K = 17, 24, 32, 64 and 128 (the deep
+    kernel), at every cluster size, with and without depth planes, bit for
+    bit against the plain version, on every case and on the heavy tile in
+    both z directions under a floor; the 24-quad stack holds more than 16
+    fragments at a pixel. Then: the deep kernel's largest K takes shared
+    memory and the next does not; the global-memory kernel equals the deep
+    kernel at K = 24, 32 and 64 and runs K = KBUFFER_DEEP_MAX_K + 1 (on the
+    heavy tile, bit for bit); and a K = 64 call without depth planes
+    allocates its pair planes and layers only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the k-buffer kernel has no CPU mode)")
     dev = torch.device("cuda")
@@ -444,13 +590,14 @@ def test_kbuffer_kernel_takes_every_k_on_card(monkeypatch):
                           depth_floor=_split_floor(height, width, reverse_z).to(dev))))
     deepest = 0
     for args, base in runs:
-        for k in (3, 5, 12, 24, 32, 64):
+        for k in (3, 5, 12, 17, 24, 32, 64, 128):
             for want in (True, False):
                 kw = dict(base, k=k, want_depth=want)
                 pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **kw)
                 deepest = max(deepest, int(players.max()))
-                for cluster in ((1, 2, 4, 8) if k < 16 else (raster_mod.KBUFFER_CLUSTER,)):
+                for cluster in (1, 2, 4, 8):
                     monkeypatch.setattr(raster_mod, "KBUFFER_CLUSTER", cluster)
+                    monkeypatch.setattr(raster_mod, "KBUFFER_DEEP_CLUSTER", cluster)
                     before = kbuffer_sorted.LAUNCHES
                     kb, layers = kbuffer_sorted(*args, **kw)
                     torch.cuda.synchronize()
@@ -463,3 +610,34 @@ def test_kbuffer_kernel_takes_every_k_on_card(monkeypatch):
                     else:
                         assert kb.depth is None
     assert deepest > 16
+
+    assert kbuffer_smem_bytes(KBUFFER_DEEP_MAX_K) > 0
+    assert kbuffer_smem_bytes(KBUFFER_DEEP_MAX_K + 1) == -1
+    args, base = runs[-1]
+    for k in (24, 32, 64):
+        kb, layers = kbuffer_sorted(*args, **base, k=k)
+        gkb, glayers = kbuffer_sorted_global(*args, **base, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(kb.pair, gkb.pair) and torch.equal(kb.depth, gkb.depth)
+        assert torch.equal(layers, glayers)
+    k = KBUFFER_DEEP_MAX_K + 1
+    pkb, players = port_kbuffer.kbuffer_sorted_plain(*args, **base, k=k, want_depth=False)
+    kb, layers = kbuffer_sorted(*args, **base, k=k, want_depth=False)
+    torch.cuda.synchronize()
+    assert torch.equal(kb.pair, pkb.pair) and torch.equal(layers, players)
+
+    # no depth planes at K = 64: the call's peak is its pair planes and
+    # layers (and the allocator's rounding), not twice that
+    height, width = 1080, 1920
+    ts = torch.zeros((34 * 15,), dtype=torch.int32, device=dev)
+    setup = torch.zeros((1, 16), dtype=torch.float32, device=dev)
+    kbuffer_sorted(setup, ts, ts, height, width, k=64, want_depth=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    kb, layers = kbuffer_sorted(setup, ts, ts, height, width, k=64, want_depth=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    planes = 65 * height * width * 4
+    assert planes <= peak < planes + (64 << 20), peak
+    assert bool((kb.pair == -1).all()) and bool((layers == 0).all())

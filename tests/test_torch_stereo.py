@@ -38,6 +38,8 @@ from superconductor_tpu.ops import blit as ref_blit
 from superconductor_tpu.utils.metrics import psnr
 from superconductor_tpu_torch.assets.models import load_model
 from superconductor_tpu_torch.ops import blit as port_blit
+from superconductor_tpu_torch.ops import shade as port_shade
+from superconductor_tpu_torch.ops import tonemap as port_tonemap
 from superconductor_tpu_torch.render import frame as port_frame
 from superconductor_tpu_torch.render import stereo as port_stereo
 from superconductor_tpu_torch.render.camera import Camera
@@ -387,3 +389,69 @@ def test_stereo_golden_is_the_reference_frame(reference):
     assert psnr(golden["image"], img_r) >= 40.0
     assert _fit("golden")[1] == _golden_caps()
     _assert_matches(reference, "golden")
+
+
+def test_gbuffer_sum_order_and_encode_ulp_bound_the_card_cpu_gap(monkeypatch):
+    """The card's 256x128 stereo frame is 96.30 dB from the CPU's, stats
+    equal. chip_smoke.py (trace_gbuffer_lanes) traces interpolate_gbuffer's
+    intermediates from the card frame's inputs on both devices: with
+    torch.sum for its three-term sums, 12 of them differ (the first d_dx,
+    776 of 25,561 live lanes, 2.4e-7): the card's reduction adds in another
+    order than (a + b) + c, the CPU's (torch's and XLA's). ops/shade.py
+    _sum3 writes that order out, and the card's lanes equal the CPU's; the
+    frame stays 96.30 dB apart, from the sky and the encode, whose pow
+    rounds an ulp apart on the card (test_torch_clip_blend.py
+    test_one_ulp_in_the_encode_is_the_card_cpu_gap). Shown on the CPU:
+    torch.sum gives the fixed order's g-buffer and frame bit for bit; the
+    sums as a + (b + c) move g-buffer lanes by ulps and the frame by at
+    most one u8 step; the encode's result one ulp up moves a few u8
+    values by one step. Stats equal in each."""
+    dev, state, _config_, env = _inputs("golden")
+    config = _config("golden")
+    img, stats = _port_frame("golden")
+
+    def render(sum3):
+        gbufs = []
+        real = port_frame.interpolate_gbuffer
+
+        def rec(*args, **kw):
+            out = real(*args, **kw)
+            gbufs.append(out)
+            return out
+
+        with monkeypatch.context() as m:
+            m.setattr(port_shade, "_sum3", sum3)
+            m.setattr(port_frame, "interpolate_gbuffer", rec)
+            out, st = port_frame.render_frame_stats(dev, state, config, env)
+        return out, port_frame.stats_to_host(st), gbufs
+
+    _img, _stats, fixed = render(port_shade._sum3)
+    img_s, stats_s, by_sum = render(lambda x, dim: torch.sum(x, dim=dim))
+    assert torch.equal(img_s, img) and stats_s == stats
+    for a, b in zip(fixed, by_sum):
+        for f in ("world_pos", "normal", "uv", "lm_uv", "dpdx", "dpdy", "duvdx", "duvdy"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+    def other_order(x, dim):
+        a, b, c = x.unbind(dim)
+        return a + (b + c)
+
+    img_o, stats_o, by_other = render(other_order)
+    moved = sum(int((getattr(a, f)[a.valid] != getattr(b, f)[b.valid]).sum())
+                for a, b in zip(fixed, by_other) for f in ("world_pos", "dpdx", "duvdx"))
+    diff = np.abs(img.numpy().astype(int) - img_o.numpy().astype(int))
+    assert moved > 0 and diff.max() <= 1
+    assert psnr(img.numpy(), img_o.numpy()) >= 90.0 and stats_o == stats
+
+    real = port_tonemap.linear_to_srgb_approx
+
+    def one_ulp_up(x):
+        y = real(x)
+        return torch.nextafter(y, torch.full_like(y, 2.0))
+
+    monkeypatch.setattr(port_tonemap, "linear_to_srgb_approx", one_ulp_up)
+    monkeypatch.setattr(port_shade, "linear_to_srgb_approx", one_ulp_up)
+    img_u, stats_u, _ = render(port_shade._sum3)
+    diff = np.abs(img.numpy().astype(int) - img_u.numpy().astype(int))
+    assert diff.max() == 1 and int((diff > 0).sum()) <= 16
+    assert psnr(img.numpy(), img_u.numpy()) >= 90.0 and stats_u == stats
