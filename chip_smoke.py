@@ -167,7 +167,13 @@ through the ECS) -- and checks them:
 12. roofline: the card's ceilings (utils/roofline.py): bf16 matmul
     TFLOP/s, stream GB/s, random-row gather Mrows/s and the dispatch
     floor, each by the dispatch-count slope of CUDA-event times;
-13. neither jax nor the JAX package (superconductor_tpu) was imported.
+13. bench: python3 -m superconductor_tpu_torch.bench in a subprocess (the
+    headline, all_passes and stereo frames at 1920x1080, each held byte for
+    byte against its plain-versions twin, then timed; the card's ceilings)
+    with a budget of BENCH_BUDGET_S; its last line printed, and it must
+    exit 0 with the three frame rates, each configuration's device busy
+    time, idle share and launches, "correct": true and this card's name;
+14. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
@@ -205,6 +211,8 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+
+from superconductor_tpu_torch.bench import smi_line
 
 N_TIMED = 20
 WIDTH, HEIGHT = 1920, 1080  # the headline frame
@@ -259,6 +267,13 @@ SHARD_RUNS = 5  # timed runs of a sharded frame, and of a band's one call and pl
 SH_STEREO = tuple(f"sharded_{eye}_band{b}" for eye in EYES for b in range(SHARD_BANDS))
 SH_RASTER = tuple(f"sharded_{n}_band{b}" for b in range(SHARD_BANDS) for n in AP_RASTER)
 SH_KBUFFER = tuple(f"sharded_{n}_band{b}" for b in range(SHARD_BANDS) for n in AP_KBUFFER)
+BENCH_BUDGET_S = 400  # the bench's SC_BENCH_BUDGET_S: every configuration starts within it
+BENCH_TIMEOUT_S = 900
+# keys the bench's line must hold, beside "correct" and "device"
+BENCH_KEYS = ("value", "device_frame_ms", "all_passes_true_fps", "stereo_anim_true_fps",
+              "stereo_anim_dispatch_fps", "matmul_tflops_ceiling") + tuple(
+    prefix + key for prefix in ("", "all_passes_", "stereo_anim_")
+    for key in ("device_busy_ms", "idle_share", "launches_per_frame"))
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -294,14 +309,6 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     """PSNR of two u8 images in dB (the reference's utils/metrics.psnr)."""
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else float(10.0 * np.log10(255.0 ** 2 / mse))
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def fan_setup(width: int, height: int, device, w_scale=(1.0, 2.0)):
@@ -963,21 +970,6 @@ def timed_passes(name, scene_dev, state0, config, env, render=None, raster_names
     return frame_ms, launches, by_pass
 
 
-def plain_kernels_frame(scene_dev, state0, config, env):
-    """The frame rendered with both kernels' plain versions."""
-    from superconductor_tpu_torch.ops import raster as raster_mod
-    from superconductor_tpu_torch.ops.raster_kbuffer import kbuffer_sorted_plain
-    from superconductor_tpu_torch.render import frame as frame_mod
-
-    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
-    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
-    try:
-        return frame_mod.render_frame(scene_dev, state0, config, env)
-    finally:
-        frame_mod.rasterize_sorted = raster_mod.rasterize_sorted
-        frame_mod.kbuffer_sorted = raster_mod.kbuffer_sorted
-
-
 def compare_passes(frame: str, calls: dict, p_cap: int, shapes: dict, prefix: str = "",
                    min_layers: dict = None, timed: tuple = AP_RASTER + AP_KBUFFER,
                    band: bool = False, suffix: str = ""):
@@ -1031,6 +1023,7 @@ def all_passes_path(dev, shapes: dict) -> dict:
     golden. Returns the launch counts of the timed run, by kernel and by
     pass, and the frame with its inputs (tables, state, fitted config,
     env, image)."""
+    from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.frame import (
         render_frame,
@@ -1132,6 +1125,7 @@ def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
     size; the frame's launches by pass in its timed run and its
     plain-versions twin, byte for byte. Returns the launches of the timed
     run, by kernel and by pass."""
+    from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.bench_raster import CLUSTERS, graph_ms
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops.binning import bin_triangles, gather_sorted_setup
@@ -1305,6 +1299,30 @@ def roofline_path(dev) -> None:
     if not all(v and v > 0 for v in (c["matmul_tflops"], c["stream_gbps"],
                                      c["gather_mrows_per_s"], g["ms_per_dispatch"])):
         raise RuntimeError(f"a ceiling probe measured no positive rate: {c}")
+
+
+def bench_path(kind: str, smi: str) -> dict:
+    """Phase 13: the port's bench in a subprocess, as a user runs it; its
+    last line is printed and checked. Returns that line."""
+    torch.cuda.empty_cache()  # the bench's frames get the card's memory
+    env = dict(os.environ, SC_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "superconductor_tpu_torch.bench"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"the bench exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    phase("bench", f"{time.perf_counter() - t0:.2f} s, {len(lines)} lines; the last:")
+    print(json.dumps(line), flush=True)
+    missing = [k for k in BENCH_KEYS if line.get(k) is None]
+    if missing or line.get("correct") is not True:
+        raise RuntimeError(f"the bench's line lacks {missing} or is not correct")
+    device = line.get("device", {})
+    if device.get("kind") != kind or f"{device.get('name')}, {device.get('power_limit')}" != smi:
+        raise RuntimeError(f"the bench's device {device} is not this card ({kind}; {smi})")
+    return line
 
 
 def stereo_golden_inputs(device, raster="auto"):
@@ -1749,6 +1767,7 @@ def lit_passes_path(dev, shapes: dict) -> dict:
     classic-smoke and layered-SH twins, the effect of each lighting input,
     and the 256x128 frame against the CPU's and the reference's golden.
     Returns the launches of the timed run, by kernel and by pass."""
+    from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.draws import build_frame_state
     from superconductor_tpu_torch.render.frame import (
@@ -1911,6 +1930,7 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
     launching once a rendered frame, and each pass's kernel against its plain
     version on the last frame's inputs. Returns the launch counts."""
     from superconductor_tpu_torch import demo, serve
+    from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.bench_raster import CLUSTERS
     from superconductor_tpu_torch.ecs.components import JointsComponent
     from superconductor_tpu_torch.ecs.resources import (
@@ -2289,6 +2309,7 @@ def main() -> int:
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
     app = app_path(dev, shapes, smi)
     roofline_path(dev)
+    bench_path(kind, smi)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import contextlib
 import statistics
-import subprocess
 import sys
 
 import torch
@@ -168,12 +167,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_raster: no CUDA device")
 
+    from .bench import smi_line
     from .ops import raster
     from .ops.raster import kbuffer_sorted, rasterize_sorted
 
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    print(out.stdout.strip().splitlines()[0], flush=True)
+    print(smi_line(), flush=True)
     w, h = 1920, 1080
     for scene in ("headline", "clip_blend"):
         tri, blend, config = frame_setup(scene, w, h)

@@ -95,6 +95,27 @@ def _app_host_report(frame, world, frames: int) -> None:
         print(f"  {count / frames:.1f}/frame: {msg}")
 
 
+def trace_frames(frame, frames: int):
+    """`frames` calls of frame() traced with torch.profiler (CPU and CUDA
+    activity), ending in a synchronise -> (the profile, the summed device
+    time of a frame in ms, the device events a frame: kernel launches and
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
+    return prof, device_ms, len(kernels) / frames
+
+
+def idle_share(device_ms: float, wall_ms: float) -> float:
+    """The share of a frame's wall time in which the device runs no kernel."""
+    return max(0.0, 1.0 - device_ms / wall_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="headline",
@@ -107,8 +128,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
-
-    from torch.profiler import ProfilerActivity, profile
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
@@ -152,21 +171,16 @@ def main(argv=None) -> int:
         print(f"host: palette FK + frame state build and upload "
               f"{(time.perf_counter() - t0) * 1e3 / args.frames:.3f} ms/frame")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.frames):
-            frame()
-        torch.cuda.synchronize()
+    prof, device_ms, launches = trace_frames(frame, args.frames)
     events = prof.key_averages()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / args.frames
     print(f"device: {torch.cuda.get_device_name(0)}; scene: {args.scene}")
     print(f"caps: p_cap={config.p_cap} opaque_px_cap={config.opaque_px_cap} "
           f"clip_layers={config.clip_layers} blend_layers={config.blend_layers} "
           f"particle_layers={config.particle_layers} shade_px_caps={config.shade_px_caps} "
           f"sky_px_cap={config.sky_px_cap} matq_classic_cap={config.matq_classic_cap}")
     print(f"wall {wall_ms:.3f} ms/frame (host clock, synchronised, profiler off); "
-          f"device kernels {device_ms:.3f} ms/frame, {len(kernels) / args.frames:.0f} "
-          f"kernel launches/frame; idle share {max(0.0, 1.0 - device_ms / wall_ms):.3f}")
+          f"device kernels {device_ms:.3f} ms/frame, {launches:.0f} "
+          f"kernel launches/frame; idle share {idle_share(device_ms, wall_ms):.3f}")
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     print(table)
     os.makedirs(args.out, exist_ok=True)
