@@ -173,13 +173,26 @@ through the ECS) -- and checks them:
     with a budget of BENCH_BUDGET_S; its last line printed, and it must
     exit 0 with the three frame rates, each configuration's device busy
     time, idle share and launches, "correct": true and this card's name;
-14. neither jax nor the JAX package (superconductor_tpu) was imported.
+14. graph (render_frame and render_frame_stats replay one CUDA graph a
+    frame on the card, render/frame_graph.py): the headline, all-passes
+    and stereo frames (the stereo joint palettes from the FK walk at each
+    pose) at three poses, each replayed frame byte-equal to
+    render_frame_impl's eager frame, image and stats; no
+    device-synchronising call in an eager frame (profile_frame.sync_sites,
+    its control a .item()), and an eager frame and two replays under
+    torch.cuda.set_sync_debug_mode("error"); the launch counters' delta per
+    replay equal to an eager frame's and to the hand kernels' events in a
+    profiled replay; eager and graph frame times (CUDA events over 10
+    frames; stereo also with its state and FK built each frame) beside
+    nvidia-smi's name and power limit, and the launches of the timed
+    replays;
+15. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
 The table holds both kernels (launches summed over the six frames' and
-the two sharded frames' timed runs and the app phase's server and demo
-runs), the all-passes and lit frames' five passes, the stereo frame's two
+the two sharded frames' timed runs, the app phase's server and demo runs
+and the graph phase's timed replays), the all-passes and lit frames' five passes, the stereo frame's two
 eyes and each band pass of the two sharded frames, each with the launches
 it made in that frame's timed run, the frame server's opaque pass
 (launches over the selftest's timed frames) and the demo's lines and
@@ -201,6 +214,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import shutil
 import subprocess
@@ -274,6 +288,12 @@ BENCH_KEYS = ("value", "device_frame_ms", "all_passes_true_fps", "stereo_anim_tr
               "stereo_anim_dispatch_fps", "matmul_tflops_ceiling") + tuple(
     prefix + key for prefix in ("", "all_passes_", "stereo_anim_")
     for key in ("device_busy_ms", "idle_share", "launches_per_frame"))
+# the graph phase: the poses (angle or time) each frame is held at, the frames
+# a timing, and the hand kernels' names among a profile's device events
+GRAPH_POSES = (0.0, 0.9, 2.1)
+GRAPH_TIMED = 10
+HAND_KERNELS = re.compile(
+    r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global)_kernel\b")
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -1279,6 +1299,138 @@ def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> Non
                            "frame differs from it")
 
 
+def graph_path(smi: str, frames: dict) -> dict:
+    """Phase 14: the headline, all-passes and stereo frames (stereo: the
+    joint palettes from the FK walk at each pose) through render_frame's
+    CUDA graphs (render/frame_graph.py). `frames`: name -> (tables,
+    build(pose), fitted config, env). At each of GRAPH_POSES the replayed
+    frame (the pose copied into the graph's buffers) byte-equal to
+    render_frame_impl's eager frame, image and stats; the eager frame's
+    device-synchronising calls (profile_frame.sync_sites, which must see
+    the one of a .item() first) none; an eager frame and two replays under
+    torch.cuda.set_sync_debug_mode("error"); the
+    launch counters' delta per replay equal to an eager frame's, and to the
+    hand kernels' events in a profiled replay; eager and graph frame times
+    (CUDA events over GRAPH_TIMED frames of the three poses' states, and
+    for stereo the graph frame with its state built in the loop) beside
+    nvidia-smi's name and power limit, and the device memory allocated at
+    peak and reserved. The counters are set to 0 before each frame's timed
+    graph run and read after it. Returns the kernels' launches over those
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.profile_frame import sync_sites
+    from superconductor_tpu_torch.render import frame_graph
+    from superconductor_tpu_torch.render.frame import (
+        render_frame,
+        render_frame_impl,
+        render_frame_stats,
+    )
+
+    def counts():
+        return (raster_mod.rasterize_sorted.LAUNCHES, raster_mod.kbuffer_sorted.LAUNCHES)
+
+    def since(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    def window_ms(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(GRAPH_TIMED):
+            fn(i)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / GRAPH_TIMED
+
+    # a control: sync_sites sees a known synchronising call
+    probe = torch.zeros((), device=next(iter(frames.values()))[0]["positions"].device)
+    control = sync_sites(lambda: probe.item())
+    phase("graph", f"control: sync_sites of a .item() {dict(control)}")
+    if sum(control.values()) != 1:
+        raise RuntimeError("sync_sites did not see the .item() of its control")
+
+    total = {"raster_sorted": 0, "kbuffer_sorted": 0}
+    cuda = torch.autograd.DeviceType.CUDA
+    for name, (tables, build, config, env) in frames.items():
+        states = [build(p) for p in GRAPH_POSES]
+        runner_before = frame_graph._runners.get(states[0].joint_palette.device)
+        captured0 = runner_before.captured if runner_before else 0
+        for pose, state in zip(GRAPH_POSES, states):
+            if not frame_graph.captures(state, config):
+                raise RuntimeError(f"the {name} frame does not replay a CUDA graph")
+            img, stats = render_frame_stats(tables, state, config, env)
+            want, want_stats = render_frame_impl(tables, state, config, env, with_stats=True)
+            if not (torch.equal(img, want) and stats.keys() == want_stats.keys()
+                    and all(torch.equal(stats[k], want_stats[k]) for k in stats)
+                    and torch.equal(render_frame(tables, state, config, env), want)):
+                raise RuntimeError(f"the {name} graph frame at pose {pose} differs from "
+                                   f"render_frame_impl's eager frame")
+        captured = frame_graph._runners[states[0].joint_palette.device].captured - captured0
+        phase("graph", f"{name}: graph frames at poses {GRAPH_POSES} byte-equal to the eager "
+              f"frames (image and stats), {captured} graphs captured")
+
+        torch.cuda.synchronize()
+        sites = sync_sites(lambda: render_frame_impl(tables, states[1], config, env,
+                                                     with_stats=True))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            render_frame_impl(tables, states[1], config, env, with_stats=True)
+            render_frame_stats(tables, states[2], config, env)
+            render_frame(tables, states[0], config, env)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        phase("graph", f"{name}: synchronising calls of an eager frame {dict(sites)}; an eager "
+              f"frame and two replays raise nothing under set_sync_debug_mode(\"error\")")
+        if sites:
+            raise RuntimeError(f"the eager {name} frame synchronises at {dict(sites)}")
+
+        l0 = counts()
+        render_frame_impl(tables, states[0], config, env)
+        eager = since(l0)
+        l0 = counts()
+        render_frame(tables, states[0], config, env)
+        replay = since(l0)
+        torch.cuda.synchronize()
+        l0 = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render_frame(tables, states[1], config, env)
+            torch.cuda.synchronize()
+        profiled = since(l0)
+        seen = sum(1 for e in prof.events() if e.device_type == cuda and HAND_KERNELS.search(e.name))
+        device_ops = sum(1 for e in prof.events() if e.device_type == cuda)
+        phase("graph", f"{name}: launches (raster, k-buffer) eager {eager}, a replay {replay}; "
+              f"a profiled replay: {seen} hand-kernel events of {device_ops} device events, "
+              f"counters {profiled}")
+        if replay != eager or profiled != eager or seen != sum(profiled):
+            raise RuntimeError(f"the {name} replay's launch counts disagree with the eager "
+                               f"frame's or with its profile")
+
+        eager_ms = window_ms(lambda i: render_frame_impl(tables, states[i % 3], config, env))
+        raster_mod.rasterize_sorted.LAUNCHES = 0
+        raster_mod.kbuffer_sorted.LAUNCHES = 0
+        graph_ms = window_ms(lambda i: render_frame(tables, states[i % 3], config, env))
+        launches = counts()
+        line = (f"{name}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms a frame (CUDA "
+                f"events over {GRAPH_TIMED} frames)")
+        if name == "stereo":
+            built_ms = window_ms(lambda i: render_frame(tables, build(0.1 * i), config, env))
+            line += f"; graph with the state and FK built each frame {built_ms:.3f} ms"
+        phase("graph", f"{line}; {smi}; launches over the {GRAPH_TIMED + 1} graph frames "
+              f"{launches}; device memory allocated at peak "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB, reserved "
+              f"{torch.cuda.memory_reserved() / 1e6:.1f} MB")
+        if launches != tuple((GRAPH_TIMED + 1) * n for n in eager) or launches[0] == 0:
+            raise RuntimeError(f"the {name} graph frames launched {launches}, not "
+                               f"{GRAPH_TIMED + 1} x {eager}")
+        total["raster_sorted"] += launches[0]
+        total["kbuffer_sorted"] += launches[1]
+    return total
+
+
 def roofline_path(dev) -> None:
     """Phase roofline: the card's ceilings (utils/roofline.py
     probe_ceilings: chained bf16 4096^2 matmuls, a chained elementwise map
@@ -2078,12 +2230,12 @@ def app_path(dev, shapes: dict, smi: str) -> dict:
 def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
                  lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
-                 deep_by_pass: dict, raster_res: dict, kbuffer_res: dict,
-                 shapes: dict) -> dict:
+                 deep_by_pass: dict, graph_launches: dict, raster_res: dict,
+                 kbuffer_res: dict, shapes: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
-    over the six frames' and the two sharded frames' timed runs and the
-    app phase's server and demo runs, then each all-passes pass, each
+    over the six frames' and the two sharded frames' timed runs, the app
+    phase's server and demo runs and the graph phase's timed replays, then each all-passes pass, each
     stereo eye, each sharded band pass and each lit pass at its own shape
     with the launches counted in that pass during the frame's timed run
     (one a frame), the frame server's opaque pass with its launches over
@@ -2113,7 +2265,7 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
               headline_launches + cb_launches["raster_sorted"] + ap_raster
               + sum(stereo_by_eye.values()) + sh_launches["raster_sorted"]
               + lit_launches["raster_sorted"] + sum(r["raster_sorted"] for r in app_runs)
-              + deep_launches["raster_sorted"],
+              + deep_launches["raster_sorted"] + graph_launches["raster_sorted"],
               raster_res,
               max(raster_res["max_abs_err"],
                   *(shapes[n]["max_abs_err"]
@@ -2121,7 +2273,7 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
         entry("kbuffer_sorted", "kbuffer",
               cb_launches["kbuffer_sorted"] + ap_kbuffer + sh_launches["kbuffer_sorted"]
               + lit_launches["kbuffer_sorted"] + sum(r["kbuffer_sorted"] for r in app_runs)
-              + deep_launches["kbuffer_sorted"],
+              + deep_launches["kbuffer_sorted"] + graph_launches["kbuffer_sorted"],
               kbuffer_res,
               max(kbuffer_res["max_abs_err"],
                   *(shapes[n]["max_abs_err"]
@@ -2173,7 +2325,12 @@ def main() -> int:
         render_frame_stats,
         stats_to_host,
     )
-    from superconductor_tpu_torch.scenes import headline_scene, heavy_tile_setup
+    from superconductor_tpu_torch.scenes import (
+        all_passes_scene,
+        headline_scene,
+        heavy_tile_setup,
+        stereo_animated_scene,
+    )
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2305,11 +2462,19 @@ def main() -> int:
     deep_launches, deep_by_pass = deep_k_path(dev, ap_frame[2], shapes)
     stereo_by_eye, stereo_frame = stereo_path(dev, shapes)
     sh_launches, sh_by_pass = sharded_path(shapes, stereo_frame, ap_frame)
+    ap_config, stereo_config = ap_frame[2], stereo_frame[2]
     del ap_frame, stereo_frame
     lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
     app = app_path(dev, shapes, smi)
     roofline_path(dev)
     bench_path(kind, smi)
+    ap_tables, ap_build, _, ap_env = all_passes_scene(WIDTH, HEIGHT, dev)
+    st_tables, st_build, _, st_env = stereo_animated_scene(WIDTH, HEIGHT, dev)
+    graph_launches = graph_path(smi, {
+        "headline": (scene_dev, build_state, config, env),
+        "all_passes": (ap_tables, ap_build, ap_config, ap_env),
+        "stereo": (st_tables, st_build, stereo_config, st_env),
+    })
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -2318,8 +2483,8 @@ def main() -> int:
 
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
-                                  lit_by_pass, app, deep_launches, deep_by_pass, results,
-                                  kb_results, shapes)))
+                                  lit_by_pass, app, deep_launches, deep_by_pass, graph_launches,
+                                  results, kb_results, shapes)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -22,6 +22,8 @@ import sys
 
 import torch
 
+from .ops.raster import capture_tally, replay_launches
+
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published
 EDGE_OPS = 12  # FP32 operations of three edge functions at one pixel
 CLUSTERS = (1, 2, 4, 8)  # the cluster sizes a sweep times
@@ -31,7 +33,7 @@ def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
     """Median device milliseconds of one fn() call: `launches` calls
     captured in a CUDA graph, CUDA events around each of `runs` replays, so
     the host's work per call (checks, allocation, the ctypes call) is not in
-    it."""
+    it. The kernels' launch counters count each replay's launches."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -39,10 +41,11 @@ def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture_tally() as tally, torch.cuda.graph(graph):
         for _ in range(launches):
             fn()
     graph.replay()
+    replay_launches(tally)
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
@@ -51,6 +54,7 @@ def graph_ms(fn, launches: int = 20, runs: int = 20) -> float:
         start.record()
         graph.replay()
         stop.record()
+        replay_launches(tally)
         stop.synchronize()
         times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)

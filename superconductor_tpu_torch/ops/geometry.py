@@ -31,6 +31,15 @@ from ..math3d import quat_rotate, similarity_apply
 FLAG_BACKFACING = 1.0
 
 
+def device_values(values, dtype, device) -> torch.Tensor:
+    """torch.tensor(values, dtype=dtype, device=device), the same numbers,
+    made on a CUDA device by one fill a value: a copy from pageable host
+    memory synchronises with the host, and a CUDA graph cannot capture it."""
+    host = torch.tensor(values, dtype=dtype)
+    flat = [torch.full((), v, dtype=dtype, device=device) for v in host.reshape(-1).tolist()]
+    return torch.stack(flat).reshape(host.shape)
+
+
 class DrawList(NamedTuple):
     """One pass's instances padded to a static capacity (reference
     DrawList, ops/geometry.py:44): sim8 (N, 8) f32; first_tri, tri_count,

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .geometry import TriangleSetup, clip_transform
+from .geometry import TriangleSetup, clip_transform, device_values
 
 # The reference's DEBUG_COLOURS palette (reference ops/lines.py:20).
 DEBUG_COLOURS = np.array(
@@ -45,8 +45,8 @@ def _quad_corner_ids(n: int, device) -> torch.Tensor:
     per quad, as (2n, 3) i32: a shared diagonal gets exactly negated edge
     functions."""
     base = torch.arange(n, dtype=torch.int32, device=device)[:, None] * 4
-    a = torch.tensor([0, 1, 2], dtype=torch.int32, device=device)[None, :]
-    b = torch.tensor([0, 2, 3], dtype=torch.int32, device=device)[None, :]
+    a = device_values([0, 1, 2], torch.int32, device)[None, :]
+    b = device_values([0, 2, 3], torch.int32, device)[None, :]
     return torch.cat([base + a, base + b])
 
 
@@ -83,7 +83,7 @@ def line_geometry(line_pos, color_ids, valid, view_proj, width: int, height: int
     tris = torch.cat([torch.stack([c0, c1, c2], dim=1), torch.stack([c0, c2, c3], dim=1)])
     setup = _screen_space_setup(tris, torch.cat([ok, ok]), width, height,
                                 vertex_ids=_quad_corner_ids(n, dev))
-    palette = torch.from_numpy(DEBUG_COLOURS).to(dev)
+    palette = device_values(DEBUG_COLOURS.tolist(), torch.float32, dev)
     colors = palette[torch.remainder(color_ids, 16).long()]
     return setup, torch.cat([colors, colors])
 

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .geometry import TriangleSetup, _setup_from_clip, clip_transform
+from .geometry import TriangleSetup, _setup_from_clip, clip_transform, device_values
 from .lines import _quad_corner_ids
 from .shade import _normalize, sh_channel_vectors
 from .texture import (
@@ -52,8 +52,8 @@ def particle_geometry(particles: dict, view, view_inverse, projection, width: in
 
     c1 = torch.cat([center, torch.ones((p, 1), dtype=center.dtype, device=dev)], dim=-1)
     view_center = clip_transform(c1, view)[:, :3]
-    corner_x = torch.tensor([-0.5, 0.5, 0.5, -0.5], dtype=torch.float32, device=dev)
-    corner_y = torch.tensor([-0.5, -0.5, 0.5, 0.5], dtype=torch.float32, device=dev)
+    corner_x = device_values([-0.5, 0.5, 0.5, -0.5], torch.float32, dev)
+    corner_y = device_values([-0.5, -0.5, 0.5, 0.5], torch.float32, dev)
     vpos = view_center[:, None, :] + torch.stack(
         [scale[:, 0:1] * corner_x[None, :], scale[:, 1:2] * corner_y[None, :],
          torch.zeros((p, 4), dtype=torch.float32, device=dev)],
@@ -68,8 +68,8 @@ def particle_geometry(particles: dict, view, view_inverse, projection, width: in
     v = particles["uv_offset"][:, None, 1] + (0.5 - corner_y)[None, :] * particles["uv_scale"][:, None, 1]
     uv = torch.stack([u, v], dim=-1)  # (P, 4, 2)
 
-    ia = torch.tensor([0, 1, 2], device=dev)
-    ib = torch.tensor([0, 2, 3], device=dev)
+    ia = device_values([0, 1, 2], torch.int64, dev)
+    ib = device_values([0, 2, 3], torch.int64, dev)
     clip_t = torch.cat([clip[:, ia], clip[:, ib]])
     world_t = torch.cat([world[:, ia], world[:, ib]])
     uv_t = torch.cat([uv[:, ia], uv[:, ib]])

@@ -23,11 +23,16 @@ No wrapper falls back: anything its kernel does not take raises. Each
 plain version equals its kernel, and the reference's interpret-mode
 kernel, bit for bit. ``rasterize_sorted.LAUNCHES``,
 ``kbuffer_sorted.LAUNCHES`` and ``kbuffer_sorted_global.LAUNCHES`` count
-kernel launches (never plain calls).
+the kernel launches the device runs (never plain calls): a launch made
+while the current stream captures a CUDA graph goes into the tally of
+``capture_tally`` instead, and ``replay_launches`` adds that tally at each
+replay of the graph.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import glob
 import os
@@ -96,6 +101,36 @@ _SIGNATURES = {
     "sc_kbuffer_smem_bytes": ("kbuffer", [_I]),
 }
 _libs: dict = {}
+_tallies: list = []  # the tallies of the captures under way, innermost last
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Inside the block, a wrapper whose kernel launches into a capturing
+    stream adds one to the yielded Counter (wrapper -> launches) instead of
+    its LAUNCHES: the launch runs only when the graph replays. A capture
+    outside such a block counts nothing."""
+    tally = collections.Counter()
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)
+
+
+def replay_launches(tally: dict) -> None:
+    """Count the launches of one replay of a graph captured with `tally`."""
+    for wrapper, n in tally.items():
+        wrapper.LAUNCHES += n
+
+
+def _launched(wrapper) -> None:
+    """One launch of `wrapper`'s kernel on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        if _tallies:
+            _tallies[-1][wrapper] += 1
+    else:
+        wrapper.LAUNCHES += 1
 
 
 def _nvcc() -> str:
@@ -278,7 +313,7 @@ def rasterize_sorted(
         )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError_t {err}")
-    rasterize_sorted.LAUNCHES += 1
+    _launched(rasterize_sorted)
     return VisibilityBuffer(depth=depth, pair=pair)
 
 
@@ -328,7 +363,7 @@ def kbuffer_sorted(
         (KBUFFER_CLUSTER if planes <= KBUFFER_KS[-1] else KBUFFER_DEEP_CLUSTER,
          KBUFFER_MIN_PART_ROWS),
     )
-    kbuffer_sorted.LAUNCHES += 1
+    _launched(kbuffer_sorted)
     return out
 
 
@@ -356,7 +391,7 @@ def kbuffer_sorted_global(
         "sc_kbuffer_global", sorted_setup, tile_start, tile_count, height, width, int(k),
         int(k), *KERNEL_TILE, reverse_z, depth_floor, y_offset, True, want_depth, (),
     )
-    kbuffer_sorted_global.LAUNCHES += 1
+    _launched(kbuffer_sorted_global)
     return out
 
 

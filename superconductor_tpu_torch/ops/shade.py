@@ -16,10 +16,9 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from .geometry import TriangleAttrs, TriangleSetup
+from .geometry import TriangleAttrs, TriangleSetup, device_values
 from .texture import (
     hdr_pool,
     ldr_pool,
@@ -280,7 +279,7 @@ def sample_spherical_harmonics(gbuf: GBuffer, scene: dict, uniforms: dict, env):
         sh_lm = unpack(taps)
         sh = sh_lm if sh is None else torch.where(gbuf.lightmapped[:, None, None], sh_lm, sh)
     if sh is None:
-        ambient = torch.tensor(np.asarray(env.ambient_sh, np.float32).reshape(4, 3), device=dev)
+        ambient = device_values(env.ambient_sh, torch.float32, dev).reshape(4, 3)
         sh = ambient.expand(p, 4, 3)
     return sh
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..math3d import quat_rotate
+from .geometry import device_values
 from .texture import hdr_pool, sample_cubemap
 from .tonemap import tonemap_and_encode
 
@@ -60,7 +61,7 @@ def shade_sky_rays(scene, env, rays, inline_tonemapping=True, inline_srgb=True):
     """Cubemap sample + display transform for rays (P, 3)."""
     base = env.ibl_cubemap_base
     if base < 0:
-        rgb = torch.tensor(env.clear_color, dtype=torch.float32, device=rays.device)
+        rgb = device_values(env.clear_color, torch.float32, rays.device)
         rgb = rgb.expand(rays.shape[0], 3)
     else:
         rgb = sample_cubemap(

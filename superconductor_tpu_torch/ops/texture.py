@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .geometry import device_values
 from .tonemap import srgb_to_linear_exact
 
 WRAP_REPEAT = 0
@@ -250,7 +251,7 @@ def sample_cubemap(texels_hdr, tex_desc, base_tex_id, direction, lod=None,
     uv = torch.stack([u, v], dim=-1)
     if static is not None and lod is None:
         offs, w, h = static
-        off = torch.tensor(offs, dtype=torch.int32, device=d.device)[face]
+        off = device_values(offs, torch.int32, d.device)[face]
         out = _bilinear_core(texels_hdr, off, w, h, WRAP_CLAMP, uv)
         if texels_hdr.dtype == torch.uint8:
             out = out * (1.0 / 255.0)
@@ -417,7 +418,7 @@ def _mq3_levels(texels_mq3, a_owh, b_owh, self_pair, wrap_mode, uv):
 def _matq_srgb(out16, mask):
     """Per-slot sRGB decode by mask bit (bit s = slot s), alpha linear."""
     o = out16.reshape(*out16.shape[:-1], 4, 4)
-    bits = torch.tensor([1, 2, 4, 8], dtype=torch.int32, device=out16.device)
+    bits = device_values([1, 2, 4, 8], torch.int32, out16.device)
     srgb = (mask[..., None] & bits) != 0
     rgb = torch.where(srgb[..., None], srgb_to_linear_exact(o[..., :3]), o[..., :3])
     return torch.cat([rgb, o[..., 3:]], dim=-1).reshape(*out16.shape[:-1], 16)

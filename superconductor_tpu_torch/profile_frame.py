@@ -2,7 +2,7 @@
 
     python3 -m superconductor_tpu_torch.profile_frame
         [--scene headline|clip_blend|all_passes|stereo|lit_passes|app]
-        [--frames 5] [--out build/profile]
+        [--frames 5] [--out build/profile] [--sync-sites]
 
 Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline;
 clip_blend: alpha clip + alpha blend; all_passes: the terrain, the sphere
@@ -21,12 +21,15 @@ time per frame of the palette FK and the frame state's build and upload
 frame of each FrameProfiler scope and the device-synchronising calls per
 frame (torch.cuda.set_sync_debug_mode); writes the full table and
 a gzipped Chrome trace under `--out` (profile_frame[_<scene>].txt and
-.json.gz). Needs a CUDA device.
+.json.gz). With --sync-sites (not for app) it prints instead the lines
+of the port at which one eager frame (render_frame_impl) synchronises with
+the host, and how often (sync_sites). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import gzip
 import os
 import shutil
@@ -34,6 +37,11 @@ import sys
 import time
 
 import torch
+
+# the warning of a synchronising call under torch.cuda.set_sync_debug_mode
+# ("warn"); the mode's own one-time notice that it is a prototype, which
+# also names synchronising operations, is not one
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def _app_frames(args):
@@ -87,12 +95,45 @@ def _app_host_report(frame, world, frames: int) -> None:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     world.resources.pop(FrameProfiler)
-    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    syncs = [str(w.message) for w in caught if SYNC_WARNING in str(w.message)]
     print("host ms/frame by scope: " + ", ".join(
         f"{k} {prof.totals[k] * 1e3 / frames:.3f}" for k in sorted(prof.totals)))
     print(f"device-synchronising calls: {len(syncs) / frames:.1f}/frame")
     for msg, count in collections.Counter(m.splitlines()[0][:120] for m in syncs).most_common(5):
         print(f"  {count / frames:.1f}/frame: {msg}")
+
+
+def sync_sites(fn) -> collections.Counter:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") -> how many
+    device-synchronising calls each line of the port made ("path:line" of
+    the innermost frame of the port's package, this file left out, in the
+    stack of each warning; the warning's own line where the stack holds
+    none)."""
+    import traceback
+    import warnings
+
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg) and f.filename != __file__]
+        if port:
+            filename, lineno = os.path.relpath(port[-1].filename, os.path.dirname(pkg)), \
+                port[-1].lineno
+        sites[f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
 
 
 def trace_frames(frame, frames: int):
@@ -125,9 +166,13 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--sync-sites", action="store_true",
+                    help="print where an eager frame synchronises with the host, and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
+    if args.sync_sites and args.scene == "app":
+        raise SystemExit("profile_frame: --sync-sites takes a scene, not the app")
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
@@ -148,6 +193,18 @@ def main(argv=None) -> int:
         dev, build, config, env = make(args.width, args.height, "cuda")
         state = build(0.0)
         config = fit_caps(dev, state, config, env)
+        if args.sync_sites:
+            from .render.frame import render_frame_impl
+
+            render_frame_impl(dev, state, config, env, with_stats=True)
+            torch.cuda.synchronize()
+            sites = sync_sites(lambda: render_frame_impl(dev, state, config, env,
+                                                         with_stats=True))
+            print(f"{torch.cuda.get_device_name(0)}; {args.scene}: {sum(sites.values())} "
+                  "synchronising calls in an eager frame")
+            for site, n in sites.most_common():
+                print(f"  {n:5d}  {site}")
+            return 0
 
         def frame():
             return render_frame(dev, state, config, env)

@@ -19,8 +19,9 @@ the SH light volume and lightmaps (ops/shade.py) and particles from the
 smoke maps (ops/particles.py). ``shade_row_pad`` pads the per-pair shade
 row to a multiple of its columns and every gather slices the pad off, as
 in the reference: the same frame, another row layout. PyTorch runs
-eagerly, so there is no jit: ``render_frame`` and ``render_frame_stats``
-are plain functions.
+eagerly, so there is no jit: ``render_frame_impl`` is a plain function,
+and on a CUDA device ``render_frame`` and ``render_frame_stats`` replay it
+as one CUDA graph a frame (render/frame_graph.py).
 """
 
 from __future__ import annotations
@@ -267,13 +268,15 @@ class _Worklist(NamedTuple):
     def compose(self, dst: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         """Write lane rows into a copy of flat per-pixel dst at the live
         granules (one plain form of the reference's gather/scatter pair:
-        dead lanes never write)."""
+        dead lanes never write). Every lane writes, at a fixed shape: a
+        dead lane's idx is the sentinel npx // gr, one scratch row past the
+        copy's end that is sliced off, and live indices are unique, so no
+        mask is compacted on the host."""
         c = 1 if dst.ndim == 1 else dst.shape[-1]
-        out = dst.clone().reshape(self.npx // self.gr, self.gr * c)
-        rows_g = rows.reshape(-1, self.gr * c)
-        live = self.live
-        out[self.idx[live].long()] = rows_g[live]
-        return out.reshape(dst.shape)
+        ng = self.npx // self.gr
+        out = torch.cat([dst.reshape(ng, self.gr * c), dst.new_zeros((1, self.gr * c))])
+        out.index_copy_(0, self.idx.long(), rows.reshape(-1, self.gr * c).to(dst.dtype))
+        return out[:ng].reshape(dst.shape)
 
 
 def _compact_px(mask: torch.Tensor, cap: int):
@@ -778,11 +781,19 @@ def render_frame_impl(scene: dict, state: FrameState, config: RenderConfig,
 
 
 def render_frame(scene: dict, state: FrameState, config: RenderConfig, env):
+    """render_frame_impl's image; on a CUDA device a replay of the frame's
+    CUDA graph (render/frame_graph.py, which says which frames stay
+    eager)."""
+    if frame_graph.captures(state, config):
+        return frame_graph.render(scene, state, config, env)
     return render_frame_impl(scene, state, config, env)
 
 
 def render_frame_stats(scene: dict, state: FrameState, config: RenderConfig, env):
-    """(image, stats) -- the variant the growth loops read."""
+    """(image, stats) -- the variant the growth loops read; on a CUDA
+    device as render_frame."""
+    if frame_graph.captures(state, config):
+        return frame_graph.render(scene, state, config, env, with_stats=True)
     return render_frame_impl(scene, state, config, env, with_stats=True)
 
 
@@ -802,3 +813,7 @@ def stats_to_host(stats: dict) -> dict:
         k: ([int(x) for x in v.tolist()] if v.ndim else int(v))
         for k, v in stats.items()
     }
+
+
+# Last: frame_graph records this module's bindings as imported.
+from . import frame_graph  # noqa: E402
