@@ -13,8 +13,9 @@ bands, the lit frame, and the app layer (the frame server and the demo
 through the ECS) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
-2. build: compiles csrc/raster.cu and csrc/kbuffer.cu (nvcc, sm_90a, one
-   process each, at once) and prints the seconds, the compiler's
+2. build: compiles csrc/raster.cu, csrc/kbuffer.cu and csrc/sample.cu
+   (nvcc, sm_90a, one process each, at once) and prints the seconds, the
+   compiler's
    registers, shared memory and spills of every kernel variant, and the
    k-buffer kernel's dynamic shared memory per template K;
 3. raster kernel against its plain torch version on the card, which must
@@ -169,7 +170,8 @@ through the ECS) -- and checks them:
     floor, each by the dispatch-count slope of CUDA-event times;
 13. bench: python3 -m superconductor_tpu_torch.bench in a subprocess (the
     headline, all_passes and stereo frames at 1920x1080, each held byte for
-    byte against its plain-versions twin, then timed; the card's ceilings)
+    byte against its plain-versions twin (every kernel's plain version),
+    then timed; the card's ceilings)
     with a budget of BENCH_BUDGET_S; its last line printed, and it must
     exit 0 with the three frame rates, each configuration's device busy
     time, idle share and launches, "correct": true and this card's name;
@@ -182,15 +184,30 @@ through the ECS) -- and checks them:
     its control a .item()), and an eager frame and two replays under
     torch.cuda.set_sync_debug_mode("error"); the launch counters' delta per
     replay equal to an eager frame's and to the hand kernels' events in a
-    profiled replay; eager and graph frame times (CUDA events over 10
-    frames; stereo also with its state and FK built each frame) beside
-    nvidia-smi's name and power limit, and the launches of the timed
-    replays;
-15. neither jax nor the JAX package (superconductor_tpu) was imported.
+    profiled replay (the raster, the k-buffer and both material samplers);
+    eager and graph frame times (CUDA events over 10 frames; stereo also
+    with its state and FK built each frame) beside nvidia-smi's name and
+    power limit, and the launches of the timed replays;
+15. sampler (the material samplers, csrc/sample.cu): every sampler call of
+    one eager headline, all-passes and stereo frame recorded and held bit
+    for bit against its plain version on its inputs; each site and shape
+    timed (kernel and plain version, bench_raster.graph_ms) with its bound
+    (bytes: the lanes' inputs, the material ints, the 32-B sectors of
+    texel bytes the call uses, 16 B a slot written) and the time of one
+    index_select of the texel rows it fetches as a yardstick for the
+    gathers; each scene's graph frame byte-equal, image and stats, to its
+    twin with every plain version swapped in and to its twin with only the
+    samplers swapped; a replay's launch tally holding the samplers' calls
+    of an eager frame; then the main path: every launch counter set to 0,
+    every graph captured anew, 10 graph frames of each of the three, the
+    counters read, each launch also counted at its site (a capture's tally
+    of sites added at each replay), and each sampler kernel, and each
+    site, must have launched its eager frame's calls a frame;
+16. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
-The table holds both kernels (launches summed over the six frames' and
+The table holds the raster and k-buffer kernels (launches summed over the six frames' and
 the two sharded frames' timed runs, the app phase's server and demo runs
 and the graph phase's timed replays), the all-passes and lit frames' five passes, the stereo frame's two
 eyes and each band pass of the two sharded frames, each with the launches
@@ -198,7 +215,13 @@ it made in that frame's timed run, the frame server's opaque pass
 (launches over the selftest's timed frames) and the demo's lines and
 particle passes (launches over the demo run), and the deep_k frame's
 particle pass at K = 64, the deep kernel (launches in that frame's timed
-run).
+run); then the two material samplers at their largest call (launches over
+the sampler phase's main-path run and the graph phase's timed replays) and
+at each site and shape of the headline, all-passes and stereo frames
+(the launches counted at that site in the main-path run). A sampler
+replaces no TPU kernel: its "replaces" names
+the JAX package's XLA functions, and its library_ms is null (no one
+PyTorch call computes it). Its bound is sampler_bound's.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -210,6 +233,7 @@ CUDA graph of 20 launches).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -256,6 +280,13 @@ KERNEL_SOURCES = {
                "superconductor_tpu/ops/raster_pallas.py:80"),
     "kbuffer": ("superconductor_tpu_torch/csrc/kbuffer.cu",
                 "superconductor_tpu/ops/raster_pallas.py:314"),
+    # csrc/sample.cu replaces no TPU kernel: the JAX package computes these in XLA
+    "classic_sample": ("superconductor_tpu_torch/csrc/sample.cu",
+                       "none (XLA: superconductor_tpu/ops/texture.py:629 sample_anisotropic, "
+                       "superconductor_tpu/ops/shade.py:363 _material_rows)"),
+    "material_sample": ("superconductor_tpu_torch/csrc/sample.cu",
+                        "none (XLA: superconductor_tpu/ops/texture.py:556 "
+                        "sample_material_interleaved)"),
 }
 # the all-passes frame's raster passes and k-buffer passes, in frame order
 AP_RASTER = ("opaque", "lines")
@@ -293,14 +324,15 @@ BENCH_KEYS = ("value", "device_frame_ms", "all_passes_true_fps", "stereo_anim_tr
 GRAPH_POSES = (0.0, 0.9, 2.1)
 GRAPH_TIMED = 10
 HAND_KERNELS = re.compile(
-    r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global)_kernel\b")
+    r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|classic_sample|"
+    r"material_sample)_kernel\b")
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
 # shaded rows, the tonemap and the u8 frame
 TRACED = ("_merged_vertex_stage", "_merged_setup_for_view", "bin_triangles",
           "gather_sorted_setup", "rasterize_sorted", "kbuffer_sorted", "_compact_worklist",
-          "interpolate_gbuffer", "albedo_alpha", "sample_material_interleaved",
+          "interpolate_gbuffer", "albedo_alpha", "_partition_material_sample",
           "sample_skybox", "sample_skybox_at", "shade", "shade_particles",
           "tonemap_and_encode", "to_u8")
 
@@ -1299,6 +1331,337 @@ def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> Non
                            "frame differs from it")
 
 
+def sampler_wrappers() -> dict:
+    """kernel -> (the module the frame looks its wrapper up in, the
+    wrapper's name, its plain version): csrc/sample.cu's two kernels."""
+    from superconductor_tpu_torch.bench import PLAIN_VERSIONS
+
+    return {k: PLAIN_VERSIONS[k] for k in ("classic_sample", "material_sample")}
+
+
+@contextlib.contextmanager
+def record_samplers():
+    """Inside the block, every call of a material sampler's wrapper is
+    appended to the list yielded as (kernel, calling function, its
+    arguments by name); the wrapper still runs. The arguments are the
+    frame's own tensors, strides kept."""
+    import inspect
+
+    calls, saved = [], []
+    for kernel, (mod, name, _plain) in sampler_wrappers().items():
+        real = getattr(mod, name)
+        sig = inspect.signature(real)
+
+        def recorded(*args, _kernel=kernel, _real=real, _sig=sig, **kw):
+            bound = _sig.bind(*args, **kw)
+            bound.apply_defaults()
+            calls.append((_kernel, sys._getframe(1).f_code.co_name, dict(bound.arguments)))
+            return _real(*args, **kw)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, recorded)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def sampler_site(kernel: str, caller: str, args: dict) -> str:
+    """A sampler call's site and shape: its caller, lanes, slots and pool."""
+    where = {"seg_sample": "partition", "_interleaved": "whole pool"}.get(caller, caller)
+    if kernel == "classic_sample":
+        pool = f"({args['pool'].shape[1]}-B rows)"
+    else:
+        pool = (f"({args['texels_mq'].shape[1]}-B rows"
+                + (" + tail)" if args["texels_tail"] is not None
+                   and args["texels_mq"].shape[1] == 64 else ")")
+                + (" by material id" if args["mat"] is not None else " a row a lane"))
+    return (f"{kernel} {where} {args['uv'].shape[0]} lanes slots "
+            f"{''.join(map(str, args['slots']))} {pool}")
+
+
+def sampler_bound(kernel: str, args: dict, fetched: list) -> tuple:
+    """(bound_ms, bound_by) of one sampler call: the larger of its bytes
+    over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM).
+    Bytes, each read once: the lanes' uv and derivatives (24 B) and
+    material id (4 B); of each distinct material the lanes name, the ints
+    the kernel reads (the classic sampler: a wanted slot's flags, its meta
+    and its mip table; the interleaved one: its meta and level entries),
+    or with a row a lane its meta and two level entries; the texel bytes
+    the call uses, in whole 32-B sectors (texel_sectors); 16 B a slot
+    written. The tables' columns are ops/sample.py's. Operations, counted
+    from csrc/sample.cu: a bilinear level 76 (tap position 8, the
+    4-channel lerp 52, u8 scale 4, sRGB 12 with its powf as one), a
+    trilinear 166 (two levels, blend 12, floor 2), a tap 8 more, the LOD
+    15."""
+    from superconductor_tpu_torch.ops import sample as sample_mod
+
+    lanes, n_slots, taps = args["uv"].shape[0], len(args["slots"]), max(1, int(args["taps"]))
+    mat = args["mat"]
+    if kernel == "classic_sample":
+        table, head, per_level = args["mat_row"], sample_mod.MAT_ROW_HEAD, \
+            sample_mod.MAT_ROW_LEVEL
+        L = (table.shape[1] - head) // per_level
+        per_material = n_slots * (1 + sample_mod.SLOT_META + 3 * L) * 4
+    else:
+        table, head, per_level = args["rows"], sample_mod.MQ_ROW_HEAD, sample_mod.MQ_ROW_LEVEL
+        L = (table.shape[1] - head) // per_level
+        per_material = (head - sample_mod.META + per_level * L) * 4
+    nbytes = lanes * 24 + lanes * 16 * n_slots + texel_sectors(fetched, args["slots"]) * 32
+    if mat is not None:
+        distinct = torch.unique(torch.remainder(mat.long(), table.shape[0])).numel()
+        nbytes += lanes * 4 + distinct * per_material
+    else:
+        nbytes += lanes * (head - sample_mod.META + 2 * per_level) * 4
+    level, trilinear = 76, 166
+    if kernel == "classic_sample":
+        ops = lanes * n_slots * (15 + taps * (trilinear + 8))
+    else:
+        ops = lanes * (15 + taps * (8 + 16 + n_slots * (2 * (level - 8) + 12) + 8))
+    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def texel_sectors(fetched: list, slots) -> int:
+    """The 32-B sectors of the texel pools that hold bytes a sampler call
+    uses: of each distinct row it fetches (fetched_rows), a texel or quad
+    row (4 or 16 B) whole; of a 64-B interleaved row the wanted slots'
+    16-B quads; of a 208-B mq3 row the wanted slots' quads and 3 x 3 cells
+    of the next level (36 B each). A sector two rows share counts once."""
+    total = 0
+    for pool, rows in fetched_rows(fetched):
+        width = pool.shape[1] * pool.element_size()
+        if width in (4, 16):
+            spans = [(0, width)]
+        elif width == 64:
+            spans = [(16 * s, 16) for s in slots]
+        elif width == 208:
+            spans = [(16 * s, 16) for s in slots] + [(64 + 36 * s, 36) for s in slots]
+        else:
+            raise ValueError(f"a texel pool of {width}-B rows")
+        base = torch.unique(rows) * width
+        sectors = []
+        for off, n in spans:
+            first, last = (base + off) // 32, (base + off + n - 1) // 32
+            for k in range((n + 31) // 32 + 1):
+                sectors.append((first + k)[first + k <= last])
+        total += torch.unique(torch.cat(sectors)).numel()
+    return total
+
+
+def fetched_rows(fetched: list) -> list:
+    """[(pool, the row indices fetched from it, wrapped as torch's indexing
+    wraps them)] of recorded_fetches' list, a pool once."""
+    pools = {}
+    for pool, index in fetched:
+        pools.setdefault(pool.data_ptr(), (pool, []))[1].append(
+            torch.remainder(index.reshape(-1).long(), pool.shape[0]))
+    return [(pool, torch.cat(idx)) for pool, idx in pools.values()]
+
+
+@contextlib.contextmanager
+def recorded_fetches():
+    """Inside the block, every texel-row fetch of ops/texture.py's plain
+    chains (_fetch) is appended to the list yielded as (pool, index)."""
+    from superconductor_tpu_torch.ops import texture as texture_mod
+
+    real, fetched = texture_mod._fetch, []
+
+    def fetch(texels, index):
+        fetched.append((texels, index))
+        return real(texels, index)
+
+    texture_mod._fetch = fetch
+    try:
+        yield fetched
+    finally:
+        texture_mod._fetch = real
+
+
+def compare_samplers(scene: str, calls: list, results: dict, timed: bool = True) -> None:
+    """Each recorded sampler call's kernel against its plain version on the
+    same inputs, bit for bit (the results' int32 views equal); the first
+    call of each site and shape timed (device ms of the kernel and of the
+    plain version, bench_raster.graph_ms), with its bound and share and the
+    yardstick of one index_select of the texel rows the call fetches, into
+    results[site]. Raises at the first call that differs."""
+    from superconductor_tpu_torch.bench_raster import graph_ms
+
+    wrappers = sampler_wrappers()
+    for kernel, caller, args in calls:
+        mod, name, plain = wrappers[kernel]
+        wrapper = getattr(mod, name)
+        site = f"{scene} {sampler_site(kernel, caller, args)}"
+        out = wrapper(**args)
+        with recorded_fetches() as fetched:
+            want = plain(**args)
+        torch.cuda.synchronize()
+        if out.shape != want.shape or not torch.equal(out.view(torch.int32),
+                                                      want.view(torch.int32)):
+            diff = (out.double() - want.double()).abs()
+            bad = int((out.view(torch.int32) != want.view(torch.int32)).sum())
+            raise RuntimeError(f"{site}: the kernel differs from its plain version at {bad} of "
+                               f"{want.numel()} values, max abs {float(diff.nan_to_num().max())}")
+        if not args["uv"].shape[0]:
+            continue  # no lanes: nothing launched, nothing to time
+        entry = results.setdefault(site, {"kernel": kernel, "calls": 0, "max_abs_err": 0.0,
+                                          "lanes": args["uv"].shape[0],
+                                          "slots": len(args["slots"])})
+        entry["calls"] += 1
+        if "ms" in entry or not timed:
+            continue
+        entry["bound_ms"], entry["bound_by"] = sampler_bound(kernel, args, fetched)
+        entry["ms"] = graph_ms(lambda: wrapper(**args))
+        entry["plain_ms"] = graph_ms(lambda: plain(**args), launches=5, runs=10)
+        rows = fetched_rows(fetched)
+        entry["index_select_ms"] = graph_ms(
+            lambda: [torch.index_select(pool, 0, idx) for pool, idx in rows])
+        entry["rows_fetched"] = sum(int(idx.numel()) for _, idx in rows)
+        phase("sampler", f"{site}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+              f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), share "
+              f"{entry['bound_ms'] / entry['ms']:.3f}; index_select of its "
+              f"{entry['rows_fetched']} texel rows {entry['index_select_ms']:.4f} ms")
+
+
+def sampler_path(smi: str, frames: dict) -> dict:
+    """Phase [sampler]: the material samplers (csrc/sample.cu). For the
+    headline, all-passes and stereo frames (`frames`: name -> (tables,
+    build(pose), fitted config, env)): every sampler call of one eager frame
+    (render_frame_impl) recorded, each held bit for bit against its plain
+    version on its inputs, each site and shape timed with its bound and
+    index_select yardstick; the graph frame (render_frame_stats) byte-equal,
+    image and stats, to its twin with every plain version swapped in (raster,
+    k-buffer, both samplers) and to its twin with only the samplers swapped;
+    a replay's launch tally holding the samplers' launches, equal to the
+    eager frame's calls. Then the main path (main_path_sites): every launch
+    counter set to 0, GRAPH_TIMED graph frames of each scene, the counters
+    read, and the run fails unless each sampler kernel launched, the
+    kernels' counts equal their sites' sum, and each site launched
+    GRAPH_TIMED times its calls in the eager frame. Returns {"sites":
+    per-site results, "launches": the samplers' launches in that run,
+    "site_launches": the launches at each site in that run}."""
+    from superconductor_tpu_torch.bench import plain_versions
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.render import frame_graph
+    from superconductor_tpu_torch.render.frame import render_frame_impl, render_frame_stats
+
+    wrappers = sampler_wrappers()
+
+    def counters():
+        return {k: getattr(mod, name).LAUNCHES for k, (mod, name, _) in wrappers.items()}
+
+    sites, per_frame = {}, {}
+    for scene, (tables, build, config, env) in frames.items():
+        state = build(0.0)
+        with record_samplers() as calls:
+            render_frame_impl(tables, state, config, env)
+        # a call on no lanes launches nothing
+        per_frame[scene] = {k: sum(1 for c in calls if c[0] == k and c[2]["uv"].shape[0])
+                            for k in wrappers}
+        phase("sampler", f"{scene}: {len(calls)} sampler calls in an eager frame "
+              f"{per_frame[scene]}")
+        compare_samplers(scene, calls, sites)
+        del calls
+        phase("sampler", f"{scene}: every sampler call equals its plain version bit for bit")
+
+        img, stats = render_frame_stats(tables, state, config, env)
+        for label, kernels in (("every plain version", None),
+                               ("the plain samplers", ("classic_sample", "material_sample"))):
+            with plain_versions(*(() if kernels is None else (kernels,))):
+                twin, twin_stats = render_frame_stats(tables, state, config, env)
+            if not (torch.equal(img, twin) and stats.keys() == twin_stats.keys()
+                    and all(torch.equal(stats[k], twin_stats[k]) for k in stats)):
+                raise RuntimeError(f"the {scene} graph frame differs from its twin with "
+                                   f"{label}")
+        key = frame_graph.frame_key(tables, state, config, env, True)[0]
+        graph = frame_graph._runners[state.joint_palette.device].graphs[key]
+        tally = {k: graph.tally.get(getattr(mod, name), 0)
+                 for k, (mod, name, _) in wrappers.items()}
+        before = counters()
+        render_frame_stats(tables, build(0.9), config, env)
+        replay = {k: v - before[k] for k, v in counters().items()}
+        phase("sampler", f"{scene}: the graph frame equals its twins with every plain version "
+              f"and with the plain samplers (image and stats); a replay's tally {tally}, its "
+              f"launches {replay}")
+        if tally != per_frame[scene] or replay != per_frame[scene]:
+            raise RuntimeError(f"the {scene} replay's sampler launches {replay} (tally "
+                               f"{tally}) differ from the eager frame's calls "
+                               f"{per_frame[scene]}")
+
+    # the main path: the graph frames of every scene, each counter from 0,
+    # every graph captured anew in the run, each launch also counted at its
+    # site as the wrappers count theirs (ops/raster.py _launched)
+    site_launches, captures = main_path_sites(frames)
+    launches = counters()
+    phase("sampler", f"main path: {GRAPH_TIMED} graph frames of {', '.join(frames)}: sampler "
+          f"launches {launches} (raster {raster_mod.rasterize_sorted.LAUNCHES}, k-buffer "
+          f"{raster_mod.kbuffer_sorted.LAUNCHES}); by site {dict(site_launches)}; {smi}")
+    want = {site: GRAPH_TIMED * r["calls"] for site, r in sites.items()}
+    by_kernel = {k: sum(n for site, n in site_launches.items() if sites[site]["kernel"] == k)
+                 for k in wrappers}
+    if (launches != by_kernel or dict(site_launches) != want or not all(launches.values())
+            or captures != len(frames)):
+        raise RuntimeError(f"the main path launched the samplers {launches}, by site "
+                           f"{dict(site_launches)} in {captures} captures; expected by site "
+                           f"{want} in {len(frames)}")
+    return {"sites": sites, "launches": launches, "site_launches": dict(site_launches)}
+
+
+def main_path_sites(frames: dict) -> tuple:
+    """Every launch counter set to 0 and every cached frame graph dropped,
+    then GRAPH_TIMED graph frames of each scene of `frames` (as
+    sampler_path's), cycling over GRAPH_POSES -> (Counter of the sampler
+    launches by site, "scene kernel site" as compare_samplers names them;
+    the number of graphs captured). A wrapper's launch also counts at its
+    site: while a graph captures, into that graph's tally of sites, which
+    each replay of the graph adds."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops import sample as sample_mod
+    from superconductor_tpu_torch.render import frame_graph
+    from superconductor_tpu_torch.render.frame import render_frame
+
+    kernel_of = {sample_mod._CLASSIC_COUNTER: "classic_sample",
+                 sample_mod._MATERIAL_COUNTER: "material_sample"}
+    for wrapper in kernel_of:
+        wrapper.LAUNCHES = 0
+    raster_mod.rasterize_sorted.LAUNCHES = 0
+    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    for runner in frame_graph._runners.values():
+        runner.graphs.clear()
+    real = sample_mod._launched
+    site_launches, tallies, now = collections.Counter(), {}, {}
+
+    def launched(wrapper):
+        real(wrapper)
+        call = sys._getframe(1)  # the wrapper's own frame: its arguments by name
+        site = f"{now['scene']} " + sampler_site(kernel_of[wrapper], call.f_back.f_code.co_name,
+                                                 call.f_locals)
+        (now["tally"] if torch.cuda.is_current_stream_capturing() else site_launches)[site] += 1
+
+    sample_mod._launched = launched
+    try:
+        for scene, (tables, build, config, env) in frames.items():
+            states = [build(p) for p in GRAPH_POSES]
+            device = states[0].joint_palette.device
+            for i in range(GRAPH_TIMED):
+                now.update(scene=scene, tally=collections.Counter())
+                runner = frame_graph._runners.get(device)
+                captured = runner.captured if runner is not None else 0
+                render_frame(tables, states[i % len(states)], config, env)
+                runner = frame_graph._runners.get(device)
+                if runner is None or not runner.graphs:
+                    raise RuntimeError(f"the {scene} frame replayed no graph")
+                graph = next(reversed(runner.graphs.values()))  # the one this frame replayed
+                if runner.captured != captured:
+                    tallies[id(graph)] = now["tally"]
+                site_launches.update(tallies[id(graph)])
+    finally:
+        sample_mod._launched = real
+    torch.cuda.synchronize()
+    return site_launches, len(tallies)
+
+
 def graph_path(smi: str, frames: dict) -> dict:
     """Phase 14: the headline, all-passes and stereo frames (stereo: the
     joint palettes from the FK walk at each pose) through render_frame's
@@ -1328,8 +1691,11 @@ def graph_path(smi: str, frames: dict) -> dict:
         render_frame_stats,
     )
 
+    wrappers = [raster_mod.rasterize_sorted, raster_mod.kbuffer_sorted] + [
+        getattr(mod, name) for mod, name, _ in sampler_wrappers().values()]
+
     def counts():
-        return (raster_mod.rasterize_sorted.LAUNCHES, raster_mod.kbuffer_sorted.LAUNCHES)
+        return tuple(w.LAUNCHES for w in wrappers)
 
     def since(before):
         return tuple(b - a for a, b in zip(before, counts()))
@@ -1352,7 +1718,7 @@ def graph_path(smi: str, frames: dict) -> dict:
     if sum(control.values()) != 1:
         raise RuntimeError("sync_sites did not see the .item() of its control")
 
-    total = {"raster_sorted": 0, "kbuffer_sorted": 0}
+    total = dict.fromkeys(("raster_sorted", "kbuffer_sorted", *sampler_wrappers()), 0)
     cuda = torch.autograd.DeviceType.CUDA
     for name, (tables, build, config, env) in frames.items():
         states = [build(p) for p in GRAPH_POSES]
@@ -1402,7 +1768,8 @@ def graph_path(smi: str, frames: dict) -> dict:
         profiled = since(l0)
         seen = sum(1 for e in prof.events() if e.device_type == cuda and HAND_KERNELS.search(e.name))
         device_ops = sum(1 for e in prof.events() if e.device_type == cuda)
-        phase("graph", f"{name}: launches (raster, k-buffer) eager {eager}, a replay {replay}; "
+        phase("graph", f"{name}: launches (raster, k-buffer, classic sampler, material "
+              f"sampler) eager {eager}, a replay {replay}; "
               f"a profiled replay: {seen} hand-kernel events of {device_ops} device events, "
               f"counters {profiled}")
         if replay != eager or profiled != eager or seen != sum(profiled):
@@ -1410,8 +1777,8 @@ def graph_path(smi: str, frames: dict) -> dict:
                                f"frame's or with its profile")
 
         eager_ms = window_ms(lambda i: render_frame_impl(tables, states[i % 3], config, env))
-        raster_mod.rasterize_sorted.LAUNCHES = 0
-        raster_mod.kbuffer_sorted.LAUNCHES = 0
+        for w in wrappers:
+            w.LAUNCHES = 0
         graph_ms = window_ms(lambda i: render_frame(tables, states[i % 3], config, env))
         launches = counts()
         line = (f"{name}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms a frame (CUDA "
@@ -1426,8 +1793,8 @@ def graph_path(smi: str, frames: dict) -> dict:
         if launches != tuple((GRAPH_TIMED + 1) * n for n in eager) or launches[0] == 0:
             raise RuntimeError(f"the {name} graph frames launched {launches}, not "
                                f"{GRAPH_TIMED + 1} x {eager}")
-        total["raster_sorted"] += launches[0]
-        total["kbuffer_sorted"] += launches[1]
+        for k, n in zip(total, launches):
+            total[k] += n
     return total
 
 
@@ -2231,7 +2598,7 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
                  lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
                  deep_by_pass: dict, graph_launches: dict, raster_res: dict,
-                 kbuffer_res: dict, shapes: dict) -> dict:
+                 kbuffer_res: dict, shapes: dict, sampler: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the six frames' and the two sharded frames' timed runs, the app
@@ -2241,7 +2608,12 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     (one a frame), the frame server's opaque pass with its launches over
     the selftest's timed frames, and the demo's lines and particle passes
     with their launches over the demo run, and the deep_k frame's particle
-    pass at K = 64 with its launches in that frame's timed run."""
+    pass at K = 64 with its launches in that frame's timed run; then each
+    material sampler at its largest call (launches over the sampler phase's
+    main-path run and the graph phase's timed replays, max_abs_err over
+    every recorded call) and at each site and shape of the headline,
+    all-passes and stereo frames (the launches counted at that site in the
+    main-path run)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -2255,6 +2627,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
 
     ap_raster, ap_kbuffer = ap_launches["raster_sorted"], ap_launches["kbuffer_sorted"]
     app_runs = (app["app_run"], app["demo"])
+    sampler_sites = {k: {s: r for s, r in sampler["sites"].items() if r["kernel"] == k}
+                     for k in ("classic_sample", "material_sample")}
     bands = range(SHARD_BANDS)
 
     def band(key):
@@ -2305,6 +2679,13 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
               shapes["demo_particles"]),
         entry("kbuffer_sorted[deep_k particles K=64]", "kbuffer", deep_by_pass["particles"],
               shapes["deep_k64"]),
+        *[entry(kernel, kernel, sampler["launches"][kernel] + graph_launches[kernel],
+                max((r for r in sites.values() if "ms" in r),
+                    key=lambda r: r["lanes"] * r["slots"]),
+                max(r["max_abs_err"] for r in sites.values()))
+          for kernel, sites in sampler_sites.items()],
+        *[entry(f"{r['kernel']}[{site}]", r["kernel"], sampler["site_launches"][site], r)
+          for site, r in sampler["sites"].items() if "ms" in r],
     ]}
 
 
@@ -2341,7 +2722,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build = raster_mod.build_kernels(force=True, verbose=True)
-    phase("build", f"both kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
+    phase("build", f"every kernel built in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, b in build.items():
         phase("build", f"{name}.cu built in {b['seconds']:.2f} s")
         for line in b["log"].splitlines():
@@ -2470,11 +2851,13 @@ def main() -> int:
     bench_path(kind, smi)
     ap_tables, ap_build, _, ap_env = all_passes_scene(WIDTH, HEIGHT, dev)
     st_tables, st_build, _, st_env = stereo_animated_scene(WIDTH, HEIGHT, dev)
-    graph_launches = graph_path(smi, {
+    graph_frames = {
         "headline": (scene_dev, build_state, config, env),
         "all_passes": (ap_tables, ap_build, ap_config, ap_env),
         "stereo": (st_tables, st_build, stereo_config, st_env),
-    })
+    }
+    graph_launches = graph_path(smi, graph_frames)
+    sampler = sampler_path(smi, graph_frames)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -2484,7 +2867,7 @@ def main() -> int:
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
                                   lit_by_pass, app, deep_launches, deep_by_pass, graph_launches,
-                                  results, kb_results, shapes)))
+                                  results, kb_results, shapes, sampler)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

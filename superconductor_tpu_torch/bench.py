@@ -19,8 +19,9 @@ configurations, in its order:
 
 Each configuration is loaded, its never-drop capacities fitted
 (``render/caps.py`` ``fit_caps``, through a cache under ``build/``), and its
-fitted frame rendered once, untimed, with the hand kernels and with both
-kernels' plain versions: the two must be equal byte for byte, else the line
+fitted frame rendered once, untimed, with the hand kernels and with every
+kernel's plain version (``plain_versions``: the raster, the k-buffer and
+the two material samplers): the two must be equal byte for byte, else the line
 says ``"correct": false`` and names the configuration, no timed number of it
 is printed, and the process exits non-zero once the line is out. Then:
 
@@ -71,6 +72,7 @@ times are not the card's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -84,6 +86,7 @@ from dataclasses import dataclass, field, replace
 import torch
 
 from .ops import raster as raster_mod
+from .ops import sample as sample_mod
 from .ops.raster_kbuffer import kbuffer_sorted_plain
 from .profile_frame import idle_share, trace_frames
 from .render import frame as frame_mod
@@ -390,17 +393,39 @@ def _measure(frame_fn, device_fn=None, n=10, windows=2, device_windows=2, device
 
 # --- The correctness check ----------------------------------------------------
 
-def plain_kernels_frame(scene_dev, state0, config, env):
-    """The frame rendered with both kernels' plain versions in place of the
-    kernels' wrappers (render/frame.py's rasterize_sorted, kbuffer_sorted),
-    which are put back after."""
-    saved = frame_mod.rasterize_sorted, frame_mod.kbuffer_sorted
-    frame_mod.rasterize_sorted = raster_mod.rasterize_sorted_plain
-    frame_mod.kbuffer_sorted = kbuffer_sorted_plain
+# kernel -> (the module whose name the frame calls it by, that name, its
+# plain version)
+PLAIN_VERSIONS = {
+    "raster": (frame_mod, "rasterize_sorted", raster_mod.rasterize_sorted_plain),
+    "kbuffer": (frame_mod, "kbuffer_sorted", kbuffer_sorted_plain),
+    "classic_sample": (sample_mod, "sample_classic", sample_mod.sample_classic_plain),
+    "material_sample": (sample_mod, "sample_material", sample_mod.sample_material_plain),
+}
+
+
+@contextlib.contextmanager
+def plain_versions(kernels=tuple(PLAIN_VERSIONS)):
+    """Inside the block, the named kernels' wrappers are replaced by their
+    plain versions where the frame looks them up (the frame then runs
+    eagerly); they are put back after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in
+             (PLAIN_VERSIONS[k] for k in kernels)]
     try:
-        return frame_mod.render_frame(scene_dev, state0, config, env)
+        for k in kernels:
+            mod, name, plain = PLAIN_VERSIONS[k]
+            setattr(mod, name, plain)
+        yield
     finally:
-        frame_mod.rasterize_sorted, frame_mod.kbuffer_sorted = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_kernels_frame(scene_dev, state0, config, env):
+    """The frame rendered with every kernel's plain version in place of its
+    wrapper (plain_versions: the raster, the k-buffer and the two material
+    samplers)."""
+    with plain_versions():
+        return frame_mod.render_frame(scene_dev, state0, config, env)
 
 
 # --- main (bench.py :999-1333) ------------------------------------------------

@@ -17,7 +17,10 @@ positions (-1 = miss) in their pair planes; the caller remaps them.
   K, which ``kbuffer_sorted`` runs only above ``KBUFFER_DEEP_MAX_K``.
 * ``build_kernels`` -- compile the CUDA libraries (idempotent; one nvcc per
   stale source, all started together) into ``build/``; they are loaded
-  with ctypes at first use.
+  with ctypes at first use. Besides the two raster sources it builds
+  ``csrc/sample.cu``, the material samplers, whose wrappers are
+  ``ops/sample.py`` ``sample_classic`` and ``sample_material`` (they
+  count their launches as the wrappers here do).
 
 No wrapper falls back: anything its kernel does not take raises. Each
 plain version equals its kernel, and the reference's interpret-mode
@@ -53,7 +56,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 KERNELS = {
     name: (os.path.join(_PKG_DIR, "csrc", f"{name}.cu"),
            os.path.join(BUILD_DIR, f"libsc_{name}.so"))
-    for name in ("raster", "kbuffer")
+    for name in ("raster", "kbuffer", "sample")
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,7 +91,7 @@ KBUFFER_DEEP_CLUSTER = 1
 KBUFFER_KS = (1, 2, 4, 8, 16)
 KBUFFER_DEEP_MAX_K = 875  # csrc/kbuffer.cu deep_band_px: 32 pixels fill a block
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (kernel library, argument types)
 _SIGNATURES = {
     "sc_raster_sorted": ("raster",
@@ -99,6 +102,13 @@ _SIGNATURES = {
     "sc_kbuffer_global": ("kbuffer",
                           [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "sc_kbuffer_smem_bytes": ("kbuffer", [_I]),
+    # ops/sample.py's material samplers (csrc/sample.cu)
+    "sc_classic_sample": ("sample",
+                          [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _I, _I,
+                           _I, _I, _P, _P]),
+    "sc_material_sample": ("sample",
+                           [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _P, _L,
+                            _I, _I, _I, _I, _P, _P]),
 }
 _libs: dict = {}
 _tallies: list = []  # the tallies of the captures under way, innermost last

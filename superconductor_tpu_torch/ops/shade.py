@@ -9,6 +9,10 @@ layered through the HDR pool, and the constant ambient fallback), and
 ``shade`` and the alpha-clip test ``albedo_alpha`` on every material path:
 the interleaved pool (matq), the classic per-slot samplers, and textures
 pre-sampled by the material-path partition.
+
+Material textures are sampled through ops/sample.py's wrappers
+(``sample.sample_material``, ``sample.sample_classic``), looked up in that
+module at each call.
 """
 
 from __future__ import annotations
@@ -18,16 +22,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import sample
 from .geometry import TriangleAttrs, TriangleSetup, device_values
+from .sample import FLAGS, META, SLOTS, _bitcast_i32, _factors, _unpack_mat_row, _unpack_mq_row
 from .texture import (
     hdr_pool,
     ldr_pool,
     sample_3d_from_layers,
-    sample_anisotropic,
     sample_bilinear_level,
     sample_lightmap_sh,
     sample_lightvol_sh,
-    sample_material_interleaved,
 )
 from .tonemap import linear_to_srgb_approx, tonemap_and_encode
 
@@ -50,10 +54,6 @@ class GBuffer(NamedTuple):
     duvdx: torch.Tensor  # (P, 2)
     duvdy: torch.Tensor
     mat_tail: Optional[torch.Tensor] = None  # (P, 24+4L) mat_row_mq tail
-
-
-def _bitcast_i32(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous().view(torch.int32)
 
 
 def _sum3(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -284,23 +284,18 @@ def sample_spherical_harmonics(gbuf: GBuffer, scene: dict, uniforms: dict, env):
     return sh
 
 
-def _unpack_mq_row(row):
-    """(P, 24+4L) mat_row_mq -> (pf (P,12) f32, pi (P,8) i32, meta (P,4)
-    i32, owh (P,L,4) i32)."""
-    pf = row[..., 0:12]
-    pi = _bitcast_i32(row[..., 12:20])
-    meta = _bitcast_i32(row[..., 20:24])
-    L = (row.shape[-1] - 24) // 4
-    owh = _bitcast_i32(row[..., 24:24 + 4 * L]).reshape(*row.shape[:-1], L, 4)
-    return pf, pi, meta, owh
+def _mq_rows(m: dict, mat, gbuf=None):
+    """The lanes' mat_row_mq rows: the shade_row tail when present, else
+    one row gather."""
+    if gbuf is not None and gbuf.mat_tail is not None:
+        return gbuf.mat_tail
+    return m["mat_row_mq"][mat]
 
 
 def _material_rows_mq(m: dict, mat, gbuf=None):
     """mat_row_mq unpacked -- from the shade_row tail when present, else one
     row gather."""
-    if gbuf is not None and gbuf.mat_tail is not None:
-        return _unpack_mq_row(gbuf.mat_tail)
-    return _unpack_mq_row(m["mat_row_mq"][mat])
+    return _unpack_mq_row(_mq_rows(m, mat, gbuf))
 
 
 def _material_rows(m: dict, mat):
@@ -309,36 +304,29 @@ def _material_rows(m: dict, mat):
     the scene publishes it, else the separate packed rows (reference
     ops/shade.py:363). mlv is each slot's in-register mip table."""
     if "mat_row" in m:
-        row = m["mat_row"][mat]  # (P, 44 + 4*L*3)
-        pf = row[..., 0:12]
-        pi = _bitcast_i32(row[..., 12:20])
-        mtm = _bitcast_i32(row[..., 20:44])
-        mlv = None
-        if row.shape[-1] > 44:
-            L = (row.shape[-1] - 44) // 12
-            mlv = _bitcast_i32(row[..., 44:44 + 12 * L]).reshape(*row.shape[:-1], 4, L, 3)
-        return pf, pi, mtm, mlv
+        return _unpack_mat_row(m["mat_row"][mat])
     mtm = m["mat_tex_meta"][mat] if "mat_tex_meta" in m else None
     return m["packed_f"][mat], m["packed_i"][mat], mtm, None
-
-
-def classic_sample(scene: dict, rows, slot: int, uv, duvdx, duvdy, taps: int):
-    """Material texture `slot` of each lane through the classic per-slot
-    sampler (sample_anisotropic, lod from the texture's own mip-0 size);
-    rows = _material_rows(...) of the lanes' materials."""
-    _pf, pi, mtm, mlv = rows
-    meta = mtm[..., 6 * slot:6 * slot + 6] if mtm is not None else None
-    lv = mlv[..., slot, :, :] if mlv is not None else None
-    return sample_anisotropic(
-        ldr_pool(scene), scene["tex"], pi[..., slot], uv, duvdx, duvdy, taps,
-        meta=meta, levels_owh=lv,
-    )
 
 
 def _whole_pool(scene: dict) -> bool:
     """Every material samples the interleaved pool (no partial pool)."""
     return ("texels_mq" in scene and "mat_row_mq" in scene["materials"]
             and "matq_capable" not in scene)
+
+
+def _interleaved(scene: dict, gbuf: GBuffer, aniso_taps: int, slots):
+    """The wanted slots of the g-buffer's lanes from the whole interleaved
+    pool, the material rows from the shade_row tail when present, else by
+    material id."""
+    if gbuf.mat_tail is not None:
+        rows, mat = gbuf.mat_tail, None
+    else:
+        rows, mat = scene["materials"]["mat_row_mq"], gbuf.material
+    return sample.sample_material(
+        scene["texels_mq"], rows, gbuf.uv, gbuf.duvdx, gbuf.duvdy, aniso_taps, mat=mat,
+        slots=slots, texels_tail=scene.get("texels_mq_tail"),
+    )
 
 
 def shade(
@@ -363,18 +351,14 @@ def shade(
     if s16 is not None:
         # factors and flags still come from the material row (incapable
         # materials' rows carry their real pf / pi)
-        pf, pi, _meta, _owh = _material_rows_mq(m, gbuf.material, gbuf)
+        pf, pi = _factors(_mq_rows(m, gbuf.material, gbuf))
     elif _whole_pool(scene):
-        pf, pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
-        s16 = sample_material_interleaved(
-            scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
-            aniso_taps, texels_tail=scene.get("texels_mq_tail"),
-        )
+        pf, pi = _factors(_mq_rows(m, gbuf.material, gbuf))
+        s16 = _interleaved(scene, gbuf, aniso_taps, SLOTS)
     else:
-        rows = _material_rows(m, gbuf.material)
-        pf, pi = rows[0], rows[1]
-        s16 = torch.cat([classic_sample(scene, rows, slot, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
-                                        aniso_taps) for slot in range(4)], dim=-1)
+        pf, pi = _factors(m["mat_row"][:, :META][gbuf.material])
+        s16 = sample.sample_classic(ldr_pool(scene), m["mat_row"], gbuf.material, gbuf.uv,
+                                    gbuf.duvdx, gbuf.duvdy, aniso_taps)
     albedo = s16[..., 0:4] * pf[..., 0:4]
     normal_tex = s16[..., 4:8]
     mr = s16[..., 8:12]
@@ -423,18 +407,13 @@ def albedo_alpha(gbuf: GBuffer, scene: dict, aniso_taps: int = 1, albedo4=None):
     pools without it take the classic sampler."""
     m = scene["materials"]
     if albedo4 is not None:
-        pf, _pi, _meta, _owh = _material_rows_mq(m, gbuf.material, gbuf)
-        albedo = albedo4 * pf[..., 0:4]
-        return albedo[..., 3], pf[..., 10]
-    if _whole_pool(scene):
-        pf, _pi, mq_meta, mq_owh = _material_rows_mq(m, gbuf.material, gbuf)
-        s16 = sample_material_interleaved(
-            scene["texels_mq"], mq_meta, mq_owh, gbuf.uv, gbuf.duvdx, gbuf.duvdy,
-            aniso_taps, texels_tail=scene.get("texels_mq_tail"),
-        )
-        albedo = s16[..., 0:4] * pf[..., 0:4]
-        return albedo[..., 3], pf[..., 10]
-    rows = _material_rows(m, gbuf.material)
-    albedo = classic_sample(scene, rows, 0, gbuf.uv, gbuf.duvdx, gbuf.duvdy, aniso_taps)
-    albedo = albedo * rows[0][..., 0:4]
-    return albedo[..., 3], rows[0][..., 10]
+        pf = _mq_rows(m, gbuf.material, gbuf)[..., :FLAGS]
+    elif _whole_pool(scene):
+        pf = _mq_rows(m, gbuf.material, gbuf)[..., :FLAGS]
+        albedo4 = _interleaved(scene, gbuf, aniso_taps, (0,))
+    else:
+        pf = m["mat_row"][:, :FLAGS][gbuf.material]
+        albedo4 = sample.sample_classic(ldr_pool(scene), m["mat_row"], gbuf.material, gbuf.uv,
+                                        gbuf.duvdx, gbuf.duvdy, aniso_taps, slots=(0,))
+    albedo = albedo4 * pf[..., 0:4]
+    return albedo[..., 3], pf[..., 10]

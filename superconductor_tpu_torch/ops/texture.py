@@ -11,6 +11,10 @@ textures of a pixel from one 64-channel row per trilinear level, or from
 one wide 208-channel mq3 row for both levels), the smoke pool sampler (``sample_smoke_interleaved``) and the light-volume /
 lightmap samplers: layered (``sample_3d_from_layers``) and on the
 SH-interleaved pools (``sample_lightvol_sh``, ``sample_lightmap_sh``).
+
+The frame reaches ``sample_material_interleaved`` and ``sample_anisotropic``
+through ops/sample.py, whose wrappers launch csrc/sample.cu's kernels for
+CUDA tensors and run these chains as their plain versions.
 """
 
 from __future__ import annotations
@@ -349,7 +353,7 @@ def _matq_bilinear(texels_mq, owh, wrap_mode, uv):
     clamped = wrap_mode == WRAP_CLAMP
     fx = torch.where((clamped & (x0 < 0))[..., None, None], 0.0, fx)
     fy = torch.where((clamped & (y0 < 0))[..., None, None], 0.0, fy)
-    q = texels_mq[off + yi * w + xi].to(torch.float32)  # (P, 64)
+    q = _fetch(texels_mq, off + yi * w + xi).to(torch.float32)  # (P, 64)
     qr = q.reshape(*q.shape[:-1], 4, 4, 4)  # (P, slot, corner, ch)
     out = _lerp4(qr[..., 0, :], qr[..., 1, :], qr[..., 2, :], qr[..., 3, :], fx, fy)
     return out.reshape(*q.shape[:-1], 16)
@@ -374,7 +378,7 @@ def _mq3_levels(texels_mq3, a_owh, b_owh, self_pair, wrap_mode, uv):
     clamped = wrap_mode == WRAP_CLAMP
     fx = torch.where((clamped & (x0 < 0))[..., None, None], 0.0, fx)
     fy = torch.where((clamped & (y0 < 0))[..., None, None], 0.0, fy)
-    row = texels_mq3[off + yi * w + xi].to(torch.float32)  # (P, 208)
+    row = _fetch(texels_mq3, off + yi * w + xi).to(torch.float32)  # (P, 208)
     lead = row.shape[:-1]
     qr = row[..., :64].reshape(*lead, 4, 4, 4)
     a16 = _lerp4(qr[..., 0, :], qr[..., 1, :], qr[..., 2, :], qr[..., 3, :], fx, fy)

@@ -2,7 +2,7 @@
 
     python3 -m superconductor_tpu_torch.profile_frame
         [--scene headline|clip_blend|all_passes|stereo|lit_passes|app]
-        [--frames 5] [--out build/profile] [--sync-sites]
+        [--frames 5] [--out build/profile] [--sync-sites] [--sites]
 
 Fits the caps of the 1920x1080 frame of `--scene` (the opaque headline;
 clip_blend: alpha clip + alpha blend; all_passes: the terrain, the sphere
@@ -23,18 +23,24 @@ frame (torch.cuda.set_sync_debug_mode); writes the full table and
 a gzipped Chrome trace under `--out` (profile_frame[_<scene>].txt and
 .json.gz). With --sync-sites (not for app) it prints instead the lines
 of the port at which one eager frame (render_frame_impl) synchronises with
-the host, and how often (sync_sites). Needs a CUDA device.
+the host, and how often (sync_sites). With --sites (not for app) it prints
+instead the device time of one eager traced frame (render_frame_impl) by
+call site and kind of operation (call_site_times). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
 import gzip
 import os
+import re
 import shutil
 import sys
 import time
+import types
 
 import torch
 
@@ -42,6 +48,21 @@ import torch
 # ("warn"); the mode's own one-time notice that it is a prototype, which
 # also names synchronising operations, is not one
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# call_site_times: a device operation's site is the innermost of these
+# functions of the port that it ran under (site_ranges); its kind is
+# "gather" when the benchmark's GATHERS pattern (benchmark/measure.py)
+# matches the kernel's name, "hand" for a hand-written kernel, else the
+# host op's name
+SITE_FUNCTIONS = (
+    "_material_rows", "_material_rows_mq", "classic_sample", "sample_classic",
+    "sample_material_interleaved", "sample_material", "_partition_material_sample", "take",
+    "compose", "_compact_worklist", "interpolate_gbuffer", "sample_skybox",
+    "sample_skybox_at", "albedo_alpha", "shade", "shade_particles", "render_view",
+)
+SITE_PREFIX = "site:"
+GATHER_KERNEL = re.compile(r"gather|index", re.IGNORECASE)
+HAND_KERNEL = re.compile(r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|"
+                         r"classic_sample|material_sample)_kernel\b")
 
 
 def _app_frames(args):
@@ -136,6 +157,112 @@ def sync_sites(fn) -> collections.Counter:
     return sites
 
 
+@contextlib.contextmanager
+def site_ranges():
+    """Inside the block, each function of the port named in SITE_FUNCTIONS
+    (every module's binding of it, and a class's method of that name) runs
+    inside a torch.profiler.record_function range "site:file:function"."""
+    from torch.profiler import record_function
+
+    def ranged(fn):
+        label = f"{SITE_PREFIX}{os.path.basename(fn.__code__.co_filename)}:{fn.__name__}"
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    package = __package__ or "superconductor_tpu_torch"
+    owners = [m for n, m in list(sys.modules.items())
+              if m is not None and n.startswith(package + ".")]
+    owners += [c for m in owners for c in list(vars(m).values())
+               if isinstance(c, type) and c.__module__ == m.__name__]
+    saved, wrappers = [], {}
+    for owner in owners:
+        for name, obj in list(vars(owner).items()):
+            if (isinstance(obj, types.FunctionType) and obj.__name__ in SITE_FUNCTIONS
+                    and obj.__module__.startswith(package)):
+                saved.append((owner, name, obj))
+                setattr(owner, name, wrappers.setdefault(obj, ranged(obj)))
+    try:
+        yield
+    finally:
+        for owner, name, obj in saved:
+            setattr(owner, name, obj)
+
+
+def call_site_times(fn) -> dict:
+    """Run fn() once under torch.profiler (CPU and CUDA activity, input
+    shapes) and site_ranges -> {(site, kind, rows): [device ms, device
+    operations]}: each device operation under the host op that launched
+    it, at the innermost site range around that op ("file:function";
+    "(frame)" outside them all), of kind "gather" (the kernel's name
+    matches GATHER_KERNEL; rows: the gathered tensor's row width), "hand"
+    (a hand-written kernel; rows: its name) or the host op's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with site_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # a device event shares its id with the runtime call that launched it,
+    # whose parent is the host op
+    runtime = {e.id: e for e in events if e.device_type != cuda and e.name.startswith("cuda")}
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        # device operations only: not the ranges' device-side annotations
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith(SITE_PREFIX):
+            continue
+        r = runtime.get(e.id)
+        op = r.cpu_parent if r is not None else None
+        site, p = "(frame)", op
+        while p is not None:
+            if p.name.startswith(SITE_PREFIX):
+                site = p.name[len(SITE_PREFIX):]
+                break
+            p = p.cpu_parent
+        rows = ""
+        hand = HAND_KERNEL.search(e.name)
+        if hand:
+            kind, rows = "hand", hand.group(0)
+        elif GATHER_KERNEL.search(e.name):
+            kind = "gather"
+            shapes = getattr(op, "input_shapes", None) or []
+            if shapes and isinstance(shapes[0], (list, tuple)) and shapes[0]:
+                rows = f"{shapes[0][-1] if len(shapes[0]) > 1 else 1} wide"
+        else:
+            kind = (op.name if op is not None else e.name).replace("aten::", "")
+        cell = out[(site, kind, rows)]
+        cell[0] += e.time_range.elapsed_us() / 1e3
+        cell[1] += 1
+    return dict(out)
+
+
+def print_site_times(times: dict, top: int = 60) -> None:
+    """call_site_times' sites by device ms (all kinds), each kind's total,
+    then the `top` (site, kind, rows) cells."""
+    total = sum(ms for ms, _ in times.values())
+
+    def sums(key):
+        out = collections.defaultdict(lambda: [0.0, 0])
+        for k, (ms, n) in times.items():
+            out[key(k)][0] += ms
+            out[key(k)][1] += n
+        return sorted(out.items(), key=lambda kv: -kv[1][0])
+
+    print(f"by site (of {total:.3f} ms device time): " + ", ".join(
+        f"{site} {ms:.3f} ms in {n}" for site, (ms, n) in sums(lambda k: k[0])))
+    print("by kind: " + ", ".join(
+        f"{kind} {ms:.3f} ms in {n}" for kind, (ms, n) in sums(lambda k: k[1])))
+    print(f"{'ms':>9} {'ops':>6}  site / kind / rows")
+    for (site, kind, rows), (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"{ms:9.3f} {n:6d}  {site} / {kind}" + (f" / {rows}" if rows else ""))
+
+
 def trace_frames(frame, frames: int):
     """`frames` calls of frame() traced with torch.profiler (CPU and CUDA
     activity), ending in a synchronise -> (the profile, the summed device
@@ -168,11 +295,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     ap.add_argument("--sync-sites", action="store_true",
                     help="print where an eager frame synchronises with the host, and stop")
+    ap.add_argument("--sites", action="store_true",
+                    help="print an eager frame's device time by call site, and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
-    if args.sync_sites and args.scene == "app":
-        raise SystemExit("profile_frame: --sync-sites takes a scene, not the app")
+    if (args.sync_sites or args.sites) and args.scene == "app":
+        raise SystemExit("profile_frame: --sync-sites and --sites take a scene, not the app")
 
     from .render.caps import fit_caps
     from .render.frame import render_frame
@@ -204,6 +333,16 @@ def main(argv=None) -> int:
                   "synchronising calls in an eager frame")
             for site, n in sites.most_common():
                 print(f"  {n:5d}  {site}")
+            return 0
+        if args.sites:
+            from .render.frame import render_frame_impl
+
+            for _ in range(2):
+                render_frame_impl(dev, state, config, env)
+            torch.cuda.synchronize()
+            print(f"{torch.cuda.get_device_name(0)}; {args.scene}: one eager frame's device "
+                  "time by call site")
+            print_site_times(call_site_times(lambda: render_frame_impl(dev, state, config, env)))
             return 0
 
         def frame():

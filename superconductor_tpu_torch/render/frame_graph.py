@@ -13,8 +13,9 @@ replay then costs the device's time, not the host's chain of launches.
   scene where it lies: a pool updated in place keeps the key, a re-gathered
   one is a new key) and the scene's other leaves; each FrameState tensor's
   shape, dtype, strides and device and the state's other leaves; the
-  objects bound to render/frame.py's kernel names and the kernels' split
-  constants (ops/raster.py).
+  objects bound to the kernel wrappers' names (render/frame.py's raster
+  and k-buffer, ops/sample.py's material samplers) and the kernels'
+  split constants (ops/raster.py).
 * Buffers: a graph owns a copy of every FrameState tensor. Each call copies
   the caller's tensors into them (device to device) before the replay, so
   a new pose, palette, line or particle set at the same shapes replays with
@@ -33,9 +34,9 @@ replay then costs the device's time, not the host's chain of launches.
   the wrappers' LAUNCHES count the launches the device runs.
 * Eager by design: CPU tensors, ``raster="ref"``, a call made while the
   current stream captures, and a frame in which a name of render/frame.py
-  is bound to something other than at import (the plain-kernel twins,
-  traces and per-pass counters rebind them, and a replay would not call
-  them).
+  or a material sampler's name is bound to something other than at import
+  (the plain-kernel twins, traces and per-pass counters rebind them, and a
+  replay would not call them).
 """
 
 from __future__ import annotations
@@ -46,20 +47,24 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import raster as raster_mod
+from ..ops import sample as sample_mod
 from . import frame as frame_mod
 
 CACHE_SIZE = 3  # graphs kept a device
-KERNEL_NAMES = ("rasterize_sorted", "kbuffer_sorted")
+# the kernel wrappers the frame calls: (module, name), looked up at each call
+KERNEL_NAMES = ((frame_mod, "rasterize_sorted"), (frame_mod, "kbuffer_sorted"),
+                (sample_mod, "sample_classic"), (sample_mod, "sample_material"))
 SPLIT_CONSTANTS = ("RASTER_CLUSTER", "RASTER_MIN_PART_ROWS", "KBUFFER_CLUSTER",
                    "KBUFFER_MIN_PART_ROWS", "KBUFFER_DEEP_CLUSTER")
-# render/frame.py's functions and classes as imported
-_BOUND = {name: obj for name, obj in vars(frame_mod).items() if callable(obj)}
+# render/frame.py's functions and classes, and the kernel wrappers, as imported
+_BOUND = {(frame_mod, name): obj for name, obj in vars(frame_mod).items() if callable(obj)}
+_BOUND.update({(mod, name): getattr(mod, name) for mod, name in KERNEL_NAMES})
 
 
 def frame_bindings_intact() -> bool:
-    """Every function and class name of render/frame.py is bound as at
-    import."""
-    return all(getattr(frame_mod, name) is obj for name, obj in _BOUND.items())
+    """Every function and class name of render/frame.py, and every kernel
+    wrapper's name, is bound as at import."""
+    return all(getattr(mod, name) is obj for (mod, name), obj in _BOUND.items())
 
 
 def captures(state, config) -> bool:
@@ -106,7 +111,7 @@ def frame_key(scene: dict, state, config, env, with_stats: bool) -> tuple:
     leaves = []
     state_spec = _flatten(state, leaves, address=False)
     key = (config, env, bool(with_stats), _flatten(scene, [], address=True), state_spec,
-           tuple(getattr(frame_mod, n) for n in KERNEL_NAMES),
+           tuple(getattr(mod, name) for mod, name in KERNEL_NAMES),
            tuple(getattr(raster_mod, n) for n in SPLIT_CONSTANTS))
     return key, state_spec, leaves
 

@@ -7,6 +7,7 @@ plain raster (bit for bit in both) runs only where there is a card."""
 
 import functools
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -406,8 +407,9 @@ def test_raster_bound_charges_floor_bytes_in_busy_tiles():
 
 def test_build_freshness_follows_headers(tmp_path):
     """build_kernels rebuilds a library older than its source or than any
-    csrc/*.cuh beside it (both kernels include raster_common.cuh): checked
-    through raster.is_fresh on files with set mtimes, without nvcc."""
+    csrc/*.cuh beside it (both raster kernels include raster_common.cuh,
+    and every header a source includes is such a file): checked through
+    raster.is_fresh on files with set mtimes, without nvcc."""
     src, header, lib = tmp_path / "k.cu", tmp_path / "common.cuh", tmp_path / "libk.so"
     src.write_text("")
     header.write_text("")
@@ -422,9 +424,14 @@ def test_build_freshness_follows_headers(tmp_path):
     assert raster_mod.is_fresh(str(src), str(lib))
     os.utime(src, (500, 500))  # an edited source
     assert not raster_mod.is_fresh(str(src), str(lib))
-    for source, _library in raster_mod.KERNELS.values():
+    for name, (source, _library) in raster_mod.KERNELS.items():
         with open(source) as f:
-            assert '#include "raster_common.cuh"' in f.read()
+            included = re.findall(r'#include "([^"]+)"', f.read())
+        if name in ("raster", "kbuffer"):
+            assert "raster_common.cuh" in included
+        for header in included:
+            assert header.endswith(".cuh")
+            assert os.path.exists(os.path.join(os.path.dirname(source), header))
 
 
 @pytest.mark.gpu
