@@ -13,9 +13,9 @@ bands, the lit frame, and the app layer (the frame server and the demo
 through the ECS) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
-2. build: compiles csrc/raster.cu, csrc/kbuffer.cu and csrc/sample.cu
-   (nvcc, sm_90a, one process each, at once) and prints the seconds, the
-   compiler's
+2. build: compiles csrc/raster.cu, csrc/kbuffer.cu, csrc/sample.cu,
+   csrc/gbuffer.cu and csrc/sky.cu (nvcc, sm_90a, one process each, at
+   once) and prints the seconds, the compiler's
    registers, shared memory and spills of every kernel variant, and the
    k-buffer kernel's dynamic shared memory per template K;
 3. raster kernel against its plain torch version on the card, which must
@@ -184,7 +184,8 @@ through the ECS) -- and checks them:
     its control a .item()), and an eager frame and two replays under
     torch.cuda.set_sync_debug_mode("error"); the launch counters' delta per
     replay equal to an eager frame's and to the hand kernels' events in a
-    profiled replay (the raster, the k-buffer and both material samplers);
+    profiled replay (the raster, the k-buffer, both material samplers, the
+    g-buffer and the sky);
     eager and graph frame times (CUDA events over 10 frames; stereo also
     with its state and FK built each frame) beside nvidia-smi's name and
     power limit, and the launches of the timed replays;
@@ -203,7 +204,17 @@ through the ECS) -- and checks them:
     counters read, each launch also counted at its site (a capture's tally
     of sites added at each replay), and each sampler kernel, and each
     site, must have launched its eager frame's calls a frame;
-16. neither jax nor the JAX package (superconductor_tpu) was imported.
+16. deferred (the g-buffer and the sky, csrc/gbuffer.cu and csrc/sky.cu):
+    as 15 for every interpolate_gbuffer, sample_skybox and sample_skybox_at
+    call of one eager headline, all-passes and stereo frame, each held bit
+    for bit against its plain version (every GBuffer field), each site timed
+    with its bound (bytes: the lanes' inputs, the 32-B sectors of the rows'
+    columns or cube quads read, the fields written) and the time of one
+    index_select of the rows it reads (the shade rows, the cube quads); the
+    graph frames' twins with every plain version and with these two
+    kernels' plain versions; a replay's tally; then its own main-path run,
+    each launch counted at its site;
+17. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
@@ -218,10 +229,12 @@ particle pass at K = 64, the deep kernel (launches in that frame's timed
 run); then the two material samplers at their largest call (launches over
 the sampler phase's main-path run and the graph phase's timed replays) and
 at each site and shape of the headline, all-passes and stereo frames
-(the launches counted at that site in the main-path run). A sampler
-replaces no TPU kernel: its "replaces" names
-the JAX package's XLA functions, and its library_ms is null (no one
-PyTorch call computes it). Its bound is sampler_bound's.
+(the launches counted at that site in the main-path run), and the
+g-buffer and sky kernels the same way (the deferred phase's main-path run).
+A sampler, the g-buffer and the sky replace no TPU kernel: their
+"replaces" names the JAX package's XLA functions, and their library_ms is
+null (no one PyTorch call computes them). Their bounds are sampler_bound's
+and deferred_bound's.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -246,6 +259,7 @@ import sys
 import tempfile
 import time
 from dataclasses import replace
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -287,6 +301,12 @@ KERNEL_SOURCES = {
     "material_sample": ("superconductor_tpu_torch/csrc/sample.cu",
                         "none (XLA: superconductor_tpu/ops/texture.py:556 "
                         "sample_material_interleaved)"),
+    # csrc/gbuffer.cu and csrc/sky.cu replace no TPU kernel either
+    "gbuffer": ("superconductor_tpu_torch/csrc/gbuffer.cu",
+                "none (XLA: superconductor_tpu/ops/shade.py:73 interpolate_gbuffer)"),
+    "sky": ("superconductor_tpu_torch/csrc/sky.cu",
+            "none (XLA: superconductor_tpu/ops/sky.py:56 shade_sky_rays, :76 sample_skybox, "
+            ":94 sample_skybox_at)"),
 }
 # the all-passes frame's raster passes and k-buffer passes, in frame order
 AP_RASTER = ("opaque", "lines")
@@ -325,7 +345,10 @@ GRAPH_POSES = (0.0, 0.9, 2.1)
 GRAPH_TIMED = 10
 HAND_KERNELS = re.compile(
     r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|classic_sample|"
-    r"material_sample)_kernel\b")
+    r"material_sample|gbuffer|sky)_kernel\b")
+# the hand kernels that replace no TPU kernel, by phase
+SAMPLERS = ("classic_sample", "material_sample")
+DEFERRED = ("gbuffer", "sky")
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -1331,31 +1354,48 @@ def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> Non
                            "frame differs from it")
 
 
-def sampler_wrappers() -> dict:
-    """kernel -> (the module the frame looks its wrapper up in, the
-    wrapper's name, its plain version): csrc/sample.cu's two kernels."""
+def kernel_bindings(kernels) -> dict:
+    """wrapper name -> (kernel, the module the frame looks the wrapper up
+    in, its plain version) of the `kernels`' wrappers
+    (bench.PLAIN_VERSIONS)."""
     from superconductor_tpu_torch.bench import PLAIN_VERSIONS
 
-    return {k: PLAIN_VERSIONS[k] for k in ("classic_sample", "material_sample")}
+    return {name: (k, mod, plain) for k in kernels for mod, name, plain in PLAIN_VERSIONS[k]}
+
+
+def kernel_counters() -> dict:
+    """hand kernel -> the wrappers whose LAUNCHES count its launches (the
+    sky kernel has two, the band's and the worklist's)."""
+    from superconductor_tpu_torch.ops import raster as raster_mod
+    from superconductor_tpu_torch.ops import sample as sample_mod
+    from superconductor_tpu_torch.ops import shade as shade_mod
+    from superconductor_tpu_torch.ops import sky as sky_mod
+
+    return {"raster_sorted": (raster_mod.rasterize_sorted,),
+            "kbuffer_sorted": (raster_mod.kbuffer_sorted,),
+            "classic_sample": (sample_mod._CLASSIC_COUNTER,),
+            "material_sample": (sample_mod._MATERIAL_COUNTER,),
+            "gbuffer": (shade_mod._GBUFFER_COUNTER,),
+            "sky": (sky_mod._SKYBOX_COUNTER, sky_mod._SKYBOX_AT_COUNTER)}
 
 
 @contextlib.contextmanager
-def record_samplers():
-    """Inside the block, every call of a material sampler's wrapper is
-    appended to the list yielded as (kernel, calling function, its
-    arguments by name); the wrapper still runs. The arguments are the
-    frame's own tensors, strides kept."""
+def record_calls(kernels):
+    """Inside the block, every call of a wrapper of `kernels` is appended
+    to the list yielded as (wrapper name, calling function, its arguments
+    by name); the wrapper still runs. The arguments are the frame's own
+    tensors, strides kept."""
     import inspect
 
     calls, saved = [], []
-    for kernel, (mod, name, _plain) in sampler_wrappers().items():
+    for name, (_kernel, mod, _plain) in kernel_bindings(kernels).items():
         real = getattr(mod, name)
         sig = inspect.signature(real)
 
-        def recorded(*args, _kernel=kernel, _real=real, _sig=sig, **kw):
+        def recorded(*args, _name=name, _real=real, _sig=sig, **kw):
             bound = _sig.bind(*args, **kw)
             bound.apply_defaults()
-            calls.append((_kernel, sys._getframe(1).f_code.co_name, dict(bound.arguments)))
+            calls.append((_name, sys._getframe(1).f_code.co_name, dict(bound.arguments)))
             return _real(*args, **kw)
 
         saved.append((mod, name, real))
@@ -1367,8 +1407,17 @@ def record_samplers():
             setattr(mod, name, real)
 
 
-def sampler_site(kernel: str, caller: str, args: dict) -> str:
+# ops/sample.py's wrappers -> their kernels
+SAMPLER_KERNELS = {"sample_classic": "classic_sample", "sample_material": "material_sample"}
+
+
+def sampler_lanes(name: str, args: dict) -> int:
+    return args["uv"].shape[0]
+
+
+def sampler_site(name: str, caller: str, args: dict) -> str:
     """A sampler call's site and shape: its caller, lanes, slots and pool."""
+    kernel = SAMPLER_KERNELS[name]
     where = {"seg_sample": "partition", "_interleaved": "whole pool"}.get(caller, caller)
     if kernel == "classic_sample":
         pool = f"({args['pool'].shape[1]}-B rows)"
@@ -1381,7 +1430,7 @@ def sampler_site(kernel: str, caller: str, args: dict) -> str:
             f"{''.join(map(str, args['slots']))} {pool}")
 
 
-def sampler_bound(kernel: str, args: dict, fetched: list) -> tuple:
+def sampler_bound(name: str, args: dict, fetched: list) -> tuple:
     """(bound_ms, bound_by) of one sampler call: the larger of its bytes
     over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM).
     Bytes, each read once: the lanes' uv and derivatives (24 B) and
@@ -1397,6 +1446,7 @@ def sampler_bound(kernel: str, args: dict, fetched: list) -> tuple:
     15."""
     from superconductor_tpu_torch.ops import sample as sample_mod
 
+    kernel = SAMPLER_KERNELS[name]
     lanes, n_slots, taps = args["uv"].shape[0], len(args["slots"]), max(1, int(args["taps"]))
     mat = args["mat"]
     if kernel == "classic_sample":
@@ -1479,95 +1529,231 @@ def recorded_fetches():
         texture_mod._fetch = real
 
 
-def compare_samplers(scene: str, calls: list, results: dict, timed: bool = True) -> None:
-    """Each recorded sampler call's kernel against its plain version on the
-    same inputs, bit for bit (the results' int32 views equal); the first
-    call of each site and shape timed (device ms of the kernel and of the
-    plain version, bench_raster.graph_ms), with its bound and share and the
-    yardstick of one index_select of the texel rows the call fetches, into
+def deferred_lanes(name: str, args: dict) -> int:
+    if name == "interpolate_gbuffer":
+        return args["pair"].shape[0]
+    if name == "sample_skybox_at":
+        return args["idx"].shape[0]
+    return args["height"] * args["width"]
+
+
+def deferred_site(name: str, caller: str, args: dict) -> str:
+    """A deferred call's site and shape: the kernel, its caller, lanes and
+    rows (the g-buffer) or band / worklist (the sky)."""
+    lanes = deferred_lanes(name, args)
+    if name == "interpolate_gbuffer":
+        row = args["shade_row"]
+        if row is None:
+            rows = "setup + packed tables"
+        else:
+            real = row.shape[1] if args["row_cols"] is None else args["row_cols"]
+            rows = f"{real}-float shade rows" + (f" of {row.shape[1]}" if real != row.shape[1]
+                                                 else "")
+        return f"gbuffer {caller} {lanes} lanes ({rows})"
+    where = "worklist" if name == "sample_skybox_at" else "band"
+    return f"sky {where} {caller} {lanes} px"
+
+
+def sector_count(addresses: torch.Tensor, nbytes: int) -> int:
+    """The 32-B sectors that hold the byte ranges [a, a + nbytes) of the
+    start addresses (bytes) `addresses`, each sector once."""
+    first, last = addresses // 32, (addresses + nbytes - 1) // 32
+    spans = [(first + k)[first + k <= last] for k in range((nbytes + 31) // 32 + 1)]
+    return torch.unique(torch.cat(spans)).numel()
+
+
+def deferred_bound(name: str, args: dict, fetched: list) -> tuple:
+    """(bound_ms, bound_by) of one deferred call: the larger of its bytes
+    over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM).
+    The g-buffer's bytes, each read once: the lanes' pair, px and py (12
+    B); of each distinct row the lanes read (pairs clamped to 0), the 32-B
+    sectors holding the columns the kernel reads (setup 0-8 and 15,
+    packed 0-31, the tail); written, 87 B a lane and its tail. Its
+    operations, counted from csrc/gbuffer.cu: 184 a lane. The sky's: the
+    lanes' indices (on the worklist), the projection's inverse and the
+    quaternion (80 B), the sectors of each distinct pool row the plain
+    version fetches, 12 B a pixel written; 140 operations a pixel (the
+    ray 57, the face and uv 16, the tap and lerp 36, the display transform
+    31, a powf as one)."""
+    if name == "interpolate_gbuffer":
+        pair = args["pair"]
+        lanes = pair.shape[0]
+        rows = torch.unique(torch.clamp_min(pair, 0).long())
+        head = list(range(9)) + [15]
+        row = args["shade_row"]
+        if row is not None:
+            real = row.shape[1] if args["row_cols"] is None else args["row_cols"]
+            tables = [(row, head + list(range(16, real)))]
+            tail = real - 48
+        else:
+            tables = [(args["tri"].setup, head), (args["attrs"].packed, list(range(32)))]
+            tail = 0
+        sectors = 0
+        for t, cols in tables:
+            cols = torch.tensor(cols, device=rows.device)
+            addr = t.data_ptr() + (rows[:, None] * t.stride(0) + cols[None, :]) * 4
+            sectors += sector_count(addr.reshape(-1), 4)
+        nbytes = lanes * (12 + 87 + 4 * tail) + sectors * 32
+        ops = lanes * 184
+    else:
+        lanes = deferred_lanes(name, args)
+        nbytes = lanes * 12 + 80
+        if name == "sample_skybox_at":
+            nbytes += lanes * args["idx"].element_size()
+        for pool, idx in fetched_rows(fetched):
+            width = pool.shape[1] * pool.element_size()
+            nbytes += sector_count(pool.data_ptr() + torch.unique(idx) * width, width) * 32
+        ops = lanes * 140
+    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def deferred_equal(out, want) -> tuple:
+    """(equal bit for bit, values compared, values that differ): a GBuffer
+    field by field (f32 fields by their int32 views), or one tensor."""
+    pairs = list(zip(out, want)) if isinstance(want, tuple) else [(out, want)]
+    total = bad = 0
+    ok = True
+    for a, b in pairs:
+        if a is None or b is None:
+            ok = ok and a is None and b is None
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False, b.numel(), b.numel()
+        if b.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+        n = int((a != b).sum())
+        total, bad = total + b.numel(), bad + n
+    return ok and bad == 0, total, bad
+
+
+def deferred_rows(name: str, args: dict, fetched: list) -> list:
+    """[(table, row indices)] a deferred call reads: the g-buffer's shade
+    rows (or setup and packed rows) at the lanes' pairs clamped to 0, the
+    sky's cube quads."""
+    if name != "interpolate_gbuffer":
+        return fetched_rows(fetched)
+    pair = torch.clamp_min(args["pair"], 0)
+    if args["shade_row"] is not None:
+        return [(args["shade_row"], pair)]
+    return [(args["tri"].setup, pair), (args["attrs"].packed, pair)]
+
+
+class HandPhase(NamedTuple):
+    """A chip_smoke phase of hand kernels that replace no TPU kernel,
+    checked where the frame calls them (hand_path). Its functions take a
+    wrapper's name and its arguments by name."""
+
+    label: str
+    kernels: tuple  # bench.PLAIN_VERSIONS keys
+    lanes: Callable  # (name, args) -> lanes (0: nothing launched)
+    site: Callable  # (name, caller, args) -> the call's site and shape
+    equal: Callable  # (out, want) -> (bit for bit, values, values that differ)
+    bound: Callable  # (name, args, fetched) -> (bound_ms, bound_by)
+    rows: Callable  # (name, args, fetched) -> [(table, row indices)] read
+    modules: tuple  # names of the ops modules whose _launched the main path wraps
+
+
+def tensor_equal(out, want) -> tuple:
+    bad = int((out.view(torch.int32) != want.view(torch.int32)).sum()) \
+        if out.shape == want.shape else want.numel()
+    return bad == 0, want.numel(), bad
+
+
+SAMPLER_PHASE = HandPhase("sampler", SAMPLERS, sampler_lanes, sampler_site, tensor_equal,
+                          sampler_bound, lambda name, args, fetched: fetched_rows(fetched),
+                          ("sample",))
+DEFERRED_PHASE = HandPhase("deferred", DEFERRED, deferred_lanes, deferred_site, deferred_equal,
+                           deferred_bound, deferred_rows, ("shade", "sky"))
+
+
+def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None:
+    """Each recorded call's kernel against its plain version on the same
+    inputs, bit for bit (f32 results by their int32 views); the first call
+    of each site and shape timed (device ms of the kernel and of the plain
+    version, bench_raster.graph_ms), with its bound and share and the
+    yardstick of one index_select of the rows the call reads, into
     results[site]. Raises at the first call that differs."""
     from superconductor_tpu_torch.bench_raster import graph_ms
 
-    wrappers = sampler_wrappers()
-    for kernel, caller, args in calls:
-        mod, name, plain = wrappers[kernel]
+    bindings = kernel_bindings(hp.kernels)
+    for name, caller, args in calls:
+        kernel, mod, plain = bindings[name]
         wrapper = getattr(mod, name)
-        site = f"{scene} {sampler_site(kernel, caller, args)}"
+        site = f"{scene} {hp.site(name, caller, args)}"
         out = wrapper(**args)
         with recorded_fetches() as fetched:
             want = plain(**args)
         torch.cuda.synchronize()
-        if out.shape != want.shape or not torch.equal(out.view(torch.int32),
-                                                      want.view(torch.int32)):
-            diff = (out.double() - want.double()).abs()
-            bad = int((out.view(torch.int32) != want.view(torch.int32)).sum())
+        equal, total, bad = hp.equal(out, want)
+        if not equal:
             raise RuntimeError(f"{site}: the kernel differs from its plain version at {bad} of "
-                               f"{want.numel()} values, max abs {float(diff.nan_to_num().max())}")
-        if not args["uv"].shape[0]:
-            continue  # no lanes: nothing launched, nothing to time
+                               f"{total} values")
+        lanes = hp.lanes(name, args)
+        if not lanes:
+            continue  # nothing launched, nothing to time
         entry = results.setdefault(site, {"kernel": kernel, "calls": 0, "max_abs_err": 0.0,
-                                          "lanes": args["uv"].shape[0],
-                                          "slots": len(args["slots"])})
+                                          "lanes": lanes, "slots": len(args.get("slots", ()))})
         entry["calls"] += 1
-        if "ms" in entry or not timed:
+        if "ms" in entry:
             continue
-        entry["bound_ms"], entry["bound_by"] = sampler_bound(kernel, args, fetched)
+        entry["bound_ms"], entry["bound_by"] = hp.bound(name, args, fetched)
         entry["ms"] = graph_ms(lambda: wrapper(**args))
         entry["plain_ms"] = graph_ms(lambda: plain(**args), launches=5, runs=10)
-        rows = fetched_rows(fetched)
+        rows = hp.rows(name, args, fetched)
         entry["index_select_ms"] = graph_ms(
-            lambda: [torch.index_select(pool, 0, idx) for pool, idx in rows])
-        entry["rows_fetched"] = sum(int(idx.numel()) for _, idx in rows)
-        phase("sampler", f"{site}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+            lambda: [torch.index_select(t, 0, idx) for t, idx in rows])
+        entry["rows_read"] = sum(int(idx.numel()) for _, idx in rows)
+        phase(hp.label, f"{site}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
               f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), share "
               f"{entry['bound_ms'] / entry['ms']:.3f}; index_select of its "
-              f"{entry['rows_fetched']} texel rows {entry['index_select_ms']:.4f} ms")
+              f"{entry['rows_read']} rows {entry['index_select_ms']:.4f} ms")
 
 
-def sampler_path(smi: str, frames: dict) -> dict:
-    """Phase [sampler]: the material samplers (csrc/sample.cu). For the
-    headline, all-passes and stereo frames (`frames`: name -> (tables,
-    build(pose), fitted config, env)): every sampler call of one eager frame
-    (render_frame_impl) recorded, each held bit for bit against its plain
-    version on its inputs, each site and shape timed with its bound and
-    index_select yardstick; the graph frame (render_frame_stats) byte-equal,
-    image and stats, to its twin with every plain version swapped in (raster,
-    k-buffer, both samplers) and to its twin with only the samplers swapped;
-    a replay's launch tally holding the samplers' launches, equal to the
-    eager frame's calls. Then the main path (main_path_sites): every launch
+def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
+    """Phase [sampler] (the material samplers, csrc/sample.cu) or
+    [deferred] (the g-buffer and the sky, csrc/gbuffer.cu and csrc/sky.cu).
+    For the headline, all-passes and stereo frames (`frames`: name ->
+    (tables, build(pose), fitted config, env)): every call of the phase's
+    wrappers in one eager frame (render_frame_impl) recorded, each held bit
+    for bit against its plain version on its inputs, each site and shape
+    timed with its bound and index_select yardstick (compare_calls); the
+    graph frame (render_frame_stats) byte-equal, image and stats, to its
+    twin with every plain version swapped in and to its twin with only the
+    phase's kernels swapped; a replay's launch tally equal to the eager
+    frame's calls. Then the main path (main_path_sites): every launch
     counter set to 0, GRAPH_TIMED graph frames of each scene, the counters
-    read, and the run fails unless each sampler kernel launched, the
-    kernels' counts equal their sites' sum, and each site launched
-    GRAPH_TIMED times its calls in the eager frame. Returns {"sites":
-    per-site results, "launches": the samplers' launches in that run,
+    read, and the run fails unless each kernel launched, the kernels'
+    counts equal their sites' sum, and each site launched GRAPH_TIMED
+    times its calls in the eager frame. Returns {"sites": per-site
+    results, "launches": the kernels' launches in that run,
     "site_launches": the launches at each site in that run}."""
     from superconductor_tpu_torch.bench import plain_versions
-    from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.render import frame_graph
     from superconductor_tpu_torch.render.frame import render_frame_impl, render_frame_stats
 
-    wrappers = sampler_wrappers()
+    bindings = kernel_bindings(hp.kernels)
+    counters = {k: ws for k, ws in kernel_counters().items() if k in hp.kernels}
 
-    def counters():
-        return {k: getattr(mod, name).LAUNCHES for k, (mod, name, _) in wrappers.items()}
+    def counts():
+        return {k: sum(w.LAUNCHES for w in ws) for k, ws in counters.items()}
 
     sites, per_frame = {}, {}
     for scene, (tables, build, config, env) in frames.items():
         state = build(0.0)
-        with record_samplers() as calls:
+        with record_calls(hp.kernels) as calls:
             render_frame_impl(tables, state, config, env)
-        # a call on no lanes launches nothing
-        per_frame[scene] = {k: sum(1 for c in calls if c[0] == k and c[2]["uv"].shape[0])
-                            for k in wrappers}
-        phase("sampler", f"{scene}: {len(calls)} sampler calls in an eager frame "
-              f"{per_frame[scene]}")
-        compare_samplers(scene, calls, sites)
+        per_frame[scene] = {k: sum(1 for name, _, args in calls
+                                   if bindings[name][0] == k and hp.lanes(name, args))
+                            for k in hp.kernels}
+        phase(hp.label, f"{scene}: {len(calls)} calls in an eager frame {per_frame[scene]}")
+        compare_calls(hp, scene, calls, results=sites)
         del calls
-        phase("sampler", f"{scene}: every sampler call equals its plain version bit for bit")
+        phase(hp.label, f"{scene}: every call equals its plain version bit for bit")
 
         img, stats = render_frame_stats(tables, state, config, env)
         for label, kernels in (("every plain version", None),
-                               ("the plain samplers", ("classic_sample", "material_sample"))):
+                               (f"the plain {hp.label} kernels", hp.kernels)):
             with plain_versions(*(() if kernels is None else (kernels,))):
                 twin, twin_stats = render_frame_stats(tables, state, config, env)
             if not (torch.equal(img, twin) and stats.keys() == twin_stats.keys()
@@ -1576,70 +1762,78 @@ def sampler_path(smi: str, frames: dict) -> dict:
                                    f"{label}")
         key = frame_graph.frame_key(tables, state, config, env, True)[0]
         graph = frame_graph._runners[state.joint_palette.device].graphs[key]
-        tally = {k: graph.tally.get(getattr(mod, name), 0)
-                 for k, (mod, name, _) in wrappers.items()}
-        before = counters()
+        tally = {k: sum(graph.tally.get(w, 0) for w in ws) for k, ws in counters.items()}
+        before = counts()
         render_frame_stats(tables, build(0.9), config, env)
-        replay = {k: v - before[k] for k, v in counters().items()}
-        phase("sampler", f"{scene}: the graph frame equals its twins with every plain version "
-              f"and with the plain samplers (image and stats); a replay's tally {tally}, its "
-              f"launches {replay}")
+        replay = {k: v - before[k] for k, v in counts().items()}
+        phase(hp.label, f"{scene}: the graph frame equals its twins with every plain version "
+              f"and with the plain {hp.label} kernels (image and stats); a replay's tally "
+              f"{tally}, its launches {replay}")
         if tally != per_frame[scene] or replay != per_frame[scene]:
-            raise RuntimeError(f"the {scene} replay's sampler launches {replay} (tally "
-                               f"{tally}) differ from the eager frame's calls "
-                               f"{per_frame[scene]}")
+            raise RuntimeError(f"the {scene} replay's launches {replay} (tally {tally}) differ "
+                               f"from the eager frame's calls {per_frame[scene]}")
 
     # the main path: the graph frames of every scene, each counter from 0,
     # every graph captured anew in the run, each launch also counted at its
     # site as the wrappers count theirs (ops/raster.py _launched)
-    site_launches, captures = main_path_sites(frames)
-    launches = counters()
-    phase("sampler", f"main path: {GRAPH_TIMED} graph frames of {', '.join(frames)}: sampler "
-          f"launches {launches} (raster {raster_mod.rasterize_sorted.LAUNCHES}, k-buffer "
-          f"{raster_mod.kbuffer_sorted.LAUNCHES}); by site {dict(site_launches)}; {smi}")
+    site_launches, captures = main_path_sites(hp, frames)
+    launches = counts()
+    phase(hp.label, f"main path: {GRAPH_TIMED} graph frames of {', '.join(frames)}: launches "
+          f"{launches}; by site {dict(site_launches)}; {smi}")
     want = {site: GRAPH_TIMED * r["calls"] for site, r in sites.items()}
     by_kernel = {k: sum(n for site, n in site_launches.items() if sites[site]["kernel"] == k)
-                 for k in wrappers}
+                 for k in hp.kernels}
     if (launches != by_kernel or dict(site_launches) != want or not all(launches.values())
             or captures != len(frames)):
-        raise RuntimeError(f"the main path launched the samplers {launches}, by site "
-                           f"{dict(site_launches)} in {captures} captures; expected by site "
-                           f"{want} in {len(frames)}")
+        raise RuntimeError(f"the main path launched {launches}, by site {dict(site_launches)} "
+                           f"in {captures} captures; expected by site {want} in {len(frames)}")
     return {"sites": sites, "launches": launches, "site_launches": dict(site_launches)}
 
 
-def main_path_sites(frames: dict) -> tuple:
+def launch_site(hp: HandPhase, frame) -> str:
+    """The site of a launch, from the frame that called _launched: the
+    nearest frame up the stack that runs one of the phase's wrappers, and
+    its caller."""
+    wrappers = kernel_bindings(hp.kernels)
+    while frame.f_code.co_name not in wrappers:
+        frame = frame.f_back
+    return hp.site(frame.f_code.co_name, frame.f_back.f_code.co_name, frame.f_locals)
+
+
+def main_path_sites(hp: HandPhase, frames: dict) -> tuple:
     """Every launch counter set to 0 and every cached frame graph dropped,
     then GRAPH_TIMED graph frames of each scene of `frames` (as
-    sampler_path's), cycling over GRAPH_POSES -> (Counter of the sampler
-    launches by site, "scene kernel site" as compare_samplers names them;
+    hand_path's), cycling over GRAPH_POSES -> (Counter of the launches of
+    the phase's kernels by site, "scene site" as compare_calls names them;
     the number of graphs captured). A wrapper's launch also counts at its
-    site: while a graph captures, into that graph's tally of sites, which
-    each replay of the graph adds."""
-    from superconductor_tpu_torch.ops import raster as raster_mod
-    from superconductor_tpu_torch.ops import sample as sample_mod
+    site (the phase's modules' _launched, ops/raster.py's, is wrapped):
+    while a graph captures, into that graph's tally of sites, which each
+    replay of the graph adds."""
+    import importlib
+
     from superconductor_tpu_torch.render import frame_graph
     from superconductor_tpu_torch.render.frame import render_frame
 
-    kernel_of = {sample_mod._CLASSIC_COUNTER: "classic_sample",
-                 sample_mod._MATERIAL_COUNTER: "material_sample"}
-    for wrapper in kernel_of:
-        wrapper.LAUNCHES = 0
-    raster_mod.rasterize_sorted.LAUNCHES = 0
-    raster_mod.kbuffer_sorted.LAUNCHES = 0
+    counters = kernel_counters()
+    for wrappers in counters.values():
+        for wrapper in wrappers:
+            wrapper.LAUNCHES = 0
+    ours = {w for k in hp.kernels for w in counters[k]}
     for runner in frame_graph._runners.values():
         runner.graphs.clear()
-    real = sample_mod._launched
+    modules = [importlib.import_module(f"superconductor_tpu_torch.ops.{m}") for m in hp.modules]
+    real = modules[0]._launched
     site_launches, tallies, now = collections.Counter(), {}, {}
 
     def launched(wrapper):
         real(wrapper)
-        call = sys._getframe(1)  # the wrapper's own frame: its arguments by name
-        site = f"{now['scene']} " + sampler_site(kernel_of[wrapper], call.f_back.f_code.co_name,
-                                                 call.f_locals)
-        (now["tally"] if torch.cuda.is_current_stream_capturing() else site_launches)[site] += 1
+        if wrapper in ours:
+            site = f"{now['scene']} " + launch_site(hp, sys._getframe(1))
+            (now["tally"] if torch.cuda.is_current_stream_capturing()
+             else site_launches)[site] += 1
 
-    sample_mod._launched = launched
+    for mod in modules:
+        mod._launched = launched
     try:
         for scene, (tables, build, config, env) in frames.items():
             states = [build(p) for p in GRAPH_POSES]
@@ -1657,7 +1851,8 @@ def main_path_sites(frames: dict) -> tuple:
                     tallies[id(graph)] = now["tally"]
                 site_launches.update(tallies[id(graph)])
     finally:
-        sample_mod._launched = real
+        for mod in modules:
+            mod._launched = real
     torch.cuda.synchronize()
     return site_launches, len(tallies)
 
@@ -1691,11 +1886,10 @@ def graph_path(smi: str, frames: dict) -> dict:
         render_frame_stats,
     )
 
-    wrappers = [raster_mod.rasterize_sorted, raster_mod.kbuffer_sorted] + [
-        getattr(mod, name) for mod, name, _ in sampler_wrappers().values()]
+    counters = kernel_counters()
 
     def counts():
-        return tuple(w.LAUNCHES for w in wrappers)
+        return tuple(sum(w.LAUNCHES for w in ws) for ws in counters.values())
 
     def since(before):
         return tuple(b - a for a, b in zip(before, counts()))
@@ -1718,7 +1912,7 @@ def graph_path(smi: str, frames: dict) -> dict:
     if sum(control.values()) != 1:
         raise RuntimeError("sync_sites did not see the .item() of its control")
 
-    total = dict.fromkeys(("raster_sorted", "kbuffer_sorted", *sampler_wrappers()), 0)
+    total = dict.fromkeys(counters, 0)
     cuda = torch.autograd.DeviceType.CUDA
     for name, (tables, build, config, env) in frames.items():
         states = [build(p) for p in GRAPH_POSES]
@@ -1768,8 +1962,8 @@ def graph_path(smi: str, frames: dict) -> dict:
         profiled = since(l0)
         seen = sum(1 for e in prof.events() if e.device_type == cuda and HAND_KERNELS.search(e.name))
         device_ops = sum(1 for e in prof.events() if e.device_type == cuda)
-        phase("graph", f"{name}: launches (raster, k-buffer, classic sampler, material "
-              f"sampler) eager {eager}, a replay {replay}; "
+        phase("graph", f"{name}: launches ({', '.join(counters)}) eager {eager}, a replay "
+              f"{replay}; "
               f"a profiled replay: {seen} hand-kernel events of {device_ops} device events, "
               f"counters {profiled}")
         if replay != eager or profiled != eager or seen != sum(profiled):
@@ -1777,8 +1971,9 @@ def graph_path(smi: str, frames: dict) -> dict:
                                f"frame's or with its profile")
 
         eager_ms = window_ms(lambda i: render_frame_impl(tables, states[i % 3], config, env))
-        for w in wrappers:
-            w.LAUNCHES = 0
+        for ws in counters.values():
+            for w in ws:
+                w.LAUNCHES = 0
         graph_ms = window_ms(lambda i: render_frame(tables, states[i % 3], config, env))
         launches = counts()
         line = (f"{name}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms a frame (CUDA "
@@ -2598,7 +2793,7 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
                  lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
                  deep_by_pass: dict, graph_launches: dict, raster_res: dict,
-                 kbuffer_res: dict, shapes: dict, sampler: dict) -> dict:
+                 kbuffer_res: dict, shapes: dict, sampler: dict, deferred: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the six frames' and the two sharded frames' timed runs, the app
@@ -2613,7 +2808,9 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     main-path run and the graph phase's timed replays, max_abs_err over
     every recorded call) and at each site and shape of the headline,
     all-passes and stereo frames (the launches counted at that site in the
-    main-path run)."""
+    main-path run); then the g-buffer and the sky kernels the same way, at
+    their largest call and at each site (the deferred phase's main-path
+    run)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -2686,6 +2883,12 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for kernel, sites in sampler_sites.items()],
         *[entry(f"{r['kernel']}[{site}]", r["kernel"], sampler["site_launches"][site], r)
           for site, r in sampler["sites"].items() if "ms" in r],
+        *[entry(kernel, kernel, deferred["launches"][kernel] + graph_launches[kernel],
+                max((r for r in deferred["sites"].values() if r["kernel"] == kernel),
+                    key=lambda r: r["lanes"]))
+          for kernel in DEFERRED],
+        *[entry(f"{r['kernel']}[{site}]", r["kernel"], deferred["site_launches"][site], r)
+          for site, r in deferred["sites"].items()],
     ]}
 
 
@@ -2857,7 +3060,8 @@ def main() -> int:
         "stereo": (st_tables, st_build, stereo_config, st_env),
     }
     graph_launches = graph_path(smi, graph_frames)
-    sampler = sampler_path(smi, graph_frames)
+    sampler = hand_path(SAMPLER_PHASE, smi, graph_frames)
+    deferred = hand_path(DEFERRED_PHASE, smi, graph_frames)
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -2867,7 +3071,7 @@ def main() -> int:
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
                                   lit_by_pass, app, deep_launches, deep_by_pass, graph_launches,
-                                  results, kb_results, shapes, sampler)))
+                                  results, kb_results, shapes, sampler, deferred)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

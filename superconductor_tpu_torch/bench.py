@@ -87,6 +87,8 @@ import torch
 
 from .ops import raster as raster_mod
 from .ops import sample as sample_mod
+from .ops import shade as shade_mod
+from .ops import sky as sky_mod
 from .ops.raster_kbuffer import kbuffer_sorted_plain
 from .profile_frame import idle_share, trace_frames
 from .render import frame as frame_mod
@@ -393,13 +395,16 @@ def _measure(frame_fn, device_fn=None, n=10, windows=2, device_windows=2, device
 
 # --- The correctness check ----------------------------------------------------
 
-# kernel -> (the module whose name the frame calls it by, that name, its
-# plain version)
+# kernel -> its wrappers' bindings: (the module whose name the frame calls a
+# wrapper by, that name, the wrapper's plain version)
 PLAIN_VERSIONS = {
-    "raster": (frame_mod, "rasterize_sorted", raster_mod.rasterize_sorted_plain),
-    "kbuffer": (frame_mod, "kbuffer_sorted", kbuffer_sorted_plain),
-    "classic_sample": (sample_mod, "sample_classic", sample_mod.sample_classic_plain),
-    "material_sample": (sample_mod, "sample_material", sample_mod.sample_material_plain),
+    "raster": ((frame_mod, "rasterize_sorted", raster_mod.rasterize_sorted_plain),),
+    "kbuffer": ((frame_mod, "kbuffer_sorted", kbuffer_sorted_plain),),
+    "classic_sample": ((sample_mod, "sample_classic", sample_mod.sample_classic_plain),),
+    "material_sample": ((sample_mod, "sample_material", sample_mod.sample_material_plain),),
+    "gbuffer": ((frame_mod, "interpolate_gbuffer", shade_mod.interpolate_gbuffer_plain),),
+    "sky": ((frame_mod, "sample_skybox", sky_mod.sample_skybox_plain),
+            (frame_mod, "sample_skybox_at", sky_mod.sample_skybox_at_plain)),
 }
 
 
@@ -408,11 +413,10 @@ def plain_versions(kernels=tuple(PLAIN_VERSIONS)):
     """Inside the block, the named kernels' wrappers are replaced by their
     plain versions where the frame looks them up (the frame then runs
     eagerly); they are put back after."""
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in
-             (PLAIN_VERSIONS[k] for k in kernels)]
+    bindings = [b for k in kernels for b in PLAIN_VERSIONS[k]]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in bindings]
     try:
-        for k in kernels:
-            mod, name, plain = PLAIN_VERSIONS[k]
+        for mod, name, plain in bindings:
             setattr(mod, name, plain)
         yield
     finally:
@@ -422,8 +426,8 @@ def plain_versions(kernels=tuple(PLAIN_VERSIONS)):
 
 def plain_kernels_frame(scene_dev, state0, config, env):
     """The frame rendered with every kernel's plain version in place of its
-    wrapper (plain_versions: the raster, the k-buffer and the two material
-    samplers)."""
+    wrapper (plain_versions: the raster, the k-buffer, the two material
+    samplers, the g-buffer and the sky)."""
     with plain_versions():
         return frame_mod.render_frame(scene_dev, state0, config, env)
 

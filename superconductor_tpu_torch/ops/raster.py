@@ -19,8 +19,11 @@ positions (-1 = miss) in their pair planes; the caller remaps them.
   stale source, all started together) into ``build/``; they are loaded
   with ctypes at first use. Besides the two raster sources it builds
   ``csrc/sample.cu``, the material samplers, whose wrappers are
-  ``ops/sample.py`` ``sample_classic`` and ``sample_material`` (they
-  count their launches as the wrappers here do).
+  ``ops/sample.py`` ``sample_classic`` and ``sample_material``,
+  ``csrc/gbuffer.cu``, the g-buffer interpolation (``ops/shade.py``
+  ``interpolate_gbuffer``), and ``csrc/sky.cu``, the skybox
+  (``ops/sky.py`` ``sample_skybox`` and ``sample_skybox_at``); their
+  wrappers count their launches as the wrappers here do.
 
 No wrapper falls back: anything its kernel does not take raises. Each
 plain version equals its kernel, and the reference's interpret-mode
@@ -56,7 +59,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 KERNELS = {
     name: (os.path.join(_PKG_DIR, "csrc", f"{name}.cu"),
            os.path.join(BUILD_DIR, f"libsc_{name}.so"))
-    for name in ("raster", "kbuffer", "sample")
+    for name in ("raster", "kbuffer", "sample", "gbuffer", "sky")
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -91,7 +94,7 @@ KBUFFER_DEEP_CLUSTER = 1
 KBUFFER_KS = (1, 2, 4, 8, 16)
 KBUFFER_DEEP_MAX_K = 875  # csrc/kbuffer.cu deep_band_px: 32 pixels fill a block
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> (kernel library, argument types)
 _SIGNATURES = {
     "sc_raster_sorted": ("raster",
@@ -109,6 +112,14 @@ _SIGNATURES = {
     "sc_material_sample": ("sample",
                            [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _P, _L,
                             _I, _I, _I, _I, _P, _P]),
+    # ops/shade.py's g-buffer interpolation (csrc/gbuffer.cu)
+    "sc_gbuffer": ("gbuffer",
+                   [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _P, _P, _P,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    # ops/sky.py's skybox (csrc/sky.cu)
+    "sc_sky": ("sky",
+               [_I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _P, _L, _P, _L, _I, _I, _P, _P, _F, _F,
+                _F, _I, _I, _P, _P]),
 }
 _libs: dict = {}
 _tallies: list = []  # the tallies of the captures under way, innermost last

@@ -10,9 +10,12 @@ layered through the HDR pool, and the constant ambient fallback), and
 the interleaved pool (matq), the classic per-slot samplers, and textures
 pre-sampled by the material-path partition.
 
-Material textures are sampled through ops/sample.py's wrappers
-(``sample.sample_material``, ``sample.sample_classic``), looked up in that
-module at each call.
+``interpolate_gbuffer`` launches csrc/gbuffer.cu's hand-written kernel
+for CUDA tensors and runs its plain version, the torch chain
+``interpolate_gbuffer_plain``, for CPU tensors (bit for bit with the
+kernel on the card). Material textures are sampled through ops/sample.py's
+wrappers (``sample.sample_material``, ``sample.sample_classic``), looked
+up in that module at each call.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from . import sample
 from .geometry import TriangleAttrs, TriangleSetup, device_values
+from .raster import _kernel_fn, _launched
 from .sample import FLAGS, META, SLOTS, _bitcast_i32, _factors, _unpack_mat_row, _unpack_mq_row
 from .texture import (
     hdr_pool,
@@ -65,7 +69,7 @@ def _sum3(x: torch.Tensor, dim: int) -> torch.Tensor:
     return (a + b) + c
 
 
-def interpolate_gbuffer(
+def interpolate_gbuffer_plain(
     pair: torch.Tensor,
     px: torch.Tensor,
     py: torch.Tensor,
@@ -74,9 +78,10 @@ def interpolate_gbuffer(
     shade_row: Optional[torch.Tensor] = None,
     row_cols: Optional[int] = None,
 ) -> GBuffer:
-    """Gather the winner's setup (+ packed attribute, + material) row and
-    interpolate perspective-correctly; barycentrics are recomputed from the
-    edge functions, derivatives differentiate N(p)/D(p) analytically.
+    """interpolate_gbuffer's plain version, the torch chain: gather the
+    winner's setup (+ packed attribute, + material) row and interpolate
+    perspective-correctly; barycentrics are recomputed from the edge
+    functions, derivatives differentiate N(p)/D(p) analytically.
     `row_cols`: the real columns of a padded shade_row (shade_row_pad),
     sliced off after the gather."""
     valid = pair >= 0
@@ -150,6 +155,109 @@ def interpolate_gbuffer(
         duvdy=duvdy,
         mat_tail=mat_tail,
     )
+
+
+def interpolate_gbuffer(
+    pair: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    tri: TriangleSetup,
+    attrs: TriangleAttrs,
+    shade_row: Optional[torch.Tensor] = None,
+    row_cols: Optional[int] = None,
+) -> GBuffer:
+    """The g-buffer of each lane's winner pair (P,) i32 (-1 = none) at
+    pixel centres px, py (P,) f32 -> GBuffer: from the fused shade row
+    (setup 0-16, packed attributes 16-48, the mat_row_mq tail 48-row_cols;
+    `row_cols` the real columns of a padded row) or from tri.setup and
+    attrs.packed. CUDA tensors launch csrc/gbuffer.cu gbuffer_kernel (bit
+    for bit with the plain version on the card; it reads the rows' columns
+    in place), CPU tensors run interpolate_gbuffer_plain; anything the
+    kernel does not take raises, the unpacked attribute tables included.
+    Counts its launches in interpolate_gbuffer.LAUNCHES."""
+    dev = pair.device
+    if dev.type == "cpu":
+        return interpolate_gbuffer_plain(pair, px, py, tri, attrs, shade_row=shade_row,
+                                         row_cols=row_cols)
+    lanes = pair.shape[0] if pair.dim() == 1 else -1
+    if pair.dtype != torch.int32 or pair.dim() != 1:
+        raise TypeError(f"interpolate_gbuffer: pair must be (P,) int32, got {pair.dtype} "
+                        f"{tuple(pair.shape)}")
+    for name, t in (("px", px), ("py", py)):
+        if t.device != dev or t.dtype != torch.float32 or t.shape != (lanes,):
+            raise ValueError(f"interpolate_gbuffer: {name} must be ({lanes},) float32 on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if shade_row is not None:
+        cols = shade_row.shape[1] if shade_row.dim() == 2 else 0
+        real = cols if row_cols is None else int(row_cols)
+        if not 48 <= real <= cols:
+            raise ValueError(f"interpolate_gbuffer: a shade row of {real} real columns in "
+                             f"{tuple(shade_row.shape)}; it needs setup and packed (48)")
+        _check_rows("shade_row", shade_row, dev)
+        setup, packed = shade_row[:, 0:16], shade_row[:, 16:48]
+        tail_cols = real - 48
+    else:
+        if attrs.packed is None:
+            raise ValueError("interpolate_gbuffer: the kernel takes the packed attribute rows "
+                             "(attrs.packed), not the unpacked tables")
+        setup, packed, tail_cols = tri.setup, attrs.packed, 0
+        for name, t, width in (("tri.setup", setup, 16), ("attrs.packed", packed, 32)):
+            if t.dim() != 2 or t.shape[1] != width:
+                raise ValueError(f"interpolate_gbuffer: {name} must be (T, {width}), got "
+                                 f"{tuple(t.shape)}")
+            _check_rows(name, t, dev)
+        if packed.shape[0] != setup.shape[0]:
+            raise ValueError("interpolate_gbuffer: tri.setup and attrs.packed differ in rows")
+    if setup.shape[0] == 0:
+        raise ValueError("interpolate_gbuffer: no rows to gather from")
+    if dev.type != "cuda":
+        raise ValueError(f"interpolate_gbuffer: the kernel runs on CUDA tensors, not {dev}")
+    vec = all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 for t in (setup, packed))
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty((lanes, *shape), dtype=dtype, device=dev)
+
+    g = GBuffer(valid=empty(dtype=torch.bool), world_pos=empty(3), normal=empty(3),
+                uv=empty(2), lm_uv=empty(2), material=empty(dtype=torch.int32),
+                front_facing=empty(dtype=torch.bool), lightmapped=empty(dtype=torch.bool),
+                dpdx=empty(3), dpdy=empty(3), duvdx=empty(2), duvdy=empty(2),
+                mat_tail=empty(tail_cols) if tail_cols else None)
+    if lanes:
+        tail_src = shade_row[:, 48:] if tail_cols else None
+        with torch.cuda.device(dev):
+            err = _kernel_fn("sc_gbuffer")(
+                lanes, pair.data_ptr(), pair.stride(0), px.data_ptr(), px.stride(0),
+                py.data_ptr(), py.stride(0), setup.data_ptr(), setup.stride(0),
+                packed.data_ptr(), packed.stride(0), setup.shape[0], int(vec),
+                None if tail_src is None else tail_src.data_ptr(),
+                0 if tail_src is None else tail_src.stride(0), tail_cols,
+                *(t.data_ptr() for t in (g.valid, g.front_facing, g.lightmapped, g.material,
+                                         g.world_pos, g.normal, g.dpdx, g.dpdy, g.uv,
+                                         g.lm_uv, g.duvdx, g.duvdy)),
+                None if g.mat_tail is None else g.mat_tail.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"g-buffer kernel launch failed: cudaError_t {err}")
+        _launched(_GBUFFER_COUNTER)
+    return g
+
+
+interpolate_gbuffer.LAUNCHES = 0
+# the wrapper whose LAUNCHES count its kernel, however the frame's name for
+# it is rebound (a recording or plain twin put in its place)
+_GBUFFER_COUNTER = interpolate_gbuffer
+
+
+def _check_rows(name, rows, dev) -> None:
+    """An f32 row table on dev whose columns are adjacent (any row stride)."""
+    if rows.device != dev:
+        raise ValueError(f"interpolate_gbuffer: {name} is on {rows.device}, expected {dev}")
+    if rows.dtype != torch.float32:
+        raise TypeError(f"interpolate_gbuffer: {name} must be float32, got {rows.dtype}")
+    if rows.dim() != 2 or rows.stride(1) != 1 or rows.data_ptr() % 4:
+        raise ValueError(f"interpolate_gbuffer: {name} must be a (rows, columns) table with "
+                         f"adjacent columns, got {tuple(rows.shape)} strides {rows.stride()}")
 
 
 def _normalize(v, eps=1e-12):

@@ -53,7 +53,9 @@ from . import frame as frame_mod
 CACHE_SIZE = 3  # graphs kept a device
 # the kernel wrappers the frame calls: (module, name), looked up at each call
 KERNEL_NAMES = ((frame_mod, "rasterize_sorted"), (frame_mod, "kbuffer_sorted"),
-                (sample_mod, "sample_classic"), (sample_mod, "sample_material"))
+                (sample_mod, "sample_classic"), (sample_mod, "sample_material"),
+                (frame_mod, "interpolate_gbuffer"), (frame_mod, "sample_skybox"),
+                (frame_mod, "sample_skybox_at"))
 SPLIT_CONSTANTS = ("RASTER_CLUSTER", "RASTER_MIN_PART_ROWS", "KBUFFER_CLUSTER",
                    "KBUFFER_MIN_PART_ROWS", "KBUFFER_DEEP_CLUSTER")
 # render/frame.py's functions and classes, and the kernel wrappers, as imported

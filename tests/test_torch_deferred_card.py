@@ -1,0 +1,320 @@
+"""The deferred stages' CUDA kernels against their plain versions on the
+card, bit for bit: ops/shade.py interpolate_gbuffer (csrc/gbuffer.cu
+gbuffer_kernel) and ops/sky.py sample_skybox / sample_skybox_at
+(csrc/sky.cu sky_kernel). This file imports no JAX: its tests run only
+where there is a card (-m gpu) and skip elsewhere.
+
+    python -m pytest -q -m gpu tests/test_torch_deferred_card.py
+
+The cases also serve tests/test_torch_sky.py, which holds the plain
+versions to the JAX package on the CPU:
+
+* g-buffer: seeded setup and packed rows holding NaN, +-inf and -0, rows
+  whose edge functions sum to 0 (d_val == 0), dead lanes (pair < 0, which
+  read row 0); the fused shade row with a
+  tail, padded (row_cols) and without a tail, and the setup and packed
+  tables as contiguous and as strided, unaligned views.
+* sky: a 6-face cubemap in f16, f32 and u8 pools, quad-packed and flat,
+  at the static placement and through the descriptor tables (faces of
+  unequal sizes, REPEAT and CLAMP); a band with y_offset > 0 of a taller
+  image, both inline flags, the sky worklist at int32 and int64 indices
+  (the band's last pixel among them), the clear colour; and a camera whose
+  rays pass exactly through the cube's edges and corners (|x| = |y| = |z|),
+  so that the face choice and CLAMP at texels 0 and w - 1 are exercised.
+"""
+
+import functools
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from superconductor_tpu_torch.ops import shade as port_shade
+from superconductor_tpu_torch.ops import sky as port_sky
+from superconductor_tpu_torch.ops.geometry import TriangleAttrs, TriangleSetup
+from superconductor_tpu_torch.render.env import EnvBindings
+
+torch.set_num_threads(2)
+
+LANES = 4096
+ROWS = 97
+TAIL = 64  # a mat_row_mq row of 10 levels: 24 + 4 * 10
+
+# name -> (row source, row_cols or None); sources: "shade" (setup | packed
+# | tail), "shade-padded" (padded to 128 columns), "shade-no-tail" (48
+# columns), "tables" (contiguous tri.setup and attrs.packed), "strided"
+# (tri.setup and attrs.packed as unaligned column views of wider rows)
+GBUFFER_CASES = ("shade", "shade-padded", "shade-no-tail", "tables", "strided")
+
+
+def gbuffer_rows(seed: int = 3):
+    """(setup (ROWS, 16), packed (ROWS, 32), tail (ROWS, TAIL)) f32 numpy:
+    normal-ish values with NaN, +-inf and -0 sprinkled in, rows 5 and 11
+    with all-zero edges (d_val == 0), front and back faces, lightmapped and
+    not, material bits including negative and NaN patterns."""
+    rng = np.random.default_rng(seed)
+    setup = rng.normal(scale=0.01, size=(ROWS, 16)).astype(np.float32)
+    setup[:, 2::3][:, :3] = rng.normal(scale=2.0, size=(ROWS, 3)).astype(np.float32)
+    setup[:, 15] = rng.choice([0.0, 1.0, -0.0], size=ROWS).astype(np.float32)
+    packed = rng.normal(scale=3.0, size=(ROWS, 32)).astype(np.float32)
+    packed[:, 30] = rng.integers(-3, 40, size=ROWS).astype(np.int32).view(np.float32)
+    packed[:, 31] = rng.choice([0.0, -0.0, 1.0, np.nan], size=ROWS).astype(np.float32)
+    tail = rng.normal(size=(ROWS, TAIL)).astype(np.float32)
+    tail.view(np.int32)[::7, 3] = 0x7FC01234  # a NaN with a payload: copied, not computed
+    for arr in (setup[:, :9], packed[:, :30]):
+        flat = arr.reshape(-1)
+        idx = rng.choice(flat.size, size=flat.size // 40, replace=False)
+        flat[idx] = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0], size=idx.size)
+        arr[...] = flat.reshape(arr.shape)
+    setup[[5, 11], :9] = 0.0
+    setup[17, :9] = -0.0
+    return setup, packed, tail
+
+
+def gbuffer_lanes(seed: int = 4):
+    """(pair (LANES,) i32 in [-ROWS - 3, ROWS), px, py (LANES,) f32 pixel
+    centres): one lane in 8 dead (-1) and more with other negative pairs
+    (all of which read row 0); the first lanes on the rows whose edges are
+    zero."""
+    rng = np.random.default_rng(seed)
+    pair = rng.integers(0, ROWS, size=LANES).astype(np.int32)
+    pair[::8] = -1
+    pair[3::29] = rng.integers(-ROWS - 3, 0, size=pair[3::29].size)
+    pair[:4] = (5, 11, 17, -1)
+    px = (rng.integers(0, 1920, size=LANES) + 0.5).astype(np.float32)
+    py = (rng.integers(0, 1080, size=LANES) + 0.5).astype(np.float32)
+    return pair, px, py
+
+
+def gbuffer_args(case: str, device="cpu") -> dict:
+    """interpolate_gbuffer's arguments for GBUFFER_CASES' `case`: the
+    rows of gbuffer_rows, the lanes of gbuffer_lanes (px and py as strided
+    views of one buffer)."""
+    setup, packed, tail = gbuffer_rows()
+    pair, px, py = gbuffer_lanes()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lanes = torch.from_numpy(np.stack([px, py], 1)).to(device)  # px, py as strided views
+    args = dict(pair=t(pair), px=lanes[:, 0], py=lanes[:, 1], shade_row=None, row_cols=None)
+    dummy = torch.zeros((ROWS, 3), device=device)
+    if case.startswith("shade"):
+        cols = {"shade": [setup, packed, tail], "shade-padded": [setup, packed, tail],
+                "shade-no-tail": [setup, packed]}[case]
+        row = np.concatenate(cols, 1)
+        if case == "shade-padded":
+            args["row_cols"] = row.shape[1]
+            row = np.pad(row, ((0, 0), (0, 128 - row.shape[1])))
+        args["shade_row"] = t(row)
+        s_t, p_t = t(setup), t(packed)
+    elif case == "tables":
+        s_t, p_t = t(setup), t(packed)
+    else:  # unaligned column views of wider rows
+        wide = torch.zeros((ROWS, 57), device=device)
+        wide[:, 1:17] = t(setup)
+        wide[:, 20:52] = t(packed)
+        s_t, p_t = wide[:, 1:17], wide[:, 20:52]
+    args["tri"] = TriangleSetup(setup=s_t, tri_id=dummy[:, 0].int(), inst_id=dummy[:, 0].int(),
+                                bbox=dummy.int(), valid=dummy[:, 0].bool(),
+                                num_valid=torch.zeros((), dtype=torch.int32, device=device))
+    args["attrs"] = TriangleAttrs(
+        world_pos=p_t[:, 0:9].reshape(-1, 3, 3), normal=p_t[:, 9:18].reshape(-1, 3, 3),
+        uv=p_t[:, 18:24].reshape(-1, 3, 2), lm_uv=p_t[:, 24:30].reshape(-1, 3, 2),
+        material=p_t[:, 30].contiguous().view(torch.int32), lightmapped=p_t[:, 31] != 0,
+        packed=p_t)
+    return args
+
+
+# --- the sky ------------------------------------------------------------------
+
+SKY_W, SKY_H = 64, 32
+FACE = 8  # the static cube's face size
+# name -> (pool "quad" | "flat", texel dtype, placement "static" | "desc" |
+# "clear", camera "random" | "edges", inline (tonemapping, srgb), band
+# (height, y_offset, full_height) or None for the worklist, idx dtype)
+SKY_CASES = {
+    "static-quad-f16": ("quad", "f16", "static", "random", (True, True), None, None),
+    "static-quad-f32-band": ("quad", "f32", "static", "random", (True, False), (16, 8, 32),
+                             None),
+    "static-quad-u8": ("quad", "u8", "static", "random", (False, True), None, None),
+    "static-flat-f32": ("flat", "f32", "static", "random", (False, False), None, None),
+    "static-quad-f16-edges": ("quad", "f16", "static", "edges", (False, False), None, None),
+    "static-flat-u8-edges": ("flat", "u8", "static", "edges", (True, True), None, None),
+    "static-quad-f16-at-i32": ("quad", "f16", "static", "random", (True, True), (16, 8, 32),
+                               "i32"),
+    "static-quad-f32-at-i64": ("quad", "f32", "static", "edges", (False, True), (32, 0, 32),
+                               "i64"),
+    "desc-quad-f16": ("quad", "f16", "desc", "random", (True, True), None, None),
+    "desc-flat-f32": ("flat", "f32", "desc", "edges", (False, False), None, None),
+    "desc-flat-u8-at-i32": ("flat", "u8", "desc", "random", (True, True), (16, 8, 32), "i32"),
+    "clear": ("quad", "f16", "clear", "random", (True, True), None, None),
+    "clear-raw-at-i64": ("quad", "f16", "clear", "random", (False, False), (16, 8, 32), "i64"),
+}
+_DTYPES = {"f16": np.float16, "f32": np.float32, "u8": np.uint8}
+BASE = 2  # the cubemap's first texture id (two textures before it)
+# descriptor placement: faces of unequal sizes (w, h), wrap, and mip count
+DESC_FACES = ((8, 8, 1, 3), (4, 6, 0, 1), (8, 4, 1, 2), (2, 2, 0, 1), (6, 8, 1, 1),
+              (8, 8, 0, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def sky_tables(pool: str, texel: str, placement: str):
+    """(texels_hdr (N, 4), texels_hdr_q (N, 16) or None, the descriptor
+    arrays, ibl_cubemap_static or None) numpy: seeded texels (HDR values
+    up to ~4 in float pools) and two dummy textures ahead of the cube."""
+    rng = np.random.default_rng(zlib.crc32(f"{pool} {texel} {placement}".encode()))
+    sizes = [(3, 3, 0, 1), (5, 2, 1, 1)]  # the dummy textures
+    sizes += DESC_FACES if placement == "desc" else [(FACE, FACE, 1, 1)] * 6
+    offset, mip_offset, mip_w, mip_h, meta = 7, [], [], [], []
+    for w, h, wrap, count in sizes:
+        meta.append((len(mip_offset), count, wrap, 0))
+        for lvl in range(count):
+            lw, lh = max(1, w >> lvl), max(1, h >> lvl)
+            mip_offset.append(offset)
+            mip_w.append(lw)
+            mip_h.append(lh)
+            offset += lw * lh + 3
+    n = offset + 5
+    if texel == "u8":
+        flat = rng.integers(0, 256, size=(n, 4)).astype(np.uint8)
+    else:
+        flat = (rng.gamma(1.0, 1.0, size=(n, 4))).astype(_DTYPES[texel])
+    quad = None
+    if pool == "quad":  # neighbours need not match the flat pool for the test
+        quad = (rng.integers(0, 256, size=(n, 16)).astype(np.uint8) if texel == "u8"
+                else rng.gamma(1.0, 1.0, size=(n, 16)).astype(_DTYPES[texel]))
+    meta = np.asarray(meta, np.int32)
+    desc = {
+        "mip_offset": np.asarray(mip_offset, np.int32), "mip_w": np.asarray(mip_w, np.int32),
+        "mip_h": np.asarray(mip_h, np.int32), "tex_mip_base": meta[:, 0].copy(),
+        "tex_mip_count": meta[:, 1].copy(), "tex_wrap": meta[:, 2].copy(),
+        "tex_flags": meta[:, 3].copy(), "tex_meta": meta,
+        "mip_owh": np.stack([np.asarray(mip_offset, np.int32), np.asarray(mip_w, np.int32),
+                             np.asarray(mip_h, np.int32),
+                             np.zeros(len(mip_offset), np.int32)], 1),
+    }
+    static = None
+    if placement == "static":
+        static = (tuple(int(mip_offset[meta[BASE + f, 0]]) for f in range(6)), FACE, FACE)
+    return flat, quad, desc, static
+
+
+def sky_camera(camera: str):
+    """(projection_inverse (4, 4), view quaternion (4,)) f32 numpy. edges:
+    rays (64 ndc_x, 32 ndc_y, -1) under the identity rotation, exactly on
+    the cube's edges and corners where |ndc_x| = 1/64 or |ndc_y| = 1/32."""
+    if camera == "edges":
+        m = np.zeros((4, 4), np.float32)
+        m[0, 0], m[1, 1], m[2, 3], m[3, 2], m[3, 3] = 64.0, 32.0, -1.0, 1.0, 1.0
+        return m, np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+    rng = np.random.default_rng(11)
+    m = rng.normal(size=(4, 4)).astype(np.float32)
+    m[:3, 2] *= 0.1
+    q = rng.normal(size=4)
+    return m, (q / np.linalg.norm(q)).astype(np.float32)
+
+
+def sky_args(case: str, device="cpu", env_cls=EnvBindings) -> tuple:
+    """(function name, keyword arguments) of SKY_CASES' `case` for
+    ops/sky.py (or, with the JAX package's EnvBindings, its
+    superconductor_tpu/ops/sky.py): the scene's pools and descriptor
+    tables as torch tensors on `device`."""
+    pool, texel, placement, camera, (tm, srgb), band, idx_dtype = SKY_CASES[case]
+    flat, quad, desc, static = sky_tables(pool, texel, placement)
+    scene = {"texels_hdr": torch.from_numpy(flat).to(device),
+             "tex_hdr": {k: torch.from_numpy(v).to(device) for k, v in desc.items()}}
+    if quad is not None:
+        scene["texels_hdr_q"] = torch.from_numpy(quad).to(device)
+    env = env_cls(ibl_cubemap_base=-1 if placement == "clear" else BASE,
+                  ibl_cubemap_static=static, clear_color=(0.25, 0.5, 1.75))
+    m, q = sky_camera(camera)
+    height, y_offset, full_height = band or (SKY_H, 0, SKY_H)
+    kw = dict(scene=scene, env=env, width=SKY_W, projection_inverse=torch.from_numpy(m).to(device),
+              view_quat=torch.from_numpy(q).to(device), inline_tonemapping=tm,
+              inline_srgb=srgb, y_offset=y_offset, full_height=full_height)
+    if idx_dtype is None:
+        return "sample_skybox", dict(kw, height=height)
+    rng = np.random.default_rng(12)
+    npx = height * SKY_W
+    idx = np.sort(rng.choice(npx, size=npx // 3, replace=False))
+    idx[-1] = npx - 1  # the band's last pixel
+    dtype = torch.int32 if idx_dtype == "i32" else torch.int64
+    return "sample_skybox_at", dict(kw, idx=torch.from_numpy(idx).to(dtype).to(device))
+
+
+# --- on the card ----------------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (csrc/gbuffer.cu and csrc/sky.cu have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _bit_equal(name: str, out: torch.Tensor, want: torch.Tensor) -> None:
+    assert out.shape == want.shape and out.dtype == want.dtype, name
+    if out.dtype == torch.float32:
+        out, want = out.contiguous().view(torch.int32), want.contiguous().view(torch.int32)
+    same = out == want
+    assert bool(same.all()), f"{name}: {int((~same).sum())} of {same.numel()} values differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GBUFFER_CASES)
+def test_gbuffer_kernel_equals_plain_on_card(case):
+    dev = _card()
+    args = gbuffer_args(case, dev)
+    before = port_shade.interpolate_gbuffer.LAUNCHES
+    out = port_shade.interpolate_gbuffer(**args)
+    torch.cuda.synchronize()
+    assert port_shade.interpolate_gbuffer.LAUNCHES == before + 1
+    want = port_shade.interpolate_gbuffer_plain(**args)
+    for f in want._fields:
+        if getattr(want, f) is None:
+            assert getattr(out, f) is None, f
+        else:
+            _bit_equal(f, getattr(out, f), getattr(want, f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SKY_CASES))
+def test_sky_kernel_equals_plain_on_card(case):
+    dev = _card()
+    name, args = sky_args(case, dev)
+    wrapper = getattr(port_sky, name)
+    before = wrapper.LAUNCHES
+    out = wrapper(**args)
+    torch.cuda.synchronize()
+    assert wrapper.LAUNCHES == before + 1
+    _bit_equal(case, out, getattr(port_sky, name + "_plain")(**args))
+
+
+@pytest.mark.gpu
+def test_card_calls_never_reach_the_plain_versions(monkeypatch):
+    """A CUDA call launches the kernel: with every plain version (and the
+    chains under them) made to raise, the wrappers still answer."""
+    dev = _card()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    for mod, name in ((port_shade, "interpolate_gbuffer_plain"),
+                      (port_sky, "sample_skybox_plain"), (port_sky, "sample_skybox_at_plain"),
+                      (port_sky, "shade_sky_rays"), (port_sky, "skybox_rays"),
+                      (port_sky, "skybox_rays_at")):
+        monkeypatch.setattr(mod, name, refuse)
+    port_shade.interpolate_gbuffer(**gbuffer_args("shade", dev))
+    for case in ("static-quad-f16", "desc-flat-u8-at-i32", "clear"):
+        name, args = sky_args(case, dev)
+        getattr(port_sky, name)(**args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_unpacked_route_raises_on_card():
+    dev = _card()
+    args = gbuffer_args("tables", dev)
+    args["attrs"] = args["attrs"]._replace(packed=None)
+    with pytest.raises(ValueError, match="packed"):
+        port_shade.interpolate_gbuffer(**args)

@@ -278,6 +278,42 @@ def test_interpolate_gbuffer_matches_reference(with_shade_row):
             np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6, err_msg=f)
 
 
+@pytest.mark.parametrize("layout", ["padded", "no_tail"])
+def test_interpolate_gbuffer_row_layouts_match_reference(layout):
+    """The hero's fused shade row padded to 128 columns (row_cols, as
+    shade_row_pad leaves it) and cut to its 48 setup and packed columns (a
+    scene without the interleaved material rows: no tail), at the
+    tolerances of test_interpolate_gbuffer_matches_reference."""
+    _state, tri, attrs, shade_row, pair, px, py = _hero_gbuffer_inputs()
+    row_cols = None
+    if layout == "padded":
+        row_cols = shade_row.shape[1]
+        shade_row = np.pad(shade_row, ((0, 0), (0, 128 - row_cols)))
+    else:
+        shade_row = np.ascontiguousarray(shade_row[:, :48])
+    ref = ref_shade.interpolate_gbuffer(
+        jnp.asarray(pair), jnp.asarray(px), jnp.asarray(py), tri, attrs,
+        shade_row=jnp.asarray(shade_row), row_cols=row_cols,
+    )
+    port = port_shade.interpolate_gbuffer(
+        _t(pair), _t(px), _t(py), TriangleSetup(*[_t(x) for x in tri]),
+        TriangleAttrs(*[_t(x) for x in attrs]), shade_row=_t(shade_row), row_cols=row_cols,
+    )
+    assert (ref.mat_tail is None) == (port.mat_tail is None) == (layout == "no_tail")
+    for f in ref._fields:
+        if getattr(ref, f) is None:
+            continue
+        a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        if a.dtype != np.float32 or f == "mat_tail":
+            assert np.array_equal(a.view(np.int32) if f == "mat_tail" else a,
+                                  b.view(np.int32) if f == "mat_tail" else b), f
+        elif f.startswith("d"):
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6 * np.abs(a).max(), err_msg=f)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6, err_msg=f)
+
+
 @pytest.mark.parametrize("inline", [True, False])
 def test_shade_matches_reference(inline):
     """shade() on the SAME g-buffer (the reference's, carried across)."""
