@@ -189,12 +189,19 @@ through the ECS) -- and checks them:
     eager and graph frame times (CUDA events over 10 frames; stereo also
     with its state and FK built each frame) beside nvidia-smi's name and
     power limit, and the launches of the timed replays;
-15. sampler (the material samplers, csrc/sample.cu): every sampler call of
+15. sampler (the material samplers, csrc/sample.cu): each kernel's
+    registers and local (spill) bytes a thread and resident blocks an SM
+    (ops/sample.py kernel_info); every sampler call of
     one eager headline, all-passes and stereo frame recorded and held bit
-    for bit against its plain version on its inputs; each site and shape
+    for bit against its plain version on its inputs (a call on a segment,
+    lane_ids, as the material partition makes its head and tail: the
+    kernel and the plain version each write into their own copy of `out`
+    filled with a sentinel, the segment's rows compared and every other
+    row held to the sentinel); each site and shape
     timed (kernel and plain version, bench_raster.graph_ms) with its bound
-    (bytes: the lanes' inputs, the material ints, the 32-B sectors of
-    texel bytes the call uses, 16 B a slot written) and the time of one
+    (bytes: the lane ids, the lanes' inputs, the material ints, the 32-B
+    sectors of texel bytes the call uses, 16 B a slot written in place)
+    and the time of one
     index_select of the texel rows it fetches as a yardstick for the
     gathers; each scene's graph frame byte-equal, image and stats, to its
     twin with every plain version swapped in and to its twin with only the
@@ -1411,14 +1418,33 @@ def record_calls(kernels):
 SAMPLER_KERNELS = {"sample_classic": "classic_sample", "sample_material": "material_sample"}
 
 
+def sampler_registers(smi: str) -> None:
+    """Phase [sampler]'s first lines: each sampler kernel's registers and
+    local (spill) bytes a thread and its resident blocks an SM (occupancy:
+    their threads of the SM's 2,048) at each block size its wrapper
+    launches, from the built library."""
+    from superconductor_tpu_torch.ops import sample as sample_mod
+
+    for (kernel, taps1, block), (regs, local, blocks) in sample_mod.kernel_info().items():
+        phase("sampler", f"{kernel}<{1 if taps1 else 'any taps'}>: {regs} registers a thread, "
+              f"{local} B of local memory, {blocks} blocks of {block} threads an SM (occupancy "
+              f"{blocks * block / 2048:.3f}); {smi}")
+
+
 def sampler_lanes(name: str, args: dict) -> int:
-    return args["uv"].shape[0]
+    """The lanes a sampler call samples: its segment's (lane_ids), else
+    every lane."""
+    ids = args.get("lane_ids")
+    return args["uv"].shape[0] if ids is None else ids.shape[0]
 
 
 def sampler_site(name: str, caller: str, args: dict) -> str:
-    """A sampler call's site and shape: its caller, lanes, slots and pool."""
+    """A sampler call's site and shape: its caller (the partition's head or
+    tail segment), lanes, slots and pool."""
     kernel = SAMPLER_KERNELS[name]
-    where = {"seg_sample": "partition", "_interleaved": "whole pool"}.get(caller, caller)
+    where = {"_interleaved": "whole pool"}.get(caller, caller)
+    if caller == "_partition_material_sample":
+        where = "partition " + ("head" if kernel == "material_sample" else "tail")
     if kernel == "classic_sample":
         pool = f"({args['pool'].shape[1]}-B rows)"
     else:
@@ -1426,20 +1452,24 @@ def sampler_site(name: str, caller: str, args: dict) -> str:
                 + (" + tail)" if args["texels_tail"] is not None
                    and args["texels_mq"].shape[1] == 64 else ")")
                 + (" by material id" if args["mat"] is not None else " a row a lane"))
-    return (f"{kernel} {where} {args['uv'].shape[0]} lanes slots "
+    return (f"{kernel} {where} {sampler_lanes(name, args)} lanes slots "
             f"{''.join(map(str, args['slots']))} {pool}")
 
 
 def sampler_bound(name: str, args: dict, fetched: list) -> tuple:
     """(bound_ms, bound_by) of one sampler call: the larger of its bytes
     over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM).
-    Bytes, each read once: the lanes' uv and derivatives (24 B) and
-    material id (4 B); of each distinct material the lanes name, the ints
+    Bytes, each read once, of the lanes the call samples (its segment's
+    with lane_ids): the lane id (4 B), the lanes' uv and derivatives (24
+    B) and material id (4 B); of each distinct material the lanes name, the ints
     the kernel reads (the classic sampler: a wanted slot's flags, its meta
     and its mip table; the interleaved one: its meta and level entries),
-    or with a row a lane its meta and two level entries; the texel bytes
-    the call uses, in whole 32-B sectors (texel_sectors); 16 B a slot
-    written. The tables' columns are ops/sample.py's. Operations, counted
+    or with a row a lane its meta, level a's entry and level b's where the
+    kernel reads it (level_b_read; always with mq3 rows); the texel bytes
+    the kernel reads, in whole 32-B sectors (texel_sectors: level b's only
+    at the lanes whose level fraction is not 0, as csrc/sample.cu skips it
+    elsewhere); 16 B a slot written in place, at each lane's own row. The
+    tables' columns are ops/sample.py's. Operations, counted
     from csrc/sample.cu: a bilinear level 76 (tap position 8, the
     4-channel lerp 52, u8 scale 4, sRGB 12 with its powf as one), a
     trilinear 166 (two levels, blend 12, floor 2), a tap 8 more, the LOD
@@ -1447,8 +1477,11 @@ def sampler_bound(name: str, args: dict, fetched: list) -> tuple:
     from superconductor_tpu_torch.ops import sample as sample_mod
 
     kernel = SAMPLER_KERNELS[name]
-    lanes, n_slots, taps = args["uv"].shape[0], len(args["slots"]), max(1, int(args["taps"]))
-    mat = args["mat"]
+    lanes, n_slots, taps = sampler_lanes(name, args), len(args["slots"]), max(1, int(args["taps"]))
+    mat, ids = args["mat"], args.get("lane_ids")
+    if mat is not None and ids is not None:
+        mat = mat[ids.long()]
+    read_b = level_b_read(name, args)
     if kernel == "classic_sample":
         table, head, per_level = args["mat_row"], sample_mod.MAT_ROW_HEAD, \
             sample_mod.MAT_ROW_LEVEL
@@ -1458,12 +1491,16 @@ def sampler_bound(name: str, args: dict, fetched: list) -> tuple:
         table, head, per_level = args["rows"], sample_mod.MQ_ROW_HEAD, sample_mod.MQ_ROW_LEVEL
         L = (table.shape[1] - head) // per_level
         per_material = (head - sample_mod.META + per_level * L) * 4
-    nbytes = lanes * 24 + lanes * 16 * n_slots + texel_sectors(fetched, args["slots"]) * 32
+    nbytes = (lanes * 24 + lanes * 16 * n_slots
+              + texel_sectors(fetched, args["slots"], read_b) * 32)
+    if ids is not None:
+        nbytes += lanes * 4
     if mat is not None:
         distinct = torch.unique(torch.remainder(mat.long(), table.shape[0])).numel()
         nbytes += lanes * 4 + distinct * per_material
     else:
-        nbytes += lanes * (head - sample_mod.META + 2 * per_level) * 4
+        b_entries = lanes if args["texels_mq"].shape[1] == 208 else int(read_b[0].sum())
+        nbytes += (lanes * (head - sample_mod.META + per_level) + b_entries * per_level) * 4
     level, trilinear = 76, 166
     if kernel == "classic_sample":
         ops = lanes * n_slots * (15 + taps * (trilinear + 8))
@@ -1473,31 +1510,89 @@ def sampler_bound(name: str, args: dict, fetched: list) -> tuple:
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def texel_sectors(fetched: list, slots) -> int:
-    """The 32-B sectors of the texel pools that hold bytes a sampler call
-    uses: of each distinct row it fetches (fetched_rows), a texel or quad
-    row (4 or 16 B) whole; of a 64-B interleaved row the wanted slots'
-    16-B quads; of a 208-B mq3 row the wanted slots' quads and 3 x 3 cells
-    of the next level (36 B each). A sector two rows share counts once."""
-    total = 0
-    for pool, rows in fetched_rows(fetched):
-        width = pool.shape[1] * pool.element_size()
-        if width in (4, 16):
-            spans = [(0, width)]
-        elif width == 64:
-            spans = [(16 * s, 16) for s in slots]
-        elif width == 208:
-            spans = [(16 * s, 16) for s in slots] + [(64 + 36 * s, 36) for s in slots]
+def level_b_read(name: str, args: dict) -> torch.Tensor:
+    """(wanted slots of a classic call or 1, lanes) bool: the lanes of a
+    sampler call at which its kernel reads level b, those whose level
+    fraction is not 0 (csrc/sample.cu trilinear). The lod as ops/texture.py
+    sample_anisotropic and sample_material_interleaved compute it, the same
+    operations in the same order, from the lanes' derivatives and the
+    mip-0 size of the slot's texture (classic) or of the material's
+    interleaved chain (its slots share one lod); it is >= 0, so the fraction
+    is lod - floor(lod)."""
+    from superconductor_tpu_torch.ops import sample as sample_mod
+
+    ids = args.get("lane_ids")
+
+    def pick(t):
+        return t if ids is None else t[ids.long()]
+
+    dx, dy = pick(args["duvdx"]), pick(args["duvdy"])
+    if SAMPLER_KERNELS[name] == "classic_sample":
+        mtm = sample_mod._unpack_mat_row(args["mat_row"][pick(args["mat"])])[2]
+        meta = sample_mod.SLOT_META
+        sizes = [(mtm[:, meta * s + 4], mtm[:, meta * s + 5]) for s in args["slots"]]
+    else:
+        rows = pick(args["rows"]) if args["mat"] is None else args["rows"][pick(args["mat"])]
+        owh = sample_mod._unpack_mq_row(rows)[3]
+        sizes = [(owh[:, 0, 1], owh[:, 0, 2])]
+    taps = int(args["taps"])
+    read = []
+    for w, h in sizes:
+        w, h = w.to(torch.float32), h.to(torch.float32)
+        dx2 = (dx[..., 0] * w) ** 2 + (dx[..., 1] * h) ** 2
+        dy2 = (dy[..., 0] * w) ** 2 + (dy[..., 1] * h) ** 2
+        if taps <= 1:
+            lod = torch.clamp_min(
+                0.5 * torch.log2(torch.clamp_min(torch.maximum(dx2, dy2), 1e-12)), 0.0)
         else:
-            raise ValueError(f"a texel pool of {width}-B rows")
-        base = torch.unique(rows) * width
-        sectors = []
-        for off, n in spans:
-            first, last = (base + off) // 32, (base + off + n - 1) // 32
-            for k in range((n + 31) // 32 + 1):
-                sectors.append((first + k)[first + k <= last])
-        total += torch.unique(torch.cat(sectors)).numel()
-    return total
+            maj, mnr = torch.maximum(dx2, dy2), torch.minimum(dx2, dy2)
+            ratio2 = torch.clamp(maj / torch.clamp_min(mnr, 1e-12), 1.0, float(taps) ** 2)
+            lod = torch.clamp_min(0.5 * torch.log2(torch.clamp_min(maj / ratio2, 1e-12)), 0.0)
+        read.append(lod != torch.floor(lod))
+    return torch.stack(read)
+
+
+def texel_sectors(fetched: list, slots, read_b: torch.Tensor) -> int:
+    """The 32-B sectors of the texel pools that hold bytes a sampler call's
+    kernel reads, of the rows its plain version fetches (recorded_fetches):
+    a texel or quad row (4 or 16 B) whole; of a 64-B interleaved row the
+    wanted slots' 16-B quads; of a 208-B mq3 row the wanted slots' quads
+    and, level b, their 3 x 3 cells of the next level (36 B each). The
+    plain chains fetch, for each wanted slot (classic) and tap, level a's
+    rows and then level b's, four fetches a level from the flat pool and
+    one from the others; the mq3 chain one row a tap. Level b's bytes
+    count only at the lanes read_b (level_b_read) marks. A sector two rows
+    share counts once."""
+    def width(pool):
+        return pool.shape[1] * pool.element_size()
+
+    k = 4 if all(width(pool) == 4 for pool, _ in fetched) else 1
+    groups = [fetched[j:j + k] for j in range(0, len(fetched), k)]
+    per_row = len(groups) // read_b.shape[0]
+    if not groups or per_row * read_b.shape[0] != len(groups):
+        raise ValueError(f"{len(fetched)} texel fetches for {read_b.shape[0]} lod rows")
+    pools = {}
+    for j, group in enumerate(groups):
+        b = read_b[j // per_row]
+        for pool, index in group:
+            rows = torch.remainder(index.reshape(-1).long(), pool.shape[0])
+            if rows.shape != b.shape:
+                raise ValueError(f"a fetch of {rows.numel()} rows for {b.numel()} lanes")
+            n = width(pool)
+            if n in (4, 16):
+                reads = [(rows if j % 2 == 0 else rows[b], [(0, n)])]
+            elif n == 64:
+                reads = [(rows if j % 2 == 0 else rows[b], [(16 * s, 16) for s in slots])]
+            elif n == 208:
+                reads = [(rows, [(16 * s, 16) for s in slots]),
+                         (rows[b], [(64 + 36 * s, 36) for s in slots])]
+            else:
+                raise ValueError(f"a texel pool of {n}-B rows")
+            found = pools.setdefault(pool.data_ptr(), [])
+            for r, spans in reads:
+                base = pool.data_ptr() + torch.unique(r) * n
+                found += [sector_ids(base + off, size) for off, size in spans]
+    return sum(torch.unique(torch.cat(found)).numel() for found in pools.values())
 
 
 def fetched_rows(fetched: list) -> list:
@@ -1554,12 +1649,17 @@ def deferred_site(name: str, caller: str, args: dict) -> str:
     return f"sky {where} {caller} {lanes} px"
 
 
-def sector_count(addresses: torch.Tensor, nbytes: int) -> int:
-    """The 32-B sectors that hold the byte ranges [a, a + nbytes) of the
-    start addresses (bytes) `addresses`, each sector once."""
+def sector_ids(addresses: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """The 32-B sectors (their indices, each once) that hold the byte
+    ranges [a, a + nbytes) of the start addresses (bytes) `addresses`."""
     first, last = addresses // 32, (addresses + nbytes - 1) // 32
     spans = [(first + k)[first + k <= last] for k in range((nbytes + 31) // 32 + 1)]
-    return torch.unique(torch.cat(spans)).numel()
+    return torch.unique(torch.cat(spans))
+
+
+def sector_count(addresses: torch.Tensor, nbytes: int) -> int:
+    """The number of sector_ids(addresses, nbytes)."""
+    return sector_ids(addresses, nbytes).numel()
 
 
 def deferred_bound(name: str, args: dict, fetched: list) -> tuple:
@@ -1608,7 +1708,7 @@ def deferred_bound(name: str, args: dict, fetched: list) -> tuple:
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def deferred_equal(out, want) -> tuple:
+def deferred_equal(out, want, args: dict) -> tuple:
     """(equal bit for bit, values compared, values that differ): a GBuffer
     field by field (f32 fields by their int32 views), or one tensor."""
     pairs = list(zip(out, want)) if isinstance(want, tuple) else [(out, want)]
@@ -1648,15 +1748,45 @@ class HandPhase(NamedTuple):
     kernels: tuple  # bench.PLAIN_VERSIONS keys
     lanes: Callable  # (name, args) -> lanes (0: nothing launched)
     site: Callable  # (name, caller, args) -> the call's site and shape
-    equal: Callable  # (out, want) -> (bit for bit, values, values that differ)
+    equal: Callable  # (out, want, args) -> (bit for bit, values, values that differ)
     bound: Callable  # (name, args, fetched) -> (bound_ms, bound_by)
     rows: Callable  # (name, args, fetched) -> [(table, row indices)] read
     modules: tuple  # names of the ops modules whose _launched the main path wraps
 
 
-def tensor_equal(out, want) -> tuple:
-    bad = int((out.view(torch.int32) != want.view(torch.int32)).sum()) \
-        if out.shape == want.shape else want.numel()
+# what compare_calls fills a sampler's `out` with before the kernel and
+# the plain version write their rows into their own copies (a NaN pattern)
+OUT_SENTINEL = 0x7FBADBAD
+
+
+def fresh_out(args: dict) -> dict:
+    """args with a new `out` (its shape, every value OUT_SENTINEL's bits)
+    where the call writes into one, so that the kernel and its plain
+    version each write their own."""
+    out = args.get("out")
+    if out is None:
+        return args
+    fresh = torch.full(out.shape, OUT_SENTINEL, dtype=torch.int32, device=out.device)
+    return dict(args, out=fresh.view(out.dtype))
+
+
+def tensor_equal(out, want, args: dict) -> tuple:
+    """(bit for bit, values compared, values that differ) of a sampler's
+    result and its plain version's, by their int32 views; with lane_ids,
+    the rows the call writes compared and every other row of both held
+    to OUT_SENTINEL (untouched)."""
+    if out.shape != want.shape:
+        return False, want.numel(), want.numel()
+    a, b = out.view(torch.int32), want.view(torch.int32)
+    ids = args.get("lane_ids")
+    if ids is None:
+        bad = int((a != b).sum())
+        return bad == 0, want.numel(), bad
+    rows = ids.long()
+    others = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+    others[rows] = False
+    bad = int((a[rows] != b[rows]).sum()) + int((a[others] != OUT_SENTINEL).sum()) \
+        + int((b[others] != OUT_SENTINEL).sum())
     return bad == 0, want.numel(), bad
 
 
@@ -1681,11 +1811,12 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
         kernel, mod, plain = bindings[name]
         wrapper = getattr(mod, name)
         site = f"{scene} {hp.site(name, caller, args)}"
+        args = fresh_out(args)
         out = wrapper(**args)
         with recorded_fetches() as fetched:
-            want = plain(**args)
+            want = plain(**fresh_out(args))
         torch.cuda.synchronize()
-        equal, total, bad = hp.equal(out, want)
+        equal, total, bad = hp.equal(out, want, args)
         if not equal:
             raise RuntimeError(f"{site}: the kernel differs from its plain version at {bad} of "
                                f"{total} values")
@@ -3060,6 +3191,7 @@ def main() -> int:
         "stereo": (st_tables, st_build, stereo_config, st_env),
     }
     graph_launches = graph_path(smi, graph_frames)
+    sampler_registers(smi)
     sampler = hand_path(SAMPLER_PHASE, smi, graph_frames)
     deferred = hand_path(DEFERRED_PHASE, smi, graph_frames)
 

@@ -1,5 +1,6 @@
-// Material samplers on Hopper (sm_90a): the classic per-slot sampler and
-// the interleaved material sampler, one thread a lane.
+// Material samplers on Hopper (sm_90a): the classic per-slot sampler, a
+// thread a (lane, wanted slot), and the interleaved material sampler, a
+// thread a lane.
 //
 // Replaces no TPU kernel. The JAX package computes both in XLA:
 // superconductor_tpu/ops/texture.py:556 sample_material_interleaved and
@@ -27,18 +28,54 @@
 // The tables' columns (the meta at 20, the mip tables at 44 and 24) are
 // ops/sample.py's META, MAT_ROW_HEAD and MQ_ROW_HEAD.
 //
-// What bounds them on this card: bytes. A lane reads its uv and
-// derivatives (24 B) and its material id (4 B), a few ints of its
-// material's row (a table of a few rows that stays in L1 / L2), one 16-B
-// quad (or 64-B / 208-B material row) per bilinear tap, and writes 16 B a
-// slot; the arithmetic (a few hundred FP32 operations a lane, two powf a
-// channel in sRGB) is far below the card's rate.
+// The contract: a call samples n lanes, lane ids[i] (or lane i when ids is
+// null) of the caller's P lanes. It reads that lane's uv, derivatives and
+// material id in place (any lane stride) and writes its 4 x n_slots floats
+// to row ids[i] of out (P rows of out_s floats); the other rows of out are
+// left as they are. render/frame.py's material partition samples each of
+// its two segments so, straight from the g-buffer into one result: no
+// permutation of the inputs, no concatenation and no inverse permutation
+// of the results. An id is taken as torch's indexing takes it (negative
+// from the end); ids must be distinct.
 //
-// Design: everything between the inputs and the output stays in
-// registers; the material row is read in place (the slot's 6-int meta and
-// its mip table, not the row), so nothing is written to device memory but
-// the result. A lane's texel rows are 16-B loads (__ldg). No shared memory,
-// no staging: cp.async / TMA of the texel rows is later work.
+// What bounds them on this card: instructions and the latency of a chain
+// of dependent loads more than bytes. A lane reads its id (4 B), uv and
+// derivatives (24 B) and material id (4 B), then a few ints of its
+// material's row (a table of a few rows that stays in L1, or the lane's
+// own row of the shade row), then the level entries, then one 16-B quad
+// (or a 64-B / 208-B material row) a bilinear tap, and writes 16 B a slot.
+// But a slot's trilinear sample is some 400 instructions in sRGB (two
+// levels of four 13-operation lerps, and a powf for each colour channel
+// of each level) and 150 without: at 1080p that issue time is of the order
+// of the bytes' time.
+//
+// Design. Every tap's texels are fetched whole (Tap) before any filtering,
+// so a lane's loads of both levels are in flight together; the tap count
+// the frames use (RenderConfig.aniso_taps = 1) is a template, other tap
+// counts take the generic path. Where the level fraction is 0 (every
+// magnified lane: the lod clamps to 0) level b neither loads nor filters
+// (trilinear says why the bits do not change), which halves such a lane's
+// loads and powf. Everything stays in registers; the material row is read
+// in place; no shared memory (the material tables are a few rows, which L1
+// holds).
+// * classic_sample_kernel: a thread a (lane, wanted slot), a warp one slot
+//   of 32 adjacent lanes: each slot has its own texture, size and so LOD,
+//   nothing is shared between a lane's slots but its inputs (which the
+//   slot's warps read from L1), and a warp reads one texture and takes one
+//   decode branch.
+// * material_sample_kernel: a thread a lane, every wanted slot. The four
+//   slots of an interleaved row share the LOD, the level pair, the tap
+//   positions and the rows, so the lane locates them once, then fetches
+//   and filters one slot at a time (60 registers, no spills: twice the
+//   resident threads of the first design's 120). A thread a (lane, slot)
+//   repeated that shared work once a slot and measured slower than the
+//   first design (PERF.md). Computing it in one of a lane's four threads
+//   and broadcasting it with __shfl_sync would issue no fewer of the
+//   warp's instructions: the other three threads wait masked while it is
+//   computed, so a warp still pays the shared work once for 8 lanes where
+//   a thread a lane pays it once for 32.
+// The first design ran a thread a lane in both, with every slot's channels
+// of both levels in registers.
 //
 // Bit for bit with the torch chain on the card: every operation is
 // written with csrc/torch_exact.cuh's round-exact helpers, in the chain's
@@ -53,7 +90,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // a block of the material kernel (a thread a lane)
+constexpr int kLanes = 64;  // a block of the classic kernel: kLanes threads a wanted slot
 constexpr int kTexflagSrgb = 1;
 
 // _select_level: row lvl of an L-row table by a select ladder
@@ -81,13 +119,6 @@ __device__ __forceinline__ void decode(float* r, bool srgb) {
     for (int c = 0; c < 3; ++c) r[c] = srgb_to_linear(r[c]);
 }
 
-// a * (1 - f) + b * f on C channels
-template <int C>
-__device__ __forceinline__ void level_blend(const float* a, const float* b, float f, float* out) {
-  const float g = sub(1.0f, f);
-  for (int c = 0; c < C; ++c) out[c] = add(mul(a[c], g), mul(b[c], f));
-}
-
 // The trilinear pair of a lod: the floor level l0, its fraction (0 below
 // level 0) and the two levels clamped to the chain's count
 struct LevelPair {
@@ -103,6 +134,37 @@ __device__ __forceinline__ LevelPair level_pair(float lod, int count) {
   p.a = min(max(p.l0, 0), iadd(count, -1));
   p.b = min(max(iadd(p.l0, 1), 0), iadd(count, -1));
   return p;
+}
+
+// One bilinear tap of one slot, fetched: its four texels (t00, t10, t01,
+// t11, a byte a channel) and its fractions
+struct Tap {
+  uint4 q;
+  float fx, fy;
+};
+
+// a tap filtered (_lerp4 a channel) and decoded
+__device__ __forceinline__ void level(const Tap& t, bool srgb, float* r) {
+  for (int c = 0; c < 4; ++c)
+    r[c] = lerp4(byte_of(t.q.x, c), byte_of(t.q.y, c), byte_of(t.q.z, c), byte_of(t.q.w, c),
+                 t.fx, t.fy);
+  decode(r, srgb);
+}
+
+// the two levels' taps filtered, decoded and blended a * (1 - f) + b * f.
+// At f == 0 that is a itself, bit for bit: a * 1 is a, and b, decoded from
+// bytes with weights in [0, 1], is finite and >= +0, so b * 0 is +0 and
+// a + +0 is a (a >= +0 too, or NaN as the blend would make it). So a lane
+// at f == 0 (every magnified lane: lod clamps to 0) neither fetches nor
+// filters level b: `b` may be unread there.
+__device__ __forceinline__ void trilinear(const Tap& a, const Tap& b, float f, bool srgb,
+                                          float* out) {
+  level(a, srgb, out);
+  if (f == 0.0f) return;
+  float rb[4];
+  level(b, srgb, rb);
+  const float g = sub(1.0f, f);
+  for (int c = 0; c < 4; ++c) out[c] = add(mul(out[c], g), mul(rb[c], f));
 }
 
 // ops/texture.py sample_anisotropic (and sample_material_interleaved's
@@ -151,20 +213,16 @@ struct ClassicTri {
   const uint8_t* pool;
   long long n;
   bool quad;
-  int count, wrap, flags, L;
+  int count, wrap, L;
   const int* levels;  // L x (offset, w, h)
   bool srgb;
 
-  __device__ void bilinear(const int* owh, float u, float v, float* r) const {
+  __device__ __forceinline__ Tap fetch(const int* owh, float u, float v) const {
     const int off = __ldg(owh), w = __ldg(owh + 1), h = __ldg(owh + 2);
     TapPos t = tap_pos(u, v, w, h);
     if (quad) {
       const long long row = quad_row(t, off, w, h, wrap, n);
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(pool) + row);
-      for (int c = 0; c < 4; ++c)
-        r[c] = lerp4(byte_of(q.x, c), byte_of(q.y, c), byte_of(q.z, c), byte_of(q.w, c), t.fx,
-                     t.fy);
-      return;
+      return {__ldg(reinterpret_cast<const uint4*>(pool) + row), t.fx, t.fy};
     }
     const uint32_t* texel = reinterpret_cast<const uint32_t*>(pool);
     const int x1 = iadd(t.x0, 1), y1 = iadd(t.y0, 1);
@@ -174,151 +232,156 @@ struct ClassicTri {
     const uint32_t t10 = __ldg(texel + row_of(iadd(iadd(off, imul(ya, w)), xb), n));
     const uint32_t t01 = __ldg(texel + row_of(iadd(iadd(off, imul(yb, w)), xa), n));
     const uint32_t t11 = __ldg(texel + row_of(iadd(iadd(off, imul(yb, w)), xb), n));
-    for (int c = 0; c < 4; ++c)
-      r[c] = lerp4(byte_of(t00, c), byte_of(t10, c), byte_of(t01, c), byte_of(t11, c), t.fx,
-                   t.fy);
+    return {make_uint4(t00, t10, t01, t11), t.fx, t.fy};
   }
 
-  __device__ void operator()(float u, float v, float lod, float* out) const {
+  __device__ __forceinline__ void operator()(float u, float v, float lod, float* out) const {
     const LevelPair p = level_pair(lod, count);
-    float a[4], b[4];
-    bilinear(levels + 3 * select_level(p.a, L), u, v, a);
-    bilinear(levels + 3 * select_level(p.b, L), u, v, b);
-    const bool dec = srgb && (flags & kTexflagSrgb) != 0;
-    decode(a, dec);
-    decode(b, dec);
-    level_blend<4>(a, b, p.f, out);
+    const Tap a = fetch(levels + 3 * select_level(p.a, L), u, v);
+    Tap b;
+    if (p.f != 0.0f) b = fetch(levels + 3 * select_level(p.b, L), u, v);
+    trilinear(a, b, p.f, srgb, out);
   }
 };
 
+// A thread a (lane, wanted slot): a block of kLanes * n_slots threads
+// samples kLanes lanes, its k-th kLanes threads the k-th wanted slot of
+// each, so a warp samples one slot of 32 adjacent lanes. Thread j takes
+// lane ids[i] (lane i without ids), i = blockIdx.x * kLanes + j % kLanes.
+// TAPS: 1, the frames' tap count, or 0, any (the `taps` argument)
+template <int TAPS>
 __global__ void __launch_bounds__(kThreads)
-    classic_sample_kernel(int lanes, const float* __restrict__ uv, long long uv_s,
+    classic_sample_kernel(int n, const int* __restrict__ ids, long long lanes,
+                          const float* __restrict__ uv, long long uv_s,
                           const float* __restrict__ ddx, long long ddx_s,
                           const float* __restrict__ ddy, long long ddy_s,
                           const int* __restrict__ mat, long long mat_s,
                           const float* __restrict__ table, long long row_s, long long n_rows,
                           int L, const uint8_t* __restrict__ pool, long long n_pool, int quad,
-                          int taps, int decode_srgb, int n_slots, int slot_code,
-                          float* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= lanes) return;
-  const float u = uv[p * uv_s], v = uv[p * uv_s + 1];
-  const float dux = ddx[p * ddx_s], dvx = ddx[p * ddx_s + 1];
-  const float duy = ddy[p * ddy_s], dvy = ddy[p * ddy_s + 1];
-  const int* row = reinterpret_cast<const int*>(table) + row_of(mat[p * mat_s], n_rows) * row_s;
-  float4* dst = reinterpret_cast<float4*>(out + p * 4 * n_slots);
-  for (int k = 0; k < n_slots; ++k) {
-    const int slot = (slot_code >> (2 * k)) & 3;
-    const int* meta = row + 20 + 6 * slot;  // base, count, wrap, flags, w, h
-    ClassicTri tri{pool, n_pool, quad != 0, __ldg(meta + 1), __ldg(meta + 2), __ldg(meta + 3), L,
-                   row + 44 + 3 * L * slot, decode_srgb != 0};
-    float r[4];
-    anisotropic<4>(tri, u, v, dux, dvx, duy, dvy, (float)__ldg(meta + 4), (float)__ldg(meta + 5),
-                   taps, r);
-    dst[k] = make_float4(r[0], r[1], r[2], r[3]);
-  }
+                          int taps, int decode_srgb, int slot_code, float* __restrict__ out,
+                          long long out_s) {
+  const int i = blockIdx.x * kLanes + threadIdx.x % kLanes, k = threadIdx.x / kLanes;
+  if (i >= n) return;
+  const long long p = ids != nullptr ? row_of(__ldg(ids + i), lanes) : i;
+  const float u = __ldg(uv + p * uv_s), v = __ldg(uv + p * uv_s + 1);
+  const float dux = __ldg(ddx + p * ddx_s), dvx = __ldg(ddx + p * ddx_s + 1);
+  const float duy = __ldg(ddy + p * ddy_s), dvy = __ldg(ddy + p * ddy_s + 1);
+  const int* row =
+      reinterpret_cast<const int*>(table) + row_of(__ldg(mat + p * mat_s), n_rows) * row_s;
+  const int slot = (slot_code >> (2 * k)) & 3;
+  const int* meta = row + 20 + 6 * slot;  // base, count, wrap, flags, w, h
+  const bool srgb = decode_srgb != 0 && (__ldg(meta + 3) & kTexflagSrgb) != 0;
+  const ClassicTri tri{pool, n_pool, quad != 0, __ldg(meta + 1), __ldg(meta + 2), L,
+                       row + 44 + 3 * L * slot, srgb};
+  float r[4];
+  anisotropic<4>(tri, u, v, dux, dvx, duy, dvy, (float)__ldg(meta + 4), (float)__ldg(meta + 5),
+                 TAPS > 0 ? TAPS : taps, r);
+  *reinterpret_cast<float4*>(out + p * out_s + 4 * k) = make_float4(r[0], r[1], r[2], r[3]);
 }
 
 // --- the interleaved material sampler ---------------------------------------
 
 enum MatqRows { kRows64 = 0, kRows64Tail = 1, kRowsMq3 = 2 };
 
-// sample_material_interleaved's trilinear: all wanted slots of a level
-// from one material row (64 B: four slots' quads; 208 B: the level's quads,
-// then each slot's 3 x 3 texels of the next level)
+// sample_material_interleaved's trilinear for every wanted slot of a lane:
+// one tap position, level pair and material row a level serve all four
+// slots (64-B rows: four slots' quads, the slot's at 16 s; 208-B rows: the
+// level's quads, then each slot's 3 x 3 texels of the next level), so the
+// lane locates them once and then fetches and filters a slot at a time
 struct MatqTri {
   const uint8_t* mq;
   long long n_mq;
   const uint8_t* tail;
   long long n_tail;
-  int kind, wrap, mask, count, L, want;
+  int kind, wrap, count, L;
   const int* owh;  // L x (offset, w, h, tail offset)
-  bool srgb;
+  int n_slots, slot_code, srgb_mask;
 
-  // one level's quads (_matq_bilinear) -> r[4 * slot + channel], raw
-  __device__ void quads(const uint8_t* pool, long long n, int width, int off, int w, int h,
-                        float u, float v, float* r) const {
+  // a level's 64-B row (_matq_bilinear) and the tap's fractions
+  __device__ __forceinline__ const uint4* quad_row64(const uint8_t* pool, long long n, int off,
+                                                     int w, int h, float u, float v,
+                                                     float& fx, float& fy) const {
     TapPos t = tap_pos(u, v, w, h);
-    const uint8_t* row = pool + quad_row(t, off, w, h, wrap, n) * width;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (!((want >> s) & 1)) continue;
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(row) + s);
-      for (int c = 0; c < 4; ++c)
-        r[4 * s + c] = lerp4(byte_of(q.x, c), byte_of(q.y, c), byte_of(q.z, c), byte_of(q.w, c),
-                             t.fx, t.fy);
-    }
+    const long long row = quad_row(t, off, w, h, wrap, n);
+    fx = t.fx;
+    fy = t.fy;
+    return reinterpret_cast<const uint4*>(pool + row * 64);
   }
 
-  // _mq3_levels: both levels from one 208-B row
-  __device__ void mq3(const int* a_owh, const int* b_owh, bool self_pair, float u, float v,
-                      float* a, float* b) const {
-    const int off = __ldg(a_owh), w = __ldg(a_owh + 1), h = __ldg(a_owh + 2);
-    TapPos t = tap_pos(u, v, w, h);
-    const int xi = wrap_coord(t.x0, w, wrap), yi = wrap_coord(t.y0, h, wrap);
-    const uint8_t* row = mq + quad_row(t, off, w, h, wrap, n_mq) * 208;
-    const bool clamped = wrap == kWrapClamp;
-    const int wb = __ldg(b_owh + 1), hb = __ldg(b_owh + 2);
-    TapPos tb = tap_pos(u, v, wb, hb);
-    if (clamped && tb.x0 < 0) tb.fx = 0.0f;
-    if (clamped && tb.y0 < 0) tb.fy = 0.0f;
-    // the level-b tap's place in the baked 3-window
-    auto window = [&](int v1, int v0, int vi, int dim, int& p0, int& p1) {
-      const int c_rep = self_pair ? v0 : (v0 >> 1);
-      const int p0_rep = iadd(v1, -iadd(c_rep, -1));
-      const int c_cl = self_pair ? vi : (vi >> 1);
-      const int p0_cl = iadd(min(max(v1, 0), iadd(dim, -1)), -iadd(c_cl, -1));
-      const int p1_cl = iadd(min(max(iadd(v1, 1), 0), iadd(dim, -1)), -iadd(c_cl, -1));
-      p0 = min(max(clamped ? p0_cl : p0_rep, 0), 2);
-      p1 = min(max(clamped ? p1_cl : iadd(p0_rep, 1), 0), 2);
-    };
-    int px0, px1, py0, py1;
-    window(tb.x0, t.x0, xi, wb, px0, px1);
-    window(tb.y0, t.y0, yi, hb, py0, py1);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (!((want >> s) & 1)) continue;
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(row) + s);
-      const uint32_t* cells = reinterpret_cast<const uint32_t*>(row + 64 + 36 * s);
-      const uint32_t c00 = __ldg(cells + py0 * 3 + px0), c10 = __ldg(cells + py0 * 3 + px1);
-      const uint32_t c01 = __ldg(cells + py1 * 3 + px0), c11 = __ldg(cells + py1 * 3 + px1);
-      for (int c = 0; c < 4; ++c) {
-        a[4 * s + c] = lerp4(byte_of(q.x, c), byte_of(q.y, c), byte_of(q.z, c), byte_of(q.w, c),
-                             t.fx, t.fy);
-        b[4 * s + c] = lerp4(byte_of(c00, c), byte_of(c10, c), byte_of(c01, c), byte_of(c11, c),
-                             tb.fx, tb.fy);
-      }
-    }
-  }
-
-  __device__ void operator()(float u, float v, float lod, float* out) const {
+  __device__ __forceinline__ void operator()(float u, float v, float lod, float* out) const {
     const LevelPair p = level_pair(lod, count);
     const int* a_owh = owh + 4 * select_level(p.a, L);
     const int* b_owh = owh + 4 * select_level(p.b, L);
-    float a[16], b[16];
-    for (int c = 0; c < 16; ++c) a[c] = b[c] = 0.0f;
+    const uint4 *row_a, *row_b = nullptr;
+    const uint32_t* cells = nullptr;
+    float ax, ay, bx, by;
+    int px0 = 0, px1 = 0, py0 = 0, py1 = 0;
     if (kind == kRowsMq3) {
-      mq3(a_owh, b_owh, p.l0 >= iadd(count, -1), u, v, a, b);
+      // _mq3_levels: both levels from one 208-B row
+      const int off = __ldg(a_owh), w = __ldg(a_owh + 1), h = __ldg(a_owh + 2);
+      const int wb = __ldg(b_owh + 1), hb = __ldg(b_owh + 2);
+      const bool self_pair = p.l0 >= iadd(count, -1);
+      TapPos t = tap_pos(u, v, w, h);
+      const int xi = wrap_coord(t.x0, w, wrap), yi = wrap_coord(t.y0, h, wrap);
+      const uint8_t* row = mq + quad_row(t, off, w, h, wrap, n_mq) * 208;
+      const bool clamped = wrap == kWrapClamp;
+      TapPos tb = tap_pos(u, v, wb, hb);
+      if (clamped && tb.x0 < 0) tb.fx = 0.0f;
+      if (clamped && tb.y0 < 0) tb.fy = 0.0f;
+      // the level-b tap's place in the baked 3-window
+      auto window = [&](int v1, int v0, int vi, int dim, int& p0, int& p1) {
+        const int c_rep = self_pair ? v0 : (v0 >> 1);
+        const int p0_rep = iadd(v1, -iadd(c_rep, -1));
+        const int c_cl = self_pair ? vi : (vi >> 1);
+        const int p0_cl = iadd(min(max(v1, 0), iadd(dim, -1)), -iadd(c_cl, -1));
+        const int p1_cl = iadd(min(max(iadd(v1, 1), 0), iadd(dim, -1)), -iadd(c_cl, -1));
+        p0 = min(max(clamped ? p0_cl : p0_rep, 0), 2);
+        p1 = min(max(clamped ? p1_cl : iadd(p0_rep, 1), 0), 2);
+      };
+      window(tb.x0, t.x0, xi, wb, px0, px1);
+      window(tb.y0, t.y0, yi, hb, py0, py1);
+      row_a = reinterpret_cast<const uint4*>(row);
+      cells = reinterpret_cast<const uint32_t*>(row + 64);
+      ax = t.fx, ay = t.fy, bx = tb.fx, by = tb.fy;
     } else {
-      quads(mq, n_mq, 64, __ldg(a_owh), __ldg(a_owh + 1), __ldg(a_owh + 2), u, v, a);
-      if (kind == kRows64Tail)
-        quads(tail, n_tail, 64, __ldg(b_owh + 3), __ldg(b_owh + 1), __ldg(b_owh + 2), u, v, b);
-      else
-        quads(mq, n_mq, 64, __ldg(b_owh), __ldg(b_owh + 1), __ldg(b_owh + 2), u, v, b);
+      row_a = quad_row64(mq, n_mq, __ldg(a_owh), __ldg(a_owh + 1), __ldg(a_owh + 2), u, v, ax,
+                         ay);
+      if (p.f != 0.0f)
+        row_b = kind == kRows64Tail
+                    ? quad_row64(tail, n_tail, __ldg(b_owh + 3), __ldg(b_owh + 1),
+                                 __ldg(b_owh + 2), u, v, bx, by)
+                    : quad_row64(mq, n_mq, __ldg(b_owh), __ldg(b_owh + 1), __ldg(b_owh + 2), u,
+                                 v, bx, by);
     }
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (!((want >> s) & 1)) continue;
-      const bool dec = srgb && ((mask >> s) & 1);
-      decode(a + 4 * s, dec);
-      decode(b + 4 * s, dec);
+    for (int k = 0; k < 4; ++k) {
+      if (k >= n_slots) {  // no slot: its channels stay 0 through the taps' sum
+        for (int c = 0; c < 4; ++c) out[4 * k + c] = 0.0f;
+        continue;
+      }
+      const int s = (slot_code >> (2 * k)) & 3;
+      const Tap a{__ldg(row_a + s), ax, ay};
+      Tap b;
+      if (p.f == 0.0f) {
+        // level b unread (trilinear)
+      } else if (cells != nullptr) {
+        const uint32_t* c = cells + 9 * s;
+        b = {make_uint4(__ldg(c + py0 * 3 + px0), __ldg(c + py0 * 3 + px1),
+                        __ldg(c + py1 * 3 + px0), __ldg(c + py1 * 3 + px1)),
+             bx, by};
+      } else {
+        b = {__ldg(row_b + s), bx, by};
+      }
+      trilinear(a, b, p.f, (srgb_mask >> s) & 1, out + 4 * k);
     }
-    level_blend<16>(a, b, p.f, out);
   }
 };
 
+// A thread a lane: lane ids[i] (lane i without ids), every wanted slot
+template <int TAPS>
 __global__ void __launch_bounds__(kThreads)
-    material_sample_kernel(int lanes, const float* __restrict__ uv, long long uv_s,
+    material_sample_kernel(int n, const int* __restrict__ ids, long long lanes,
+                           const float* __restrict__ uv, long long uv_s,
                            const float* __restrict__ ddx, long long ddx_s,
                            const float* __restrict__ ddy, long long ddy_s,
                            const int* __restrict__ mat, long long mat_s,
@@ -326,62 +389,88 @@ __global__ void __launch_bounds__(kThreads)
                            int L, const uint8_t* __restrict__ mq, long long n_mq, int kind,
                            const uint8_t* __restrict__ tail, long long n_tail, int taps,
                            int decode_srgb, int n_slots, int slot_code,
-                           float* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= lanes) return;
-  const float u = uv[p * uv_s], v = uv[p * uv_s + 1];
-  const float dux = ddx[p * ddx_s], dvx = ddx[p * ddx_s + 1];
-  const float duy = ddy[p * ddy_s], dvy = ddy[p * ddy_s + 1];
-  const long long r = mat != nullptr ? row_of(mat[p * mat_s], n_rows) : p;
+                           float* __restrict__ out, long long out_s) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const long long p = ids != nullptr ? row_of(__ldg(ids + i), lanes) : i;
+  const float u = __ldg(uv + p * uv_s), v = __ldg(uv + p * uv_s + 1);
+  const float dux = __ldg(ddx + p * ddx_s), dvx = __ldg(ddx + p * ddx_s + 1);
+  const float duy = __ldg(ddy + p * ddy_s), dvy = __ldg(ddy + p * ddy_s + 1);
+  const long long r = mat != nullptr ? row_of(__ldg(mat + p * mat_s), n_rows) : p;
   const int* row = reinterpret_cast<const int*>(rows) + r * row_s;
-  int want = 0, at[4] = {-1, -1, -1, -1};  // slot -> its place in the output
-  for (int k = 0; k < n_slots; ++k) {
-    const int s = (slot_code >> (2 * k)) & 3;
-    want |= 1 << s;
-    at[s] = k;
-  }
   // meta: wrap, sRGB mask, count, pad; then L x (offset, w, h, tail offset)
   const int* owh = row + 24;
-  MatqTri tri{mq, n_mq, tail, n_tail, kind, __ldg(row + 20), __ldg(row + 21), __ldg(row + 22),
-              L, want, owh, decode_srgb != 0};
-  float s16[16];
+  const MatqTri tri{mq, n_mq, tail, n_tail, kind, __ldg(row + 20), __ldg(row + 22), L, owh,
+                    n_slots, slot_code, decode_srgb != 0 ? __ldg(row + 21) : 0};
+  float c[16];
   anisotropic<16>(tri, u, v, dux, dvx, duy, dvy, (float)__ldg(owh + 1), (float)__ldg(owh + 2),
-                  taps, s16);
-  float4* dst = reinterpret_cast<float4*>(out + p * 4 * n_slots);
+                  TAPS > 0 ? TAPS : taps, c);
+  float4* dst = reinterpret_cast<float4*>(out + p * out_s);
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
-    if (at[s] >= 0)
-      dst[at[s]] = make_float4(s16[4 * s], s16[4 * s + 1], s16[4 * s + 2], s16[4 * s + 3]);
+  for (int k = 0; k < 4; ++k)
+    if (k < n_slots) dst[k] = make_float4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
 }
 
-int blocks(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+unsigned blocks(int n, int lanes_a_block) {
+  return (unsigned)((n + lanes_a_block - 1) / lanes_a_block);
+}
 
 }  // namespace
 
-// The C entry points (ops/texture.py binds them with ctypes). Pointers
-// are device pointers; strides are in elements; the result is the launch's
-// cudaError_t.
-extern "C" int sc_classic_sample(int lanes, const float* uv, long long uv_s, const float* ddx,
-                                 long long ddx_s, const float* ddy, long long ddy_s,
-                                 const int* mat, long long mat_s, const float* table,
-                                 long long row_s, long long n_rows, int L, const uint8_t* pool,
-                                 long long n_pool, int quad, int taps, int decode_srgb,
-                                 int n_slots, int slot_code, float* out, void* stream) {
-  classic_sample_kernel<<<blocks(lanes), kThreads, 0, (cudaStream_t)stream>>>(
-      lanes, uv, uv_s, ddx, ddx_s, ddy, ddy_s, mat, mat_s, table, row_s, n_rows, L, pool, n_pool,
-      quad, taps, decode_srgb, n_slots, slot_code, out);
+// The C entry points (ops/raster.py binds them with ctypes). Pointers
+// are device pointers (ids may be null); strides are in elements; n = 0
+// launches nothing; the result is the launch's cudaError_t.
+extern "C" int sc_classic_sample(int n, const int* ids, long long lanes, const float* uv,
+                                 long long uv_s, const float* ddx, long long ddx_s,
+                                 const float* ddy, long long ddy_s, const int* mat,
+                                 long long mat_s, const float* table, long long row_s,
+                                 long long n_rows, int L, const uint8_t* pool, long long n_pool,
+                                 int quad, int taps, int decode_srgb, int n_slots, int slot_code,
+                                 float* out, long long out_s, void* stream) {
+  if (n <= 0) return 0;
+  auto kernel = taps == 1 ? classic_sample_kernel<1> : classic_sample_kernel<0>;
+  kernel<<<blocks(n, kLanes), kLanes * n_slots, 0, (cudaStream_t)stream>>>(
+      n, ids, lanes, uv, uv_s, ddx, ddx_s, ddy, ddy_s, mat, mat_s, table, row_s, n_rows, L, pool,
+      n_pool, quad, taps, decode_srgb, slot_code, out, out_s);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sc_material_sample(int lanes, const float* uv, long long uv_s, const float* ddx,
-                                  long long ddx_s, const float* ddy, long long ddy_s,
-                                  const int* mat, long long mat_s, const float* rows,
-                                  long long row_s, long long n_rows, int L, const uint8_t* mq,
-                                  long long n_mq, int kind, const uint8_t* tail,
-                                  long long n_tail, int taps, int decode_srgb, int n_slots,
-                                  int slot_code, float* out, void* stream) {
-  material_sample_kernel<<<blocks(lanes), kThreads, 0, (cudaStream_t)stream>>>(
-      lanes, uv, uv_s, ddx, ddx_s, ddy, ddy_s, mat, mat_s, rows, row_s, n_rows, L, mq, n_mq, kind,
-      tail, n_tail, taps, decode_srgb, n_slots, slot_code, out);
+extern "C" int sc_material_sample(int n, const int* ids, long long lanes, const float* uv,
+                                  long long uv_s, const float* ddx, long long ddx_s,
+                                  const float* ddy, long long ddy_s, const int* mat,
+                                  long long mat_s, const float* rows, long long row_s,
+                                  long long n_rows, int L, const uint8_t* mq, long long n_mq,
+                                  int kind, const uint8_t* tail, long long n_tail, int taps,
+                                  int decode_srgb, int n_slots, int slot_code, float* out,
+                                  long long out_s, void* stream) {
+  if (n <= 0) return 0;
+  auto kernel = taps == 1 ? material_sample_kernel<1> : material_sample_kernel<0>;
+  kernel<<<blocks(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      n, ids, lanes, uv, uv_s, ddx, ddx_s, ddy, ddy_s, mat, mat_s, rows, row_s, n_rows, L, mq,
+      n_mq, kind, tail, n_tail, taps, decode_srgb, n_slots, slot_code, out, out_s);
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spill) bytes a thread, resident blocks an SM
+// and threads a block of kernel `which` (0: classic, 1: material; taps1:
+// the one-tap template, else the generic one) at the block its launch
+// takes for n_slots wanted slots, into info[0..3]; the result is a
+// cudaError_t.
+extern "C" int sc_sample_kernel_info(int which, int taps1, int n_slots, int* info) {
+  const void* classic = taps1 ? (const void*)classic_sample_kernel<1>
+                              : (const void*)classic_sample_kernel<0>;
+  const void* material = taps1 ? (const void*)material_sample_kernel<1>
+                               : (const void*)material_sample_kernel<0>;
+  const void* fn = which == 0 ? classic : material;
+  const int block = which == 0 ? kLanes * n_slots : kThreads;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, block, 0);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = resident;
+  info[3] = block;
+  return (int)err;
 }

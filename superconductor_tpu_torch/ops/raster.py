@@ -107,11 +107,12 @@ _SIGNATURES = {
     "sc_kbuffer_smem_bytes": ("kbuffer", [_I]),
     # ops/sample.py's material samplers (csrc/sample.cu)
     "sc_classic_sample": ("sample",
-                          [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _I, _I,
-                           _I, _I, _P, _P]),
+                          [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I,
+                           _I, _I, _I, _I, _P, _L, _P]),
     "sc_material_sample": ("sample",
-                           [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _P, _L,
-                            _I, _I, _I, _I, _P, _P]),
+                           [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I,
+                            _P, _L, _I, _I, _I, _I, _P, _L, _P]),
+    "sc_sample_kernel_info": ("sample", [_I, _I, _I, _P]),
     # ops/shade.py's g-buffer interpolation (csrc/gbuffer.cu)
     "sc_gbuffer": ("gbuffer",
                    [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _P, _L, _I, _P, _P, _P,

@@ -52,12 +52,6 @@ from ..ops.shade import (
     sample_spherical_harmonics,
     shade,
 )
-# The frame samples materials through ops.sample.sample_material and
-# ops.sample.sample_classic, looked up at each call (a swap of either takes
-# at every call site). These two names are what benchmark/controls.py's
-# bf16 control rounds; the frame does not call them.
-from ..ops.sample import classic_sample  # noqa: F401
-from ..ops.texture import sample_material_interleaved  # noqa: F401
 from ..ops.sky import sample_skybox, sample_skybox_at
 from ..ops.tonemap import to_u8, tonemap_and_encode
 
@@ -390,15 +384,30 @@ def _granule_count(mask: torch.Tensor, gr: int) -> torch.Tensor:
 def _partition_material_sample(g: GBuffer, scene: dict, config: RenderConfig,
                                aniso_taps: int, slots=None):
     """Material sampling on a PARTIAL interleaved pool, each lane on its
-    own material's path (reference render/frame.py:565). The lanes are
-    permuted (a sort of (incapable, lane) keys) so that matq-incapable
-    lanes form a tail segment of cap_c = max(1, min(matq_classic_cap,
-    lanes)) lanes, sampled by the classic per-slot sampler, while the head
-    samples the interleaved pool; the result is permuted back. Incapable
-    lanes beyond the tail spill into the head and read the count=0
-    sentinel row -- the grow signal. `slots`: the material slots to
-    return (None = all four). Returns (s (lanes, 4 * len(slots)),
-    classic_needed () i32)."""
+    own material's path (reference render/frame.py:565). In the order of
+    (incapable, lane) keys, the last cap_c = max(1, min(matq_classic_cap,
+    lanes)) lanes form the tail segment, sampled by the classic per-slot
+    sampler, and the others the head, which samples the interleaved pool.
+    Incapable lanes beyond the tail spill into the head and read the
+    count=0 sentinel row -- the grow signal; with fewer incapable lanes
+    than cap_c, the last capable lanes by id take the tail. `slots`: the
+    material slots to return (None = all four). Returns (s (lanes, 4 *
+    len(slots)), classic_needed () i32).
+
+    The reference sorts the keys, permutes the lanes' inputs into that
+    order, samples the two segments, concatenates them and permutes the
+    result back with a second sort: on the TPU a scatter costs about 80 ns
+    a row, so it scatters nothing. On the card a scatter of a row is as
+    cheap as a gather, so here each lane's place in that order comes from
+    an exclusive prefix count of the incapable lanes before it (a capable
+    or invalid lane at lane - before, an incapable one at the capable
+    count + before), one scatter lists the lanes in that order, and each
+    sampler reads its segment's lanes by id from the g-buffer and writes
+    each lane's result to the lane's own row of one result: no sort, no
+    permutation and no concatenation. The interleaved sampler is called
+    only for a head with lanes (n_h is known from shapes; the tail has
+    cap_c >= 1 lanes unless there are none at all), and each sampler's
+    result is the next one's `out`."""
     m = scene["materials"]
     lanes = g.material.shape[0]
     dev = g.material.device
@@ -406,31 +415,27 @@ def _partition_material_sample(g: GBuffer, scene: dict, config: RenderConfig,
     classic_lane = (~capable) & g.valid
     classic_needed = classic_lane.sum(dtype=torch.int32)
     cap_c = max(1, min(int(config.matq_classic_cap), lanes))
-
-    shift = max(int(lanes - 1).bit_length(), 1)
-    lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
-    keys = (classic_lane.to(torch.int32) << shift) | lane_ids
-    order = torch.sort(keys).values & ((1 << shift) - 1)
-
-    matf = g.material.to(torch.int32).contiguous().view(torch.float32)
-    inp = torch.cat([g.uv, g.duvdx, g.duvdy, matf[..., None]], dim=-1)[order.long()]
     want = tuple(range(4)) if slots is None else tuple(slots)
 
-    def seg_sample(seg, use_matq):
-        uv, dx, dy = seg[..., 0:2], seg[..., 2:4], seg[..., 4:6]
-        mat = seg.view(torch.int32)[..., 6]
-        if use_matq:
-            return sample_ops.sample_material(
-                scene["texels_mq"], m["mat_row_mq"], uv, dx, dy, aniso_taps, mat=mat,
-                slots=want, texels_tail=scene.get("texels_mq_tail"),
-            )
-        return sample_ops.sample_classic(texture_ops.ldr_pool(scene), m["mat_row"], mat, uv,
-                                         dx, dy, aniso_taps, slots=want)
+    lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
+    classic = classic_lane.to(torch.int32)
+    before = torch.cumsum(classic, 0, dtype=torch.int32) - classic
+    pos = torch.where(classic_lane, (lanes - classic_needed) + before, lane_ids - before)
+    order = torch.empty_like(lane_ids)
+    order[pos] = lane_ids
 
     n_h = lanes - cap_c
-    s_perm = torch.cat([seg_sample(inp[:n_h], True), seg_sample(inp[n_h:], False)])
-    inv = torch.argsort(order)
-    return s_perm[inv], classic_needed
+    s = torch.empty((lanes, 4 * len(want)), dtype=torch.float32, device=dev)
+    if n_h > 0:
+        s = sample_ops.sample_material(
+            scene["texels_mq"], m["mat_row_mq"], g.uv, g.duvdx, g.duvdy, aniso_taps,
+            mat=g.material, slots=want, texels_tail=scene.get("texels_mq_tail"),
+            lane_ids=order[:n_h], out=s,
+        )
+    s = sample_ops.sample_classic(texture_ops.ldr_pool(scene), m["mat_row"], g.material, g.uv,
+                                  g.duvdx, g.duvdy, aniso_taps, slots=want,
+                                  lane_ids=order[n_h:], out=s)
+    return s, classic_needed
 
 
 def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):

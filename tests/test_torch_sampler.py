@@ -112,6 +112,20 @@ def _meta(args: dict) -> dict:
     return {k: v.to("meta") if isinstance(v, torch.Tensor) else v for k, v in args.items()}
 
 
+def _segment_fault(ids_dtype=torch.int32, out_cols=0, out_dtype=torch.float32):
+    """args with a (7,) lane_ids and an out of the wrong kind (meta)."""
+    def fault(a):
+        lanes, cols = a["uv"].shape[0], 4 * len(a["slots"])
+        return dict(a, lane_ids=torch.zeros(7, dtype=ids_dtype, device="meta"),
+                    out=torch.zeros((lanes, cols + out_cols), dtype=out_dtype, device="meta"))
+    return fault
+
+
+SEGMENT_FAULTS = {
+    "lane_ids-dtype": _segment_fault(ids_dtype=torch.int64),
+    "out-columns": _segment_fault(out_cols=4),
+    "out-dtype": _segment_fault(out_dtype=torch.float16),
+}
 CLASSIC_FAULTS = {
     "pool-width": lambda a: dict(a, pool=torch.zeros((8, 8), dtype=torch.uint8, device="meta")),
     "pool-dtype": lambda a: dict(a, pool=a["pool"].to(torch.int32)),
@@ -121,6 +135,7 @@ CLASSIC_FAULTS = {
     "mat_row-width": lambda a: dict(a, mat_row=a["mat_row"][:, :50]),
     "slots": lambda a: dict(a, slots=(0, 0)),
     "cpu-mat_row": lambda a: dict(a, mat_row=torch.zeros(a["mat_row"].shape)),
+    **SEGMENT_FAULTS,
 }
 MATERIAL_FAULTS = {
     "pool-width": lambda a: dict(a, texels_mq=torch.zeros((8, 48), dtype=torch.uint8,
@@ -130,6 +145,7 @@ MATERIAL_FAULTS = {
     "rows-width": lambda a: dict(a, rows=a["rows"][:, :25]),
     "rows-a-lane-count": lambda a: dict(a, mat=None),
     "slots": lambda a: dict(a, slots=(4,)),
+    **SEGMENT_FAULTS,
 }
 
 

@@ -12,7 +12,13 @@ scenes built by the port's host layer (scene_to_torch), and lanes whose uv
 reach outside [0, 1] (negative texel coordinates), whose footprints run
 from far below a texel (lod clamped to 0) to past the end of every chain,
 and whose material ids include negative ones (torch's indexing counts them
-from the end)."""
+from the end).
+
+Each case also runs on a segment of its lanes (segment_args): an ascending
+random subset of SEGMENT lanes (a multiple of none of 4, 32 and 256) read
+in place by lane_ids and written to their own rows of an `out` whose other
+rows hold a sentinel NaN pattern, as the material partition calls both
+samplers."""
 
 import functools
 
@@ -150,6 +156,41 @@ def material_args(case: str, device="cpu"):
     return args
 
 
+SEGMENT = 1237  # lanes of a segment: not a multiple of 4, 32 or 256
+SENTINEL = 0x7FBADBAD  # a NaN pattern no sampler writes
+
+
+def segment_args(args: dict, seed: int) -> dict:
+    """args with lane_ids (an ascending random subset of SEGMENT lanes,
+    int32) and out (P, 4 * len(slots)) f32 filled with SENTINEL's bits."""
+    lanes = args["uv"].shape[0]
+    dev = args["uv"].device
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice(lanes, SEGMENT, replace=False)).astype(np.int32)
+    out = torch.full((lanes, 4 * len(args["slots"])), SENTINEL, dtype=torch.int32, device=dev)
+    return dict(args, lane_ids=torch.from_numpy(ids).to(dev), out=out.view(torch.float32))
+
+
+def gathered_args(args: dict) -> dict:
+    """The dense call on the lanes of segment_args(args): each per-lane
+    input (and a row-a-lane table) at lane_ids, no lane_ids nor out."""
+    idx = args["lane_ids"].long()
+    per_lane = ["uv", "duvdx", "duvdy", "mat"] + (["rows"] if args["mat"] is None else [])
+    return {k: (v[idx] if k in per_lane and v is not None else v)
+            for k, v in args.items() if k not in ("lane_ids", "out")}
+
+
+def check_segment(out: torch.Tensor, args: dict, want: torch.Tensor) -> None:
+    """out is args' out, its rows at lane_ids bit for bit want (the dense
+    result on the gathered lanes) and every other row still SENTINEL."""
+    assert out is args["out"]
+    idx = args["lane_ids"].long()
+    _bit_equal(out[idx], want)
+    others = torch.ones(out.shape[0], dtype=torch.bool, device=out.device)
+    others[idx] = False
+    assert bool((out.view(torch.int32)[others] == SENTINEL).all()), "rows outside the segment"
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (csrc/sample.cu has no CPU mode)")
@@ -186,3 +227,31 @@ def test_material_kernel_equals_plain_on_card(case):
     torch.cuda.synchronize()
     assert port_sample.sample_material.LAUNCHES == before + 1
     _bit_equal(out, port_sample.sample_material_plain(**args))
+
+
+SEGMENT_CASES = ([("classic", c) for c in sorted(CLASSIC_CASES)]
+                 + [("material", c) for c in sorted(MATERIAL_CASES)])
+
+
+def kernel_case(kernel: str, case: str, device="cpu") -> tuple:
+    """(wrapper, plain version, segment_args of the case's arguments)."""
+    make = classic_args if kernel == "classic" else material_args
+    return (getattr(port_sample, f"sample_{kernel}"),
+            getattr(port_sample, f"sample_{kernel}_plain"),
+            segment_args(make(case, device), seed=len(case)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,case", SEGMENT_CASES)
+def test_kernel_on_a_segment_equals_plain_on_card(kernel, case):
+    """lane_ids / out: the kernel writes the segment's rows bit for bit as
+    the plain version, leaves the others, and launches once."""
+    wrapper, plain, args = kernel_case(kernel, case, _card())
+    before = wrapper.LAUNCHES
+    out = wrapper(**args)
+    torch.cuda.synchronize()
+    assert wrapper.LAUNCHES == before + 1
+    check_segment(out, args, plain(**gathered_args(args)))
+    again = segment_args(args, seed=len(case))
+    assert plain(**again) is again["out"]
+    _bit_equal(out, again["out"])
