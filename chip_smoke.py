@@ -220,7 +220,11 @@ through the ECS) -- and checks them:
     index_select of the rows it reads (the shade rows, the cube quads); the
     graph frames' twins with every plain version and with these two
     kernels' plain versions; a replay's tally; then its own main-path run,
-    each launch counted at its site;
+    each launch counted at its site; then [sky]: of the sky kernel's
+    template each site launches, its registers and spills (ptxas), its
+    static SASS instructions (cuobjdump -sass) and the time they would take
+    at the site's pixels if a thread ran each once (an estimate, not a
+    bound), beside its time and bytes bound;
 17. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
@@ -1797,13 +1801,121 @@ DEFERRED_PHASE = HandPhase("deferred", DEFERRED, deferred_lanes, deferred_site, 
                            deferred_bound, deferred_rows, ("shade", "sky"))
 
 
+SM_LANES = 128  # thread instructions an SM starts a clock: 4 schedulers of a warp each
+
+
+def ptxas_resources(log: str) -> dict:
+    """{entry function (mangled): (registers, stack bytes, spill store
+    bytes, spill load bytes)} from an nvcc -Xptxas -v log."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + frame
+    return out
+
+
+def sass_counts(library: str) -> dict:
+    """{function (mangled): Counter of its static SASS instructions by
+    opcode (the mnemonic before its first '.'), NOPs not counted} of a
+    built kernel library (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return count_sass(subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                                     timeout=300, check=True).stdout)
+
+
+def count_sass(text: str) -> dict:
+    """sass_counts of cuobjdump -sass's output `text`."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name and m.group(1) != "NOP":
+            out[name][m.group(1)] += 1
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The card's top SM clock (MHz), as nvidia-smi gives it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sky_variant(name: str, args: dict) -> tuple:
+    """(csrc/sky.cu sky_kernel's template arguments, its mangled name's
+    fragment) of a recorded sky call."""
+    from superconductor_tpu_torch.ops import sky as sky_mod
+
+    variant = sky_mod.kernel_variant(args["scene"], args["env"], name == "sample_skybox",
+                                     args["inline_tonemapping"], args["inline_srgb"])
+    return variant, "10sky_kernelI" + "".join(f"Li{v}E" for v in variant) + "EE"
+
+
+def sky_kernel_stats(smi: str, log: str, sites: dict) -> None:
+    """Phase [sky]: of the sky_kernel function each site launches
+    (`sites`: compare_calls' results of the sky's sites, each with its
+    first call): its registers, stack and spills (ptxas, `log`), its static
+    SASS instructions (sass_counts; the most frequent opcodes after them)
+    and the static-count estimate they give at the site: instructions x
+    threads / (SMs x SM_LANES x the top SM clock), beside the kernel's time
+    and its bytes bound. The static count holds every path of the function
+    (vector and scalar loads, the 64-bit division, the slow paths of powf
+    and the divisions), of which a thread runs some once and some not at
+    all, and a thread computes ops/sky.py pixels_a_thread() pixels
+    (lanes): the estimate is neither a floor nor a bound."""
+    from superconductor_tpu_torch.ops import sky as sky_mod
+    from superconductor_tpu_torch.ops.raster import KERNELS
+
+    ptxas = ptxas_resources(log)
+    sass = sass_counts(KERNELS["sky"][1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_mhz()
+    per_thread = sky_mod.pixels_a_thread()
+    for site, r in sites.items():
+        name, args = r["call"]
+        variant, fragment = sky_variant(name, args)
+        fns = [fn for fn in sass if fragment in fn]
+        if len(fns) != 1:
+            raise RuntimeError(f"{site}: {len(fns)} functions of the sky library match "
+                               f"{fragment}")
+        fn = fns[0]
+        if variant[0]:  # the band: a thread per_thread columns of a row
+            threads = -(-args["width"] // per_thread) * args["height"]
+        else:
+            threads = -(-r["lanes"] // per_thread)
+        n = sum(sass[fn].values())
+        estimate_ms = n * threads / (sms * SM_LANES * clock * 1e6) * 1e3
+        ops = ", ".join(f"{op} {k}" for op, k in sass[fn].most_common(10))
+        phase("sky", f"{site}: sky_kernel<{', '.join(map(str, variant))}>: registers, stack, "
+              f"spill stores, spill loads {ptxas.get(fn)}; {n} static SASS instructions a "
+              f"thread of {per_thread} px ({ops}), {threads} threads: static-count estimate "
+              f"{estimate_ms:.4f} ms ({sms} SMs x {SM_LANES} at {clock:.0f} MHz; not a bound); "
+              f"kernel {r['ms']:.4f} ms, bytes bound {r['bound_ms']:.4f} ms; {smi}")
+
+
 def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None:
     """Each recorded call's kernel against its plain version on the same
     inputs, bit for bit (f32 results by their int32 views); the first call
     of each site and shape timed (device ms of the kernel and of the plain
     version, bench_raster.graph_ms), with its bound and share and the
     yardstick of one index_select of the rows the call reads, into
-    results[site]. Raises at the first call that differs."""
+    results[site], and kept there as "call": (wrapper name, arguments).
+    Raises at the first call that differs."""
     from superconductor_tpu_torch.bench_raster import graph_ms
 
     bindings = kernel_bindings(hp.kernels)
@@ -1828,6 +1940,7 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
         entry["calls"] += 1
         if "ms" in entry:
             continue
+        entry["call"] = (name, args)
         entry["bound_ms"], entry["bound_by"] = hp.bound(name, args, fetched)
         entry["ms"] = graph_ms(lambda: wrapper(**args))
         entry["plain_ms"] = graph_ms(lambda: plain(**args), launches=5, runs=10)
@@ -3194,6 +3307,8 @@ def main() -> int:
     sampler_registers(smi)
     sampler = hand_path(SAMPLER_PHASE, smi, graph_frames)
     deferred = hand_path(DEFERRED_PHASE, smi, graph_frames)
+    sky_kernel_stats(smi, build["sky"]["log"],
+                     {site: r for site, r in deferred["sites"].items() if r["kernel"] == "sky"})
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:

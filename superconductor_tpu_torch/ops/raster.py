@@ -119,8 +119,9 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     # ops/sky.py's skybox (csrc/sky.cu)
     "sc_sky": ("sky",
-               [_I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _P, _L, _P, _L, _I, _I, _P, _P, _F, _F,
-                _F, _I, _I, _P, _P]),
+               [_I, _I, _I, _I, _F, _F, ctypes.c_uint, _I, _P, _L, _I, _P, _L, _L, _P, _L, _P,
+                _L, _I, _P, _P, _F, _F, _F, _I, _P, _P]),
+    "sc_sky_pixels_a_thread": ("sky", []),
 }
 _libs: dict = {}
 _tallies: list = []  # the tallies of the captures under way, innermost last

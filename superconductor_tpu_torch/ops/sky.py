@@ -154,22 +154,59 @@ sample_skybox_at.LAUNCHES = 0
 _SKYBOX_AT_COUNTER = sample_skybox_at
 
 
+def kernel_variant(scene, env, band, inline_tonemapping, inline_srgb) -> tuple:
+    """csrc/sky.cu sky_kernel's template arguments for a launch: (band,
+    texel type (_TEXEL_TYPES; 3 without a cubemap), quad-packed pool, static
+    placement, aces, srgb); without a cubemap the pool's two are 0."""
+    texel, quad, static = 3, 0, 0
+    if env.ibl_cubemap_base >= 0:
+        pool = hdr_pool(scene)
+        texel, quad = _TEXEL_TYPES[pool.dtype], int(pool.shape[1] == 16)
+        static = int(getattr(env, "ibl_cubemap_static", None) is not None)
+    return (int(bool(band)), texel, quad, static, int(bool(inline_tonemapping)),
+            int(bool(inline_srgb)))
+
+
+def pixels_a_thread() -> int:
+    """The pixels (worklist lanes) a thread of the built csrc/sky.cu
+    kernel computes (its kPx)."""
+    return int(_kernel_fn("sc_sky_pixels_a_thread")())
+
+
+def _variant_code(variant: tuple) -> int:
+    """csrc/sky.cu launch's code of a kernel_variant."""
+    band, texel, quad, static, aces, srgb = variant
+    return band << 6 | texel << 4 | quad << 3 | static << 2 | aces << 1 | srgb
+
+
+def fast_divisor(d: int) -> tuple:
+    """(multiplier, shift) for the kernel's division of 0 <= n < 2 ** 31 by
+    d >= 1: n // d == (n * multiplier >> 32) >> shift, with multiplier 0
+    meaning d == 1 (CUTLASS's FastDivmod: multiplier ceil(2 ** (31 + l) /
+    d), shift l - 1, l = ceil(log2 d))."""
+    if d == 1:
+        return 0, 0
+    log2 = (d - 1).bit_length()
+    return ((1 << (31 + log2)) + d - 1) // d, log2 - 1
+
+
 def _sky_launch(scene, env, lanes, width, idx, projection_inverse, view_quat,
                 inline_tonemapping, inline_srgb, y_offset, full_height, counter):
     """Check the inputs of csrc/sky.cu's kernel, allocate its (lanes, 3)
     result and launch it on the current stream (idx None: the band's pixels
-    in order); counts the launch in counter.LAUNCHES."""
+    in order, lanes // width rows); counts the launch in counter.LAUNCHES."""
     dev = projection_inverse.device
     for name, t, shape in (("projection_inverse", projection_inverse, (4, 4)),
                            ("view_quat", view_quat, (4,))):
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"sky: {name} must be {shape} float32 on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if int(width) <= 0 or int(full_height) <= 0:
+    width, full_height = int(width), int(full_height)
+    if width <= 0 or full_height <= 0:
         raise ValueError(f"sky: width {width} and full_height {full_height} must be positive")
     if lanes >= 2 ** 31:
         raise ValueError(f"sky: {lanes} pixels")
-    pool, faces, face_table, texel = None, [0] * 24, None, 0
+    pool, faces, face_table = None, [0] * 24, None
     if env.ibl_cubemap_base >= 0:
         pool = hdr_pool(scene)
         if pool.device != dev or pool.dtype not in _TEXEL_TYPES or pool.dim() != 2 \
@@ -178,7 +215,6 @@ def _sky_launch(scene, env, lanes, width, idx, projection_inverse, view_quat,
             raise ValueError(f"sky: the HDR pool must be a contiguous, non-empty (N, 4) or "
                              f"(N, 16) u8, f16 or f32 pool on {dev}, got {pool.dtype} "
                              f"{tuple(pool.shape)} on {pool.device}")
-        texel = _TEXEL_TYPES[pool.dtype]
         static = getattr(env, "ibl_cubemap_static", None)
         if static is not None:
             offs, w, h = static
@@ -187,21 +223,27 @@ def _sky_launch(scene, env, lanes, width, idx, projection_inverse, view_quat,
             face_table = descriptor_faces(scene["tex_hdr"], env.ibl_cubemap_base, dev)
     if dev.type != "cuda":
         raise ValueError(f"sky: the kernel runs on CUDA tensors, not {dev}")
+    variant = kernel_variant(scene, env, idx is None, inline_tonemapping, inline_srgb)
     clear = torch.tensor(env.clear_color, dtype=torch.float32).tolist()
     out = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
     if lanes:
         host_faces = (ctypes.c_int * 24)(*faces)
+        div_mul, div_shift = fast_divisor(width)
         with torch.cuda.device(dev):
             err = _kernel_fn("sc_sky")(
-                lanes, int(width), int(y_offset), int(full_height),
+                lanes, width, lanes // width, int(y_offset),
+                # x / width and y / full_height: products with the reciprocals
+                # taken in double, rounded once to f32 (ctypes' c_float)
+                1.0 / width, 1.0 / full_height, div_mul, div_shift,
                 None if idx is None else idx.data_ptr(), 0 if idx is None else idx.stride(0),
                 int(idx is not None and idx.dtype == torch.int64),
                 projection_inverse.data_ptr(), projection_inverse.stride(0),
                 projection_inverse.stride(1), view_quat.data_ptr(), view_quat.stride(0),
                 None if pool is None else pool.data_ptr(), 0 if pool is None else pool.shape[0],
-                texel, int(pool is not None and pool.shape[1] == 16), ctypes.addressof(host_faces),
+                int(pool is not None and pool.data_ptr() % 16 == 0),
+                ctypes.addressof(host_faces),
                 None if face_table is None else face_table.data_ptr(), *clear,
-                int(bool(inline_tonemapping)), int(bool(inline_srgb)), out.data_ptr(),
+                _variant_code(variant), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err != 0:

@@ -10,10 +10,12 @@ rebinding any of them changes frame_graph's key and sends the frame eager;
 the plain-versions twin (bench.plain_versions) swaps all three; off the
 CPU a wrapper raises on any input its kernel does not take, and on any
 device but CUDA, rather than run a plain path; a CPU call counts no
-launch."""
+launch. The sky kernel's host-side pieces: the divisor its worklist
+divides by, and the template a launch picks."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +27,7 @@ from superconductor_tpu_torch.render import frame_graph
 from superconductor_tpu_torch.render.caps import fit_caps
 from superconductor_tpu_torch.render.frame import render_frame_impl
 from superconductor_tpu_torch.scenes import headline_scene
-from test_torch_deferred_card import gbuffer_args, sky_args
+from test_torch_deferred_card import SKY_CASES, gbuffer_args, sky_args
 
 torch.set_num_threads(2)
 
@@ -157,3 +159,47 @@ def test_sky_wrappers_raise_off_the_cpu(fault):
     with pytest.raises((ValueError, TypeError),
                        match="CUDA tensors" if fault.startswith(("none", "at-none")) else None):
         getattr(port_sky, name)(**args)
+
+
+def _kernel_floor_div(i: int, d: int) -> tuple:
+    """(row, col) of int32 i by width d as csrc/sky.cu floor_div32 and
+    index_coords32 compute them from ops/sky.py fast_divisor's pair (32-bit
+    unsigned arithmetic)."""
+    mul, shift = port_sky.fast_divisor(d)
+    s = -1 if i < 0 else 0
+    n = (i ^ s) & 0xFFFFFFFF
+    q = ((n * mul) >> 32) >> shift if mul else n
+    row = q ^ s
+    col = (i - row * d) & 0xFFFFFFFF
+    return row, col - (1 << 32) if col >= 1 << 31 else col
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 61, 64, 1920, 65537, 2 ** 30 + 1, 2 ** 31 - 1])
+def test_fast_divisor_floor_divides(width):
+    """The kernel's worklist division: the floor quotient and modulo of
+    every int32 index, negative ones and INT32_MIN among them, by the
+    band's width (torch.div(rounding_mode="floor") and torch.remainder)."""
+    mul, shift = port_sky.fast_divisor(width)
+    assert 0 <= mul < 2 ** 32 and 0 <= shift < 32
+    rng = np.random.default_rng(width % 1000)
+    near = [k * width + e for k in (0, 1, 2, 7, -1, -2, -7) for e in (-1, 0, 1)]
+    values = near + [0, 1, -1, 2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1, 2 ** 31 - 2] + \
+        rng.integers(-2 ** 31, 2 ** 31, size=2000).tolist()
+    for i in values:
+        if -2 ** 31 <= i < 2 ** 31:
+            assert _kernel_floor_div(i, width) == (i // width, i % width), i
+
+
+@pytest.mark.parametrize("case", sorted(SKY_CASES))
+def test_kernel_variant_names_the_launch(case):
+    """The template the wrapper launches: band or worklist, the pool's
+    texel type and layout (the clear colour without a cubemap), the
+    placement and the two inline flags."""
+    pool, texel, placement, _camera, (tm, srgb), _band, idx_dtype = SKY_CASES[case]
+    name, args = sky_args(case)
+    want = (int(idx_dtype is None), {"u8": 0, "f16": 1, "f32": 2}[texel], int(pool == "quad"),
+            int(placement == "static"), int(tm), int(srgb))
+    if placement == "clear":
+        want = want[:1] + (3, 0, 0) + want[4:]
+    got = port_sky.kernel_variant(args["scene"], args["env"], name == "sample_skybox", tm, srgb)
+    assert got == want

@@ -17,10 +17,17 @@ versions to the JAX package on the CPU:
 * sky: a 6-face cubemap in f16, f32 and u8 pools, quad-packed and flat,
   at the static placement and through the descriptor tables (faces of
   unequal sizes, REPEAT and CLAMP); a band with y_offset > 0 of a taller
-  image, both inline flags, the sky worklist at int32 and int64 indices
-  (the band's last pixel among them), the clear colour; and a camera whose
-  rays pass exactly through the cube's edges and corners (|x| = |y| = |z|),
-  so that the face choice and CLAMP at texels 0 and w - 1 are exercised.
+  image, a band 61 pixels wide (not a multiple of the kernel's 2 pixels a
+  thread, its rows' starts not 8-B aligned), a one-row band at a large
+  y_offset, both inline flags, the sky worklist at int32 and int64 indices
+  (the band's last pixel among them), a worklist of an odd length ending
+  in dead lanes (the sentinel clamped to the band's
+  last pixel, as render/frame.py _Worklist.lane_safe gives them), the clear
+  colour; and a camera whose rays pass exactly through the cube's edges
+  and corners (|x| = |y| = |z|), so that the face choice and CLAMP at
+  texels 0 and w - 1 are exercised. On the card only: worklist indices
+  far outside the band (negative, beyond 2 ** 31), strided and unaligned
+  index tensors, and pools whose base is not 16-B aligned.
 """
 
 import functools
@@ -131,9 +138,11 @@ def gbuffer_args(case: str, device="cpu") -> dict:
 
 SKY_W, SKY_H = 64, 32
 FACE = 8  # the static cube's face size
+DEAD_LANES = 6  # a "-dead" worklist's dead lanes
 # name -> (pool "quad" | "flat", texel dtype, placement "static" | "desc" |
 # "clear", camera "random" | "edges", inline (tonemapping, srgb), band
-# (height, y_offset, full_height) or None for the worklist, idx dtype)
+# (height, y_offset, full_height) or None, idx dtype "i32" | "i64" (the
+# worklist; "-dead": ending in DEAD_LANES dead lanes) or None (the band))
 SKY_CASES = {
     "static-quad-f16": ("quad", "f16", "static", "random", (True, True), None, None),
     "static-quad-f32-band": ("quad", "f32", "static", "random", (True, False), (16, 8, 32),
@@ -151,7 +160,14 @@ SKY_CASES = {
     "desc-flat-u8-at-i32": ("flat", "u8", "desc", "random", (True, True), (16, 8, 32), "i32"),
     "clear": ("quad", "f16", "clear", "random", (True, True), None, None),
     "clear-raw-at-i64": ("quad", "f16", "clear", "random", (False, False), (16, 8, 32), "i64"),
+    "static-quad-f16-band-w61": ("quad", "f16", "static", "random", (True, True), (16, 8, 32),
+                                 None),
+    "desc-quad-f32-row": ("quad", "f32", "desc", "random", (True, False), (1, 1000, 1080), None),
+    "static-flat-f16-at-i32-dead": ("flat", "f16", "static", "random", (False, True),
+                                    (16, 8, 32), "i32-dead"),
 }
+# the cases' band widths other than SKY_W
+SKY_WIDTHS = {"static-quad-f16-band-w61": 61}
 _DTYPES = {"f16": np.float16, "f32": np.float32, "u8": np.uint8}
 BASE = 2  # the cubemap's first texture id (two textures before it)
 # descriptor placement: faces of unequal sizes (w, h), wrap, and mip count
@@ -231,16 +247,19 @@ def sky_args(case: str, device="cpu", env_cls=EnvBindings) -> tuple:
                   ibl_cubemap_static=static, clear_color=(0.25, 0.5, 1.75))
     m, q = sky_camera(camera)
     height, y_offset, full_height = band or (SKY_H, 0, SKY_H)
-    kw = dict(scene=scene, env=env, width=SKY_W, projection_inverse=torch.from_numpy(m).to(device),
+    width = SKY_WIDTHS.get(case, SKY_W)
+    kw = dict(scene=scene, env=env, width=width, projection_inverse=torch.from_numpy(m).to(device),
               view_quat=torch.from_numpy(q).to(device), inline_tonemapping=tm,
               inline_srgb=srgb, y_offset=y_offset, full_height=full_height)
     if idx_dtype is None:
         return "sample_skybox", dict(kw, height=height)
     rng = np.random.default_rng(12)
-    npx = height * SKY_W
+    npx = height * width
     idx = np.sort(rng.choice(npx, size=npx // 3, replace=False))
     idx[-1] = npx - 1  # the band's last pixel
-    dtype = torch.int32 if idx_dtype == "i32" else torch.int64
+    if idx_dtype.endswith("-dead"):  # dead lanes: the sentinel npx clamped to npx - 1
+        idx = np.concatenate([idx, np.full(DEAD_LANES, npx - 1, idx.dtype)])
+    dtype = {"i32": torch.int32, "i64": torch.int64}[idx_dtype.removesuffix("-dead")]
     return "sample_skybox_at", dict(kw, idx=torch.from_numpy(idx).to(dtype).to(device))
 
 
@@ -287,6 +306,67 @@ def test_sky_kernel_equals_plain_on_card(case):
     out = wrapper(**args)
     torch.cuda.synchronize()
     assert wrapper.LAUNCHES == before + 1
+    _bit_equal(case, out, getattr(port_sky, name + "_plain")(**args))
+
+
+# Worklist index tensors the frame never makes, each against the plain
+# version on the card: indices far outside the band (negative, INT32_MIN,
+# and for int64 beyond 2 ** 31, which take the kernel's 64-bit division),
+# a strided index view and views whose start is not aligned to the
+# kernel's index loads (scalar loads)
+_FAR = [-1, -63, -64, -65, -2 ** 31, -2 ** 31 + 1, 2 ** 31 - 1, 0, 63, 64, 1000, 2047]
+SKY_INDEX_LAYOUTS = {
+    "i32-far": (torch.int32, _FAR),
+    "i64-far": (torch.int64, _FAR + [-2 ** 31 - 1, 2 ** 31, 2 ** 31 + 5, -2 ** 40,
+                                     2 ** 40 + 3, 2 ** 62, -2 ** 62]),
+    "i32-strided": (torch.int32, None),
+    "i32-unaligned": (torch.int32, None),
+    "i64-unaligned": (torch.int64, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SKY_INDEX_LAYOUTS))
+def test_sky_worklist_index_layouts_on_card(layout):
+    dev = _card()
+    name, args = sky_args("static-quad-f32-at-i64", dev)
+    dtype, values = SKY_INDEX_LAYOUTS[layout]
+    if values is not None:
+        idx = torch.tensor(values + list(range(100, 117)), dtype=dtype, device=dev)
+    elif layout == "i32-strided":
+        idx = torch.arange(0, 2 * 301, dtype=dtype, device=dev)[::2]
+    else:
+        idx = torch.arange(0, 302, dtype=dtype, device=dev)[1:]
+    args = dict(args, idx=idx)
+    out = port_sky.sample_skybox_at(**args)
+    torch.cuda.synchronize()
+    _bit_equal(layout, out, port_sky.sample_skybox_at_plain(**args))
+
+
+def _unaligned(pool: torch.Tensor) -> torch.Tensor:
+    """pool's values in a contiguous tensor whose base is one element past
+    a 16-B boundary."""
+    buf = torch.empty(pool.numel() + 1, dtype=pool.dtype, device=pool.device)
+    out = buf[1:].view(pool.shape)
+    out.copy_(pool)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["static-quad-f16", "static-quad-u8", "static-flat-f32",
+                                  "desc-flat-u8-at-i32", "static-flat-f16-at-i32-dead"])
+def test_sky_unaligned_pool_on_card(case):
+    """A pool whose base is not 16-B aligned takes the kernel's scalar texel
+    loads, with the same bits."""
+    dev = _card()
+    name, args = sky_args(case, dev)
+    scene = dict(args["scene"])
+    key = "texels_hdr_q" if "texels_hdr_q" in scene else "texels_hdr"
+    scene[key] = _unaligned(scene[key])
+    args = dict(args, scene=scene)
+    out = getattr(port_sky, name)(**args)
+    torch.cuda.synchronize()
     _bit_equal(case, out, getattr(port_sky, name + "_plain")(**args))
 
 

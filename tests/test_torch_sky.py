@@ -3,10 +3,12 @@ sample_skybox and sample_skybox_at (the wrappers of csrc/sky.cu's kernel,
 which take their plain versions for CPU tensors) against
 superconductor_tpu/ops/sky.py's on the same seeded numpy inputs at 64x32
 (tests/test_torch_deferred_card.py SKY_CASES): a band with y_offset > 0 of
-a taller image, both inline flags, the static placement with f16, f32 and
+a taller image, a band 61 pixels wide, a one-row band at a large
+y_offset, both inline flags, the static placement with f16, f32 and
 u8 pools, quad-packed and flat, the descriptor placement (faces of unequal
-sizes, REPEAT and CLAMP), the worklist at int32 and int64 indices, the
-clear colour, and rays exactly through the cube's edges and corners.
+sizes, REPEAT and CLAMP), the worklist at int32 and int64 indices (one
+ending in dead lanes), the clear colour, and rays exactly through the
+cube's edges and corners.
 
 Tolerance: bit for bit without the sRGB encode (measured: every case
 equal). With it, `** (1 / 2.2)` is XLA's CPU pow on one side and torch's
@@ -32,7 +34,8 @@ from superconductor_tpu.ops.geometry import TriangleSetup as RefSetup
 from superconductor_tpu.render.env import EnvBindings as RefEnv
 from superconductor_tpu_torch.ops import shade as port_shade
 from superconductor_tpu_torch.ops import sky as port_sky
-from test_torch_deferred_card import GBUFFER_CASES, SKY_CASES, gbuffer_args, sky_args
+from test_torch_deferred_card import (GBUFFER_CASES, SKY_CASES, SKY_WIDTHS, gbuffer_args,
+                                      sky_args)
 
 torch.set_num_threads(2)
 
@@ -70,8 +73,16 @@ def test_sky_cases_cover_the_inputs():
     assert {c[2] for c in cases} == {"static", "desc", "clear"}
     assert {c[4] for c in cases} >= {(True, True), (False, False), (True, False), (False, True)}
     assert any(c[5] is not None and c[5][1] > 0 and c[6] is None for c in cases)
-    assert {c[6] for c in cases} == {None, "i32", "i64"}
+    assert {c[6] for c in cases} == {None, "i32", "i64", "i32-dead"}
     assert {c[3] for c in cases} == {"random", "edges"}
+    # a band of an odd width (not a multiple of the kernel's 2 pixels a
+    # thread, nor of 4), a one-row band at a large y_offset, a worklist of
+    # an odd length that ends in dead lanes
+    assert any(SKY_CASES[c][6] is None and w % 2 for c, w in SKY_WIDTHS.items())
+    assert any(c[5] is not None and c[5][0] == 1 and c[5][1] >= 1000 and c[6] is None
+               for c in cases)
+    dead = [c for c, v in SKY_CASES.items() if (v[6] or "").endswith("-dead")]
+    assert dead and all(sky_args(c)[1]["idx"].shape[0] % 2 for c in dead)
 
 
 @pytest.mark.parametrize("case", GBUFFER_CASES)
