@@ -14,8 +14,8 @@ through the ECS) -- and checks them:
 
 1. device: nvidia-smi name and power limit, torch's device name;
 2. build: compiles csrc/raster.cu, csrc/kbuffer.cu, csrc/sample.cu,
-   csrc/gbuffer.cu and csrc/sky.cu (nvcc, sm_90a, one process each, at
-   once) and prints the seconds, the compiler's
+   csrc/gbuffer.cu, csrc/sky.cu and csrc/shade.cu (nvcc, sm_90a, one
+   process each, at once) and prints the seconds, the compiler's
    registers, shared memory and spills of every kernel variant, and the
    k-buffer kernel's dynamic shared memory per template K;
 3. raster kernel against its plain torch version on the card, which must
@@ -185,7 +185,7 @@ through the ECS) -- and checks them:
     torch.cuda.set_sync_debug_mode("error"); the launch counters' delta per
     replay equal to an eager frame's and to the hand kernels' events in a
     profiled replay (the raster, the k-buffer, both material samplers, the
-    g-buffer and the sky);
+    g-buffer, the sky and the shade);
     eager and graph frame times (CUDA events over 10 frames; stereo also
     with its state and FK built each frame) beside nvidia-smi's name and
     power limit, and the launches of the timed replays;
@@ -225,7 +225,17 @@ through the ECS) -- and checks them:
     static SASS instructions (cuobjdump -sass) and the time they would take
     at the site's pixels if a thread ran each once (an estimate, not a
     bound), beside its time and bytes bound;
-17. neither jax nor the JAX package (superconductor_tpu) was imported.
+17. shade (the deferred shade, csrc/shade.cu): as 15 for every shade call
+    of one eager headline, all-passes, stereo and lit frame (the lit one
+    with the light volume's and the lightmaps' per-lane SH), each held bit
+    for bit against shade_plain (rgb and alpha); each site timed as the
+    kernel's launch (shade_lanes) and the torch chain it replaces
+    (shade_lanes_plain) on the call's sampled inputs, with its bound
+    (shade_bound) and the time of one index_select of the material rows
+    its lanes read; the graph frames' twins with every plain version and
+    with shade_plain alone; a replay's tally; its own main-path run, each
+    launch counted at its site;
+18. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
 lines are the kernel table and the device record, each one JSON object.
@@ -240,12 +250,13 @@ particle pass at K = 64, the deep kernel (launches in that frame's timed
 run); then the two material samplers at their largest call (launches over
 the sampler phase's main-path run and the graph phase's timed replays) and
 at each site and shape of the headline, all-passes and stereo frames
-(the launches counted at that site in the main-path run), and the
-g-buffer and sky kernels the same way (the deferred phase's main-path run).
-A sampler, the g-buffer and the sky replace no TPU kernel: their
+(the launches counted at that site in the main-path run), the
+g-buffer and sky kernels the same way (the deferred phase's main-path run),
+and the shade kernel (the shade phase's main-path run, with the lit frame).
+A sampler, the g-buffer, the sky and the shade replace no TPU kernel: their
 "replaces" names the JAX package's XLA functions, and their library_ms is
-null (no one PyTorch call computes them). Their bounds are sampler_bound's
-and deferred_bound's.
+null (no one PyTorch call computes them). Their bounds are sampler_bound's,
+deferred_bound's and shade_bound's.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
 operations for the three edge functions of a setup row at each pixel of
@@ -270,7 +281,7 @@ import sys
 import tempfile
 import time
 from dataclasses import replace
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -318,6 +329,9 @@ KERNEL_SOURCES = {
     "sky": ("superconductor_tpu_torch/csrc/sky.cu",
             "none (XLA: superconductor_tpu/ops/sky.py:56 shade_sky_rays, :76 sample_skybox, "
             ":94 sample_skybox_at)"),
+    # csrc/shade.cu neither: the deferred shade after the material sampling
+    "shade": ("superconductor_tpu_torch/csrc/shade.cu",
+              "none (XLA: superconductor_tpu/ops/shade.py:410 shade)"),
 }
 # the all-passes frame's raster passes and k-buffer passes, in frame order
 AP_RASTER = ("opaque", "lines")
@@ -356,7 +370,7 @@ GRAPH_POSES = (0.0, 0.9, 2.1)
 GRAPH_TIMED = 10
 HAND_KERNELS = re.compile(
     r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|classic_sample|"
-    r"material_sample|gbuffer|sky)_kernel\b")
+    r"material_sample|gbuffer|sky|shade)_kernel\b")
 # the hand kernels that replace no TPU kernel, by phase
 SAMPLERS = ("classic_sample", "material_sample")
 DEFERRED = ("gbuffer", "sky")
@@ -1387,7 +1401,8 @@ def kernel_counters() -> dict:
             "classic_sample": (sample_mod._CLASSIC_COUNTER,),
             "material_sample": (sample_mod._MATERIAL_COUNTER,),
             "gbuffer": (shade_mod._GBUFFER_COUNTER,),
-            "sky": (sky_mod._SKYBOX_COUNTER, sky_mod._SKYBOX_AT_COUNTER)}
+            "sky": (sky_mod._SKYBOX_COUNTER, sky_mod._SKYBOX_AT_COUNTER),
+            "shade": (shade_mod._SHADE_COUNTER,)}
 
 
 @contextlib.contextmanager
@@ -1756,6 +1771,10 @@ class HandPhase(NamedTuple):
     bound: Callable  # (name, args, fetched) -> (bound_ms, bound_by)
     rows: Callable  # (name, args, fetched) -> [(table, row indices)] read
     modules: tuple  # names of the ops modules whose _launched the main path wraps
+    # (name, args) -> (the kernel's call, its plain version's call) to time,
+    # where the wrapper does more than launch the kernel; None: the wrapper
+    # and its plain version on args
+    timed: Optional[Callable] = None
 
 
 # what compare_calls fills a sampler's `out` with before the kernel and
@@ -1799,6 +1818,110 @@ SAMPLER_PHASE = HandPhase("sampler", SAMPLERS, sampler_lanes, sampler_site, tens
                           ("sample",))
 DEFERRED_PHASE = HandPhase("deferred", DEFERRED, deferred_lanes, deferred_site, deferred_equal,
                            deferred_bound, deferred_rows, ("shade", "sky"))
+
+
+# csrc/shade.cu's FP32 operations a lane, counted from the kernel (each
+# product, sum, quotient, clamp, maximum, square root, reciprocal square
+# root and powf one): a lit lane 346 before the display transform, aces 9
+# and linear_to_srgb_approx 2 a channel; an unlit lane its albedo and alpha
+# (4) and the sRGB encode
+SHADE_OPS_LIT, SHADE_OPS_UNLIT, SHADE_OPS_ACES, SHADE_OPS_SRGB = 346, 4, 27, 6
+_shade_inputs: dict = {}  # id(args) -> (args, shade_lanes' arguments)
+
+
+def shade_inputs(args: dict) -> dict:
+    """shade_lanes' arguments of a recorded shade call (ops/shade.py
+    shade_inputs: the material sampling and the SH), made once a call."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    if id(args) not in _shade_inputs:
+        _shade_inputs[id(args)] = (args, shade_mod.shade_inputs(**args))
+    return _shade_inputs[id(args)][1]
+
+
+def shade_lanes_count(name: str, args: dict) -> int:
+    return args["gbuf"].valid.shape[0]
+
+
+def shade_site(name: str, caller: str, args: dict) -> str:
+    """A shade call's site and shape: its caller, lanes, where its textures
+    and factors come from, its SH and its inline flags."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    g = args["gbuf"]
+    rows = "mat_tail rows" if g.mat_tail is not None else "rows by id"
+    if args["s16"] is not None:
+        source = f"partition s16, {rows}"
+    elif shade_mod._whole_pool(args["scene"]):
+        source = f"whole pool, {rows}"
+    else:
+        source = "classic, mat_row by id"
+    sh = "ambient SH" if shade_mod._ambient_only(args["env"]) else "per-lane SH"
+    return (f"shade {caller} {shade_lanes_count(name, args)} lanes ({source}; {sh}; tonemap "
+            f"{int(bool(args['inline_tonemapping']))} srgb {int(bool(args['inline_srgb']))})")
+
+
+def shade_timed(name: str, args: dict) -> tuple:
+    """The shade kernel's launch (shade_lanes) and the torch chain it
+    replaces (shade_lanes_plain) on the call's sampled inputs: the
+    samplers and the SH lookup ahead of both are not the kernel's."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    k = shade_inputs(args)
+    return (lambda: shade_mod.shade_lanes(**k)), (lambda: shade_mod.shade_lanes_plain(**k))
+
+
+def shade_material_rows(k: dict) -> tuple:
+    """(the material table, the row each lane reads)."""
+    lanes = k["gbuf"].valid.shape[0]
+    if k["mat"] is None:
+        return k["rows"], torch.arange(lanes, device=k["rows"].device)
+    return k["rows"], torch.clamp(k["mat"].long(), 0, k["rows"].shape[0] - 1)
+
+
+def shade_bound(name: str, args: dict, fetched: list) -> tuple:
+    """(bound_ms, bound_by) of one shade launch: the larger of its bytes
+    over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM), as
+    this call's lanes need them. Every lane reads its valid byte and writes
+    rgb and alpha (16 B); a valid lane reads front_facing, its material id
+    (by id, 4 B) and s16's albedo (16 B); a lit one also the rest of s16
+    (48 B), six g-buffer vectors (64 B) and its SH (48 B, per-lane SH
+    only); of the material rows the valid lanes read, the 32-B sectors that
+    hold columns 0-9 and 16; the eye (12 B). Operations: SHADE_OPS_* of
+    each valid lane, by lit or unlit and the call's inline flags."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    k = shade_inputs(args)
+    g = k["gbuf"]
+    table, idx = shade_material_rows(k)
+    valid = g.valid
+    unlit_row = (table[:, 16].contiguous().view(torch.int32) & shade_mod.MAT_UNLIT) != 0
+    unlit = valid & unlit_row[idx]
+    n_valid, n_unlit = int(valid.sum()), int(unlit.sum())
+    n_lit = n_valid - n_unlit
+    rows = torch.unique(idx[valid])
+    cols = torch.tensor(list(range(10)) + [16], device=rows.device)
+    addr = table.data_ptr() + (rows[:, None] * table.stride(0) + cols[None, :]) * 4
+    sectors = sector_count(addr.reshape(-1), 4) if rows.numel() else 0
+    lanes = valid.shape[0]
+    nbytes = (lanes * 17 + n_valid * (1 + 16 + (4 if k["mat"] is not None else 0))
+              + n_lit * (48 + 64 + (48 if k["sh"] is not None else 0)) + sectors * 32 + 12)
+    display = (SHADE_OPS_ACES if k["inline_tonemapping"] else 0) + (
+        SHADE_OPS_SRGB if k["inline_srgb"] else 0)
+    ops = n_lit * (SHADE_OPS_LIT + display) + n_unlit * (
+        SHADE_OPS_UNLIT + (SHADE_OPS_SRGB if k["inline_srgb"] else 0))
+    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def shade_rows(name: str, args: dict, fetched: list) -> list:
+    """[(table, row indices)] a shade launch reads by index: the lanes'
+    material rows."""
+    return [shade_material_rows(shade_inputs(args))]
+
+
+SHADE_PHASE = HandPhase("shade", ("shade",), shade_lanes_count, shade_site, deferred_equal,
+                        shade_bound, shade_rows, ("shade",), shade_timed)
 
 
 SM_LANES = 128  # thread instructions an SM starts a clock: 4 schedulers of a warp each
@@ -1942,8 +2065,11 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
             continue
         entry["call"] = (name, args)
         entry["bound_ms"], entry["bound_by"] = hp.bound(name, args, fetched)
-        entry["ms"] = graph_ms(lambda: wrapper(**args))
-        entry["plain_ms"] = graph_ms(lambda: plain(**args), launches=5, runs=10)
+        kernel_call, plain_call = (lambda: wrapper(**args)), (lambda: plain(**args))
+        if hp.timed is not None:
+            kernel_call, plain_call = hp.timed(name, args)
+        entry["ms"] = graph_ms(kernel_call)
+        entry["plain_ms"] = graph_ms(plain_call, launches=5, runs=10)
         rows = hp.rows(name, args, fetched)
         entry["index_select_ms"] = graph_ms(
             lambda: [torch.index_select(t, 0, idx) for t, idx in rows])
@@ -1955,10 +2081,11 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
 
 
 def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
-    """Phase [sampler] (the material samplers, csrc/sample.cu) or
-    [deferred] (the g-buffer and the sky, csrc/gbuffer.cu and csrc/sky.cu).
-    For the headline, all-passes and stereo frames (`frames`: name ->
-    (tables, build(pose), fitted config, env)): every call of the phase's
+    """Phase [sampler] (the material samplers, csrc/sample.cu), [deferred]
+    (the g-buffer and the sky, csrc/gbuffer.cu and csrc/sky.cu) or [shade]
+    (csrc/shade.cu). For the headline, all-passes and stereo frames, and
+    the lit frame for [shade] (`frames`: name -> (tables, build(pose),
+    fitted config, env)): every call of the phase's
     wrappers in one eager frame (render_frame_impl) recorded, each held bit
     for bit against its plain version on its inputs, each site and shape
     timed with its bound and index_select yardstick (compare_calls); the
@@ -2724,7 +2851,9 @@ def lit_passes_path(dev, shapes: dict) -> dict:
     its launches counted by pass (one a frame each), its plain-versions,
     classic-smoke and layered-SH twins, the effect of each lighting input,
     and the 256x128 frame against the CPU's and the reference's golden.
-    Returns the launches of the timed run, by kernel and by pass."""
+    Returns the launches of the timed run, by kernel and by pass, and the
+    frame as (tables, build(angle), fitted config, env), as hand_path
+    takes it."""
     from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.render.caps import fit_caps
     from superconductor_tpu_torch.render.draws import build_frame_state
@@ -2817,7 +2946,11 @@ def lit_passes_path(dev, shapes: dict) -> dict:
           f"{stats_g == stats_c} and the reference's {stats_g == stats_ref}")
     if min(db_cpu, db_ref) < 40.0 or not stats_g == stats_c == stats_ref:
         raise RuntimeError("the lit card frame disagrees with the CPU frame or the reference")
-    return launches, by_pass
+
+    def build(angle: float):
+        return build_frame_state(scene, instances(angle), uniforms, device=dev, **draw_kw)
+
+    return launches, by_pass, (scene_dev, build, config, env)
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -3037,7 +3170,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  ap_by_pass: dict, stereo_by_eye: dict, sh_launches: dict, sh_by_pass: dict,
                  lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
                  deep_by_pass: dict, graph_launches: dict, raster_res: dict,
-                 kbuffer_res: dict, shapes: dict, sampler: dict, deferred: dict) -> dict:
+                 kbuffer_res: dict, shapes: dict, sampler: dict, deferred: dict,
+                 shade: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the six frames' and the two sharded frames' timed runs, the app
@@ -3054,7 +3188,8 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     all-passes and stereo frames (the launches counted at that site in the
     main-path run); then the g-buffer and the sky kernels the same way, at
     their largest call and at each site (the deferred phase's main-path
-    run)."""
+    run), and the shade kernel (the shade phase's main-path run, which also
+    renders the lit frame)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -3133,6 +3268,10 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for kernel in DEFERRED],
         *[entry(f"{r['kernel']}[{site}]", r["kernel"], deferred["site_launches"][site], r)
           for site, r in deferred["sites"].items()],
+        entry("shade", "shade", shade["launches"]["shade"] + graph_launches["shade"],
+              max(shade["sites"].values(), key=lambda r: r["lanes"])),
+        *[entry(f"shade[{site}]", "shade", shade["site_launches"][site], r)
+          for site, r in shade["sites"].items()],
     ]}
 
 
@@ -3292,7 +3431,7 @@ def main() -> int:
     sh_launches, sh_by_pass = sharded_path(shapes, stereo_frame, ap_frame)
     ap_config, stereo_config = ap_frame[2], stereo_frame[2]
     del ap_frame, stereo_frame
-    lit_launches, lit_by_pass = lit_passes_path(dev, shapes)
+    lit_launches, lit_by_pass, lit_frame = lit_passes_path(dev, shapes)
     app = app_path(dev, shapes, smi)
     roofline_path(dev)
     bench_path(kind, smi)
@@ -3309,6 +3448,8 @@ def main() -> int:
     deferred = hand_path(DEFERRED_PHASE, smi, graph_frames)
     sky_kernel_stats(smi, build["sky"]["log"],
                      {site: r for site, r in deferred["sites"].items() if r["kernel"] == "sky"})
+    shade = hand_path(SHADE_PHASE, smi, dict(graph_frames, lit_passes=lit_frame))
+    del lit_frame
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -3318,7 +3459,7 @@ def main() -> int:
     print(json.dumps(kernels_line(launches, cb_launches, ap_launches, ap_by_pass,
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
                                   lit_by_pass, app, deep_launches, deep_by_pass, graph_launches,
-                                  results, kb_results, shapes, sampler, deferred)))
+                                  results, kb_results, shapes, sampler, deferred, shade)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

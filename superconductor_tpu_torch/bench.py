@@ -405,6 +405,7 @@ PLAIN_VERSIONS = {
     "gbuffer": ((frame_mod, "interpolate_gbuffer", shade_mod.interpolate_gbuffer_plain),),
     "sky": ((frame_mod, "sample_skybox", sky_mod.sample_skybox_plain),
             (frame_mod, "sample_skybox_at", sky_mod.sample_skybox_at_plain)),
+    "shade": ((frame_mod, "shade", shade_mod.shade_plain),),
 }
 
 
@@ -427,7 +428,7 @@ def plain_versions(kernels=tuple(PLAIN_VERSIONS)):
 def plain_kernels_frame(scene_dev, state0, config, env):
     """The frame rendered with every kernel's plain version in place of its
     wrapper (plain_versions: the raster, the k-buffer, the two material
-    samplers, the g-buffer and the sky)."""
+    samplers, the g-buffer, the sky and the shade)."""
     with plain_versions():
         return frame_mod.render_frame(scene_dev, state0, config, env)
 

@@ -21,9 +21,10 @@ positions (-1 = miss) in their pair planes; the caller remaps them.
   ``csrc/sample.cu``, the material samplers, whose wrappers are
   ``ops/sample.py`` ``sample_classic`` and ``sample_material``,
   ``csrc/gbuffer.cu``, the g-buffer interpolation (``ops/shade.py``
-  ``interpolate_gbuffer``), and ``csrc/sky.cu``, the skybox
-  (``ops/sky.py`` ``sample_skybox`` and ``sample_skybox_at``); their
-  wrappers count their launches as the wrappers here do.
+  ``interpolate_gbuffer``), ``csrc/sky.cu``, the skybox (``ops/sky.py``
+  ``sample_skybox`` and ``sample_skybox_at``), and ``csrc/shade.cu``, the
+  deferred shade (``ops/shade.py`` ``shade``); their wrappers count their
+  launches as the wrappers here do.
 
 No wrapper falls back: anything its kernel does not take raises. Each
 plain version equals its kernel, and the reference's interpret-mode
@@ -59,7 +60,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 KERNELS = {
     name: (os.path.join(_PKG_DIR, "csrc", f"{name}.cu"),
            os.path.join(BUILD_DIR, f"libsc_{name}.so"))
-    for name in ("raster", "kbuffer", "sample", "gbuffer", "sky")
+    for name in ("raster", "kbuffer", "sample", "gbuffer", "sky", "shade")
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,6 +123,10 @@ _SIGNATURES = {
                [_I, _I, _I, _I, _F, _F, ctypes.c_uint, _I, _P, _L, _I, _P, _L, _L, _P, _L, _P,
                 _L, _I, _P, _P, _F, _F, _F, _I, _P, _P]),
     "sc_sky_pixels_a_thread": ("sky", []),
+    # ops/shade.py's deferred shade (csrc/shade.cu)
+    "sc_shade": ("shade",
+                 [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _I,
+                  _P, _L, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P, _P, _P]),
 }
 _libs: dict = {}
 _tallies: list = []  # the tallies of the captures under way, innermost last

@@ -13,13 +13,19 @@ pre-sampled by the material-path partition.
 ``interpolate_gbuffer`` launches csrc/gbuffer.cu's hand-written kernel
 for CUDA tensors and runs its plain version, the torch chain
 ``interpolate_gbuffer_plain``, for CPU tensors (bit for bit with the
-kernel on the card). Material textures are sampled through ops/sample.py's
-wrappers (``sample.sample_material``, ``sample.sample_classic``), looked
-up in that module at each call.
+kernel on the card). ``shade`` samples the material textures through
+ops/sample.py's wrappers (``sample.sample_material``,
+``sample.sample_classic``, looked up in that module at each call) and,
+for CUDA tensors, computes the rest in csrc/shade.cu's hand-written kernel
+(``shade_lanes``); its plain version ``shade_plain`` runs the torch chain
+``shade_lanes_plain`` instead, as CPU tensors do. The chain's three-term
+sums and cross products are written out in a fixed order (``_sum3``,
+``_cross``), which the kernel follows.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
@@ -261,11 +267,21 @@ def _check_rows(name, rows, dev) -> None:
 
 
 def _normalize(v, eps=1e-12):
-    return v * torch.rsqrt(torch.clamp_min(torch.sum(v * v, dim=-1, keepdim=True), eps))
+    return v * torch.rsqrt(torch.clamp_min(_sum3(v * v, -1)[..., None], eps))
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return _sum3(a * b, -1)
+
+
+def _cross(a, b):
+    """a x b over the last dim as (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 -
+    a1 b0), each product and difference its own operation: no device's
+    cross kernel contracts them into FMAs (csrc/shade.cu computes the
+    same)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
 
 
 def eval_sh_nonlinear(sh, normal):
@@ -273,10 +289,10 @@ def eval_sh_nonlinear(sh, normal):
     normal (P, 3) -> (P, 3)."""
     r1 = torch.stack([sh[:, 1, :], sh[:, 2, :], sh[:, 3, :]], dim=-2)
     r0 = sh[:, 0, :]
-    length = torch.sqrt(torch.sum(r1 * r1, dim=-2) + 1e-20)
+    length = torch.sqrt(_sum3(r1 * r1, -2) + 1e-20)
     a = (1.0 - length) / (1.0 + length)
     pexp = 1.0 + 2.0 * length
-    ndot = torch.sum(r1 * normal[..., :, None], dim=-2)
+    ndot = _sum3(r1 * normal[..., :, None], -2)
     q = torch.clamp_min(0.5 * (1.0 + ndot), 0.0)
     return r0 * (a + (1.0 - a) * (pexp + 1.0) * torch.pow(q, pexp))
 
@@ -308,7 +324,7 @@ def ggx_specular(n, v, l, roughness, f0, f90):
 def sh_specular_approximation(sh, normal, view, roughness_perceptual, f0, f90):
     red, green, blue = sh_channel_vectors(sh)
     avg_dir = (red + green + blue) / 3.0
-    dir_len = torch.sqrt(torch.sum(avg_dir * avg_dir, dim=-1) + 1e-20)
+    dir_len = torch.sqrt(_sum3(avg_dir * avg_dir, -1) + 1e-20)
     smoothness = 1.0 - roughness_perceptual
     adjusted_smoothness = smoothness * torch.sqrt(dir_len)
     adjusted_roughness_p = 1.0 - adjusted_smoothness
@@ -324,12 +340,12 @@ def compute_cotangent_frame_normal(geo_normal, map_normal_ts, dpdx, dpdy,
     """Normal mapping without precomputed tangents, with analytic
     derivatives. geo_normal must be unit length."""
     n = geo_normal
-    dp2perp = torch.linalg.cross(dpdy, n, dim=-1)
-    dp1perp = torch.linalg.cross(n, dpdx, dim=-1)
+    dp2perp = _cross(dpdy, n)
+    dp1perp = _cross(n, dpdx)
     t = dp2perp * duvdx[..., 0:1] + dp1perp * duvdy[..., 0:1]
     b = dp2perp * duvdx[..., 1:2] + dp1perp * duvdy[..., 1:2]
-    t2 = torch.sum(t * t, dim=-1, keepdim=True)
-    b2 = torch.sum(b * b, dim=-1, keepdim=True)
+    t2 = _sum3(t * t, -1)[..., None]
+    b2 = _sum3(b * b, -1)[..., None]
     invmax = torch.rsqrt(torch.clamp_min(torch.maximum(t2, b2), 1e-20))
     t = t * invmax
     b = b * invmax
@@ -437,36 +453,45 @@ def _interleaved(scene: dict, gbuf: GBuffer, aniso_taps: int, slots):
     )
 
 
-def shade(
-    gbuf: GBuffer,
-    scene: dict,
-    uniforms: dict,
-    view_index: int,
-    env=None,
-    inline_tonemapping: bool = True,
-    inline_srgb: bool = True,
-    aniso_taps: int = 1,
-    s16=None,
-):
-    """-> (rgb (P, 3) display-encoded, alpha (P,)); misses are black with
-    alpha 0. The material textures come pre-sampled in `s16` (P, 16) from
-    the material-path partition, else from the interleaved pool when every
+def _material_inputs(gbuf: GBuffer, scene: dict, aniso_taps: int, s16):
+    """(s16 (P, 16), rows, mat) of shade: the lanes' material textures, and
+    the table whose rows hold their factors and flags (rows[mat], or with
+    mat None a row a lane). The textures come pre-sampled in `s16` from the
+    material-path partition, else from the interleaved pool when every
     material takes it, else from the classic per-slot samplers (partial
-    pools without the partition, scenes without the pool)."""
+    pools without the partition, scenes without the pool); the factors
+    from mat_row_mq (the shade row's tail when the g-buffer carries it;
+    incapable materials' rows carry their real factors too), else from
+    mat_row."""
     m = scene["materials"]
-    if env is None:
-        raise ValueError("shade needs EnvBindings")
-    if s16 is not None:
-        # factors and flags still come from the material row (incapable
-        # materials' rows carry their real pf / pi)
-        pf, pi = _factors(_mq_rows(m, gbuf.material, gbuf))
-    elif _whole_pool(scene):
-        pf, pi = _factors(_mq_rows(m, gbuf.material, gbuf))
-        s16 = _interleaved(scene, gbuf, aniso_taps, SLOTS)
-    else:
-        pf, pi = _factors(m["mat_row"][:, :META][gbuf.material])
-        s16 = sample.sample_classic(ldr_pool(scene), m["mat_row"], gbuf.material, gbuf.uv,
-                                    gbuf.duvdx, gbuf.duvdy, aniso_taps)
+    if s16 is not None or _whole_pool(scene):
+        if gbuf.mat_tail is not None:
+            rows, mat = gbuf.mat_tail, None
+        else:
+            rows, mat = m["mat_row_mq"], gbuf.material
+        if s16 is None:
+            s16 = _interleaved(scene, gbuf, aniso_taps, SLOTS)
+        return s16, rows, mat
+    s16 = sample.sample_classic(ldr_pool(scene), m["mat_row"], gbuf.material, gbuf.uv,
+                                gbuf.duvdx, gbuf.duvdy, aniso_taps)
+    return s16, m["mat_row"], gbuf.material
+
+
+def _ambient_only(env) -> bool:
+    """sample_spherical_harmonics gives every lane env.ambient_sh."""
+    return env.lightvol_tex_ids is None and env.lightmap_tex_ids is None
+
+
+def shade_lanes_plain(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
+                      inline_tonemapping: bool = True, inline_srgb: bool = True):
+    """shade_lanes' plain version, the torch chain: the factors and flags
+    of the lanes' material rows, the PBR terms, the SH lighting (`sh` (P,
+    4, 3), or with sh None the 12 `ambient_sh`), the display transform,
+    the unlit branch and the misses."""
+    pf, pi = _factors(rows if mat is None else rows[:, :META][mat])
+    if sh is None:
+        sh = device_values(ambient_sh, torch.float32, s16.device).reshape(4, 3).expand(
+            s16.shape[0], 4, 3)
     albedo = s16[..., 0:4] * pf[..., 0:4]
     normal_tex = s16[..., 4:8]
     mr = s16[..., 8:12]
@@ -488,9 +513,7 @@ def shade(
         geo_n, map_n, gbuf.dpdx, gbuf.dpdy, gbuf.duvdx, gbuf.duvdy
     )
 
-    eye = uniforms["eye"][view_index]
     view = _normalize(eye[None, :] - gbuf.world_pos)
-    sh = sample_spherical_harmonics(gbuf, scene, uniforms, env)
 
     diffuse = albedo_rgb * (1.0 - metallic[..., None]) * eval_sh_nonlinear(sh, n)
     sh_boost = sh.clone()
@@ -505,6 +528,166 @@ def shade(
     rgb = torch.where(gbuf.valid[..., None], rgb, 0.0)
     alpha = torch.where(gbuf.valid, alpha, 0.0)
     return rgb, alpha
+
+
+def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
+                inline_tonemapping: bool = True, inline_srgb: bool = True):
+    """-> (rgb (P, 3), alpha (P,)) of the lanes of `gbuf` from their
+    material textures s16 (P, 16) f32, the table `rows` (R, >= 20) f32
+    whose rows hold their factors and flags, indexed by mat (P,) i32, or
+    with mat None a row a lane (the g-buffer's mat_tail), their SH
+    coefficients sh (P, 4, 3) f32 or with sh None the 12 host floats
+    `ambient_sh`, and the view's eye (3,) f32 on the device. CUDA tensors
+    launch csrc/shade.cu shade_kernel (bit for bit with the plain version
+    on the card; it reads the rows, the eye and every lane's inputs in
+    place, and skips an invalid lane's arithmetic), CPU tensors run
+    shade_lanes_plain; anything the kernel does not take raises. Counts
+    its launches in shade.LAUNCHES."""
+    dev = gbuf.valid.device
+    if dev.type == "cpu":
+        return shade_lanes_plain(gbuf, s16, rows, mat, sh, ambient_sh, eye,
+                                 inline_tonemapping, inline_srgb)
+    lanes = gbuf.valid.shape[0] if gbuf.valid.dim() == 1 else -1
+    for name, t in (("valid", gbuf.valid), ("front_facing", gbuf.front_facing)):
+        if t.device != dev or t.dtype != torch.bool or t.shape != (lanes,):
+            raise ValueError(f"shade: gbuf.{name} must be ({lanes},) bool on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t, width in (("gbuf.normal", gbuf.normal, 3), ("gbuf.world_pos", gbuf.world_pos, 3),
+                           ("gbuf.dpdx", gbuf.dpdx, 3), ("gbuf.dpdy", gbuf.dpdy, 3),
+                           ("gbuf.duvdx", gbuf.duvdx, 2), ("gbuf.duvdy", gbuf.duvdy, 2),
+                           ("s16", s16, 16)):
+        _check_lane_rows(name, t, (lanes, width), dev)
+    if rows.device != dev or rows.dtype != torch.float32:
+        raise TypeError(f"shade: the material rows must be float32 on {dev}, got {rows.dtype} "
+                        f"on {rows.device}")
+    if rows.dim() != 2 or rows.shape[1] < META or (lanes and rows.shape[0] == 0) \
+            or rows.stride(1) != 1 or rows.data_ptr() % 4:
+        raise ValueError(f"shade: the material rows must be a (R, >= {META}) table with "
+                         f"adjacent columns, non-empty where there are lanes, got "
+                         f"{tuple(rows.shape)} strides {rows.stride()}")
+    if mat is None:
+        if rows.shape[0] != lanes:
+            raise ValueError(f"shade: a material row a lane needs {lanes} rows, got "
+                             f"{rows.shape[0]}")
+        mat_ptr, mat_s = None, 0
+    else:
+        if mat.device != dev or mat.dtype != torch.int32 or mat.shape != (lanes,) \
+                or mat.data_ptr() % 4:
+            raise ValueError(f"shade: mat must be ({lanes},) int32 on {dev}, got {mat.dtype} "
+                             f"{tuple(mat.shape)} on {mat.device}")
+        mat_ptr, mat_s = mat.data_ptr(), mat.stride(0)
+    if sh is not None:
+        _check_lane_rows("sh", sh, (lanes, 4, 3), dev)
+        if sh.stride(1) != 3:
+            raise ValueError(f"shade: sh must hold each lane's (4, 3) adjacent, got strides "
+                             f"{sh.stride()}")
+    ambient = torch.tensor(ambient_sh, dtype=torch.float32)
+    if ambient.numel() != 12:
+        raise ValueError(f"shade: ambient_sh must hold 12 values, got {ambient.numel()}")
+    if eye.device != dev or eye.dtype != torch.float32 or eye.shape != (3,) \
+            or eye.data_ptr() % 4:
+        raise ValueError(f"shade: eye must be (3,) float32 on {dev}, got {eye.dtype} "
+                         f"{tuple(eye.shape)} on {eye.device}")
+    if lanes >= 2 ** 31:
+        raise ValueError(f"shade: {lanes} lanes")
+    if dev.type != "cuda":
+        raise ValueError(f"shade: the kernel runs on CUDA tensors, not {dev}")
+    rgb = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
+    alpha = torch.empty((lanes,), dtype=torch.float32, device=dev)
+    if lanes:
+        s16_vec = s16.data_ptr() % 16 == 0 and s16.stride(0) % 4 == 0
+        g = gbuf
+        with torch.cuda.device(dev):
+            err = _kernel_fn("sc_shade")(
+                lanes, g.valid.data_ptr(), g.valid.stride(0), g.front_facing.data_ptr(),
+                g.front_facing.stride(0),
+                *[x for t in (g.normal, g.world_pos, g.dpdx, g.dpdy, g.duvdx, g.duvdy)
+                  for x in (t.data_ptr(), t.stride(0))],
+                s16.data_ptr(), s16.stride(0), int(s16_vec), rows.data_ptr(), rows.stride(0),
+                rows.shape[0], mat_ptr, mat_s,
+                None if sh is None else sh.data_ptr(), 0 if sh is None else sh.stride(0),
+                (ctypes.c_float * 12)(*ambient.tolist()), eye.data_ptr(), eye.stride(0),
+                int(bool(inline_tonemapping)), int(bool(inline_srgb)), rgb.data_ptr(),
+                alpha.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"shade kernel launch failed: cudaError_t {err}")
+        _launched(_SHADE_COUNTER)
+    return rgb, alpha
+
+
+def _check_lane_rows(name, t, shape, dev) -> None:
+    """An f32 tensor of `shape` on dev whose last dim is adjacent (any lane
+    stride), 4-B aligned."""
+    if t.device != dev:
+        raise ValueError(f"shade: {name} is on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"shade: {name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape) or t.stride(-1) != 1 or t.data_ptr() % 4:
+        raise ValueError(f"shade: {name} must be {tuple(shape)} with adjacent components, got "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def shade_inputs(gbuf: GBuffer, scene: dict, uniforms: dict, view_index: int, env=None,
+                 inline_tonemapping: bool = True, inline_srgb: bool = True,
+                 aniso_taps: int = 1, s16=None) -> dict:
+    """shade_lanes' arguments of a shade call: the material sampling
+    (_material_inputs), the SH coefficients (sample_spherical_harmonics
+    where a light volume or lightmaps are bound, else the ambient ones by
+    value) and the view's eye."""
+    if env is None:
+        raise ValueError("shade needs EnvBindings")
+    tex, rows, mat = _material_inputs(gbuf, scene, aniso_taps, s16)
+    sh = None if _ambient_only(env) else sample_spherical_harmonics(gbuf, scene, uniforms, env)
+    return dict(gbuf=gbuf, s16=tex, rows=rows, mat=mat, sh=sh, ambient_sh=env.ambient_sh,
+                eye=uniforms["eye"][view_index], inline_tonemapping=inline_tonemapping,
+                inline_srgb=inline_srgb)
+
+
+def shade_plain(
+    gbuf: GBuffer,
+    scene: dict,
+    uniforms: dict,
+    view_index: int,
+    env=None,
+    inline_tonemapping: bool = True,
+    inline_srgb: bool = True,
+    aniso_taps: int = 1,
+    s16=None,
+):
+    """shade's plain version, the torch chain: shade_inputs, then
+    shade_lanes_plain."""
+    return shade_lanes_plain(**shade_inputs(gbuf, scene, uniforms, view_index, env,
+                                            inline_tonemapping, inline_srgb, aniso_taps, s16))
+
+
+def shade(
+    gbuf: GBuffer,
+    scene: dict,
+    uniforms: dict,
+    view_index: int,
+    env=None,
+    inline_tonemapping: bool = True,
+    inline_srgb: bool = True,
+    aniso_taps: int = 1,
+    s16=None,
+):
+    """-> (rgb (P, 3) display-encoded, alpha (P,)); misses are black with
+    alpha 0. The material textures come pre-sampled in `s16` (P, 16) from
+    the material-path partition, else from the interleaved pool when every
+    material takes it, else from the classic per-slot samplers
+    (_material_inputs). The rest is shade_lanes on shade_inputs: CUDA
+    tensors launch csrc/shade.cu, CPU tensors run the torch chain (so that
+    shade is shade_plain there). Counts the kernel's launches in
+    shade.LAUNCHES."""
+    return shade_lanes(**shade_inputs(gbuf, scene, uniforms, view_index, env,
+                                      inline_tonemapping, inline_srgb, aniso_taps, s16))
+
+
+shade.LAUNCHES = 0
+# the wrapper whose LAUNCHES count the shade kernel's launches, however the
+# frame's name for it is rebound (a recording or plain twin put in its place)
+_SHADE_COUNTER = shade
 
 
 def albedo_alpha(gbuf: GBuffer, scene: dict, aniso_taps: int = 1, albedo4=None):

@@ -62,7 +62,7 @@ SITE_FUNCTIONS = (
 SITE_PREFIX = "site:"
 GATHER_KERNEL = re.compile(r"gather|index", re.IGNORECASE)
 HAND_KERNEL = re.compile(r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|"
-                         r"classic_sample|material_sample|gbuffer|sky)_kernel\b")
+                         r"classic_sample|material_sample|gbuffer|sky|shade)_kernel\b")
 
 
 def _app_frames(args):

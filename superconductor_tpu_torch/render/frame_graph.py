@@ -13,9 +13,9 @@ replay then costs the device's time, not the host's chain of launches.
   scene where it lies: a pool updated in place keeps the key, a re-gathered
   one is a new key) and the scene's other leaves; each FrameState tensor's
   shape, dtype, strides and device and the state's other leaves; the
-  objects bound to the kernel wrappers' names (render/frame.py's raster
-  and k-buffer, ops/sample.py's material samplers) and the kernels'
-  split constants (ops/raster.py).
+  objects bound to the kernel wrappers' names (render/frame.py's raster,
+  k-buffer, g-buffer, sky and shade, ops/sample.py's material samplers)
+  and the kernels' split constants (ops/raster.py).
 * Buffers: a graph owns a copy of every FrameState tensor. Each call copies
   the caller's tensors into them (device to device) before the replay, so
   a new pose, palette, line or particle set at the same shapes replays with
@@ -55,7 +55,7 @@ CACHE_SIZE = 3  # graphs kept a device
 KERNEL_NAMES = ((frame_mod, "rasterize_sorted"), (frame_mod, "kbuffer_sorted"),
                 (sample_mod, "sample_classic"), (sample_mod, "sample_material"),
                 (frame_mod, "interpolate_gbuffer"), (frame_mod, "sample_skybox"),
-                (frame_mod, "sample_skybox_at"))
+                (frame_mod, "sample_skybox_at"), (frame_mod, "shade"))
 SPLIT_CONSTANTS = ("RASTER_CLUSTER", "RASTER_MIN_PART_ROWS", "KBUFFER_CLUSTER",
                    "KBUFFER_MIN_PART_ROWS", "KBUFFER_DEEP_CLUSTER")
 # render/frame.py's functions and classes, and the kernel wrappers, as imported

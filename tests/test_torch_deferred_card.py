@@ -1,13 +1,15 @@
 """The deferred stages' CUDA kernels against their plain versions on the
 card, bit for bit: ops/shade.py interpolate_gbuffer (csrc/gbuffer.cu
-gbuffer_kernel) and ops/sky.py sample_skybox / sample_skybox_at
-(csrc/sky.cu sky_kernel). This file imports no JAX: its tests run only
+gbuffer_kernel), ops/sky.py sample_skybox / sample_skybox_at
+(csrc/sky.cu sky_kernel) and ops/shade.py shade / shade_lanes
+(csrc/shade.cu shade_kernel). This file imports no JAX: its tests run only
 where there is a card (-m gpu) and skip elsewhere.
 
     python -m pytest -q -m gpu tests/test_torch_deferred_card.py
 
-The cases also serve tests/test_torch_sky.py, which holds the plain
-versions to the JAX package on the CPU:
+The cases also serve tests/test_torch_sky.py and
+tests/test_torch_shade_kernel.py, which hold the plain versions to the
+JAX package on the CPU:
 
 * g-buffer: seeded setup and packed rows holding NaN, +-inf and -0, rows
   whose edge functions sum to 0 (d_val == 0), dead lanes (pair < 0, which
@@ -28,8 +30,16 @@ versions to the JAX package on the CPU:
   texels 0 and w - 1 are exercised. On the card only: worklist indices
   far outside the band (negative, beyond 2 ** 31), strided and unaligned
   index tensors, and pools whose base is not 16-B aligned.
+* shade: SHADE_CASES, every material path (the interleaved pool by the
+  g-buffer's mat_tail and by material id, unlit materials, the classic
+  samplers, the partition's s16) and SH source (ambient, light volume,
+  lightmaps) under each inline_tonemapping x inline_srgb, on seeded lanes
+  of the small hero, all-passes and lit scenes; on the card with NaN, +-inf
+  and -0 in their g-buffer vectors and the partition's s16, and invalid
+  lanes; shade_lanes on layouts the frame does not make (SHADE_LAYOUTS).
 """
 
+import dataclasses
 import functools
 import zlib
 
@@ -263,11 +273,187 @@ def sky_args(case: str, device="cpu", env_cls=EnvBindings) -> tuple:
     return "sample_skybox_at", dict(kw, idx=torch.from_numpy(idx).to(dtype).to(device))
 
 
+# --- the shade ------------------------------------------------------------------
+
+SHADE_LANES = 2048
+# name -> (scene, material path, SH source). Scenes: the headline's hero
+# (every material on the interleaved pool), the small all-passes scene
+# (a partial pool: the terrain takes the classic samplers) and the small
+# lit scene (all-passes' plus a light volume and lightmaps, no ambient).
+# Paths: "tail" (the interleaved pool, each lane's mat_row_mq row in the
+# g-buffer's mat_tail, a strided view of a wider shade row), "by-id"
+# (mat_row_mq by material id), "unlit" (by id, the even materials flagged
+# MAT_UNLIT), "classic" (the classic samplers, mat_row by id), "partition"
+# (s16 from render/frame.py _partition_material_sample, mat_row_mq by id).
+# SH: the ambient coefficients, the light volume, or the lightmaps on half
+# the lanes over the volume on the rest.
+SHADE_CASES = {
+    "tail": ("hero", "tail", "ambient"),
+    "by-id": ("hero", "by-id", "ambient"),
+    "unlit": ("hero", "unlit", "ambient"),
+    "classic": ("all_passes", "classic", "ambient"),
+    "partition": ("all_passes", "partition", "ambient"),
+    "volume": ("lit", "classic", "volume"),
+    "lightmap": ("lit", "classic", "lightmap"),
+}
+# (inline_tonemapping, inline_srgb)
+SHADE_INLINE = ((True, True), (True, False), (False, True), (False, False))
+SHADE_GBUFFER_FLOATS = ("world_pos", "normal", "dpdx", "dpdy", "duvdx", "duvdy")
+
+
+@functools.lru_cache(maxsize=None)
+def shade_host(scene: str):
+    """(host Scene, uniforms dict of numpy f32, EnvBindings) of a shade
+    case's scene, built by the port's host layer (the CPU tests build the
+    same scene with the JAX package's for its side)."""
+    from superconductor_tpu_torch import scenes
+
+    if scene == "hero":
+        host, _model, uniforms, env, _config = scenes.headline_host(256, 128)
+    elif scene == "all_passes":
+        host, _i, uniforms, env, _c, _d = scenes.all_passes_host(**scenes.ALL_PASSES_SMALL)
+    else:
+        host, _i, uniforms, env, _c, _d = scenes.lit_passes_host(**scenes.LIT_PASSES_SMALL)
+    u = {k: np.asarray(v, np.float32) for k, v in uniforms.as_device_dict().items()}
+    return host, u, env
+
+
+@functools.lru_cache(maxsize=None)
+def _shade_tables(scene: str, device: str) -> dict:
+    from superconductor_tpu_torch.scene.upload import scene_to_torch
+
+    return scene_to_torch(shade_host(scene)[0], device)
+
+
+def shade_env(case: str, env):
+    """The case's EnvBindings: the lit scene's with only the light volume
+    bound, or with both (the lightmaps over the volume where lightmapped)."""
+    if SHADE_CASES[case][2] == "volume":
+        return dataclasses.replace(env, lightmap_tex_ids=None, lightmap_wh=None)
+    return env
+
+
+def shade_lanes_np(case: str, n_materials: int, uniforms: dict, nan: bool = False,
+                   seed: int = 21) -> dict:
+    """The g-buffer fields (numpy) of SHADE_LANES lanes of a case: one lane
+    in 10 invalid, a third back-facing, unnormalised normals (some zero),
+    positions around the scene (for the light volume, inside, on and
+    outside its probe box), uv in [-1, 2] with footprints from under a
+    texel to the whole mip chain, every material, half the lanes
+    lightmapped. With `nan`, NaN, +-inf and -0 sprinkled over the normal,
+    dpdx, dpdy and (with the ambient SH) world_pos of valid and invalid
+    lanes alike."""
+    rng = np.random.default_rng(seed + zlib.crc32(case.encode()) % 1000)
+    p = SHADE_LANES
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+
+    if SHADE_CASES[case][2] == "ambient":
+        world = f32(rng.normal(scale=3.0, size=(p, 3)))
+    else:
+        box = rng.uniform(-0.3, 1.3, size=(p, 3))
+        box[: p // 16, 0] = rng.integers(0, 2, size=p // 16)
+        world = f32(uniforms["probes_bottom_left"] + box * uniforms["probes_scale"])
+    normal = f32(rng.normal(size=(p, 3)))
+    normal[5::97] = 0.0
+    foot = 10.0 ** rng.uniform(-5, -0.5, size=(p, 1))
+    g = dict(
+        valid=rng.uniform(size=p) > 0.1, world_pos=world, normal=normal,
+        uv=f32(rng.uniform(-1.0, 2.0, size=(p, 2))),
+        lm_uv=f32(rng.uniform(-0.2, 1.2, size=(p, 2))),
+        material=rng.integers(0, n_materials, size=p).astype(np.int32),
+        front_facing=rng.uniform(size=p) > 0.3, lightmapped=rng.uniform(size=p) < 0.5,
+        dpdx=f32(rng.normal(scale=1e-2, size=(p, 3))),
+        dpdy=f32(rng.normal(scale=1e-2, size=(p, 3))),
+        duvdx=f32(rng.normal(size=(p, 2)) * foot), duvdy=f32(rng.normal(size=(p, 2)) * foot),
+    )
+    if nan:
+        # not into what the samplers index by (uv, its footprint, and the
+        # position the SH samplers read): a torch gather out of range stops
+        # the card
+        nan_fields = ("normal", "dpdx", "dpdy")
+        if SHADE_CASES[case][2] == "ambient":
+            nan_fields += ("world_pos",)
+        for f in nan_fields:
+            flat = g[f].reshape(-1)
+            idx = rng.choice(flat.size, size=flat.size // 50, replace=False)
+            flat[idx] = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0], size=idx.size)
+    return g
+
+
+def with_unlit(materials: dict, flag_even, copy) -> dict:
+    """materials with MAT_UNLIT set in the flags (column 16) of the even
+    material rows of mat_row_mq and mat_row; `copy` makes a writable int32
+    view's owner of a table (numpy or torch) and `flag_even` sets the bit
+    on it."""
+    out = dict(materials)
+    for key in ("mat_row_mq", "mat_row"):
+        if key in out:
+            out[key] = flag_even(copy(out[key]))
+    return out
+
+
+def _flag_even_torch(t: torch.Tensor) -> torch.Tensor:
+    t.view(torch.int32)[::2, 16] |= port_shade.MAT_UNLIT
+    return t
+
+
+def shade_args(case: str, device="cpu", inline=(True, True), nan: bool = False) -> dict:
+    """ops/shade.py shade's arguments for SHADE_CASES' `case` on `device`:
+    the scene's tables (scene_to_torch), the lanes of shade_lanes_np as
+    torch tensors (the float fields as strided views of one wider buffer),
+    the case's env, view 0 and, for "partition", the partition's s16 (with
+    `nan`, NaN, +-inf and -0 sprinkled into it too)."""
+    from superconductor_tpu_torch.render import frame as port_frame
+
+    scene_name, path, _sh = SHADE_CASES[case]
+    host, u, env = shade_host(scene_name)
+    tables = _shade_tables(scene_name, str(device))
+    mats = tables["materials"]
+    if path == "unlit":
+        tables = dict(tables, materials=with_unlit(mats, _flag_even_torch, torch.clone))
+    g = shade_lanes_np(case, mats["mat_row"].shape[0], u, nan=nan)
+    wide = np.concatenate([np.zeros((SHADE_LANES, 1), np.float32)]
+                          + [g[f] for f in SHADE_GBUFFER_FLOATS], axis=1)
+    buf = torch.from_numpy(wide).to(device)
+    fields, col = {}, 1
+    for f in SHADE_GBUFFER_FLOATS:
+        width = g[f].shape[1]
+        fields[f] = buf[:, col:col + width]
+        col += width
+    for f in ("valid", "front_facing", "lightmapped", "material", "uv", "lm_uv"):
+        fields[f] = torch.from_numpy(g[f]).to(device)
+    if path == "tail":
+        tail = mats["mat_row_mq"][fields["material"].long()]
+        row = torch.zeros((SHADE_LANES, 48 + tail.shape[1]), device=device)
+        row[:, 48:] = tail
+        fields["mat_tail"] = row[:, 48:]
+    gbuf = port_shade.GBuffer(**fields)
+    s16 = None
+    if path == "partition":
+        need = int(((~tables["matq_capable"][fields["material"].long()]) & fields["valid"]).sum())
+        s16, _n = port_frame._partition_material_sample(
+            gbuf, tables, port_frame.RenderConfig(matq_classic_cap=need + 64), 1)
+        if nan:
+            rng = np.random.default_rng(31)
+            idx = torch.from_numpy(rng.choice(s16.numel(), size=s16.numel() // 50,
+                                              replace=False)).to(device)
+            vals = torch.from_numpy(rng.choice([np.nan, np.inf, -np.inf, -0.0], size=idx.numel())
+                                    .astype(np.float32)).to(device)
+            s16 = s16.reshape(-1).index_put((idx,), vals).reshape(s16.shape)
+    return dict(gbuf=gbuf, scene=tables,
+                uniforms={k: torch.from_numpy(v).to(device) for k, v in u.items()},
+                view_index=0, env=shade_env(case, env), inline_tonemapping=inline[0],
+                inline_srgb=inline[1], aniso_taps=1, s16=s16)
+
+
 # --- on the card ----------------------------------------------------------------
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (csrc/gbuffer.cu and csrc/sky.cu have no CPU mode)")
+        pytest.skip("needs a CUDA device (csrc/gbuffer.cu, csrc/sky.cu and csrc/shade.cu have "
+                    "no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -294,6 +480,80 @@ def test_gbuffer_kernel_equals_plain_on_card(case):
             assert getattr(out, f) is None, f
         else:
             _bit_equal(f, getattr(out, f), getattr(want, f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inline", SHADE_INLINE)
+@pytest.mark.parametrize("case", sorted(SHADE_CASES))
+def test_shade_kernel_equals_plain_on_card(case, inline):
+    """shade's kernel against shade_plain on the same arguments, every
+    lane by int32 view: lanes with NaN, +-inf and -0 in their g-buffer
+    fields (and in the partition's s16), invalid lanes among them."""
+    dev = _card()
+    args = shade_args(case, dev, inline, nan=True)
+    before = port_shade.shade.LAUNCHES
+    rgb, alpha = port_shade.shade(**args)
+    torch.cuda.synchronize()
+    assert port_shade.shade.LAUNCHES == before + 1
+    want_rgb, want_alpha = port_shade.shade_plain(**args)
+    _bit_equal("rgb", rgb, want_rgb)
+    _bit_equal("alpha", alpha, want_alpha)
+
+
+# shade_lanes' inputs in layouts the frame does not make: s16 whose rows are
+# not 16-B aligned (the kernel's scalar loads) and random, with NaN, +-inf
+# and -0; per-lane SH with NaN; the eye of a second view; the material rows
+# as a column view of a wider table, and a row a lane (mat None); no lanes
+# (an empty worklist's g-buffer, its mat_tail empty: nothing launched)
+SHADE_LAYOUTS = ("s16-unaligned-nan", "sh-lanes-nan", "eye-view1", "rows-strided",
+                 "rows-a-lane", "no-lanes")
+
+
+def shade_lanes_args(layout: str, device) -> dict:
+    """shade_lanes' arguments of a SHADE_LAYOUTS layout, from the "by-id"
+    case's lanes (the whole pool's textures sampled first)."""
+    k = port_shade.shade_inputs(**shade_args("by-id", device, (True, True), nan=True))
+    gbuf, s16, rows, mat, sh, eye = (k[n] for n in ("gbuf", "s16", "rows", "mat", "sh", "eye"))
+    rng = np.random.default_rng(zlib.crc32(layout.encode()))
+    p = SHADE_LANES
+    if layout == "s16-unaligned-nan":
+        vals = rng.normal(size=(p, 16)).astype(np.float32)
+        vals.reshape(-1)[rng.choice(p * 16, size=p // 2, replace=False)] = np.nan
+        vals[::13, 2] = np.inf
+        vals[::17, 10] = -0.0
+        buf = torch.zeros((p, 17), device=device)
+        buf[:, 1:] = torch.from_numpy(vals).to(device)
+        s16 = buf[:, 1:]
+    elif layout == "sh-lanes-nan":
+        vals = rng.normal(scale=0.5, size=(p, 4, 3)).astype(np.float32)
+        vals.reshape(-1)[rng.choice(p * 12, size=p // 4, replace=False)] = np.nan
+        sh = torch.from_numpy(vals).to(device)
+    elif layout == "eye-view1":
+        eye = torch.tensor([[9.0, 9.0, 9.0], [0.3, -1.5, 2.25]], device=device)[1]
+    elif layout == "rows-strided":
+        wide = torch.zeros((rows.shape[0], rows.shape[1] + 7), device=device)
+        wide[:, 3:3 + rows.shape[1]] = rows
+        rows = wide[:, 3:3 + rows.shape[1]]
+    elif layout == "rows-a-lane":
+        rows, mat = rows[gbuf.material.long()], None
+    else:
+        gbuf = port_shade.GBuffer(*[None if x is None else x[:0] for x in gbuf])
+        s16, rows, mat = s16[:0], rows[:0], None  # an empty mat_tail
+    return dict(k, gbuf=gbuf, s16=s16, rows=rows, mat=mat, sh=sh, eye=eye)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", SHADE_LAYOUTS)
+def test_shade_lanes_layouts_on_card(layout):
+    dev = _card()
+    args = shade_lanes_args(layout, dev)
+    before = port_shade.shade.LAUNCHES
+    rgb, alpha = port_shade.shade_lanes(**args)
+    torch.cuda.synchronize()
+    assert port_shade.shade.LAUNCHES == before + (layout != "no-lanes")
+    want_rgb, want_alpha = port_shade.shade_lanes_plain(**args)
+    _bit_equal(layout, rgb, want_rgb)
+    _bit_equal(layout, alpha, want_alpha)
 
 
 @pytest.mark.gpu
@@ -379,15 +639,21 @@ def test_card_calls_never_reach_the_plain_versions(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("a CUDA call reached a plain version")
 
+    cases = {case: shade_args(case, dev) for case in ("tail", "classic", "volume")}
     for mod, name in ((port_shade, "interpolate_gbuffer_plain"),
                       (port_sky, "sample_skybox_plain"), (port_sky, "sample_skybox_at_plain"),
                       (port_sky, "shade_sky_rays"), (port_sky, "skybox_rays"),
-                      (port_sky, "skybox_rays_at")):
+                      (port_sky, "skybox_rays_at"), (port_shade, "shade_plain"),
+                      (port_shade, "shade_lanes_plain"), (port_shade, "eval_sh_nonlinear"),
+                      (port_shade, "sh_specular_approximation"), (port_shade, "ggx_specular"),
+                      (port_shade, "compute_cotangent_frame_normal")):
         monkeypatch.setattr(mod, name, refuse)
     port_shade.interpolate_gbuffer(**gbuffer_args("shade", dev))
     for case in ("static-quad-f16", "desc-flat-u8-at-i32", "clear"):
         name, args = sky_args(case, dev)
         getattr(port_sky, name)(**args)
+    for args in cases.values():
+        port_shade.shade(**args)
     torch.cuda.synchronize()
 
 
