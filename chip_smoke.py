@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Drives superconductor_tpu_torch's paths at 1920x1080 on the first CUDA
 device -- the headline frame (hero_helmet.glb, opaque PBR + IBL
@@ -237,19 +237,26 @@ through the ECS) -- and checks them:
     launch counted at its site;
 18. geometry (the vertex stage and the view setup, csrc/geometry.cu; 2
     prints their registers and spills): as 15 for every
-    geometry_vertex_stage and geometry_view_setup call of one eager
-    headline, all-passes, stereo and lit frame (the two draw lists' vertex
-    stages, each writing its rows into the frame's merged table, and both
-    lists' setups of every view), each held bit for bit against its plain
-    version (every field of the VertexStage and its packed attributes, or
-    of the TriangleSetup, by its int32 view, each written into its own
-    sentinel-filled copy of the call's `out`); each site timed (kernel and
-    torch chain) with its bound (geometry_bytes_ops) and the time of one
+    geometry_vertex_stage_merged and geometry_view_setup_merged call of one
+    eager headline, all-passes, stereo and lit frame (both draw lists'
+    vertex stage in one call, two launches: the vertex phase and the
+    triangle phase, writing the lists' rows into the frame's merged table;
+    both lists' setup of a view in one launch), each held bit for bit
+    against its plain version (every field of the VertexStages and their
+    packed attributes, or of the TriangleSetup, by its int32 view, each
+    written into its own sentinel-filled copy of the call's `out`); each
+    site timed (kernel and torch chain) with its bound (geometry_bound: the
+    sum of its lists', geometry_bytes_ops) and the time of one
     index_select of the rows it reads (the vertices, the triangles'
-    indices, the corners' w1 rows); the graph frames' twins with every
-    plain version and with the two geometry plain versions
-    (render/frame.py GEOMETRY_PLAIN_VERSIONS); a replay's tally; its own
-    main-path run, each launch counted at its site;
+    indices, the corners' w1 rows), each list alone through its per-list
+    wrapper and the merged call's device ms by kernel (a profile), and,
+    with --baseline DIR, the geometry kernels of the tree at DIR (say, a
+    git archive of an earlier commit) as that tree's frame called them at
+    the same site; the graph frames' twins with every plain version and
+    with the two geometry plain versions (render/frame.py
+    GEOMETRY_PLAIN_VERSIONS); a replay's tally; its own main-path run, each
+    launch counted at its site; each frame's launches (at most 2 of the
+    vertex stage, 1 setup a view);
 19. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
@@ -1439,7 +1446,8 @@ def plain_versions(kernels=None):
 
 def kernel_counters() -> dict:
     """hand kernel -> the wrappers whose LAUNCHES count its launches (the
-    sky kernel has two, the band's and the worklist's)."""
+    sky kernel has two, the band's and the worklist's; each geometry kernel
+    two, the per-list wrapper's and the merged one's)."""
     from superconductor_tpu_torch.ops import geometry as geometry_mod
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops import sample as sample_mod
@@ -1453,8 +1461,10 @@ def kernel_counters() -> dict:
             "gbuffer": (shade_mod._GBUFFER_COUNTER,),
             "sky": (sky_mod._SKYBOX_COUNTER, sky_mod._SKYBOX_AT_COUNTER),
             "shade": (shade_mod._SHADE_COUNTER,),
-            "vertex_stage": (geometry_mod._VERTEX_STAGE_COUNTER,),
-            "view_setup": (geometry_mod._VIEW_SETUP_COUNTER,)}
+            "vertex_stage": (geometry_mod._VERTEX_STAGE_COUNTER,
+                             geometry_mod._VERTEX_STAGE_MERGED_COUNTER),
+            "view_setup": (geometry_mod._VIEW_SETUP_COUNTER,
+                           geometry_mod._VIEW_SETUP_MERGED_COUNTER)}
 
 
 @contextlib.contextmanager
@@ -1827,6 +1837,13 @@ class HandPhase(NamedTuple):
     # where the wrapper does more than launch the kernel; None: the wrapper
     # and its plain version on args
     timed: Optional[Callable] = None
+    # (name, args) -> the kernel launches a call makes (None: one)
+    call_launches: Optional[Callable] = None
+    # (name, args) -> a call of a baseline tree's kernels at the same site
+    # to time beside the kernel, or None (None: no baseline)
+    baseline: Optional[Callable] = None
+    # (name, args) -> a line of further timings at a site (None: none)
+    detail: Optional[Callable] = None
 
 
 # what compare_calls fills a sampler's `out` with before the kernel and
@@ -1996,34 +2013,76 @@ GEOMETRY_OPS_VERTEX, GEOMETRY_OPS_SKIN = 78, 341
 GEOMETRY_OPS_SETUP, GEOMETRY_OPS_CLIP = 97, 28
 
 
+def geometry_parts(name: str, args: dict) -> list:
+    """[(per-list wrapper name, its arguments by name)] of a geometry call:
+    the call itself, or each list of a merged call as the per-list
+    wrapper would take it (its rows of the merged `out`; a merged setup
+    always writes tri_id and inst_id, so its parts have an `out`)."""
+    from superconductor_tpu_torch.ops.geometry import row_slice, setup_table
+
+    if name == "geometry_vertex_stage_merged":
+        parts, at = [], 0
+        for lst in args["lists"]:
+            out = args["out"]
+            parts.append(("geometry_vertex_stage", dict(
+                lst._asdict(), materials=args["materials"],
+                out=None if out is None else row_slice(out, at, at + lst.t_cap))))
+            at += lst.t_cap
+        return parts
+    if name == "geometry_view_setup_merged":
+        parts, at = [], 0
+        for stage in args["stages"]:
+            t = stage.row3.shape[0]
+            out = args["out"]
+            parts.append(("geometry_view_setup", dict(
+                stage=stage, view_proj=args["view_proj"], width=args["width"],
+                height=args["height"], flip_viewport=args["flip_viewport"],
+                out=setup_table(t, "meta") if out is None else row_slice(out, at, at + t))))
+            at += t
+        return parts
+    return [(name, args)]
+
+
+def geometry_calls(name: str, args: dict) -> int:
+    """The kernel launches a geometry call makes: the vertex stage's two
+    phases, one setup launch."""
+    return 2 if name.startswith("geometry_vertex_stage") else 1
+
+
 def geometry_lanes(name: str, args: dict) -> int:
     """The slots a geometry call computes: vertex and triangle slots (the
-    vertex stage) or triangle slots (the view setup)."""
+    vertex stage) or triangle slots (the view setup), of every list."""
+    if name != "geometry_vertex_stage" and name != "geometry_view_setup":
+        return sum(geometry_lanes(n, a) for n, a in geometry_parts(name, args))
     if name == "geometry_vertex_stage":
         return args["t_cap"] + (args["v_cap"] or args["t_cap"])
     return args["stage"].row3.shape[0]
 
 
 def geometry_site(name: str, caller: str, args: dict) -> str:
-    """A geometry call's site and shape: its caller, the list's kind and
+    """A geometry call's site and shape: its caller, each list's kind and
     its slots."""
-    if name == "geometry_vertex_stage":
-        kind = "skinned" if args["joint_palette"] is not None else "static"
-        lm = "" if args["lm_uvs"] is None else ", lightmap uvs"
-        return (f"vertex_stage {caller} {kind} t_cap {args['t_cap']} v_cap "
-                f"{args['v_cap'] or args['t_cap']}{lm}")
+    parts = geometry_parts(name, args)
+    if name.startswith("geometry_vertex_stage"):
+        lists = []
+        for _, a in parts:
+            kind = "skinned" if a["joint_palette"] is not None else "static"
+            lm = "" if a["lm_uvs"] is None else ", lightmap uvs"
+            lists.append(f"{kind} t_cap {a['t_cap']} v_cap {a['v_cap'] or a['t_cap']}{lm}")
+        return f"vertex_stage {caller} {' + '.join(lists)}"
     flip = ", flipped" if args["flip_viewport"] else ""
-    return f"view_setup {caller} {args['stage'].row3.shape[0]} triangle slots{flip}"
+    slots = " + ".join(str(a["stage"].row3.shape[0]) for _, a in parts)
+    return f"view_setup {caller} {slots} triangle slots{flip}"
 
 
 def geometry_read_rows(name: str, args: dict) -> dict:
-    """What a geometry call reads by index, each row once: {"vertices":
-    the distinct scene vertices its vertex slots read, "triangles": the
-    distinct scene triangles, "joints": the distinct clamped palette rows,
-    "draw_materials" / "tri_materials": the distinct material rows read
-    for the uv transform and for the flags} (the vertex stage), or
-    {"corners": the distinct w1 rows its triangles' corners read} (the
-    view setup). Each an int64 tensor of row indices."""
+    """What a per-list geometry call reads by index, each row once:
+    {"vertices": the distinct scene vertices its vertex slots read,
+    "triangles": the distinct scene triangles, "joints": the distinct
+    clamped palette rows, "draw_materials" / "tri_materials": the distinct
+    material rows read for the uv transform and for the flags} (the vertex
+    stage), or {"corners": the distinct w1 rows its triangles' corners
+    read} (the view setup). Each an int64 tensor of row indices."""
     from superconductor_tpu_torch.ops import geometry as geometry_mod
 
     if name == "geometry_view_setup":
@@ -2044,21 +2103,24 @@ def geometry_read_rows(name: str, args: dict) -> dict:
 
 def geometry_bytes_ops(name: str, args: dict) -> tuple:
     """(bytes, FP32 operations) a geometry call needs, each input read
-    once and each output written once, as this call's data needs them.
-    The vertex stage reads each draw's sim8 and five int columns (the
-    joints' offset too when skinned) and its two flags; each distinct
-    scene vertex its slots read (position, normal, uv, 32 B; the lightmap
-    uv 8 B; skinned, its joint indices and weights 32 B); each distinct
-    palette row (32 B); each distinct draw material's uv offset, scale and
-    rotation (20 B) and each distinct triangle material's flags (4 B); each
-    distinct scene triangle's indices and material (16 B); it writes 16 B a
-    vertex slot (w1), 151 B a triangle slot (the packed row, row3,
-    pair_inst, scene_tri and three flags) and the count (4 B). The view
-    setup reads 14 B a triangle slot (row3 and two flags), 16 B a distinct
-    corner row of w1 and the matrix (64 B), and writes 81 B a slot (the
-    setup row, valid and bbox); into an `out` also tri_id and inst_id, read
-    and written (16 B). Operations: GEOMETRY_OPS_* of each slot and
-    distinct corner."""
+    once and each output written once, as this call's data needs them; a
+    merged call's, the sums of its lists'. The vertex stage reads each
+    draw's sim8 and five int columns (the joints' offset too when skinned)
+    and its two flags; each distinct scene vertex its slots read (position,
+    normal, uv, 32 B; the lightmap uv 8 B; skinned, its joint indices and
+    weights 32 B); each distinct palette row (32 B); each distinct draw
+    material's uv offset, scale and rotation (20 B) and each distinct
+    triangle material's flags (4 B); each distinct scene triangle's indices
+    and material (16 B); it writes 16 B a vertex slot (w1), 151 B a
+    triangle slot (the packed row, row3, pair_inst, scene_tri and three
+    flags) and the count (4 B). The view setup reads 14 B a triangle slot
+    (row3 and two flags), 16 B a distinct corner row of w1 and the matrix
+    (64 B), and writes 81 B a slot (the setup row, valid and bbox); into an
+    `out` also tri_id and inst_id, read and written (16 B). Operations:
+    GEOMETRY_OPS_* of each slot and distinct corner."""
+    if name != "geometry_vertex_stage" and name != "geometry_view_setup":
+        sums = [geometry_bytes_ops(n, a) for n, a in geometry_parts(name, args)]
+        return sum(b for b, _ in sums), sum(o for _, o in sums)
     rows = geometry_read_rows(name, args)
     if name == "geometry_view_setup":
         t = args["stage"].row3.shape[0]
@@ -2078,9 +2140,13 @@ def geometry_bytes_ops(name: str, args: dict) -> tuple:
 
 
 def geometry_bound(name: str, args: dict, fetched: list) -> tuple:
-    """(bound_ms, bound_by) of one geometry launch: the larger of
+    """(bound_ms, bound_by) of one geometry call: the larger of
     geometry_bytes_ops' bytes over 3.35 TB/s and its operations over 67
-    TFLOP/s (H100 SXM)."""
+    TFLOP/s (H100 SXM); a merged call's, the sum of its lists' bounds (by
+    what bounds the largest)."""
+    if name != "geometry_vertex_stage" and name != "geometry_view_setup":
+        bounds = [geometry_bound(n, a, fetched) for n, a in geometry_parts(name, args)]
+        return sum(ms for ms, _ in bounds), max(bounds)[1]
     nbytes, ops = geometry_bytes_ops(name, args)
     bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
@@ -2090,7 +2156,9 @@ def geometry_rows(name: str, args: dict, fetched: list) -> list:
     """[(table, row indices)] a geometry call reads by index: the vertex
     stage's distinct vertices' positions, normals and uvs and its distinct
     triangles' three indices; the view setup's distinct corner rows of
-    w1."""
+    w1; a merged call's, its lists'."""
+    if name != "geometry_vertex_stage" and name != "geometry_view_setup":
+        return [r for n, a in geometry_parts(name, args) for r in geometry_rows(n, a, fetched)]
     rows = geometry_read_rows(name, args)
     if name == "geometry_view_setup":
         return [(args["stage"].w1, rows["corners"])]
@@ -2098,6 +2166,106 @@ def geometry_rows(name: str, args: dict, fetched: list) -> list:
     corners = (tri[:, None] * 3 + torch.arange(3, device=tri.device)).reshape(-1)
     return [(args["positions"], v), (args["normals"], v), (args["uvs"], v),
             (args["indices"], corners.clamp(0, args["indices"].shape[0] - 1))]
+
+
+# The root of a baseline tree of this repo whose geometry kernels
+# [geometry] times beside this tree's at each site (chip_smoke.py
+# --baseline DIR: say, a git archive of the commit before a redesign), or
+# None; and its loaded geometry module
+BASELINE = {"root": None, "module": None}
+
+
+def baseline_geometry():
+    """The baseline tree's superconductor_tpu_torch/ops/geometry.py, loaded
+    as a module of this package (its relative imports resolve here), its
+    library built by nvcc from the tree's csrc/geometry.cu into
+    build/baseline/ and bound in place of this tree's (the module's
+    `_kernel(symbol, args, which)`, which checks each struct's size)."""
+    import ctypes
+    import importlib.util
+
+    from superconductor_tpu_torch.ops import raster as raster_mod
+
+    if BASELINE["module"] is not None:
+        return BASELINE["module"]
+    src = os.path.join(BASELINE["root"], "superconductor_tpu_torch")
+    lib = os.path.join(raster_mod.BUILD_DIR, "baseline", "libsc_geometry.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([raster_mod._nvcc(), *raster_mod.NVCC_FLAGS, "-o", lib,
+                    os.path.join(src, "csrc", "geometry.cu")], check=True, capture_output=True)
+    cdll = ctypes.CDLL(lib)
+    spec = importlib.util.spec_from_file_location(
+        "superconductor_tpu_torch.ops._baseline_geometry",
+        os.path.join(src, "ops", "geometry.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def kernel(symbol, args, which):
+        size = cdll.sc_geometry_args_bytes(which)
+        if size != ctypes.sizeof(args):
+            raise RuntimeError(f"the baseline's struct {which} takes {size} B, its mirror "
+                               f"{ctypes.sizeof(args)} B")
+        fn = getattr(cdll, symbol)
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]
+        return fn
+
+    mod._kernel = kernel
+    BASELINE["module"] = mod
+    phase("geometry", f"baseline: {src}'s csrc/geometry.cu built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return mod
+
+
+def geometry_detail(name: str, args: dict) -> str:
+    """At a merged geometry call: each list alone through its per-list
+    wrapper (device ms, bench_raster.graph_ms), and the merged call's
+    device ms by kernel (the vertex stage's two phases) from a profile of
+    20 eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superconductor_tpu_torch.bench_raster import graph_ms
+    from superconductor_tpu_torch.ops import geometry as geometry_mod
+
+    alone = [graph_ms(lambda n=n, a=a: getattr(geometry_mod, n)(**a))
+             for n, a in geometry_parts(name, args)]
+    call = getattr(geometry_mod, name)
+    call(**args)
+    torch.cuda.synchronize()
+    runs = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            call(**args)
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        m = re.search(r"(vertex_stage_kernel<\d+>|view_setup_kernel)", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            by_kernel[m.group(1)] += e.device_time / runs / 1e3
+    kernels = ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kernel.items()))
+    return (f"each list alone (per-list wrapper) {' / '.join(f'{ms:.4f}' for ms in alone)} ms; "
+            f"device ms a merged call by kernel (profile of {runs} calls): {kernels}")
+
+
+def geometry_baseline(name: str, args: dict):
+    """The baseline tree's kernels at a merged geometry call, as its frame
+    called them there: each list's per-list wrapper into its rows of the
+    call's `out`, and for the setup the torch add of the two counts; None
+    without a baseline."""
+    if BASELINE["root"] is None:
+        return None
+    mod = baseline_geometry()
+    parts = geometry_parts(name, args)
+    wrapper = {"geometry_vertex_stage": mod.geometry_vertex_stage,
+               "geometry_view_setup": mod.geometry_view_setup}
+
+    def call():
+        results = [wrapper[n](**a) for n, a in parts]
+        if name == "geometry_view_setup_merged" and len(results) > 1:
+            return results[0].num_valid + results[1].num_valid
+        return results
+
+    return call
 
 
 def geometry_equal(out, want, args: dict) -> tuple:
@@ -2125,7 +2293,9 @@ def geometry_equal(out, want, args: dict) -> tuple:
 
 
 GEOMETRY_PHASE = HandPhase("geometry", GEOMETRY, geometry_lanes, geometry_site, geometry_equal,
-                           geometry_bound, geometry_rows, ("geometry",))
+                           geometry_bound, geometry_rows, ("geometry",),
+                           call_launches=geometry_calls, baseline=geometry_baseline,
+                           detail=geometry_detail)
 
 
 SM_LANES = 128  # thread instructions an SM starts a clock: 4 schedulers of a warp each
@@ -2235,12 +2405,18 @@ def sky_kernel_stats(smi: str, log: str, sites: dict) -> None:
               f"kernel {r['ms']:.4f} ms, bytes bound {r['bound_ms']:.4f} ms; {smi}")
 
 
+def launches_a_call(hp: HandPhase, name: str, args: dict) -> int:
+    """The kernel launches one call of the phase's wrapper `name` makes."""
+    return hp.call_launches(name, args) if hp.call_launches is not None else 1
+
+
 def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None:
     """Each recorded call's kernel against its plain version on the same
     inputs, bit for bit (f32 results by their int32 views); the first call
     of each site and shape timed (device ms of the kernel and of the plain
     version, bench_raster.graph_ms), with its bound and share and the
-    yardstick of one index_select of the rows the call reads, into
+    yardstick of one index_select of the rows the call reads (and, where
+    the phase has a baseline, the baseline tree's kernels at the call), into
     results[site], and kept there as "call": (wrapper name, arguments).
     Raises at the first call that differs."""
     from superconductor_tpu_torch.bench_raster import graph_ms
@@ -2263,7 +2439,8 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
         if not lanes:
             continue  # nothing launched, nothing to time
         entry = results.setdefault(site, {"kernel": kernel, "calls": 0, "max_abs_err": 0.0,
-                                          "lanes": lanes, "slots": len(args.get("slots", ()))})
+                                          "lanes": lanes, "slots": len(args.get("slots", ())),
+                                          "launches_a_call": launches_a_call(hp, name, args)})
         entry["calls"] += 1
         if "ms" in entry:
             continue
@@ -2278,10 +2455,20 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
         entry["index_select_ms"] = graph_ms(
             lambda: [torch.index_select(t, 0, idx) for t, idx in rows])
         entry["rows_read"] = sum(int(idx.numel()) for _, idx in rows)
-        phase(hp.label, f"{site}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+        base = hp.baseline(name, args) if hp.baseline is not None else None
+        entry["baseline_ms"] = graph_ms(base) if base is not None else None
+        baseline = ("not measured" if base is None else
+                    f"{entry['baseline_ms']:.4f} ms (kernel / baseline "
+                    f"{entry['ms'] / entry['baseline_ms']:.3f})")
+        phase(hp.label, f"{site}: kernel {entry['ms']:.4f} ms ({entry['launches_a_call']} "
+              f"launches), plain {entry['plain_ms']:.4f} "
               f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), share "
               f"{entry['bound_ms'] / entry['ms']:.3f}; index_select of its "
-              f"{entry['rows_read']} rows {entry['index_select_ms']:.4f} ms")
+              f"{entry['rows_read']} rows {entry['index_select_ms']:.4f} ms"
+              + (f"; the baseline tree's kernels at this site {baseline}"
+                 if hp.baseline is not None else ""))
+        if hp.detail is not None:
+            phase(hp.label, f"{site}: {hp.detail(name, args)}")
 
 
 def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
@@ -2301,9 +2488,10 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
     counter set to 0, GRAPH_TIMED graph frames of each scene, the counters
     read, and the run fails unless each kernel launched, the kernels'
     counts equal their sites' sum, and each site launched GRAPH_TIMED
-    times its calls in the eager frame. Returns {"sites": per-site
-    results, "launches": the kernels' launches in that run,
-    "site_launches": the launches at each site in that run}."""
+    times its calls' launches in the eager frame. Returns {"sites":
+    per-site results, "launches": the kernels' launches in that run,
+    "site_launches": the launches at each site in that run, "per_frame":
+    each scene's launches of each kernel in an eager frame}."""
     from superconductor_tpu_torch.render import frame_graph
     from superconductor_tpu_torch.render.frame import render_frame_impl, render_frame_stats
 
@@ -2318,7 +2506,7 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
         state = build(0.0)
         with record_calls(hp.kernels) as calls:
             render_frame_impl(tables, state, config, env)
-        per_frame[scene] = {k: sum(1 for name, _, args in calls
+        per_frame[scene] = {k: sum(launches_a_call(hp, name, args) for name, _, args in calls
                                    if bindings[name][0] == k and hp.lanes(name, args))
                             for k in hp.kernels}
         phase(hp.label, f"{scene}: {len(calls)} calls in an eager frame {per_frame[scene]}")
@@ -2355,14 +2543,15 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
     launches = counts()
     phase(hp.label, f"main path: {GRAPH_TIMED} graph frames of {', '.join(frames)}: launches "
           f"{launches}; by site {dict(site_launches)}; {smi}")
-    want = {site: GRAPH_TIMED * r["calls"] for site, r in sites.items()}
+    want = {site: GRAPH_TIMED * r["calls"] * r["launches_a_call"] for site, r in sites.items()}
     by_kernel = {k: sum(n for site, n in site_launches.items() if sites[site]["kernel"] == k)
                  for k in hp.kernels}
     if (launches != by_kernel or dict(site_launches) != want or not all(launches.values())
             or captures != len(frames)):
         raise RuntimeError(f"the main path launched {launches}, by site {dict(site_launches)} "
                            f"in {captures} captures; expected by site {want} in {len(frames)}")
-    return {"sites": sites, "launches": launches, "site_launches": dict(site_launches)}
+    return {"sites": sites, "launches": launches, "site_launches": dict(site_launches),
+            "per_frame": per_frame}
 
 
 def launch_site(hp: HandPhase, frame) -> str:
@@ -3487,7 +3676,26 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     ]}
 
 
+def geometry_launches_a_frame(per_frame: dict, frames: dict) -> None:
+    """Each frame's geometry launches in an eager frame: at most 2 of the
+    vertex stage (one merged call, its two phases) and one setup launch a
+    view; raises otherwise."""
+    for scene, counts in per_frame.items():
+        views = frames[scene][2].num_views
+        phase("geometry", f"{scene}: launches a frame: vertex stage {counts['vertex_stage']} "
+              f"(at most 2), view setup {counts['view_setup']} ({views} view(s): one a view)")
+        if counts["vertex_stage"] > 2 or counts["view_setup"] != views:
+            raise RuntimeError(f"the {scene} frame's geometry launches {counts}")
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--baseline", default=None,
+                        help="root of another tree of this repo whose geometry kernels "
+                             "[geometry] times beside this tree's at each site")
+    BASELINE["root"] = parser.parse_args().baseline
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3662,6 +3870,7 @@ def main() -> int:
                      {site: r for site, r in deferred["sites"].items() if r["kernel"] == "sky"})
     shade = hand_path(SHADE_PHASE, smi, dict(graph_frames, lit_passes=lit_frame))
     geometry = hand_path(GEOMETRY_PHASE, smi, dict(graph_frames, lit_passes=lit_frame))
+    geometry_launches_a_frame(geometry["per_frame"], dict(graph_frames, lit_passes=lit_frame))
     del lit_frame
 
     for mod in ("jax", "superconductor_tpu"):

@@ -1,5 +1,7 @@
-// The geometry stage on Hopper (sm_90a): the vertex stage of one draw list
-// and the edge setup of one view, each one launch, one thread a slot.
+// The geometry stage on Hopper (sm_90a): the vertex stage of one or two
+// draw lists in two launches (a vertex phase, then a triangle phase) and
+// the edge setup of one view over both lists in one launch, one thread a
+// slot.
 //
 // Replaces no TPU kernel. The JAX package leaves this stage to XLA:
 // superconductor_tpu/ops/geometry.py:194 geometry_vertex_stage and :292
@@ -9,32 +11,61 @@
 // 400 launches a frame, nearly all of the stage's time, each writing its
 // whole (slots, C) result to device memory for the next to read back.
 //
-// vertex_stage_kernel: one draw list (ops/geometry.py DrawList) expanded
-// into v_cap vertex slots and t_cap triangle slots. Each block first sums
-// the draws' vertex and triangle counts (valid draws only) into their
-// inclusive prefixes in shared memory, as torch.cumsum gives them (int32,
-// wrapping). A vertex slot p finds its draw as torch.searchsorted(ends, p,
-// right=True) does (the same binary search; owner 0 past the total),
-// gathers its position, normal, uv and lightmap uv, skins them on the
-// clamped joint rows of the palette (the animated list), applies the
-// draw's sim8 transform, rotates the normal by its quaternion, applies the
-// material's KHR_texture_transform (_uv_transform) and writes w1 (V, 4). A
-// triangle slot finds its draw the same way over the triangle counts,
-// reads its three indices, forms row3 (the vertex slots of its corners,
-// row_ok, clamped), pair_inst, scene_tri, pair_valid, double_sided (the
-// material's flag bit 2) and lightmapped, and writes its 32-float packed
-// attribute row (ops/geometry.py pack_attrs) from its corners' vertices,
-// which it computes itself as their vertex slots do: no slot waits for
-// another, so one launch does both.
+// vertex_stage_kernel<0>, the vertex phase: the lists' vertex slots in one
+// grid, each list's slots in whole blocks of their own (the animated list's
+// blocks first: a skinned vertex takes the longest, and blocks start in
+// index order). Each block's first warp scans its list's draw counts
+// (valid draws only) into their inclusive prefixes with shuffles, as
+// torch.cumsum gives them (int32, wrapping; any order gives the same
+// integers), into shared memory; the list's first block also writes them
+// to a device table (`ends`: the vertex prefixes, then the triangle ones)
+// and the triangle count to num_valid. A vertex slot p finds its draw as
+// torch.searchsorted(ends, p, right=True) does (the same binary search;
+// owner 0 past the total), gathers its position, normal, uv and lightmap
+// uv, skins them on the clamped joint rows of the palette (the animated
+// list), applies the draw's sim8 transform, rotates the normal by its
+// quaternion, applies the material's KHR_texture_transform (_uv_transform),
+// and writes w1 (V, 4) and a scratch row of what a corner needs besides its
+// position: the normal and u (`corner`'s first v_cap rows), v, the lightmap
+// uv and a pad (its last v_cap rows), 16-B rows in two planes so that every
+// store is coalesced. Of the slots past the list's total, whose rows are
+// all alike, only the last writes a scratch row.
 //
-// view_setup_kernel: one triangle slot of one view. Each corner's clip
-// coordinates are clip_transform's four products and three sums of its w1
-// row, computed inline rather than gathered from a per-vertex clip table;
-// then _setup_from_clip with vertex_ids (each edge's products in the
-// corners' id order, times the orientation sign): the setup row (16 f32),
-// valid and bbox (4 i32), and, for a merged table, the slot's tri_id and
-// inst_id. The view-projection matrix is read through a device pointer (a
-// CUDA graph's input buffer, which a new pose overwrites).
+// vertex_stage_kernel<1>, the triangle phase: the lists' triangle slots in
+// one grid, split by block as the vertex phase's. A triangle slot finds its
+// draw over the triangle prefixes of the table, reads its three indices,
+// forms row3 (the vertex slots of its corners, row_ok, clamped to [0,
+// v_cap)), pair_inst, scene_tri, pair_valid, double_sided (the material's
+// flag bit 2) and lightmapped, and writes its 32-float packed attribute row
+// (ops/geometry.py pack_attrs) from its corners' w1 and scratch rows
+// (those of the list's last slot for a corner past the total), copied by
+// their bits (a NaN keeps its payload). A warp's 32 packed rows
+// go through shared memory (16-B chunks, XOR-swizzled against bank
+// conflicts) so that each store instruction writes 512 contiguous bytes.
+//
+// Padding: every slot past its list's total gets the same row (owner 0,
+// scene vertex 0 or scene triangle 0, pair_valid false). A block that holds
+// such slots computes that row once, by the thread of its last slot (one of
+// them), into shared memory, and its other padding slots store it. (The
+// headline's static list has 16,060 triangles in 32,768 slots.)
+//
+// view_setup_kernel: one triangle slot of one view, over up to two lists'
+// stages (each list's slots in whole blocks), written into one table (the
+// first list's rows first). Each corner's clip coordinates are
+// clip_transform's four products and three sums of its w1 row, computed
+// inline rather than gathered from a per-vertex clip table; then
+// _setup_from_clip with vertex_ids (each edge's products in the corners' id
+// order, times the orientation sign): the setup row (16 f32, staged through
+// shared memory as the packed rows), valid and bbox (4 i32), and, into an
+// `out`, the slot's tri_id and inst_id. The first thread writes the lists'
+// num_valid summed (int32, wrapping, as torch's add). The view-projection
+// matrix is read through a device pointer (a CUDA graph's input buffer,
+// which a new pose overwrites).
+//
+// A frame so runs 2 vertex-stage launches (both lists) and 1 setup launch
+// a view (a first design of these kernels ran a vertex-stage launch a list,
+// whose triangle slots computed their corners' vertices again, a setup
+// launch a list a view, and a torch add of the two counts).
 //
 // What bounds both on this card: bytes. A vertex slot reads 40 B (32 with
 // no lightmap uvs; skinning adds 32 B and its palette rows) and writes 16
@@ -48,15 +79,13 @@
 // skinned), and 4.1 MB, 33 MB and 25 MB a view of edge setup. The
 // arithmetic (78 FP32 operations a vertex, 341 more with four joints; 97 a
 // triangle's setup and 28 a vertex's clip coordinates) is far under that
-// at the card's rate, though a triangle slot computes its three corners'
-// vertices again (chip_smoke.py geometry_bytes_ops counts the function's
-// bytes and operations, not the kernel's).
-//
-// Design: registers only; the draws' prefixes in shared memory (8 B a
-// draw, each block its own: the lists hold a few dozen draws); 16-B stores
-// of the packed and setup rows. The corner recomputation trades about
-// three times the vertex arithmetic for a second launch and a round trip
-// of the transformed vertices through device memory.
+// at the card's rate (chip_smoke.py geometry_bytes_ops counts the
+// function's bytes and operations, not the kernel's: the scratch rows' 32 B
+// a vertex below the total, written and read back through the L2, are the
+// kernel's own cost). Measured (chip_smoke.py [geometry]): the merged
+// vertex stage of the all-passes and stereo frames at 0.5-0.6 of that
+// bound, their setups at about 0.7; the headline's at its two launches'
+// floor.
 //
 // Bit for bit with the torch chains on the card (csrc/torch_exact.cuh):
 // every product, sum and quotient in the chain's order, as ops/geometry.py
@@ -81,12 +110,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPackedCols = 32;  // ops/geometry.py pack_attrs
 constexpr int kSetupCols = 16;
+constexpr int kMaxLists = 2;  // the static and the animated draw list
 
 // Every field 8 bytes, so that ops/geometry.py's ctypes mirrors lay them
 // out alike (sc_geometry_args_bytes checks the sizes). Tables are
 // contiguous; a row count bounds each table's index as torch's indexing
 // does (row_of).
-struct VertexArgs {
+struct ListArgs {
   // the DrawList, (n,) each; sim8 (n, 8)
   long long n;
   const float* sim8;
@@ -100,7 +130,7 @@ struct VertexArgs {
   const uint8_t* valid;
   long long t_cap;
   long long v_cap;
-  // the scene's tables
+  // the list's scene tables
   const int* indices;
   long long n_indices;
   const float* positions;  // (., 3)
@@ -113,14 +143,6 @@ struct VertexArgs {
   long long n_lm_uvs;
   const int* tri_material;
   long long n_tri_material;
-  const float* uv_offset;  // (., 2)
-  long long n_uv_offset;
-  const float* uv_scale;  // (., 2)
-  long long n_uv_scale;
-  const float* uv_rotation;
-  long long n_uv_rotation;
-  const int* mat_flags;
-  long long n_mat_flags;
   // skinning: the palette (., 8), or null: no skinning
   const float* palette;
   long long n_palette;
@@ -128,6 +150,9 @@ struct VertexArgs {
   long long n_joint_indices;
   const float* joint_weights;  // (., 4)
   long long n_joint_weights;
+  // the vertex phase's scratch for the triangle phase
+  int* ends;  // (2n,): the vertex count prefixes, then the triangle ones
+  float* corner;  // (2 v_cap, 4): normal and u, then v, lightmap uv and a pad
   // results
   float* w1;  // (v_cap, 4)
   int* row3;  // (t_cap, 3)
@@ -140,79 +165,108 @@ struct VertexArgs {
   uint8_t* lightmapped_out;
 };
 
-struct SetupArgs {
+struct VertexArgs {
+  long long lists;  // 1 or 2
+  // the materials, shared by the lists
+  const float* uv_offset;  // (., 2)
+  long long n_uv_offset;
+  const float* uv_scale;  // (., 2)
+  long long n_uv_scale;
+  const float* uv_rotation;
+  long long n_uv_rotation;
+  const int* mat_flags;
+  long long n_mat_flags;
+  ListArgs list[kMaxLists];
+};
+
+struct SetupPart {  // one list's VertexStage
   long long t_cap;
   long long v_rows;  // w1's rows
   const int* row3;  // (t_cap, 3)
   const uint8_t* pair_valid;
   const uint8_t* double_sided;
-  const float* w1;  // (v_rows, 4)
-  const float* view_proj;  // (4, 4)
+  const float* w1;  // (v_rows, 4), 16-B aligned
   const int* scene_tri;  // copied into tri_id, where that is not null
   const int* pair_inst;  // copied into inst_id
+  const int* num_valid;  // ()
+};
+
+struct SetupArgs {
+  long long parts;  // 1 or 2
+  const float* view_proj;  // (4, 4)
   long long width;
   long long height;
   long long flip_viewport;
-  float* setup;  // (t_cap, 16), 16-B aligned
+  // the parts' rows, the first part's first
+  float* setup;  // (rows, 16), 16-B aligned
   uint8_t* valid;
-  int* bbox;  // (t_cap, 4), 16-B aligned
-  int* tri_id;
+  int* bbox;  // (rows, 4), 16-B aligned
+  int* tri_id;  // or null: not written
   int* inst_id;
+  int* num_valid;  // (): the parts' num_valid summed, or null: not written
+  SetupPart part[kMaxLists];
 };
 
 __device__ __forceinline__ int isub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+__host__ __device__ __forceinline__ long long blocks_of(long long slots) {
+  return (slots + kThreads - 1) / kThreads;
+}
 
 // torch.where(valid, count, 0) of draw i
-__device__ __forceinline__ int vertex_count_of(const VertexArgs& a, long long i) {
-  return a.valid[i] ? a.vertex_count[i] : 0;
+__device__ __forceinline__ int vertex_count_of(const ListArgs& l, long long i) {
+  return l.valid[i] ? l.vertex_count[i] : 0;
 }
-__device__ __forceinline__ int tri_count_of(const VertexArgs& a, long long i) {
-  return a.valid[i] ? a.tri_count[i] : 0;
+__device__ __forceinline__ int tri_count_of(const ListArgs& l, long long i) {
+  return l.valid[i] ? l.tri_count[i] : 0;
 }
 
-// The inclusive prefixes of the draws' vertex and triangle counts (int32
-// torch.cumsum) into ends_v and ends_t, by the whole block: each thread
-// sums a run of draws, the runs' sums are scanned in shared memory, then
-// each thread writes its run's prefixes. Integer sums wrap, so any order
-// gives torch's.
-__device__ void draw_prefixes(const VertexArgs& a, int* ends_v, int* ends_t) {
-  __shared__ unsigned part_v[kThreads], part_t[kThreads];
-  const int n = (int)a.n, tid = threadIdx.x;
-  const int run = (n + kThreads - 1) / kThreads;
-  const int lo = min(tid * run, n), hi = min(lo + run, n);
-  unsigned sv = 0, st = 0;
-  for (int i = lo; i < hi; ++i) {
-    sv += (unsigned)vertex_count_of(a, i);
-    st += (unsigned)tri_count_of(a, i);
-  }
-  part_v[tid] = sv;
-  part_t[tid] = st;
-  __syncthreads();
-  for (int step = 1; step < kThreads; step <<= 1) {
-    const unsigned pv = tid >= step ? part_v[tid - step] : 0u;
-    const unsigned pt = tid >= step ? part_t[tid - step] : 0u;
-    __syncthreads();
-    part_v[tid] += pv;
-    part_t[tid] += pt;
-    __syncthreads();
-  }
-  unsigned rv = tid ? part_v[tid - 1] : 0u, rt = tid ? part_t[tid - 1] : 0u;
-  for (int i = lo; i < hi; ++i) {
-    rv += (unsigned)vertex_count_of(a, i);
-    rt += (unsigned)tri_count_of(a, i);
-    ends_v[i] = (int)rv;
-    ends_t[i] = (int)rt;
+// The inclusive prefixes of the list's draw vertex counts into ends_v
+// (shared memory), by the block's first warp with shuffles; with `table`,
+// also the vertex and triangle prefixes into l.ends and the triangle total
+// into l.num_valid. Integer sums wrap, so any order gives torch.cumsum's.
+__device__ __forceinline__ void draw_prefixes(const ListArgs& l, int* ends_v, bool table) {
+  if (threadIdx.x < 32) {
+    const int n = (int)l.n, lane = threadIdx.x;
+    unsigned carry_v = 0, carry_t = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      unsigned v = i < n ? (unsigned)vertex_count_of(l, i) : 0u;
+      unsigned t = i < n && table ? (unsigned)tri_count_of(l, i) : 0u;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned pv = __shfl_up_sync(0xffffffffu, v, d);
+        const unsigned pt = __shfl_up_sync(0xffffffffu, t, d);
+        if (lane >= d) {
+          v += pv;
+          t += pt;
+        }
+      }
+      v += carry_v;
+      t += carry_t;
+      if (i < n) {
+        ends_v[i] = (int)v;
+        if (table) {
+          l.ends[i] = (int)v;
+          l.ends[n + i] = (int)t;
+        }
+      }
+      carry_v = __shfl_sync(0xffffffffu, v, 31);
+      carry_t = __shfl_sync(0xffffffffu, t, 31);
+    }
+    if (table && lane == 0) *l.num_valid = (int)carry_t;
   }
   __syncthreads();
 }
 
 // torch.searchsorted(ends, val, right=True): its binary search, step for
 // step (so that any ends, sorted or not, give its answer)
+template <bool Global>
 __device__ __forceinline__ int upper_bound(const int* ends, int n, int val) {
   int start = 0, end = n;
   while (start < end) {
     const int mid = start + ((end - start) >> 1);
-    if (!(ends[mid] > val)) {
+    const int e = Global ? __ldg(ends + mid) : ends[mid];
+    if (!(e > val)) {
       start = mid + 1;
     } else {
       end = mid;
@@ -252,54 +306,55 @@ __device__ __forceinline__ float sum4_strided(const float* x) {
   return add(add(add(add(0.0f, x[0]), add(0.0f, x[1])), add(0.0f, x[2])), add(0.0f, x[3]));
 }
 
-struct Vertex {
-  float world[3], normal[3], uv[2], lm[2];
+// One vertex slot's rows: w1 (the world position and 1), the normal and u,
+// then v, the lightmap uv and a pad
+struct VertexRows {
+  float4 w1, lo, hi;
 };
 
 // One vertex slot p of the vertex stage (ops/geometry.py
 // geometry_vertex_stage_plain up to w1): the draw that owns it, its
 // gathered attributes, skinning, the draw's transform and the uv transform.
-__device__ Vertex vertex_at(const VertexArgs& a, const int* ends_v, int total_v, int p) {
-  const int n = (int)a.n;
+__device__ __forceinline__ VertexRows vertex_at(const VertexArgs& a, const ListArgs& l,
+                                                const int* ends_v, int total_v, int p) {
+  const int n = (int)l.n;
   const bool ok = p < total_v;
-  const long long o = row_of(ok ? upper_bound(ends_v, n, p) : 0, n);
-  const int local = isub(p, isub(ends_v[o], vertex_count_of(a, o)));
-  const int sv = ok ? iadd(a.first_vertex[o], local) : 0;
+  const long long o = row_of(ok ? upper_bound<false>(ends_v, n, p) : 0, n);
+  const int local = isub(p, isub(ends_v[o], vertex_count_of(l, o)));
+  const int sv = ok ? iadd(l.first_vertex[o], local) : 0;
 
   float pos[3], nrm[3];
-  const long long rp = row_of(sv, a.n_positions), rn = row_of(sv, a.n_normals);
+  const long long rp = row_of(sv, l.n_positions), rn = row_of(sv, l.n_normals);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    pos[c] = __ldg(a.positions + 3 * rp + c);
-    nrm[c] = __ldg(a.normals + 3 * rn + c);
+    pos[c] = __ldg(l.positions + 3 * rp + c);
+    nrm[c] = __ldg(l.normals + 3 * rn + c);
   }
-  Vertex out;
-  const long long ru = row_of(sv, a.n_uvs);
-  const float uv0 = __ldg(a.uvs + 2 * ru), uv1 = __ldg(a.uvs + 2 * ru + 1);
-  if (a.lm_uvs) {
-    const long long rl = row_of(sv, a.n_lm_uvs);
-    out.lm[0] = __ldg(a.lm_uvs + 2 * rl);
-    out.lm[1] = __ldg(a.lm_uvs + 2 * rl + 1);
-  } else {
-    out.lm[0] = out.lm[1] = 0.0f;
+  const long long ru = row_of(sv, l.n_uvs);
+  const float uv0 = __ldg(l.uvs + 2 * ru), uv1 = __ldg(l.uvs + 2 * ru + 1);
+  float lm0 = 0.0f, lm1 = 0.0f;
+  if (l.lm_uvs) {
+    const long long rl = row_of(sv, l.n_lm_uvs);
+    lm0 = __ldg(l.lm_uvs + 2 * rl);
+    lm1 = __ldg(l.lm_uvs + 2 * rl + 1);
   }
 
-  if (a.palette) {  // skin_vertices
-    const long long ri = row_of(sv, a.n_joint_indices), rw = row_of(sv, a.n_joint_weights);
-    const int joff = a.joints_offset[o];
+  if (l.palette) {  // skin_vertices
+    const long long ri = row_of(sv, l.n_joint_indices), rw = row_of(sv, l.n_joint_weights);
+    const int joff = l.joints_offset[o];
     float jw[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) jw[k] = __ldg(a.joint_weights + 4 * rw + k);
+    for (int k = 0; k < 4; ++k) jw[k] = __ldg(l.joint_weights + 4 * rw + k);
     const float total_w = sum4_contiguous(jw);
     float wp[3][4], wn[3][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float w = quo(jw[k], total_w);
-      const int ji = min(max(iadd(__ldg(a.joint_indices + 4 * ri + k), joff), 0),
-                         (int)a.n_palette - 1);
+      const int ji = min(max(iadd(__ldg(l.joint_indices + 4 * ri + k), joff), 0),
+                         (int)l.n_palette - 1);
       float j[8], pk[3], nk[3];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) j[c] = __ldg(a.palette + 8 * (long long)ji + c);
+      for (int c = 0; c < 8; ++c) j[c] = __ldg(l.palette + 8 * (long long)ji + c);
       similarity_apply(j, pos, pk);
       quat_rotate(j + 4, nrm, nk);
 #pragma unroll
@@ -315,98 +370,223 @@ __device__ Vertex vertex_at(const VertexArgs& a, const int* ends_v, int total_v,
     }
   }
 
-  float sim[8];
+  float sim[8], world[3], normal[3];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) sim[c] = __ldg(a.sim8 + 8 * o + c);
-  similarity_apply(sim, pos, out.world);
-  quat_rotate(sim + 4, nrm, out.normal);
+  for (int c = 0; c < 8; ++c) sim[c] = __ldg(l.sim8 + 8 * o + c);
+  similarity_apply(sim, pos, world);
+  quat_rotate(sim + 4, nrm, normal);
 
   // _uv_transform: offset + rot(rotation) * (scale * uv)
-  const int dmat = a.material[o];
+  const int dmat = l.material[o];
   const float rot = __ldg(a.uv_rotation + row_of(dmat, a.n_uv_rotation));
   const float co = cosf(rot), si = sinf(rot);
   const long long rs = row_of(dmat, a.n_uv_scale), rf = row_of(dmat, a.n_uv_offset);
   const float su0 = mul(uv0, __ldg(a.uv_scale + 2 * rs));
   const float su1 = mul(uv1, __ldg(a.uv_scale + 2 * rs + 1));
-  out.uv[0] = add(__ldg(a.uv_offset + 2 * rf), sub(mul(co, su0), mul(si, su1)));
-  out.uv[1] = add(__ldg(a.uv_offset + 2 * rf + 1), add(mul(si, su0), mul(co, su1)));
-  return out;
+  const float u = add(__ldg(a.uv_offset + 2 * rf), sub(mul(co, su0), mul(si, su1)));
+  const float v = add(__ldg(a.uv_offset + 2 * rf + 1), add(mul(si, su0), mul(co, su1)));
+  return {make_float4(world[0], world[1], world[2], 1.0f),
+          make_float4(normal[0], normal[1], normal[2], u), make_float4(v, lm0, lm1, 0.0f)};
 }
 
-__global__ void __launch_bounds__(kThreads) vertex_stage_kernel(const VertexArgs a) {
-  extern __shared__ int ends[];  // ends_v (n), then ends_t (n)
-  int* ends_v = ends;
-  int* ends_t = ends + a.n;
-  draw_prefixes(a, ends_v, ends_t);
-  const int n = (int)a.n;
-  const int total_v = ends_v[n - 1], total_t = ends_t[n - 1];
-  const long long slot = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (slot == 0) *a.num_valid = total_t;
-
-  if (slot < a.v_cap) {
-    const Vertex v = vertex_at(a, ends_v, total_v, (int)slot);
-    reinterpret_cast<float4*>(a.w1)[slot] = make_float4(v.world[0], v.world[1], v.world[2],
-                                                        1.0f);
-    return;
+// The vertex phase of list l's block `block`. Where the block holds slots
+// past the list's total, its last slot (one of them) computes their row and
+// shares it.
+__device__ __forceinline__ void vertex_phase(const VertexArgs& a, const ListArgs& l, int block) {
+  extern __shared__ int ends_v[];  // (n,)
+  __shared__ VertexRows pad;
+  draw_prefixes(l, ends_v, block == 0);
+  const int total_v = ends_v[l.n - 1];
+  const long long first = (long long)block * kThreads;
+  const long long last = min(first + kThreads, l.v_cap) - 1;
+  const bool has_pad = last >= total_v;
+  const long long p = first + threadIdx.x;
+  VertexRows r;
+  if (p == last || (p < last && p < total_v)) r = vertex_at(a, l, ends_v, total_v, (int)p);
+  if (has_pad) {
+    if (p == last) pad = r;
+    __syncthreads();
+    if (p < last && p >= total_v) r = pad;
   }
-  const long long t64 = slot - a.v_cap;
-  if (t64 >= a.t_cap) return;
-  const int t = (int)t64;
+  if (p >= l.v_cap) return;
+  reinterpret_cast<float4*>(l.w1)[p] = r.w1;
+  if (p < total_v || p == l.v_cap - 1) {  // the padding slots' scratch: the last slot's alone
+    reinterpret_cast<float4*>(l.corner)[p] = r.lo;
+    reinterpret_cast<float4*>(l.corner)[l.v_cap + p] = r.hi;
+  }
+}
 
-  // expand_draws
+// One triangle slot's results
+struct TriangleRow {
+  int r[3], o, st, mat;
+  bool pair_valid, double_sided, lightmapped;
+};
+
+// Triangle slot t of the triangle phase (expand_draws, row3, the flags),
+// over the vertex phase's prefix table
+__device__ __forceinline__ TriangleRow triangle_at(const VertexArgs& a, const ListArgs& l,
+                                                   int total_v, int total_t, int t) {
+  const int n = (int)l.n;
+  const int* ends_v = l.ends;
+  const int* ends_t = l.ends + n;
+  TriangleRow out;
   const bool ok = t < total_t;
-  const long long o = row_of(ok ? upper_bound(ends_t, n, t) : 0, n);
-  const int local = isub(t, isub(ends_t[o], tri_count_of(a, o)));
-  const int st = ok ? iadd(a.first_tri[o], local) : 0;
+  const long long o = row_of(ok ? upper_bound<true>(ends_t, n, t) : 0, n);
+  const int local = isub(t, isub(__ldg(ends_t + o), tri_count_of(l, o)));
+  const int st = ok ? iadd(l.first_tri[o], local) : 0;
 
   // the corners' vertex slots
-  const int voff = isub(ends_v[o], vertex_count_of(a, o));
-  const int fv = a.first_vertex[o];
-  const int vmax = (int)a.v_cap - 1;
-  int r[3];
+  const int voff = isub(__ldg(ends_v + o), vertex_count_of(l, o));
+  const int fv = l.first_vertex[o];
+  const int vmax = (int)l.v_cap - 1;
   bool row_ok = true;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int idx = __ldg(a.indices + row_of(iadd(imul(st, 3), c), a.n_indices));
+    const int idx = __ldg(l.indices + row_of(iadd(imul(st, 3), c), l.n_indices));
     const int row = iadd(voff, isub(idx, fv));
     row_ok = row_ok && row >= 0 && row < total_v;
-    r[c] = min(max(row, 0), vmax);
+    out.r[c] = min(max(row, 0), vmax);
   }
-  const int mat = __ldg(a.tri_material + row_of(st, a.n_tri_material));
-  const bool ds = (__ldg(a.mat_flags + row_of(mat, a.n_mat_flags)) & 2) != 0;
-  const bool lightmapped = a.lightmapped[o] != 0;
+  out.mat = __ldg(l.tri_material + row_of(st, l.n_tri_material));
+  out.double_sided = (__ldg(a.mat_flags + row_of(out.mat, a.n_mat_flags)) & 2) != 0;
+  out.lightmapped = l.lightmapped[o] != 0;
+  out.o = (int)o;
+  out.st = st;
+  out.pair_valid = ok && row_ok;
+  return out;
+}
 
-  a.row3[3 * t64] = r[0];
-  a.row3[3 * t64 + 1] = r[1];
-  a.row3[3 * t64 + 2] = r[2];
-  a.pair_inst[t64] = (int)o;
-  a.scene_tri[t64] = st;
-  a.pair_valid[t64] = ok && row_ok;
-  a.double_sided[t64] = ds;
-  a.lightmapped_out[t64] = lightmapped;
-
-  // the packed row: world_pos (3 x 3) | normal (3 x 3) | uv (3 x 2) |
-  // lm_uv (3 x 2) | material's bits | lightmapped
+// The packed row of a triangle: world_pos (3 x 3) | normal (3 x 3) | uv
+// (3 x 2) | lm_uv (3 x 2) | material's bits | lightmapped, its corners'
+// values copied from their w1 and scratch rows
+__device__ __forceinline__ void packed_row(const ListArgs& l, const TriangleRow& t, int total_v,
+                                          float4* row4) {
   float row[kPackedCols];
+  const float4* w1 = reinterpret_cast<const float4*>(l.w1);
+  const float4* corner = reinterpret_cast<const float4*>(l.corner);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const Vertex v = vertex_at(a, ends_v, total_v, r[c]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      row[3 * c + k] = v.world[k];
-      row[9 + 3 * c + k] = v.normal[k];
-    }
-    row[18 + 2 * c] = v.uv[0];
-    row[19 + 2 * c] = v.uv[1];
-    row[24 + 2 * c] = v.lm[0];
-    row[25 + 2 * c] = v.lm[1];
+    // a padding slot's rows are the last slot's (vertex_phase wrote the
+    // scratch of no other padding slot)
+    const long long r = t.r[c] < total_v ? t.r[c] : l.v_cap - 1;
+    const float4 w = __ldg(w1 + r);
+    const float4 lo = __ldg(corner + r);
+    const float4 hi = __ldg(corner + l.v_cap + r);
+    row[3 * c] = w.x;
+    row[3 * c + 1] = w.y;
+    row[3 * c + 2] = w.z;
+    row[9 + 3 * c] = lo.x;
+    row[9 + 3 * c + 1] = lo.y;
+    row[9 + 3 * c + 2] = lo.z;
+    row[18 + 2 * c] = lo.w;
+    row[19 + 2 * c] = hi.x;
+    row[24 + 2 * c] = hi.y;
+    row[25 + 2 * c] = hi.z;
   }
-  row[30] = __int_as_float(mat);
-  row[31] = lightmapped ? 1.0f : 0.0f;
-  float4* dst = reinterpret_cast<float4*>(a.packed + kPackedCols * t64);
+  row[30] = __int_as_float(t.mat);
+  row[31] = t.lightmapped ? 1.0f : 0.0f;
 #pragma unroll
   for (int k = 0; k < kPackedCols / 4; ++k) {
-    dst[k] = make_float4(row[4 * k], row[4 * k + 1], row[4 * k + 2], row[4 * k + 3]);
+    row4[k] = make_float4(row[4 * k], row[4 * k + 1], row[4 * k + 2], row[4 * k + 3]);
+  }
+}
+
+// A warp's rows of C float4 chunks (C = 8 or 4) stored to dst's rows
+// [first, first + rows) through the warp's staging area in shared memory:
+// lane i's chunk k at i * C + (k ^ swz(i)), where swz spreads a quarter
+// warp's chunks over every bank both ways; then each store instruction
+// writes 32 consecutive chunks.
+template <int C>
+__device__ __forceinline__ int swizzle(int row) {
+  return C == 8 ? (row & 7) : ((row >> 1) & 3);
+}
+
+template <int C>
+__device__ __forceinline__ void store_rows(float4* stage, const float4* chunks, float4* dst,
+                                           long long first, long long rows) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < C; ++k) stage[lane * C + (k ^ swizzle<C>(lane))] = chunks[k];
+  __syncwarp();
+  float4* out = dst + first * C;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int idx = k * 32 + lane, r = idx / C, c = idx % C;
+    if (r < rows) out[idx] = stage[r * C + (c ^ swizzle<C>(r))];
+  }
+}
+
+// The triangle phase of list l's block `block`; the padding row as in
+// vertex_phase
+__device__ __forceinline__ void triangle_phase(const VertexArgs& a, const ListArgs& l,
+                                               int block) {
+  __shared__ float4 stage[kThreads * kPackedCols / 4];
+  __shared__ TriangleRow pad_tri;
+  __shared__ float4 pad_row[kPackedCols / 4];
+  const int n = (int)l.n;
+  const int total_v = __ldg(l.ends + n - 1), total_t = __ldg(l.ends + 2 * n - 1);
+  const long long first = (long long)block * kThreads;
+  const long long last = min(first + kThreads, l.t_cap) - 1;
+  const bool has_pad = last >= total_t;
+  const long long t = first + threadIdx.x;
+  TriangleRow tri;
+  float4 row4[kPackedCols / 4];
+  if (t == last || (t < last && t < total_t)) {
+    tri = triangle_at(a, l, total_v, total_t, (int)t);
+    packed_row(l, tri, total_v, row4);
+  }
+  if (has_pad) {
+    if (t == last) {
+      pad_tri = tri;
+#pragma unroll
+      for (int k = 0; k < kPackedCols / 4; ++k) pad_row[k] = row4[k];
+    }
+    __syncthreads();
+    if (t < last && t >= total_t) {
+      tri = pad_tri;
+#pragma unroll
+      for (int k = 0; k < kPackedCols / 4; ++k) row4[k] = pad_row[k];
+    }
+  }
+  const long long warp_first = first + (threadIdx.x & ~31);
+  if (warp_first >= l.t_cap) return;  // the whole warp past the capacity
+  if (t < l.t_cap) {
+    l.row3[3 * t] = tri.r[0];
+    l.row3[3 * t + 1] = tri.r[1];
+    l.row3[3 * t + 2] = tri.r[2];
+    l.pair_inst[t] = tri.o;
+    l.scene_tri[t] = tri.st;
+    l.pair_valid[t] = tri.pair_valid;
+    l.double_sided[t] = tri.double_sided;
+    l.lightmapped_out[t] = tri.lightmapped;
+  }
+  store_rows<kPackedCols / 4>(stage + (threadIdx.x & ~31) * (kPackedCols / 4), row4,
+                              reinterpret_cast<float4*>(l.packed), warp_first,
+                              min(32LL, l.t_cap - warp_first));
+}
+
+// Phase 0, the vertex phase; 1, the triangle phase. The last list's
+// blocks come first (the animated list's: a skinned vertex takes the
+// longest, so its blocks start early rather than form the tail); the list
+// is uniform over a block.
+template <int Phase>
+__global__ void __launch_bounds__(kThreads) vertex_stage_kernel(const VertexArgs a) {
+  const ListArgs& last = a.list[kMaxLists - 1];
+  const long long last_blocks = blocks_of(Phase == 0 ? last.v_cap : last.t_cap);
+  const int b = (int)blockIdx.x;
+  if (a.lists > 1 && b < last_blocks) {
+    if (Phase == 0) {
+      vertex_phase(a, last, b);
+    } else {
+      triangle_phase(a, last, b);
+    }
+  } else {
+    const int first = a.lists > 1 ? b - (int)last_blocks : b;
+    if (Phase == 0) {
+      vertex_phase(a, a.list[0], first);
+    } else {
+      triangle_phase(a, a.list[0], first);
+    }
   }
 }
 
@@ -418,102 +598,137 @@ __device__ __forceinline__ float max3(float a, float b, float c) {
   return maximum(maximum(a, b), c);
 }
 
-__global__ void __launch_bounds__(kThreads) view_setup_kernel(const SetupArgs a) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= a.t_cap) return;
-  float m[16];
+// Triangle slot t of part p, written at row `row` of the table
+__device__ __forceinline__ void setup_slot(const SetupArgs& a, const SetupPart& p, long long t,
+                                           long long row, float4* stage, long long warp_row,
+                                           long long warp_rows) {
+  float4 chunks[kSetupCols / 4];
+  if (t < p.t_cap) {
+    float m[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) m[k] = __ldg(a.view_proj + k);
-  const float half_w = (float)(a.width * 0.5), half_h = (float)(a.height * 0.5);
+    for (int k = 0; k < 16; ++k) m[k] = __ldg(a.view_proj + k);
+    const float half_w = (float)(a.width * 0.5), half_h = (float)(a.height * 0.5);
 
-  int ids[3];
-  float xv[3], yv[3], zc[3], wc[3];
+    int ids[3];
+    float xv[3], yv[3], zc[3], wc[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    ids[c] = __ldg(a.row3 + 3 * t + c);
-    const float4 p = __ldg(reinterpret_cast<const float4*>(a.w1) + row_of(ids[c], a.v_rows));
-    float clip[4];
+    for (int c = 0; c < 3; ++c) {
+      ids[c] = __ldg(p.row3 + 3 * t + c);
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p.w1) + row_of(ids[c], p.v_rows));
+      float clip[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {  // clip_transform
-      clip[j] = add(add(mul(p.x, m[4 * j]), mul(p.y, m[4 * j + 1])),
-                    add(mul(p.z, m[4 * j + 2]), mul(p.w, m[4 * j + 3])));
+      for (int j = 0; j < 4; ++j) {  // clip_transform
+        clip[j] = add(add(mul(q.x, m[4 * j]), mul(q.y, m[4 * j + 1])),
+                      add(mul(q.z, m[4 * j + 2]), mul(q.w, m[4 * j + 3])));
+      }
+      const float yc = a.flip_viewport ? -clip[1] : clip[1];
+      zc[c] = clip[2];
+      wc[c] = clip[3];
+      xv[c] = mul(add(clip[0], wc[c]), half_w);
+      yv[c] = mul(sub(wc[c], yc), half_h);
     }
-    const float yc = a.flip_viewport ? -clip[1] : clip[1];
-    zc[c] = clip[2];
-    wc[c] = clip[3];
-    xv[c] = mul(add(clip[0], wc[c]), half_w);
-    yv[c] = mul(sub(wc[c], yc), half_h);
-  }
 
-  // _setup_from_clip's edge_coeffs with vertex_ids: edges (1, 2), (2, 0), (0, 1)
-  float e[9];
+    // _setup_from_clip's edge_coeffs with vertex_ids: edges (1, 2), (2, 0), (0, 1)
+    float e[9];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int j0 = (i + 1) % 3, k0 = (i + 2) % 3;
-    const bool swap = ids[j0] > ids[k0];
-    const float sign = swap ? -1.0f : 1.0f;
-    const int j = swap ? k0 : j0, k = swap ? j0 : k0;
-    e[3 * i] = mul(sub(mul(yv[j], wc[k]), mul(yv[k], wc[j])), sign);
-    e[3 * i + 1] = mul(sub(mul(wc[j], xv[k]), mul(wc[k], xv[j])), sign);
-    e[3 * i + 2] = mul(sub(mul(xv[j], yv[k]), mul(xv[k], yv[j])), sign);
-  }
-  const float det = add(add(mul(xv[0], e[0]), mul(yv[0], e[1])), mul(wc[0], e[2]));
-  const bool front = det < 0.0f;
-  const bool keep = front || a.double_sided[t] != 0;
-  const float flip = front ? -1.0f : 1.0f;
-  bool valid = a.pair_valid[t] != 0 && keep && det != 0.0f;
+    for (int i = 0; i < 3; ++i) {
+      const int j0 = (i + 1) % 3, k0 = (i + 2) % 3;
+      const bool swap = ids[j0] > ids[k0];
+      const float sign = swap ? -1.0f : 1.0f;
+      const int j = swap ? k0 : j0, k = swap ? j0 : k0;
+      e[3 * i] = mul(sub(mul(yv[j], wc[k]), mul(yv[k], wc[j])), sign);
+      e[3 * i + 1] = mul(sub(mul(wc[j], xv[k]), mul(wc[k], xv[j])), sign);
+      e[3 * i + 2] = mul(sub(mul(xv[j], yv[k]), mul(xv[k], yv[j])), sign);
+    }
+    const float det = add(add(mul(xv[0], e[0]), mul(yv[0], e[1])), mul(wc[0], e[2]));
+    const bool front = det < 0.0f;
+    const bool keep = front || p.double_sided[t] != 0;
+    const float flip = front ? -1.0f : 1.0f;
+    bool valid = p.pair_valid[t] != 0 && keep && det != 0.0f;
 
-  float row[kSetupCols];
+    float r[kSetupCols];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) row[k] = mul(e[k], flip);
+    for (int k = 0; k < 9; ++k) r[k] = mul(e[k], flip);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    row[9 + c] = zc[c];
-    row[12 + c] = wc[c];
-  }
-  row[15] = front ? 0.0f : 1.0f;  // FLAG_BACKFACING
-  float4* dst = reinterpret_cast<float4*>(a.setup + kSetupCols * t);
+    for (int c = 0; c < 3; ++c) {
+      r[9 + c] = zc[c];
+      r[12 + c] = wc[c];
+    }
+    r[15] = front ? 0.0f : 1.0f;  // FLAG_BACKFACING
 #pragma unroll
-  for (int k = 0; k < kSetupCols / 4; ++k) {
-    dst[k] = make_float4(row[4 * k], row[4 * k + 1], row[4 * k + 2], row[4 * k + 3]);
-  }
+    for (int k = 0; k < kSetupCols / 4; ++k) {
+      chunks[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+    }
 
-  // the bbox of the corners in front of the eye
-  const float eps = 1e-6f, big = 1e9f;
-  bool w_ok[3];
-  float px[3], py[3];
+    // the bbox of the corners in front of the eye
+    const float eps = 1e-6f, big = 1e9f;
+    bool w_ok[3];
+    float px[3], py[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    w_ok[c] = wc[c] > eps;
-    const float inv_w = w_ok[c] ? recip_times_one(clamp_min(wc[c], eps)) : 0.0f;
-    px[c] = mul(xv[c], inv_w);
-    py[c] = mul(yv[c], inv_w);
+    for (int c = 0; c < 3; ++c) {
+      w_ok[c] = wc[c] > eps;
+      const float inv_w = w_ok[c] ? recip_times_one(clamp_min(wc[c], eps)) : 0.0f;
+      px[c] = mul(xv[c], inv_w);
+      py[c] = mul(yv[c], inv_w);
+    }
+    const float wf = (float)(a.width - 1), hf = (float)(a.height - 1);
+    float x0 = min3(w_ok[0] ? px[0] : big, w_ok[1] ? px[1] : big, w_ok[2] ? px[2] : big);
+    float x1 = max3(w_ok[0] ? px[0] : -big, w_ok[1] ? px[1] : -big, w_ok[2] ? px[2] : -big);
+    float y0 = min3(w_ok[0] ? py[0] : big, w_ok[1] ? py[1] : big, w_ok[2] ? py[2] : big);
+    float y1 = max3(w_ok[0] ? py[0] : -big, w_ok[1] ? py[1] : -big, w_ok[2] ? py[2] : -big);
+    const bool any_behind = !(w_ok[0] && w_ok[1] && w_ok[2]);
+    const bool all_behind = !(w_ok[0] || w_ok[1] || w_ok[2]);
+    if (any_behind) {
+      x0 = 0.0f;
+      y0 = 0.0f;
+      x1 = wf;
+      y1 = hf;
+    }
+    valid = valid && !all_behind;
+    const bool offscreen = x1 < 0.0f || y1 < 0.0f || x0 > wf || y0 > hf;
+    valid = valid && !offscreen;
+    a.valid[row] = valid;
+    reinterpret_cast<int4*>(a.bbox)[row] = make_int4(
+        to_i32(clamp(floorf(sub(x0, 0.5f)), 0.0f, wf)),
+        to_i32(clamp(floorf(sub(y0, 0.5f)), 0.0f, hf)),
+        to_i32(clamp(ceilf(add(x1, 0.5f)), 0.0f, wf)),
+        to_i32(clamp(ceilf(add(y1, 0.5f)), 0.0f, hf)));
+    if (a.tri_id) {
+      a.tri_id[row] = p.scene_tri[t];
+      a.inst_id[row] = p.pair_inst[t];
+    }
   }
-  const float wf = (float)(a.width - 1), hf = (float)(a.height - 1);
-  float x0 = min3(w_ok[0] ? px[0] : big, w_ok[1] ? px[1] : big, w_ok[2] ? px[2] : big);
-  float x1 = max3(w_ok[0] ? px[0] : -big, w_ok[1] ? px[1] : -big, w_ok[2] ? px[2] : -big);
-  float y0 = min3(w_ok[0] ? py[0] : big, w_ok[1] ? py[1] : big, w_ok[2] ? py[2] : big);
-  float y1 = max3(w_ok[0] ? py[0] : -big, w_ok[1] ? py[1] : -big, w_ok[2] ? py[2] : -big);
-  const bool any_behind = !(w_ok[0] && w_ok[1] && w_ok[2]);
-  const bool all_behind = !(w_ok[0] || w_ok[1] || w_ok[2]);
-  if (any_behind) {
-    x0 = 0.0f;
-    y0 = 0.0f;
-    x1 = wf;
-    y1 = hf;
+  store_rows<kSetupCols / 4>(stage, chunks, reinterpret_cast<float4*>(a.setup), warp_row,
+                             warp_rows);
+}
+
+// Block `block` of part p, whose rows start at row `offset` of the table
+__device__ __forceinline__ void setup_block(const SetupArgs& a, const SetupPart& p,
+                                            long long offset, long long block) {
+  __shared__ float4 stage[kThreads * kSetupCols / 4];
+  const long long first = block * kThreads;
+  const long long warp_first = first + (threadIdx.x & ~31);
+  if (warp_first >= p.t_cap) return;  // the whole warp past the part's slots
+  setup_slot(a, p, first + threadIdx.x, offset + first + threadIdx.x,
+             stage + (threadIdx.x & ~31) * (kSetupCols / 4), offset + warp_first,
+             min(32LL, p.t_cap - warp_first));
+}
+
+// One launch a view: the first part's slots in the first blocks; the part
+// is uniform over a block. Six blocks an SM: 40 registers a thread (the
+// compiler's choice, 58, allows four; a few more blocks in flight hide more
+// of the corners' gather latency, a few percent at the frames' sites)
+__global__ void __launch_bounds__(kThreads, 6) view_setup_kernel(const SetupArgs a) {
+  if (a.num_valid && blockIdx.x == 0 && threadIdx.x == 0) {
+    int sum = *a.part[0].num_valid;
+    if (a.parts > 1) sum = iadd(sum, *a.part[1].num_valid);
+    *a.num_valid = sum;
   }
-  valid = valid && !all_behind;
-  const bool offscreen = x1 < 0.0f || y1 < 0.0f || x0 > wf || y0 > hf;
-  valid = valid && !offscreen;
-  a.valid[t] = valid;
-  reinterpret_cast<int4*>(a.bbox)[t] = make_int4(
-      to_i32(clamp(floorf(sub(x0, 0.5f)), 0.0f, wf)),
-      to_i32(clamp(floorf(sub(y0, 0.5f)), 0.0f, hf)),
-      to_i32(clamp(ceilf(add(x1, 0.5f)), 0.0f, wf)),
-      to_i32(clamp(ceilf(add(y1, 0.5f)), 0.0f, hf)));
-  if (a.tri_id) {
-    a.tri_id[t] = a.scene_tri[t];
-    a.inst_id[t] = a.pair_inst[t];
+  const long long first_blocks = blocks_of(a.part[0].t_cap);
+  if (a.parts > 1 && blockIdx.x >= first_blocks) {
+    setup_block(a, a.part[1], a.part[0].t_cap, blockIdx.x - first_blocks);
+  } else {
+    setup_block(a, a.part[0], 0, blockIdx.x);
   }
 }
 
@@ -523,31 +738,50 @@ __global__ void __launch_bounds__(kThreads) view_setup_kernel(const SetupArgs a)
 // the address of its arguments' host struct (a VertexArgs or a SetupArgs;
 // void, since a type of this file's unnamed namespace in the signature
 // would keep the symbol out of the library) and launches on `stream`; the
-// result is the launch's cudaError_t.
+// result is the first failed launch's cudaError_t, else cudaSuccess.
 
-// sizeof(VertexArgs) (which 0) or sizeof(SetupArgs) (1), for the binding's
-// check of its mirrors
+// sizeof(VertexArgs) (which 0), sizeof(SetupArgs) (1), sizeof(ListArgs)
+// (2) or sizeof(SetupPart) (3), for the binding's check of its mirrors
 extern "C" int sc_geometry_args_bytes(int which) {
-  return which == 0 ? (int)sizeof(VertexArgs) : (int)sizeof(SetupArgs);
+  switch (which) {
+    case 0:
+      return (int)sizeof(VertexArgs);
+    case 1:
+      return (int)sizeof(SetupArgs);
+    case 2:
+      return (int)sizeof(ListArgs);
+    default:
+      return (int)sizeof(SetupPart);
+  }
 }
 
+// The vertex phase, then the triangle phase, over the lists' slots
 extern "C" int sc_vertex_stage(const void* args, void* stream) {
   const VertexArgs a = *static_cast<const VertexArgs*>(args);
-  const long long slots = a.v_cap + a.t_cap;
-  const size_t smem = 2 * sizeof(int) * (size_t)a.n;
-  if (smem + 2 * sizeof(unsigned) * kThreads > 48 * 1024) {  // beside draw_prefixes' own
+  long long vertex_blocks = 0, triangle_blocks = 0, n = 0;
+  for (int l = 0; l < a.lists; ++l) {
+    vertex_blocks += blocks_of(a.list[l].v_cap);
+    triangle_blocks += blocks_of(a.list[l].t_cap);
+    n = n > a.list[l].n ? n : a.list[l].n;
+  }
+  const size_t smem = sizeof(int) * (size_t)n;  // the vertex phase's prefixes
+  if (smem + sizeof(VertexRows) > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        vertex_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        vertex_stage_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const unsigned blocks = (unsigned)((slots + kThreads - 1) / kThreads);
-  vertex_stage_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
+  const cudaStream_t s = (cudaStream_t)stream;
+  vertex_stage_kernel<0><<<(unsigned)vertex_blocks, kThreads, smem, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  vertex_stage_kernel<1><<<(unsigned)triangle_blocks, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sc_view_setup(const void* args, void* stream) {
   const SetupArgs a = *static_cast<const SetupArgs*>(args);
-  const unsigned blocks = (unsigned)((a.t_cap + kThreads - 1) / kThreads);
-  view_setup_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  long long blocks = 0;
+  for (int p = 0; p < a.parts; ++p) blocks += blocks_of(a.part[p].t_cap);
+  view_setup_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

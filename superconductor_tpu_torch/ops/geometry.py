@@ -20,13 +20,16 @@ Two places where torch and jax differ and the port chooses on purpose:
   one XLA's CPU dot uses, which makes the setup rows bit-exact.
 
 ``geometry_vertex_stage`` and ``geometry_view_setup`` launch
-``csrc/geometry.cu``'s ``vertex_stage_kernel`` and ``view_setup_kernel`` on
-CUDA tensors (one launch a call, bit for bit with the torch chains) and run
-those chains, ``geometry_vertex_stage_plain`` and
-``geometry_view_setup_plain``, on CPU tensors; anything a kernel does not
-take raises. Both take an optional ``out``: the rows of a larger table
-(``row_slice``) that the results are written into, so that the frame's
-static and animated rows land in one merged table without a copy.
+``csrc/geometry.cu``'s ``vertex_stage_kernel`` (two launches: the vertex
+phase, then the triangle phase) and ``view_setup_kernel`` (one launch) on
+CUDA tensors, bit for bit with the torch chains, and run those chains,
+``geometry_vertex_stage_plain`` and ``geometry_view_setup_plain``, on CPU
+tensors; anything a kernel does not take raises. Both take an optional
+``out``: the rows of a larger table (``row_slice``) that the results are
+written into. ``geometry_vertex_stage_merged`` and
+``geometry_view_setup_merged`` do the same for the frame's static and
+animated lists at once (``VertexList``), their rows in one merged table:
+two vertex-stage launches for both lists and one setup launch a view.
 """
 
 from __future__ import annotations
@@ -41,9 +44,10 @@ from ..math3d import quat_rotate, similarity_apply
 FLAG_BACKFACING = 1.0
 PACKED_COLS = 32  # TriangleAttrs.packed's columns (pack_attrs)
 SETUP_COLS = 16  # TriangleSetup.setup's columns
-# csrc/geometry.cu vertex_stage_kernel: each block keeps the draws' two
-# count prefixes in shared memory, 8 B a draw
+# csrc/geometry.cu vertex_stage_kernel: each block of the vertex phase
+# keeps the draws' vertex count prefixes in shared memory, 4 B a draw
 MAX_DRAWS = 16384
+MAX_LISTS = 2  # draw lists a merged launch takes (csrc/geometry.cu kMaxLists)
 
 
 def device_values(values, dtype, device) -> torch.Tensor:
@@ -158,6 +162,24 @@ def _uv_transform(uv, offset, scale, rotation):
     return offset + torch.stack([x, y], dim=-1)
 
 
+class VertexList(NamedTuple):
+    """One draw list's inputs to the vertex stage (geometry_vertex_stage's
+    arguments but the materials and `out`), for the merged entries."""
+
+    draws: DrawList
+    indices: torch.Tensor
+    positions: torch.Tensor
+    normals: torch.Tensor
+    uvs: torch.Tensor
+    lm_uvs: Optional[torch.Tensor]
+    tri_material: torch.Tensor
+    t_cap: int
+    v_cap: Optional[int] = None
+    joint_palette: Optional[torch.Tensor] = None
+    joint_indices: Optional[torch.Tensor] = None
+    joint_weights: Optional[torch.Tensor] = None
+
+
 class VertexStage(NamedTuple):
     """View-independent geometry (reference VertexStage, :162)."""
 
@@ -259,6 +281,23 @@ def geometry_vertex_stage_plain(
     )
 
 
+def geometry_vertex_stage_merged_plain(
+    lists: tuple, materials: dict, out: Optional[TriangleAttrs] = None
+) -> tuple:
+    """geometry_vertex_stage_merged's plain version: each list's
+    geometry_vertex_stage_plain, its rows written into `out` (a new merged
+    table when None) at its offset, the lists' in order."""
+    rows = sum(lst.t_cap for lst in lists)
+    if out is None:
+        out = attrs_table(rows, lists[0].positions.device)
+    stages, at = [], 0
+    for lst in lists:
+        stages.append(geometry_vertex_stage_plain(
+            **lst._asdict(), materials=materials, out=row_slice(out, at, at + lst.t_cap)))
+        at += lst.t_cap
+    return tuple(stages)
+
+
 def clip_transform(w1: torch.Tensor, view_proj: torch.Tensor) -> torch.Tensor:
     """(..., 4) rows times view_proj^T as explicit multiply-adds in the fixed
     order (x*m0 + y*m1) + (z*m2 + w*m3) per output column -- the order
@@ -306,6 +345,31 @@ def geometry_view_setup_plain(
     for name in ("setup", "tri_id", "inst_id", "bbox", "valid"):
         getattr(out, name).copy_(getattr(tri, name))
     return out._replace(num_valid=stage.num_valid)
+
+
+def geometry_view_setup_merged_plain(
+    stages: tuple,
+    view_proj: torch.Tensor,
+    width: int,
+    height: int,
+    flip_viewport: bool = False,
+    out: Optional[TriangleSetup] = None,
+) -> TriangleSetup:
+    """geometry_view_setup_merged's plain version: each stage's
+    geometry_view_setup_plain, its rows written into `out` (a new merged
+    table when None) at its offset; num_valid the stages' summed by torch's
+    add."""
+    rows = sum(stage.row3.shape[0] for stage in stages)
+    if out is None:
+        out = setup_table(rows, stages[0].w1.device)
+    num_valid, at = None, 0
+    for stage in stages:
+        t = stage.row3.shape[0]
+        tri = geometry_view_setup_plain(stage, view_proj, width, height, flip_viewport,
+                                        row_slice(out, at, at + t))
+        num_valid = tri.num_valid if num_valid is None else num_valid + tri.num_valid
+        at += t
+    return out._replace(num_valid=num_valid)
 
 
 def geometry_pass(
@@ -553,49 +617,53 @@ def _check_out_setup(fn: str, out: TriangleSetup, rows: int, device) -> None:
 # --- The kernels (csrc/geometry.cu) ------------------------------------------
 
 def _i64_or_pointer(name: str):
-    return ctypes.c_longlong if name in ("n", "t_cap", "v_cap", "v_rows", "width", "height",
-                                         "flip_viewport") or name.startswith("n_") \
-        else ctypes.c_void_p
+    return ctypes.c_longlong if name in ("n", "lists", "parts", "t_cap", "v_cap", "v_rows",
+                                         "width", "height", "flip_viewport") \
+        or name.startswith("n_") else ctypes.c_void_p
 
 
-class _VertexArgs(ctypes.Structure):
-    """csrc/geometry.cu VertexArgs, field for field."""
-
-    _fields_ = [(f, _i64_or_pointer(f)) for f in (
-        "n", "sim8", "first_tri", "tri_count", "first_vertex", "vertex_count", "joints_offset",
-        "material", "lightmapped", "valid", "t_cap", "v_cap", "indices", "n_indices",
-        "positions", "n_positions", "normals", "n_normals", "uvs", "n_uvs", "lm_uvs",
-        "n_lm_uvs", "tri_material", "n_tri_material", "uv_offset", "n_uv_offset", "uv_scale",
-        "n_uv_scale", "uv_rotation", "n_uv_rotation", "mat_flags", "n_mat_flags", "palette",
-        "n_palette", "joint_indices", "n_joint_indices", "joint_weights", "n_joint_weights",
-        "w1", "row3", "pair_inst", "scene_tri", "pair_valid", "double_sided", "num_valid",
-        "packed", "lightmapped_out")]
+def _mirror(name: str, fields: tuple, extra: tuple = ()):
+    """A ctypes Structure of `fields` (each 8 B) and then `extra`."""
+    return type(name, (ctypes.Structure,), {
+        "_fields_": [(f, _i64_or_pointer(f)) for f in fields] + list(extra),
+        "__doc__": f"csrc/geometry.cu {name.lstrip('_')}, field for field."})
 
 
-class _SetupArgs(ctypes.Structure):
-    """csrc/geometry.cu SetupArgs, field for field."""
+_ListArgs = _mirror("_ListArgs", (
+    "n", "sim8", "first_tri", "tri_count", "first_vertex", "vertex_count", "joints_offset",
+    "material", "lightmapped", "valid", "t_cap", "v_cap", "indices", "n_indices", "positions",
+    "n_positions", "normals", "n_normals", "uvs", "n_uvs", "lm_uvs", "n_lm_uvs",
+    "tri_material", "n_tri_material", "palette", "n_palette", "joint_indices",
+    "n_joint_indices", "joint_weights", "n_joint_weights", "ends", "corner", "w1", "row3",
+    "pair_inst", "scene_tri", "pair_valid", "double_sided", "num_valid", "packed",
+    "lightmapped_out"))
+_VertexArgs = _mirror("_VertexArgs", (
+    "lists", "uv_offset", "n_uv_offset", "uv_scale", "n_uv_scale", "uv_rotation",
+    "n_uv_rotation", "mat_flags", "n_mat_flags"), (("list", _ListArgs * MAX_LISTS),))
+_SetupPart = _mirror("_SetupPart", (
+    "t_cap", "v_rows", "row3", "pair_valid", "double_sided", "w1", "scene_tri", "pair_inst",
+    "num_valid"))
+_SetupArgs = _mirror("_SetupArgs", (
+    "parts", "view_proj", "width", "height", "flip_viewport", "setup", "valid", "bbox",
+    "tri_id", "inst_id", "num_valid"), (("part", _SetupPart * MAX_LISTS),))
+# sc_geometry_args_bytes(which) -> the mirror of that struct
+_MIRRORS = (_VertexArgs, _SetupArgs, _ListArgs, _SetupPart)
 
-    _fields_ = [(f, _i64_or_pointer(f)) for f in (
-        "t_cap", "v_rows", "row3", "pair_valid", "double_sided", "w1", "view_proj",
-        "scene_tri", "pair_inst", "width", "height", "flip_viewport", "setup", "valid", "bbox",
-        "tri_id", "inst_id")]
+_args_checked: list = []  # True once every mirror's size matched the library's
 
 
-_args_checked: set = set()  # the structs of arguments whose size matched the library's
-
-
-def _kernel(symbol: str, args: ctypes.Structure, which: int):
+def _kernel(symbol: str):
     """The geometry library's entry point `symbol`, after checking (once)
-    that the library's struct of arguments `which` has the size of its
-    mirror."""
+    that each struct of arguments in the library has its mirror's size."""
     from .raster import _kernel_fn
 
-    if which not in _args_checked:
-        size = _kernel_fn("sc_geometry_args_bytes")(which)
-        if size != ctypes.sizeof(args):
-            raise RuntimeError(f"csrc/geometry.cu's arguments {which} take {size} B, their "
-                               f"ctypes mirror {ctypes.sizeof(args)} B")
-        _args_checked.add(which)
+    if not _args_checked:
+        for which, mirror in enumerate(_MIRRORS):
+            size = _kernel_fn("sc_geometry_args_bytes")(which)
+            if size != ctypes.sizeof(mirror):
+                raise RuntimeError(f"csrc/geometry.cu's {mirror.__name__.lstrip('_')} takes "
+                                   f"{size} B, its ctypes mirror {ctypes.sizeof(mirror)} B")
+        _args_checked.append(True)
     return _kernel_fn(symbol)
 
 
@@ -638,6 +706,113 @@ def _draws_checked(fn: str, draws: DrawList, device) -> int:
     return n
 
 
+def _list_checked(fn: str, lst: VertexList, device) -> tuple:
+    """(draw rows, t_cap, v_cap) of one list, after checking its inputs."""
+    n = _draws_checked(fn, lst.draws, device)
+    _table(fn, "indices", lst.indices, torch.int32, None, device)
+    _table(fn, "positions", lst.positions, torch.float32, 3, device)
+    _table(fn, "normals", lst.normals, torch.float32, 3, device)
+    _table(fn, "uvs", lst.uvs, torch.float32, 2, device)
+    if lst.lm_uvs is not None:
+        _table(fn, "lm_uvs", lst.lm_uvs, torch.float32, 2, device)
+    _table(fn, "tri_material", lst.tri_material, torch.int32, None, device)
+    if lst.joint_palette is not None:
+        _table(fn, "joint_palette", lst.joint_palette, torch.float32, 8, device)
+        _table(fn, "joint_indices", lst.joint_indices, torch.int32, 4, device)
+        _table(fn, "joint_weights", lst.joint_weights, torch.float32, 4, device)
+    t_cap, v_cap = lst.t_cap, lst.v_cap or lst.t_cap
+    if not (1 <= t_cap and 1 <= v_cap and t_cap + v_cap < 2 ** 31):
+        raise ValueError(f"{fn}: t_cap {t_cap} and v_cap {v_cap} must be at least 1 and sum "
+                         f"under 2 ** 31")
+    return n, t_cap, v_cap
+
+
+def _lists_checked(fn: str, lists, device) -> list:
+    """[(n, t_cap, v_cap)] of the lists, after checking them; the caps
+    summed over the lists must stay under 2 ** 31 too."""
+    sizes = [_list_checked(fn, lst, device) for lst in lists]
+    if sum(t + v for _, t, v in sizes) >= 2 ** 31:
+        raise ValueError(f"{fn}: the lists' capacities must sum under 2 ** 31")
+    return sizes
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _vertex_stages(fn: str, lists, materials: dict, out: Optional[TriangleAttrs],
+                   counter) -> tuple:
+    """The VertexStage of each list, by one vertex-phase and one
+    triangle-phase launch of csrc/geometry.cu vertex_stage_kernel over all
+    of them, each list's rows in new tables of all the lists (w1, the
+    scratch, the prefixes and the triangle fields) and in `out` (a new
+    merged attribute table when None) at its offset. Counts the two
+    launches on `counter`."""
+    if not isinstance(lists, (tuple, list)) or not 1 <= len(lists) <= MAX_LISTS:
+        raise ValueError(f"{fn}: 1 to {MAX_LISTS} draw lists, got "
+                         f"{len(lists) if isinstance(lists, (tuple, list)) else type(lists)}")
+    dev = lists[0].positions.device
+    sizes = _lists_checked(fn, lists, dev)
+    for name, dtype, cols in (("uv_offset", torch.float32, 2), ("uv_scale", torch.float32, 2),
+                              ("uv_rotation", torch.float32, None), ("flags", torch.int32, None)):
+        _table(fn, f"materials[{name!r}]", materials.get(name), dtype, cols, dev)
+    rows = sum(t for _, t, _ in sizes)
+    if out is None:
+        out = attrs_table(rows, dev)
+    else:
+        _check_out_attrs(fn, out, rows, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    vertices = sum(v for _, _, v in sizes)
+    w1 = torch.empty((vertices, 4), dtype=torch.float32, device=dev)
+    corner = torch.empty((2 * vertices, 4), dtype=torch.float32, device=dev)
+    ends = torch.empty((2 * sum(n for n, _, _ in sizes),), **i32)
+    row3 = torch.empty((rows, 3), **i32)
+    pair_inst = torch.empty((rows,), **i32)
+    scene_tri = torch.empty((rows,), **i32)
+    pair_valid = torch.empty((rows,), dtype=torch.bool, device=dev)
+    double_sided = torch.empty((rows,), dtype=torch.bool, device=dev)
+    num_valid = torch.empty((len(lists),), **i32)
+    parts, stages = [], []
+    t0 = v0 = n0 = 0
+    for i, (lst, (n, t_cap, v_cap)) in enumerate(zip(lists, sizes)):
+        skinned = lst.joint_palette is not None
+        tri = slice(t0, t0 + t_cap)
+        stage = VertexStage(
+            w1=w1[v0:v0 + v_cap], row3=row3[tri], pair_inst=pair_inst[tri],
+            scene_tri=scene_tri[tri], pair_valid=pair_valid[tri],
+            double_sided=double_sided[tri], num_valid=num_valid[i],
+            attrs=attrs_rows(out.packed[tri], out.lightmapped[tri]))
+        parts.append(_ListArgs(
+            n, *[c.data_ptr() for c in lst.draws], t_cap, v_cap,
+            *[x for t in (lst.indices, lst.positions, lst.normals, lst.uvs, lst.lm_uvs,
+                          lst.tri_material)
+              for x in (_ptr(t), 0 if t is None else t.shape[0])],
+            *[x for t in (lst.joint_palette, lst.joint_indices, lst.joint_weights)
+              for x in ((t.data_ptr(), t.shape[0]) if skinned else (None, 0))],
+            ends[2 * n0:].data_ptr(), corner[2 * v0:].data_ptr(),
+            *[t.data_ptr() for t in (stage.w1, stage.row3, stage.pair_inst, stage.scene_tri,
+                                     stage.pair_valid, stage.double_sided, stage.num_valid,
+                                     stage.attrs.packed, stage.attrs.lightmapped)]))
+        stages.append(stage)
+        t0, v0, n0 = t0 + t_cap, v0 + v_cap, n0 + n
+    m = materials
+    args = _VertexArgs(
+        len(lists), *[x for name in ("uv_offset", "uv_scale", "uv_rotation", "flags")
+                      for x in (m[name].data_ptr(), m[name].shape[0])],
+        (_ListArgs * MAX_LISTS)(*parts))
+    with torch.cuda.device(dev):
+        err = _kernel("sc_vertex_stage")(ctypes.addressof(args),
+                                         torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vertex stage kernel launch failed: cudaError_t {err}")
+    _launched(counter)  # the vertex phase
+    _launched(counter)  # the triangle phase
+    return tuple(stages)
+
+
 def geometry_vertex_stage(
     draws: DrawList,
     indices: torch.Tensor,
@@ -657,82 +832,123 @@ def geometry_vertex_stage(
     """View-independent half of the geometry pass: every (draw, vertex)
     pair is skinned/transformed once, then triangles gather their three
     transformed rows (reference :194). CUDA tensors launch csrc/geometry.cu
-    vertex_stage_kernel once (bit for bit with the plain version on the
-    card); CPU tensors run geometry_vertex_stage_plain; anything the kernel
-    does not take raises. The attributes are views into the packed rows
-    (attrs_rows), which go into out.packed and out.lightmapped when `out`
-    is given. Counts its launches in geometry_vertex_stage.LAUNCHES."""
-    dev = positions.device
-    if dev.type == "cpu":
+    vertex_stage_kernel twice, its vertex phase and its triangle phase (bit
+    for bit with the plain version on the card); CPU tensors run
+    geometry_vertex_stage_plain; anything the kernel does not take raises.
+    The attributes are views into the packed rows (attrs_rows), which go
+    into out.packed and out.lightmapped when `out` is given. Counts its
+    launches in geometry_vertex_stage.LAUNCHES."""
+    if positions.device.type == "cpu":
         return geometry_vertex_stage_plain(
             draws, indices, positions, normals, uvs, lm_uvs, tri_material, materials, t_cap,
             v_cap, joint_palette, joint_indices, joint_weights, out)
-    fn = "geometry_vertex_stage"
-    v_cap = v_cap or t_cap
-    n = _draws_checked(fn, draws, dev)
-    _table(fn, "indices", indices, torch.int32, None, dev)
-    _table(fn, "positions", positions, torch.float32, 3, dev)
-    _table(fn, "normals", normals, torch.float32, 3, dev)
-    _table(fn, "uvs", uvs, torch.float32, 2, dev)
-    if lm_uvs is not None:
-        _table(fn, "lm_uvs", lm_uvs, torch.float32, 2, dev)
-    _table(fn, "tri_material", tri_material, torch.int32, None, dev)
-    for name, dtype, cols in (("uv_offset", torch.float32, 2), ("uv_scale", torch.float32, 2),
-                              ("uv_rotation", torch.float32, None), ("flags", torch.int32, None)):
-        _table(fn, f"materials[{name!r}]", materials.get(name), dtype, cols, dev)
-    skinned = joint_palette is not None
-    if skinned:
-        _table(fn, "joint_palette", joint_palette, torch.float32, 8, dev)
-        _table(fn, "joint_indices", joint_indices, torch.int32, 4, dev)
-        _table(fn, "joint_weights", joint_weights, torch.float32, 4, dev)
-    if not (1 <= t_cap and 1 <= v_cap and t_cap + v_cap < 2 ** 31):
-        raise ValueError(f"{fn}: t_cap {t_cap} and v_cap {v_cap} must be at least 1 and sum "
-                         f"under 2 ** 31")
-    if out is None:
-        out = attrs_table(t_cap, dev)
-    else:
-        _check_out_attrs(fn, out, t_cap, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
-
-    i32 = dict(dtype=torch.int32, device=dev)
-    w1 = torch.empty((v_cap, 4), dtype=torch.float32, device=dev)
-    row3 = torch.empty((t_cap, 3), **i32)
-    pair_inst = torch.empty((t_cap,), **i32)
-    scene_tri = torch.empty((t_cap,), **i32)
-    pair_valid = torch.empty((t_cap,), dtype=torch.bool, device=dev)
-    double_sided = torch.empty((t_cap,), dtype=torch.bool, device=dev)
-    num_valid = torch.empty((), **i32)
-    m = materials
-    args = _VertexArgs(
-        n, *[c.data_ptr() for c in draws], t_cap, v_cap,
-        indices.data_ptr(), indices.shape[0], positions.data_ptr(), positions.shape[0],
-        normals.data_ptr(), normals.shape[0], uvs.data_ptr(), uvs.shape[0],
-        None if lm_uvs is None else lm_uvs.data_ptr(), 0 if lm_uvs is None else lm_uvs.shape[0],
-        tri_material.data_ptr(), tri_material.shape[0],
-        *[x for name in ("uv_offset", "uv_scale", "uv_rotation", "flags")
-          for x in (m[name].data_ptr(), m[name].shape[0])],
-        *[x for t in (joint_palette, joint_indices, joint_weights)
-          for x in ((t.data_ptr(), t.shape[0]) if skinned else (None, 0))],
-        w1.data_ptr(), row3.data_ptr(), pair_inst.data_ptr(), scene_tri.data_ptr(),
-        pair_valid.data_ptr(), double_sided.data_ptr(), num_valid.data_ptr(),
-        out.packed.data_ptr(), out.lightmapped.data_ptr(),
-    )
-    with torch.cuda.device(dev):
-        err = _kernel("sc_vertex_stage", args, 0)(ctypes.addressof(args),
-                                                   torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"vertex stage kernel launch failed: cudaError_t {err}")
-    _launched(_VERTEX_STAGE_COUNTER)
-    return VertexStage(w1=w1, row3=row3, pair_inst=pair_inst, scene_tri=scene_tri,
-                       pair_valid=pair_valid, double_sided=double_sided, num_valid=num_valid,
-                       attrs=attrs_rows(out.packed, out.lightmapped))
+    lst = VertexList(draws, indices, positions, normals, uvs, lm_uvs, tri_material, t_cap,
+                     v_cap, joint_palette, joint_indices, joint_weights)
+    return _vertex_stages("geometry_vertex_stage", (lst,), materials, out,
+                          _VERTEX_STAGE_COUNTER)[0]
 
 
 geometry_vertex_stage.LAUNCHES = 0
 # the wrapper whose LAUNCHES count the vertex stage kernel's launches,
 # however the frame's name for it is rebound (a recording or plain twin)
 _VERTEX_STAGE_COUNTER = geometry_vertex_stage
+
+
+def geometry_vertex_stage_merged(lists: tuple, materials: dict,
+                                 out: Optional[TriangleAttrs] = None) -> tuple:
+    """The vertex stage of 1 or 2 draw lists (VertexList each, sharing
+    `materials`) -> their VertexStages, each list's packed rows and
+    lightmapped flags written into `out` (a new table of the lists' t_cap
+    summed when None) at its offset, the lists' in order. CUDA tensors
+    launch csrc/geometry.cu vertex_stage_kernel twice for all the lists
+    (bit for bit with the plain version on the card); CPU tensors run
+    geometry_vertex_stage_merged_plain; anything the kernel does not take
+    raises. Counts its launches in geometry_vertex_stage_merged.LAUNCHES."""
+    if lists and lists[0].positions.device.type == "cpu":
+        return geometry_vertex_stage_merged_plain(lists, materials, out)
+    return _vertex_stages("geometry_vertex_stage_merged", lists, materials, out,
+                          _VERTEX_STAGE_MERGED_COUNTER)
+
+
+geometry_vertex_stage_merged.LAUNCHES = 0
+_VERTEX_STAGE_MERGED_COUNTER = geometry_vertex_stage_merged
+
+
+def _stage_checked(fn: str, stage: VertexStage, device, merged: bool) -> int:
+    """A stage's triangle slots, after checking what the setup reads of it
+    (its num_valid too when `merged`)."""
+    t_cap = stage.row3.shape[0] if stage.row3.dim() == 2 else -1
+    _table(fn, "stage.row3", stage.row3, torch.int32, 3, device)
+    _table(fn, "stage.w1", stage.w1, torch.float32, 4, device)
+    if stage.w1.data_ptr() % 16:
+        raise ValueError(f"{fn}: stage.w1 must be 16-B aligned")
+    for name, dtype in (("pair_valid", torch.bool), ("double_sided", torch.bool),
+                        ("scene_tri", torch.int32), ("pair_inst", torch.int32)):
+        t = getattr(stage, name)
+        _table(fn, f"stage.{name}", t, dtype, None, device)
+        if t.shape[0] != t_cap:
+            raise ValueError(f"{fn}: stage.{name} must hold {t_cap} rows, got {t.shape[0]}")
+    nv = stage.num_valid
+    if merged and (nv is None or nv.device != device or nv.dtype != torch.int32
+                   or nv.dim() != 0):
+        raise ValueError(f"{fn}: stage.num_valid must be a () int32 tensor on {device}, got "
+                         + ("None" if nv is None else f"{nv.dtype} {tuple(nv.shape)} on "
+                            f"{nv.device}"))
+    return t_cap
+
+
+def _view_setup(fn: str, stages, view_proj: torch.Tensor, width: int, height: int,
+                flip_viewport: bool, out: Optional[TriangleSetup], merged: bool,
+                counter) -> TriangleSetup:
+    """One launch of csrc/geometry.cu view_setup_kernel over the stages'
+    slots, their rows in `out` (new tables when None) in order. `merged`:
+    the stages' num_valid summed into a new tensor, tri_id and inst_id
+    always copied; else (one stage) its num_valid, and tri_id and inst_id
+    copied only into an `out`. Counts the launch on `counter`."""
+    if not isinstance(stages, (tuple, list)) or not 1 <= len(stages) <= MAX_LISTS:
+        raise ValueError(f"{fn}: 1 to {MAX_LISTS} stages, got "
+                         f"{len(stages) if isinstance(stages, (tuple, list)) else type(stages)}")
+    dev = stages[0].w1.device
+    t_caps = [_stage_checked(fn, stage, dev, merged) for stage in stages]
+    if view_proj.device != dev or view_proj.dtype != torch.float32 \
+            or tuple(view_proj.shape) != (4, 4) or not view_proj.is_contiguous():
+        raise ValueError(f"{fn}: view_proj must be a contiguous (4, 4) float32 matrix on {dev}, "
+                         f"got {view_proj.dtype} {tuple(view_proj.shape)} on {view_proj.device}")
+    if not (1 <= width < 2 ** 31 and 1 <= height < 2 ** 31):
+        raise ValueError(f"{fn}: {width} x {height} px")
+    rows = sum(t_caps)
+    if rows >= 2 ** 31:
+        raise ValueError(f"{fn}: the stages' triangle slots must sum under 2 ** 31")
+    if out is not None:
+        _check_out_setup(fn, out, rows, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
+
+    if out is not None:
+        tri = out
+    elif merged:
+        tri = setup_table(rows, dev)
+    else:
+        tri = setup_table(rows, dev)._replace(tri_id=stages[0].scene_tri,
+                                              inst_id=stages[0].pair_inst)
+    copy_ids = merged or out is not None
+    num_valid = torch.empty((), dtype=torch.int32, device=dev) if merged \
+        else stages[0].num_valid
+    parts = [_SetupPart(t, s.w1.shape[0], *[x.data_ptr() for x in (
+        s.row3, s.pair_valid, s.double_sided, s.w1, s.scene_tri, s.pair_inst)],
+        s.num_valid.data_ptr() if merged else None) for t, s in zip(t_caps, stages)]
+    args = _SetupArgs(
+        len(stages), view_proj.data_ptr(), int(width), int(height), int(bool(flip_viewport)),
+        tri.setup.data_ptr(), tri.valid.data_ptr(), tri.bbox.data_ptr(),
+        *((tri.tri_id.data_ptr(), tri.inst_id.data_ptr()) if copy_ids else (None, None)),
+        num_valid.data_ptr() if merged else None, (_SetupPart * MAX_LISTS)(*parts))
+    with torch.cuda.device(dev):
+        err = _kernel("sc_view_setup")(ctypes.addressof(args),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"view setup kernel launch failed: cudaError_t {err}")
+    _launched(counter)
+    return tri._replace(num_valid=num_valid)
 
 
 def geometry_view_setup(
@@ -750,53 +966,38 @@ def geometry_view_setup(
     kernel does not take raises. With `out`, the rows (and tri_id and
     inst_id, copied from the stage) go into out's tensors. Counts its
     launches in geometry_view_setup.LAUNCHES."""
-    dev = stage.w1.device
-    if dev.type == "cpu":
+    if stage.w1.device.type == "cpu":
         return geometry_view_setup_plain(stage, view_proj, width, height, flip_viewport, out)
-    fn = "geometry_view_setup"
-    t_cap = stage.row3.shape[0] if stage.row3.dim() == 2 else -1
-    _table(fn, "stage.row3", stage.row3, torch.int32, 3, dev)
-    _table(fn, "stage.w1", stage.w1, torch.float32, 4, dev)
-    if stage.w1.data_ptr() % 16:
-        raise ValueError(f"{fn}: stage.w1 must be 16-B aligned")
-    for name, dtype in (("pair_valid", torch.bool), ("double_sided", torch.bool),
-                        ("scene_tri", torch.int32), ("pair_inst", torch.int32)):
-        t = getattr(stage, name)
-        _table(fn, f"stage.{name}", t, dtype, None, dev)
-        if t.shape[0] != t_cap:
-            raise ValueError(f"{fn}: stage.{name} must hold {t_cap} rows, got {t.shape[0]}")
-    if view_proj.device != dev or view_proj.dtype != torch.float32 \
-            or tuple(view_proj.shape) != (4, 4) or not view_proj.is_contiguous():
-        raise ValueError(f"{fn}: view_proj must be a contiguous (4, 4) float32 matrix on {dev}, "
-                         f"got {view_proj.dtype} {tuple(view_proj.shape)} on {view_proj.device}")
-    if not (1 <= width < 2 ** 31 and 1 <= height < 2 ** 31):
-        raise ValueError(f"{fn}: {width} x {height} px")
-    if out is not None:
-        _check_out_setup(fn, out, t_cap, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
-
-    if out is None:
-        tri = setup_table(t_cap, dev)._replace(tri_id=stage.scene_tri, inst_id=stage.pair_inst)
-        ids = (None, None)
-    else:
-        tri = out
-        ids = (out.tri_id.data_ptr(), out.inst_id.data_ptr())
-    args = _SetupArgs(
-        t_cap, stage.w1.shape[0], stage.row3.data_ptr(), stage.pair_valid.data_ptr(),
-        stage.double_sided.data_ptr(), stage.w1.data_ptr(), view_proj.data_ptr(),
-        stage.scene_tri.data_ptr(), stage.pair_inst.data_ptr(), int(width), int(height),
-        int(bool(flip_viewport)), tri.setup.data_ptr(), tri.valid.data_ptr(),
-        tri.bbox.data_ptr(), *ids,
-    )
-    with torch.cuda.device(dev):
-        err = _kernel("sc_view_setup", args, 1)(ctypes.addressof(args),
-                                                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"view setup kernel launch failed: cudaError_t {err}")
-    _launched(_VIEW_SETUP_COUNTER)
-    return tri._replace(num_valid=stage.num_valid)
+    return _view_setup("geometry_view_setup", (stage,), view_proj, width, height,
+                       flip_viewport, out, False, _VIEW_SETUP_COUNTER)
 
 
 geometry_view_setup.LAUNCHES = 0
 _VIEW_SETUP_COUNTER = geometry_view_setup
+
+
+def geometry_view_setup_merged(
+    stages: tuple,
+    view_proj: torch.Tensor,
+    width: int,
+    height: int,
+    flip_viewport: bool = False,
+    out: Optional[TriangleSetup] = None,
+) -> TriangleSetup:
+    """One view's setup of 1 or 2 stages (geometry_vertex_stage_merged's)
+    -> one TriangleSetup of their rows in order (into `out` when given, else
+    new tables), tri_id and inst_id copied from the stages, num_valid their
+    sum (int32, wrapping, as torch's add). CUDA tensors launch
+    csrc/geometry.cu view_setup_kernel once (bit for bit with the plain
+    version on the card); CPU tensors run geometry_view_setup_merged_plain;
+    anything the kernel does not take raises. Counts its launches in
+    geometry_view_setup_merged.LAUNCHES."""
+    if stages and stages[0].w1.device.type == "cpu":
+        return geometry_view_setup_merged_plain(stages, view_proj, width, height,
+                                                flip_viewport, out)
+    return _view_setup("geometry_view_setup_merged", stages, view_proj, width, height,
+                       flip_viewport, out, True, _VIEW_SETUP_MERGED_COUNTER)
+
+
+geometry_view_setup_merged.LAUNCHES = 0
+_VIEW_SETUP_MERGED_COUNTER = geometry_view_setup_merged

@@ -58,7 +58,8 @@ SITE_FUNCTIONS = (
     "sample_material_interleaved", "sample_material", "_partition_material_sample", "take",
     "compose", "_compact_worklist", "interpolate_gbuffer", "sample_skybox",
     "sample_skybox_at", "albedo_alpha", "shade", "shade_particles", "render_view",
-    "geometry_vertex_stage", "geometry_view_setup",
+    "geometry_vertex_stage", "geometry_view_setup", "geometry_vertex_stage_merged",
+    "geometry_view_setup_merged",
 )
 SITE_PREFIX = "site:"
 GATHER_KERNEL = re.compile(r"gather|index", re.IGNORECASE)

@@ -36,12 +36,12 @@ from ..ops.binning import bin_triangles, gather_sorted_setup
 from ..ops.geometry import (
     DrawList,
     TriangleSetup,
+    VertexList,
     attrs_table,
-    geometry_vertex_stage,
-    geometry_vertex_stage_plain,
-    geometry_view_setup,
-    geometry_view_setup_plain,
-    row_slice,
+    geometry_vertex_stage_merged,
+    geometry_vertex_stage_merged_plain,
+    geometry_view_setup_merged,
+    geometry_view_setup_merged_plain,
     setup_table,
 )
 from ..ops import sample as sample_ops
@@ -327,54 +327,43 @@ def _px_py_at(idx: torch.Tensor, width: int, y_offset: int):
 def _merged_vertex_stage(scene: dict, state: FrameState, config: RenderConfig):
     """View-independent geometry of both draw lists -> ((static, animated)
     VertexStage, merged packed attribute rows). The animated stage runs
-    even with no valid draws, as in the reference. Each stage writes its
-    rows into the merged table at its own offset (static rows first): the
-    values of the reference's concatenation, without a copy."""
+    even with no valid draws, as in the reference. One merged call (two
+    kernel launches on the card) writes each list's rows into the merged
+    table at its own offset (static rows first): the values of the
+    reference's concatenation, without a copy."""
     t_s, t_a = config.t_cap, config.t_cap_anim
     merged = attrs_table(t_s + t_a, scene["positions"].device)
-    stage_s = geometry_vertex_stage(
-        state.draws_static, scene["indices"], scene["positions"],
-        scene["normals"], scene["uvs"], scene["lightmap_uvs"],
-        scene["tri_material"], scene["materials"], t_s,
-        v_cap=config.v_cap or t_s, out=row_slice(merged, 0, t_s),
-    )
-    stage_a = geometry_vertex_stage(
-        state.draws_animated, scene["anim_indices"], scene["anim_positions"],
-        scene["anim_normals"], scene["anim_uvs"], None,
-        scene["anim_tri_material"], scene["materials"], t_a,
-        v_cap=config.v_cap_anim or t_a,
-        joint_palette=state.joint_palette,
-        joint_indices=scene["anim_joint_indices"],
-        joint_weights=scene["anim_joint_weights"],
-        out=row_slice(merged, t_s, t_s + t_a),
-    )
-    return (stage_s, stage_a), merged
+    stages = geometry_vertex_stage_merged((
+        VertexList(state.draws_static, scene["indices"], scene["positions"], scene["normals"],
+                   scene["uvs"], scene["lightmap_uvs"], scene["tri_material"], t_s,
+                   v_cap=config.v_cap or t_s),
+        VertexList(state.draws_animated, scene["anim_indices"], scene["anim_positions"],
+                   scene["anim_normals"], scene["anim_uvs"], None, scene["anim_tri_material"],
+                   t_a, v_cap=config.v_cap_anim or t_a, joint_palette=state.joint_palette,
+                   joint_indices=scene["anim_joint_indices"],
+                   joint_weights=scene["anim_joint_weights"]),
+    ), scene["materials"], out=merged)
+    return stages, merged
 
 
 def _merged_setup_for_view(stages, view_proj: torch.Tensor, config: RenderConfig):
-    """Per-view clip + edge setup of both stages, static rows first, each
-    written into the merged table at its own offset."""
-    stage_s, stage_a = stages
-    t_s, t_a = stage_s.row3.shape[0], stage_a.row3.shape[0]
-    merged = setup_table(t_s + t_a, stage_s.w1.device)
-    tri = geometry_view_setup(
-        stage_s, view_proj, config.width, config.height,
-        flip_viewport=config.flip_viewport, out=row_slice(merged, 0, t_s),
-    )
-    tri_a = geometry_view_setup(
-        stage_a, view_proj, config.width, config.height,
-        flip_viewport=config.flip_viewport, out=row_slice(merged, t_s, t_s + t_a),
-    )
-    return merged._replace(num_valid=tri.num_valid + tri_a.num_valid)
+    """Per-view clip + edge setup of both stages into one merged table,
+    static rows first, num_valid their sum: one merged call (one kernel
+    launch on the card)."""
+    t = sum(stage.row3.shape[0] for stage in stages)
+    return geometry_view_setup_merged(
+        stages, view_proj, config.width, config.height, flip_viewport=config.flip_viewport,
+        out=setup_table(t, stages[0].w1.device))
 
 
 # The geometry kernels' wrappers as this module binds them, each with its
 # plain version (the layout of bench.PLAIN_VERSIONS): kernel -> ((module,
 # name, plain version),)
 GEOMETRY_PLAIN_VERSIONS = {
-    "vertex_stage": ((sys.modules[__name__], "geometry_vertex_stage",
-                      geometry_vertex_stage_plain),),
-    "view_setup": ((sys.modules[__name__], "geometry_view_setup", geometry_view_setup_plain),),
+    "vertex_stage": ((sys.modules[__name__], "geometry_vertex_stage_merged",
+                      geometry_vertex_stage_merged_plain),),
+    "view_setup": ((sys.modules[__name__], "geometry_view_setup_merged",
+                    geometry_view_setup_merged_plain),),
 }
 
 

@@ -1,8 +1,9 @@
 """The geometry stage's CUDA kernels (csrc/geometry.cu) against their plain
 versions on the card, bit for bit: ops/geometry.py geometry_vertex_stage
-(vertex_stage_kernel) and geometry_view_setup (view_setup_kernel). This
-file imports no JAX: its tests run only where there is a card (-m gpu) and
-skip elsewhere.
+and geometry_vertex_stage_merged (vertex_stage_kernel, its vertex and
+triangle phases) and geometry_view_setup and geometry_view_setup_merged
+(view_setup_kernel). This file imports no JAX: its tests run only where
+there is a card (-m gpu) and skip elsewhere.
 
     python -m pytest -q -m gpu tests/test_torch_geometry_card.py
 
@@ -17,7 +18,12 @@ wrappers' checks on the CPU:
   uvs (copied as it is), nonzero uv rotations, and for the skinned lists
   joint rows outside the palette (clamped), rows of zero weights (0 / 0,
   NaN), of -0 weights and of negative ones; a list with no valid draw;
-  each with and without an `out` of rows inside a larger table.
+  a list whose totals are far under its capacities (mostly padding) and
+  one of more draws than a block has threads; each with and without an
+  `out` of rows inside a larger table.
+* merged lists (MERGED_CASES): a static list and an animated one into one
+  table, among them an animated list with no valid draw, through both
+  merged entries at both viewport flips.
 * view setup (SETUP_CASES): the synthetic lists' stages under a
   perspective camera, and a crafted stage whose corners lie behind the eye
   (w <= 1e-6, w exactly 1e-6, w = 0, NaN), repeat a vertex (det == 0), lie
@@ -29,6 +35,7 @@ wrappers' checks on the CPU:
   csrc/geometry.cu).
 """
 
+import ctypes
 import itertools
 import zlib
 
@@ -43,15 +50,26 @@ from superconductor_tpu_torch.render import camera as port_camera
 
 torch.set_num_threads(2)
 
-# name -> (skinned, lightmap uvs, t_cap, v_cap, every draw invalid)
+# name -> (skinned, lightmap uvs, t_cap, v_cap, every draw invalid, draws)
 VERTEX_CASES = {
-    "static": (False, True, 256, 300, False),
-    "static-no-lm": (False, False, 256, 300, False),
-    "static-cut": (False, True, 64, 50, False),
-    "static-roomy": (False, True, 1000, 1200, False),
-    "skinned": (True, False, 256, 300, False),
-    "skinned-cut": (True, False, 64, 50, False),
-    "skinned-no-valid-draw": (True, False, 64, 64, True),
+    "static": (False, True, 256, 300, False, 12),
+    "static-no-lm": (False, False, 256, 300, False, 12),
+    "static-cut": (False, True, 64, 50, False, 12),
+    "static-roomy": (False, True, 1000, 1200, False, 12),
+    "static-mostly-padding": (False, True, 4000, 5000, False, 12),
+    "static-many-draws": (False, True, 8192, 12000, False, 300),
+    "skinned": (True, False, 256, 300, False, 12),
+    "skinned-cut": (True, False, 64, 50, False, 12),
+    "skinned-no-valid-draw": (True, False, 64, 64, True, 12),
+}
+# name -> (the static list's VERTEX_CASES name, the animated list's); both
+# lists take the static one's materials
+MERGED_CASES = {
+    "static+skinned": ("static", "skinned"),
+    "roomy+no-valid-draw": ("static-roomy", "skinned-no-valid-draw"),
+    "cut+no-valid-draw": ("static-cut", "skinned-no-valid-draw"),
+    "padding+skinned-cut": ("static-mostly-padding", "skinned-cut"),
+    "many-draws+skinned": ("static-many-draws", "skinned"),
 }
 # name -> (stage source: a VERTEX_CASES name or "crafted", width, height)
 SETUP_CASES = {
@@ -61,7 +79,7 @@ SETUP_CASES = {
     "crafted": ("crafted", 1920, 1080),
     "crafted-small": ("crafted", 61, 37),
 }
-N_VERTS, N_TRIS, N_MATS, N_JOINTS, N_DRAWS = 600, 400, 5, 8, 12
+N_VERTS, N_TRIS, N_MATS, N_JOINTS = 600, 400, 5, 8
 OUT_PAD = 3  # rows of the larger table ahead of an `out`'s rows
 
 
@@ -80,7 +98,7 @@ def _quats(rng, n: int) -> np.ndarray:
 
 def vertex_args(case: str, device) -> dict:
     """geometry_vertex_stage's arguments by name for VERTEX_CASES[case]."""
-    skinned, lm, t_cap, v_cap, no_valid = VERTEX_CASES[case]
+    skinned, lm, t_cap, v_cap, no_valid, n_draws = VERTEX_CASES[case]
     rng = np.random.default_rng(zlib.crc32(case.encode()))
     f32 = np.float32
     positions = _specials(rng, rng.normal(scale=2.0, size=(N_VERTS, 3)).astype(f32), 6)
@@ -90,18 +108,18 @@ def vertex_args(case: str, device) -> dict:
     lm_uvs[7, 0] = np.array([0x7FC00123], np.uint32).view(f32)[0]  # a NaN with a payload
     lm_uvs[8, 1] = -0.0
     indices = rng.integers(0, 80, size=N_TRIS * 3).astype(np.int32)
-    sim8 = np.concatenate([rng.normal(size=(N_DRAWS, 3)), rng.uniform(0.5, 2.0, (N_DRAWS, 1)),
-                           _quats(rng, N_DRAWS)], axis=1).astype(f32)
+    sim8 = np.concatenate([rng.normal(size=(n_draws, 3)), rng.uniform(0.5, 2.0, (n_draws, 1)),
+                           _quats(rng, n_draws)], axis=1).astype(f32)
     sim8[3, 3] = -1.5
-    valid = rng.random(N_DRAWS) < 0.75
+    valid = rng.random(n_draws) < 0.75
     valid[0] = True
     if no_valid:
         valid[:] = False
     draws = port_geom.make_draw_list(
-        sim8, rng.integers(0, N_TRIS - 50, N_DRAWS), rng.integers(0, 50, N_DRAWS),
-        first_vertex=rng.integers(0, 20, N_DRAWS), vertex_count=rng.integers(0, 80, N_DRAWS),
-        joints_offset=rng.integers(0, 6, N_DRAWS), material=rng.integers(-N_MATS, N_MATS, N_DRAWS),
-        lightmapped=rng.random(N_DRAWS) < 0.5, valid=valid, device=device)
+        sim8, rng.integers(0, N_TRIS - 50, n_draws), rng.integers(0, 50, n_draws),
+        first_vertex=rng.integers(0, 20, n_draws), vertex_count=rng.integers(0, 80, n_draws),
+        joints_offset=rng.integers(0, 6, n_draws), material=rng.integers(-N_MATS, N_MATS, n_draws),
+        lightmapped=rng.random(n_draws) < 0.5, valid=valid, device=device)
     rotation = rng.uniform(-7.0, 7.0, N_MATS).astype(f32)
     rotation[0] = 0.0
     materials = {
@@ -136,6 +154,45 @@ def vertex_args(case: str, device) -> dict:
                 rng.integers(-2, N_JOINTS + 3, size=(N_VERTS, 4)).astype(np.int32)).to(device),
             joint_weights=torch.from_numpy(weights).to(device))
     return args
+
+
+def merged_args(case: str, device) -> dict:
+    """geometry_vertex_stage_merged's arguments by name for
+    MERGED_CASES[case]: the two lists, the static one's materials, and an
+    `out` of both lists' rows OUT_PAD.. of a larger table."""
+    lists = []
+    for name in MERGED_CASES[case]:
+        a = vertex_args(name, device)
+        lists.append(port_geom.VertexList(**{k: a[k] for k in port_geom.VertexList._fields}))
+    materials = vertex_args(MERGED_CASES[case][0], device)["materials"]
+    rows = sum(lst.t_cap for lst in lists)
+    table = port_geom.attrs_table(rows + OUT_PAD + 5, device)
+    return dict(lists=tuple(lists), materials=materials,
+                out=row_slice(table, OUT_PAD, OUT_PAD + rows))
+
+
+def per_list_plain(args: dict) -> tuple:
+    """The merged entry's lists through geometry_vertex_stage_plain, each
+    into its rows of a new `out` like args' -> (stages, the out)."""
+    rows = args["out"].packed.shape[0]
+    out = row_slice(port_geom.attrs_table(rows + OUT_PAD + 5, args["out"].packed.device),
+                    OUT_PAD, OUT_PAD + rows)
+    stages, at = [], 0
+    for lst in args["lists"]:
+        stages.append(port_geom.geometry_vertex_stage_plain(
+            **lst._asdict(), materials=args["materials"],
+            out=row_slice(out, at, at + lst.t_cap)))
+        at += lst.t_cap
+    return tuple(stages), out
+
+
+def merged_setup_args(stages, flip: bool, width: int, height: int, device) -> dict:
+    """geometry_view_setup_merged's arguments by name for `stages`, with an
+    `out` of their rows OUT_PAD.. of a larger table."""
+    rows = sum(stage.row3.shape[0] for stage in stages)
+    return dict(stages=stages, view_proj=perspective(width, height).to(device), width=width,
+                height=height, flip_viewport=flip,
+                out=row_slice(setup_table(rows + OUT_PAD + 5, device), OUT_PAD, OUT_PAD + rows))
 
 
 def with_out(args: dict, device) -> dict:
@@ -302,7 +359,7 @@ def test_vertex_stage_kernel_equals_plain_on_card(case, out):
     before = port_geom.geometry_vertex_stage.LAUNCHES
     got = port_geom.geometry_vertex_stage(**args)
     torch.cuda.synchronize()
-    assert port_geom.geometry_vertex_stage.LAUNCHES == before + 1
+    assert port_geom.geometry_vertex_stage.LAUNCHES == before + 2  # the two phases
     if out:
         args = with_out(args, dev)
     want = port_geom.geometry_vertex_stage_plain(**args)
@@ -332,6 +389,66 @@ def test_view_setup_kernel_equals_plain_on_card(case, flip, out):
         assert 0 < int(want.valid.sum()) < want.valid.shape[0]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MERGED_CASES))
+def test_merged_vertex_stage_kernel_equals_plain_on_card(case):
+    """Both lists in one vertex-phase and one triangle-phase launch, equal
+    to each list's plain version written at its offset; the merged
+    wrapper's LAUNCHES rise by 2, the per-list wrapper's by none."""
+    dev = _card()
+    args = merged_args(case, dev)
+    before = (port_geom.geometry_vertex_stage_merged.LAUNCHES,
+              port_geom.geometry_vertex_stage.LAUNCHES)
+    got = port_geom.geometry_vertex_stage_merged(**args)
+    torch.cuda.synchronize()
+    assert (port_geom.geometry_vertex_stage_merged.LAUNCHES,
+            port_geom.geometry_vertex_stage.LAUNCHES) == (before[0] + 2, before[1])
+    want, want_out = per_list_plain(args)
+    assert not bit_equal((got, args["out"]), (want, want_out)), \
+        bit_equal((got, args["out"]), (want, want_out))
+    plain = port_geom.geometry_vertex_stage_merged_plain(**merged_args(case, dev))
+    assert not bit_equal(got, plain), bit_equal(got, plain)
+    if MERGED_CASES[case][1] == "skinned-no-valid-draw":
+        assert bool(torch.isnan(got[1].w1[:, 0]).all())
+        assert int(got[1].num_valid) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("size", [(1920, 1080), (61, 37)])
+@pytest.mark.parametrize("case", sorted(MERGED_CASES))
+def test_merged_view_setup_kernel_equals_plain_on_card(case, size, flip):
+    """Both stages' setup in one launch, equal to each stage's plain
+    version written at its offset with num_valid their torch sum; the
+    merged wrapper's LAUNCHES rise by 1, the per-list wrapper's by none."""
+    dev = _card()
+    stages = port_geom.geometry_vertex_stage_merged_plain(**merged_args(case, dev))
+    args = merged_setup_args(stages, flip, *size, dev)
+    before = (port_geom.geometry_view_setup_merged.LAUNCHES,
+              port_geom.geometry_view_setup.LAUNCHES)
+    got = port_geom.geometry_view_setup_merged(**args)
+    torch.cuda.synchronize()
+    assert (port_geom.geometry_view_setup_merged.LAUNCHES,
+            port_geom.geometry_view_setup.LAUNCHES) == (before[0] + 1, before[1])
+    want = port_geom.geometry_view_setup_merged_plain(**merged_setup_args(stages, flip, *size,
+                                                                          dev))
+    assert not bit_equal(got, want), bit_equal(got, want)
+    assert int(got.num_valid) == int(stages[0].num_valid) + int(stages[1].num_valid)
+    no_out = port_geom.geometry_view_setup_merged(**dict(args, out=None))
+    assert not bit_equal(no_out, want), bit_equal(no_out, want)
+
+
+@pytest.mark.gpu
+def test_args_bytes_match_the_mirrors_on_card():
+    """The library's structs of arguments take the bytes of their ctypes
+    mirrors (sc_geometry_args_bytes)."""
+    from superconductor_tpu_torch.ops.raster import _kernel_fn
+
+    _card()
+    sizes = [_kernel_fn("sc_geometry_args_bytes")(which) for which in range(4)]
+    assert sizes == [ctypes.sizeof(m) for m in port_geom._MIRRORS]
+
+
 def _scenes(dev) -> dict:
     from superconductor_tpu_torch.scenes import (
         LIT_PASSES_SMALL,
@@ -356,9 +473,14 @@ def test_frame_stages_equal_plain_on_card(monkeypatch):
     for name, (tables, build, config, _env) in _scenes(dev).items():
         for pose in (0.0, 0.9):
             state = build(pose)
+            before = (port_geom.geometry_vertex_stage_merged.LAUNCHES,
+                      port_geom.geometry_view_setup_merged.LAUNCHES)
             stages, attrs = frame_mod._merged_vertex_stage(tables, state, config)
             tris = [frame_mod._merged_setup_for_view(stages, state.uniforms["view_proj"][v],
                                                      config) for v in range(config.num_views)]
+            assert (port_geom.geometry_vertex_stage_merged.LAUNCHES,
+                    port_geom.geometry_view_setup_merged.LAUNCHES) == (
+                before[0] + 2, before[1] + config.num_views)
             with monkeypatch.context() as m:
                 for kernel, bindings in frame_mod.GEOMETRY_PLAIN_VERSIONS.items():
                     for mod, fn, plain in bindings:
@@ -382,13 +504,16 @@ def test_card_calls_never_reach_the_plain_versions(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("a CUDA call reached a plain version")
 
-    for name in ("geometry_vertex_stage_plain", "geometry_view_setup_plain", "skin_vertices",
-                 "_uv_transform", "clip_transform", "_setup_from_clip", "expand_draws",
-                 "expand_draw_vertices", "pack_attrs"):
+    for name in ("geometry_vertex_stage_plain", "geometry_view_setup_plain",
+                 "geometry_vertex_stage_merged_plain", "geometry_view_setup_merged_plain",
+                 "skin_vertices", "_uv_transform", "clip_transform", "_setup_from_clip",
+                 "expand_draws", "expand_draw_vertices", "pack_attrs"):
         monkeypatch.setattr(port_geom, name, refuse)
     for case in ("static", "skinned"):
         stage = port_geom.geometry_vertex_stage(**with_out(vertex_args(case, dev), dev))
         port_geom.geometry_view_setup(stage, perspective(64, 32).to(dev), 64, 32)
+    stages = port_geom.geometry_vertex_stage_merged(**merged_args("static+skinned", dev))
+    port_geom.geometry_view_setup_merged(stages, perspective(64, 32).to(dev), 64, 32)
     torch.cuda.synchronize()
 
 
@@ -412,3 +537,25 @@ def test_wrappers_capture_into_a_graph():
     want_stage = port_geom.geometry_vertex_stage_plain(**args)
     want = port_geom.geometry_view_setup_plain(want_stage, view_proj, 64, 32)
     assert not bit_equal((stage, tri), (want_stage, want))
+
+
+@pytest.mark.gpu
+def test_merged_wrappers_capture_into_a_graph():
+    """The merged wrappers' three launches in one CUDA graph: a replay
+    after a new matrix is copied in equals the plain versions on it."""
+    dev = _card()
+    args = merged_args("static+skinned", dev)
+    view_proj = perspective(64, 32).to(dev)
+    port_geom.geometry_vertex_stage_merged(**args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stages = port_geom.geometry_vertex_stage_merged(**args)
+        tri = port_geom.geometry_view_setup_merged(stages, view_proj, 64, 32)
+    view_proj.copy_(perspective(80, 40).to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    want_stages = port_geom.geometry_vertex_stage_merged_plain(**merged_args("static+skinned",
+                                                                             dev))
+    want = port_geom.geometry_view_setup_merged_plain(want_stages, view_proj, 64, 32)
+    assert not bit_equal((stages, tri), (want_stages, want))

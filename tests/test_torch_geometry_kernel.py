@@ -9,12 +9,20 @@ geometry_view_setup, csrc/geometry.cu) on the CPU:
   two views and for a skinned tube;
 * the plain versions with an `out` of rows inside a larger table equal to
   them without one;
+* the merged entries' plain versions equal to each list's plain version
+  written at its offset, num_valid the lists' sum;
 * the wrappers raising, off the CPU, on what their kernels do not take
   (meta tensors stand in for a card's);
+* the ctypes mirrors of csrc/geometry.cu's structs of arguments naming its
+  fields in order, each 8 B;
 * chip_smoke.py's bound of both kernels on a small list whose bytes are
-  counted here by hand.
+  counted here by hand, and of a merged call as the sum of its lists'.
 
 The kernels themselves run in tests/test_torch_geometry_card.py (-m gpu)."""
+
+import ctypes
+import os
+import re
 
 import numpy as np
 import pytest
@@ -28,10 +36,14 @@ from superconductor_tpu_torch.scene.upload import scene_to_torch
 from test_torch_geometry import _ref_config, _skinned_geometry
 from test_torch_geometry import _hero_states, hero  # noqa: F401  (a fixture)
 from test_torch_geometry_card import (
+    MERGED_CASES,
     SETUP_CASES,
     VERTEX_CASES,
     bit_equal,
     fields,
+    merged_args,
+    merged_setup_args,
+    per_list_plain,
     setup_args,
     vertex_args,
     with_out,
@@ -130,6 +142,43 @@ def test_view_setup_plain_into_out_equals_plain(case, flip):
     assert not bit_equal(got, want), bit_equal(got, want)
 
 
+@pytest.mark.parametrize("case", sorted(MERGED_CASES))
+def test_merged_vertex_stage_plain_equals_per_list_plain(case):
+    """The merged entry (on CPU tensors, its plain version) equals each
+    list's plain version written into its rows of the merged table."""
+    args = merged_args(case, "cpu")
+    got = port_geom.geometry_vertex_stage_merged(**args)
+    want, want_out = per_list_plain(args)
+    assert not bit_equal((got, args["out"]), (want, want_out)), \
+        bit_equal((got, args["out"]), (want, want_out))
+    t_s = args["lists"][0].t_cap
+    assert got[1].attrs.packed.data_ptr() == args["out"].packed[t_s:].data_ptr()
+    alone = port_geom.geometry_vertex_stage_merged_plain(args["lists"], args["materials"])
+    assert not bit_equal(alone, want), bit_equal(alone, want)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("case", sorted(MERGED_CASES))
+def test_merged_view_setup_plain_equals_per_list_plain(case, flip):
+    """The merged setup (on CPU tensors, its plain version) equals each
+    stage's plain setup written into its rows, num_valid their sum."""
+    stages = port_geom.geometry_vertex_stage_merged_plain(**merged_args(case, "cpu"))
+    args = merged_setup_args(stages, flip, 1920, 1080, "cpu")
+    got = port_geom.geometry_view_setup_merged(**args)
+    rows = [s.row3.shape[0] for s in stages]
+    want = [port_geom.geometry_view_setup_plain(s, args["view_proj"], 1920, 1080, flip)
+            for s in stages]
+    for name in ("setup", "tri_id", "inst_id", "bbox", "valid"):
+        parts = torch.split(getattr(got, name), rows)
+        for part, w in zip(parts, want):
+            assert not bit_equal(part, getattr(w, name)), (name, bit_equal(part, getattr(w, name)))
+    assert got.num_valid.dtype == torch.int32
+    assert int(got.num_valid) == int(stages[0].num_valid) + int(stages[1].num_valid)
+    assert got.setup.data_ptr() == args["out"].setup.data_ptr()
+    alone = port_geom.geometry_view_setup_merged_plain(stages, args["view_proj"], 1920, 1080, flip)
+    assert not bit_equal(alone, got), bit_equal(alone, got)
+
+
 # --- the wrappers' checks, off the CPU ---------------------------------------------
 
 def _meta(x):
@@ -139,6 +188,8 @@ def _meta(x):
         return {k: _meta(v) for k, v in x.items()}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*[_meta(v) for v in x])
+    if isinstance(x, tuple):
+        return tuple(_meta(v) for v in x)
     return x
 
 
@@ -213,6 +264,49 @@ def test_vertex_stage_wrapper_raises_off_the_cpu(fault):
         port_geom.geometry_vertex_stage(**args)
 
 
+def _lists(a, i, fault):
+    """Merged arguments with VERTEX_FAULTS[fault] applied to list i."""
+    lst = a["lists"][i]
+    bad = fault(dict(lst._asdict(), materials=a["materials"], out=None))
+    lists = list(a["lists"])
+    lists[i] = port_geom.VertexList(**{k: bad[k] for k in port_geom.VertexList._fields})
+    return dict(a, lists=tuple(lists), materials=bad["materials"])
+
+
+MERGED_VERTEX_FAULTS = {
+    "lists-empty": lambda a: dict(a, lists=()),
+    "lists-three": lambda a: dict(a, lists=a["lists"] + a["lists"][:1]),
+    "list-on-another-device": lambda a: dict(a, lists=(
+        a["lists"][0], a["lists"][1]._replace(positions=torch.zeros((8, 3))))),
+    "out-rows": lambda a: dict(a, out=port_geom.attrs_table(
+        a["out"].packed.shape[0] - 1, "meta")),
+    "second-positions-dtype": lambda a: _lists(a, 1, VERTEX_FAULTS["positions-dtype"]),
+    "second-t_cap-0": lambda a: _lists(a, 1, VERTEX_FAULTS["t_cap-0"]),
+    "second-draws-too-many": lambda a: _lists(a, 1, VERTEX_FAULTS["draws-too-many"]),
+    "first-palette-alone": lambda a: _lists(a, 0, VERTEX_FAULTS["palette-alone"]),
+    "second-joint_weights-width": lambda a: _lists(a, 1, SKINNED_FAULTS["joint_weights-width"]),
+    "flags-dtype": lambda a: _lists(a, 0, VERTEX_FAULTS["flags-dtype"]),
+    "caps-sum": lambda a: dict(a, lists=tuple(
+        lst._replace(t_cap=2 ** 30, v_cap=2 ** 30 - 1) for lst in a["lists"]), out=None),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(MERGED_VERTEX_FAULTS) + ["none", "none-no-out"])
+def test_merged_vertex_stage_wrapper_raises_off_the_cpu(fault):
+    """Every input the merged kernel does not take raises, and a good one
+    raises too, off CUDA (no plain path)."""
+    args = _meta(merged_args("static+skinned", "cpu"))
+    args["out"] = port_geom.attrs_table(args["out"].packed.shape[0], "meta")
+    if fault == "none-no-out":
+        args["out"] = None
+    elif fault in MERGED_VERTEX_FAULTS:
+        args = MERGED_VERTEX_FAULTS[fault](args)
+    with pytest.raises((ValueError, TypeError),
+                       match="CUDA tensors" if fault.startswith("none") else None) as err:
+        port_geom.geometry_vertex_stage_merged(**args)
+    assert fault.startswith("none") or "runs on CUDA tensors" not in str(err.value)
+
+
 def _stage(a, **kw):
     return dict(a, stage=a["stage"]._replace(**kw))
 
@@ -256,6 +350,87 @@ def test_view_setup_wrapper_raises_off_the_cpu(fault):
     with pytest.raises((ValueError, TypeError),
                        match="CUDA tensors" if fault.startswith("none") else None):
         port_geom.geometry_view_setup(**args)
+
+
+def _merged_setup_meta():
+    stages = port_geom.geometry_vertex_stage_merged_plain(**merged_args("static+skinned", "cpu"))
+    args = _meta(merged_setup_args(stages, False, 64, 32, "cpu"))
+    rows = sum(s.row3.shape[0] for s in args["stages"])
+    return dict(args, out=port_geom.setup_table(rows, "meta"))
+
+
+def _stages(a, i, **kw):
+    stages = list(a["stages"])
+    stages[i] = stages[i]._replace(**kw)
+    return dict(a, stages=tuple(stages))
+
+
+MERGED_SETUP_FAULTS = {
+    "stages-empty": lambda a: dict(a, stages=()),
+    "stages-three": lambda a: dict(a, stages=a["stages"] + a["stages"][:1]),
+    "num_valid-dtype": lambda a: _stages(a, 1, num_valid=a["stages"][1].num_valid.long()),
+    "num_valid-missing": lambda a: _stages(a, 0, num_valid=None),
+    "num_valid-shape": lambda a: _stages(a, 0, num_valid=a["stages"][0].num_valid[None]),
+    "second-row3-dtype": lambda a: _stages(a, 1, row3=a["stages"][1].row3.long()),
+    "second-w1-unaligned": lambda a: _stages(a, 1, w1=torch.zeros(
+        (a["stages"][1].w1.numel() + 1,), device="meta")[1:].view(-1, 4)),
+    "second-pair_inst-rows": lambda a: _stages(a, 1, pair_inst=a["stages"][1].pair_inst[:-1]),
+    "second-on-another-device": lambda a: _stages(a, 1, w1=torch.zeros(
+        a["stages"][1].w1.shape)),
+    "out-rows": lambda a: dict(a, out=port_geom.setup_table(a["out"].setup.shape[0] + 1,
+                                                            "meta")),
+    "view_proj-dtype": lambda a: dict(a, view_proj=a["view_proj"].double()),
+    "height-0": lambda a: dict(a, height=0),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(MERGED_SETUP_FAULTS) + ["none", "none-no-out"])
+def test_merged_view_setup_wrapper_raises_off_the_cpu(fault):
+    args = _merged_setup_meta()
+    if fault == "none-no-out":
+        args["out"] = None
+    elif fault in MERGED_SETUP_FAULTS:
+        args = MERGED_SETUP_FAULTS[fault](args)
+    with pytest.raises((ValueError, TypeError),
+                       match="CUDA tensors" if fault.startswith("none") else None) as err:
+        port_geom.geometry_view_setup_merged(**args)
+    assert fault.startswith("none") or "runs on CUDA tensors" not in str(err.value)
+
+
+# --- the ctypes mirrors ---------------------------------------------------------------
+
+def _cu_fields(struct: str) -> list:
+    """[(field, array length or 1)] of a struct of csrc/geometry.cu, in
+    order, from the source."""
+    path = os.path.join(os.path.dirname(port_geom.__file__), os.pardir, "csrc", "geometry.cu")
+    with open(path) as f:
+        src = f.read()
+    body = re.search(r"struct " + struct + r" \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in body.split(";")[:-1]:
+        m = re.search(r"(\w+)(?:\[(\w+)\])?\s*$", decl.strip())
+        out.append((m.group(1), m.group(2) or 1))
+    return out
+
+
+@pytest.mark.parametrize("struct", ["VertexArgs", "ListArgs", "SetupArgs", "SetupPart"])
+def test_mirrors_name_the_structs_fields(struct):
+    """Each ctypes mirror of a struct of csrc/geometry.cu names its fields in
+    order, each 8 B (a pointer or a long long) and its list of kMaxLists
+    parts (MAX_LISTS); sc_geometry_args_bytes' order of the structs is the
+    mirrors'. On the card the sizes themselves are compared
+    (test_torch_geometry_card.py)."""
+    mirror = getattr(port_geom, "_" + struct)
+    cu = _cu_fields(struct)
+    assert [f for f, _ in mirror._fields_] == [f for f, _ in cu]
+    for (name, ctype), (_, length) in zip(mirror._fields_, cu):
+        if length == 1:
+            assert ctypes.sizeof(ctype) == 8, name
+        else:
+            assert length == "kMaxLists" and ctype._length_ == port_geom.MAX_LISTS, name
+    assert port_geom._MIRRORS.index(mirror) == ["VertexArgs", "SetupArgs", "ListArgs",
+                                                "SetupPart"].index(struct)
 
 
 # --- chip_smoke.py's bound ------------------------------------------------------------
@@ -319,3 +494,37 @@ def test_view_setup_bound_counts_what_the_view_reads(out):
     nbytes, ops = chip_smoke.geometry_bytes_ops("geometry_view_setup", args)
     assert nbytes == 3 * (14 + 81 + (16 if out else 0)) + 4 * 16 + 64
     assert ops == 3 * chip_smoke.GEOMETRY_OPS_SETUP + 4 * chip_smoke.GEOMETRY_OPS_CLIP
+
+
+@pytest.mark.parametrize("case", sorted(MERGED_CASES))
+def test_merged_bound_is_the_sum_of_the_lists(case):
+    """A merged vertex stage's and a merged setup's bound, bytes, lanes and
+    rows are their lists' summed; the setup's parts count tri_id and
+    inst_id, which the merged kernel always writes."""
+    args = merged_args(case, "cpu")
+    parts = [("geometry_vertex_stage", dict(lst._asdict(), materials=args["materials"], out=None))
+             for lst in args["lists"]]
+    name = "geometry_vertex_stage_merged"
+    assert chip_smoke.geometry_bytes_ops(name, args) == tuple(
+        sum(x) for x in zip(*[chip_smoke.geometry_bytes_ops(n, a) for n, a in parts]))
+    bound, by = chip_smoke.geometry_bound(name, args, [])
+    assert by == "bytes"
+    assert bound == pytest.approx(sum(chip_smoke.geometry_bound(n, a, [])[0] for n, a in parts))
+    assert chip_smoke.geometry_lanes(name, args) == sum(
+        chip_smoke.geometry_lanes(n, a) for n, a in parts)
+    assert chip_smoke.geometry_calls(name, args) == 2
+    assert "static t_cap" in chip_smoke.geometry_site(name, "caller", args)
+
+    stages = port_geom.geometry_vertex_stage_merged_plain(**args)
+    sargs = merged_setup_args(stages, False, 64, 32, "cpu")
+    sparts = [("geometry_view_setup", dict(stage=s, view_proj=sargs["view_proj"], width=64,
+                                           height=32, flip_viewport=False,
+                                           out=port_geom.setup_table(s.row3.shape[0], "cpu")))
+              for s in stages]
+    name = "geometry_view_setup_merged"
+    for out in (sargs["out"], None):
+        got = chip_smoke.geometry_bound(name, dict(sargs, out=out), [])[0]
+        assert got == pytest.approx(sum(chip_smoke.geometry_bound(n, a, [])[0]
+                                        for n, a in sparts))
+    assert chip_smoke.geometry_calls(name, sargs) == 1
+    assert len(chip_smoke.geometry_rows(name, sargs, [])) == 2
