@@ -257,23 +257,33 @@ through the ECS) -- and checks them:
     GEOMETRY_PLAIN_VERSIONS); a replay's tally; its own main-path run, each
     launch counted at its site; each frame's launches (at most 2 of the
     vertex stage, 1 setup a view);
-19. worklist (the shading worklists' compaction and compose,
-    csrc/worklist.cu): as 15 for every worklist_compact and
-    worklist_compose call of one eager headline, all-passes, stereo and lit
-    frame (the compose writes into its dst in place: the recorded call
-    keeps a copy of dst, and the kernel and the plain version each write
-    into their own copy, the kernel's result its dst's storage), each held
-    bit for bit against its plain version (idx, safe, live and need; the
-    composed bytes); each site timed (kernel and torch chain) with its bound
-    (worklist_bytes) and its library yardstick (a compaction's torch.sort
-    of its int32 keys, a compose's index_copy_ into an (n_g + 1)-row
-    buffer); the graph frames' twins with every plain version and with the
-    two worklist plain versions (render/frame.py WORKLIST_PLAIN_VERSIONS); a
-    replay's tally; its own main-path run, each launch counted at its site;
-    each frame's launches of both kernels; then every call of two more
-    eager frames held and timed the same way: the headline at gr = 1 and
-    the all-passes frame with every worklist cap halved (compactions over
-    their cap);
+19. worklist (the shading worklists' compaction, compose and clip-round
+    compose, csrc/worklist.cu): the kernels' registers, stack and spills
+    (ptxas); as 15 for every worklist_compact, worklist_compose and
+    worklist_compose_clip call of one eager headline, all-passes, stereo
+    and lit frame (the composes write in place: the recorded call keeps a
+    copy of dst or of the clip round's three planes, and the kernel and the
+    plain version each write into their own copy, the kernel's result that
+    copy's storage), each held bit for bit against its plain version (idx,
+    safe, live and need; the composed bytes; the three planes); each site
+    timed (kernel and torch chain) with its bound (worklist_bytes), its
+    yardstick (a compaction's torch.sort of its int32 keys, a compose's
+    index_copy_ into an (n_g + 1)-row buffer; a clip round's index_copy_ of
+    its found rows, which is not the round: its library_ms is null) and
+    its detail (a compaction's grid at GRID_BLOCKS blocks, at the rule's
+    (ops/worklist.py compact_blocks) and at twice that; a clip round as
+    separate takes, masks and three compose launches) and, with --baseline
+    DIR, the worklist kernels of the tree at DIR as that tree's frame
+    called them at the same site; the graph frames' twins with
+    every plain version and with the worklist plain versions
+    (render/frame.py WORKLIST_PLAIN_VERSIONS); a replay's tally; its own
+    main-path run, each launch counted at its site; each frame's launches
+    of both kernels, read from their counters around one eager frame, one
+    a compaction and one a compose or clip round, one clip round a
+    k-buffer layer; then every call of two more eager frames held and
+    timed the same way: the headline at gr = 1 (2,073,600 one-pixel
+    granules, a grid of 507 blocks) and the all-passes frame with every
+    worklist cap halved (compactions over their cap);
 20. neither jax nor the JAX package (superconductor_tpu) was imported.
 
 Any failure raises (non-zero exit) before the result lines. The last two
@@ -298,8 +308,9 @@ run, with the lit frame), and the worklist compaction and compose kernels
 g-buffer, the sky, the shade, the geometry and the worklists replace no
 TPU kernel: their "replaces" names the JAX package's XLA functions. The
 library_ms of the worklist kernels is their yardstick's (a torch.sort of
-the keys, an index_copy_ of the rows); the others' is null (no one
-PyTorch call computes them). Their bounds are sampler_bound's,
+the keys, an index_copy_ of the rows; null at a clip round, which no one
+PyTorch call computes); the others' is null (no one PyTorch call computes
+them). Their bounds are sampler_bound's,
 deferred_bound's, shade_bound's, geometry_bound's and worklist_bound's.
 A kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (12 FP32
@@ -1499,7 +1510,8 @@ def kernel_counters() -> dict:
             "view_setup": (geometry_mod._VIEW_SETUP_COUNTER,
                            geometry_mod._VIEW_SETUP_MERGED_COUNTER),
             "worklist_compact": (worklist_mod._COMPACT_COUNTER,),
-            "worklist_compose": (worklist_mod._COMPOSE_COUNTER,)}
+            "worklist_compose": (worklist_mod._COMPOSE_COUNTER,
+                                 worklist_mod._COMPOSE_CLIP_COUNTER)}
 
 
 @contextlib.contextmanager
@@ -1880,7 +1892,8 @@ class HandPhase(NamedTuple):
     # (name, args) -> a call of a baseline tree's kernels at the same site
     # to time beside the kernel, or None (None: no baseline)
     baseline: Optional[Callable] = None
-    # (name, args) -> a line of further timings at a site (None: none)
+    # (name, args) -> a line of further timings at a site, or None (None:
+    # none)
     detail: Optional[Callable] = None
     # (name, args) -> the arguments record_calls keeps of a call (None: as
     # they are)
@@ -1888,9 +1901,10 @@ class HandPhase(NamedTuple):
     # args -> the arguments of one comparing or timed call, with its own
     # copy of what the call writes (None: fresh_out)
     fresh: Optional[Callable] = None
-    # (name, args) -> (label, one PyTorch call) timed as the site's
-    # yardstick and kept as its library_ms (None: one index_select of the
-    # rows the call reads, `rows`)
+    # (name, args) -> (label, one PyTorch call, whether it computes the same
+    # function) timed as the site's yardstick and, where it does, kept as
+    # its library_ms (None: one index_select of the rows the call reads,
+    # `rows`)
     yardstick: Optional[Callable] = None
 
 
@@ -2216,52 +2230,65 @@ def geometry_rows(name: str, args: dict, fetched: list) -> list:
             (args["indices"], corners.clamp(0, args["indices"].shape[0] - 1))]
 
 
-# The root of a baseline tree of this repo whose geometry kernels
-# [geometry] times beside this tree's at each site (chip_smoke.py
-# --baseline DIR: say, a git archive of the commit before a redesign), or
-# None; and its loaded geometry module
-BASELINE = {"root": None, "module": None}
+# The root of a baseline tree of this repo whose geometry and worklist
+# kernels [geometry] and [worklist] time beside this tree's at each site
+# (chip_smoke.py --baseline DIR: say, a git archive of the commit before a
+# redesign), or None; and its loaded ops modules by name
+BASELINE = {"root": None, "modules": {}}
 
 
-def baseline_geometry():
-    """The baseline tree's superconductor_tpu_torch/ops/geometry.py, loaded
-    as a module of this package (its relative imports resolve here), its
-    library built by nvcc from the tree's csrc/geometry.cu into
-    build/baseline/ and bound in place of this tree's (the module's
-    `_kernel(symbol, args, which)`, which checks each struct's size)."""
+def baseline_module(name: str):
+    """The baseline tree's superconductor_tpu_torch/ops/{name}.py (name
+    "geometry" or "worklist"), loaded as a module of this package (its
+    relative imports resolve here), its library built by nvcc from the
+    tree's csrc/{name}.cu into build/baseline/ and bound in place of this
+    tree's, with the argument types the tree's ops/raster.py _SIGNATURES
+    gives: the geometry module's `_kernel(symbol)` (after checking each of
+    its argument structs' sizes against the library's) or the worklist
+    module's `_kernel_fn(symbol)`."""
+    import ast
     import ctypes
     import importlib.util
 
     from superconductor_tpu_torch.ops import raster as raster_mod
 
-    if BASELINE["module"] is not None:
-        return BASELINE["module"]
+    if name in BASELINE["modules"]:
+        return BASELINE["modules"][name]
     src = os.path.join(BASELINE["root"], "superconductor_tpu_torch")
-    lib = os.path.join(raster_mod.BUILD_DIR, "baseline", "libsc_geometry.so")
+    lib = os.path.join(raster_mod.BUILD_DIR, "baseline", f"libsc_{name}.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     t0 = time.perf_counter()
     subprocess.run([raster_mod._nvcc(), *raster_mod.NVCC_FLAGS, "-o", lib,
-                    os.path.join(src, "csrc", "geometry.cu")], check=True, capture_output=True)
+                    os.path.join(src, "csrc", f"{name}.cu")], check=True, capture_output=True)
     cdll = ctypes.CDLL(lib)
     spec = importlib.util.spec_from_file_location(
-        "superconductor_tpu_torch.ops._baseline_geometry",
-        os.path.join(src, "ops", "geometry.py"))
+        f"superconductor_tpu_torch.ops._baseline_{name}", os.path.join(src, "ops", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    with open(os.path.join(src, "ops", "raster.py")) as f:
+        tree = ast.parse(f.read())
+    table = next(node.value for node in tree.body if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "_SIGNATURES" for t in node.targets))
+    types = {"_P": ctypes.c_void_p, "_I": ctypes.c_int, "_L": ctypes.c_longlong,
+             "_F": ctypes.c_float, "ctypes": ctypes}
+    signatures = eval(compile(ast.Expression(table), "_SIGNATURES", "eval"), types)
 
-    def kernel(symbol, args, which):
-        size = cdll.sc_geometry_args_bytes(which)
-        if size != ctypes.sizeof(args):
-            raise RuntimeError(f"the baseline's struct {which} takes {size} B, its mirror "
-                               f"{ctypes.sizeof(args)} B")
+    def kernel_fn(symbol):
         fn = getattr(cdll, symbol)
-        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype, fn.argtypes = ctypes.c_int, signatures[symbol][1]
         return fn
 
-    mod._kernel = kernel
-    BASELINE["module"] = mod
-    phase("geometry", f"baseline: {src}'s csrc/geometry.cu built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    if name == "geometry":
+        for which, mirror in enumerate(mod._MIRRORS):
+            size = kernel_fn("sc_geometry_args_bytes")(which)
+            if size != ctypes.sizeof(mirror):
+                raise RuntimeError(f"the baseline's struct {which} takes {size} B, its mirror "
+                                   f"{ctypes.sizeof(mirror)} B")
+        mod._kernel = kernel_fn
+    else:
+        mod._kernel_fn = kernel_fn
+    BASELINE["modules"][name] = mod
+    phase(name, f"baseline: {src}'s csrc/{name}.cu built in {time.perf_counter() - t0:.1f} s")
     return mod
 
 
@@ -2302,7 +2329,7 @@ def geometry_baseline(name: str, args: dict):
     without a baseline."""
     if BASELINE["root"] is None:
         return None
-    mod = baseline_geometry()
+    mod = baseline_module("geometry")
     parts = geometry_parts(name, args)
     wrapper = {"geometry_vertex_stage": mod.geometry_vertex_stage,
                "geometry_view_setup": mod.geometry_view_setup}
@@ -2346,6 +2373,9 @@ GEOMETRY_PHASE = HandPhase("geometry", GEOMETRY, geometry_lanes, geometry_site, 
                            detail=geometry_detail)
 
 
+CLIP_PLANES = ("found", "pair", "depth")  # what a clip round writes in place
+
+
 def worklist_lanes(name: str, args: dict) -> int:
     """The mask's pixels a compaction reads, or the lanes a compose writes
     (0: no slot, nothing launched)."""
@@ -2356,13 +2386,19 @@ def worklist_lanes(name: str, args: dict) -> int:
 
 def worklist_site(name: str, caller: str, args: dict) -> str:
     """A worklist call's site and shape: the granule size, the slots and
-    the granules; a compose's destination and its lane mask. The wrapper's
-    caller is always render/frame.py's _compact_worklist or compose, so
-    the shapes tell the sites apart."""
+    the granules; a compose's destination and its lane mask; a clip round's
+    planes. The wrapper's caller is always render/frame.py's
+    _compact_worklist or compose, so the shapes tell the sites apart."""
     gr = args["gr"]
     if name == "worklist_compact":
+        from superconductor_tpu_torch.ops.worklist import compact_blocks
+
         n_g = args["mask"].shape[0] // gr
-        return f"compact {gr}-px granules, {min(args['cap_g'], n_g)} slots of {n_g}"
+        return (f"compact {gr}-px granules, {min(args['cap_g'], n_g)} slots of {n_g} "
+                f"({compact_blocks(n_g)} blocks)")
+    if name == "worklist_compose_clip":
+        return (f"compose clip round (found i32, pair i32, depth f32) into "
+                f"{args['found'].shape[0]} px, {gr}-px granules, {args['idx'].shape[0]} slots")
     dst = args["dst"]
     kind = str(dst.dtype).replace("torch.", "") + ("" if dst.dim() == 1 else f"x{dst.shape[1]}")
     where = ", lane mask" if args["where"] is not None else ""
@@ -2370,10 +2406,19 @@ def worklist_site(name: str, caller: str, args: dict) -> str:
             f"{args['idx'].shape[0]} slots{where}")
 
 
-def worklist_calls(name: str, args: dict) -> int:
-    """The kernel launches a worklist call makes: the compaction's two
-    (the tiles' counts, then the writes), the compose's one."""
-    return 2 if name == "worklist_compact" else 1
+def clip_lane_masks(args: dict) -> tuple:
+    """(live, needs the test, ok) over a clip round's lanes, from its
+    recorded inputs (found as it was before the call): live lanes, those
+    whose pixel has no find yet (their valid is read), and those that find
+    their fragment (their pair and depth are written)."""
+    found, idx, gr = args["found"], args["idx"], args["gr"]
+    n_g = found.shape[0] // gr
+    live = (idx < n_g)[:, None].expand(-1, gr).reshape(-1)
+    off = torch.arange(gr, device=idx.device)
+    pix = (torch.clamp_max(idx, n_g - 1).long()[:, None] * gr + off).reshape(-1)
+    test = live & (found[pix] == 0)
+    ok = test & args["valid"] & (args["alpha"] >= args["cutoff"])
+    return live, test, ok
 
 
 def worklist_bytes(name: str, args: dict) -> int:
@@ -2383,11 +2428,20 @@ def worklist_bytes(name: str, args: dict) -> int:
     (4 B); a compose reads idx (4 B a slot) and, at the live slots' lanes
     (with a lane mask, those whose mask is true), reads its row and writes
     it into dst (4 B a word each way), and reads the lane mask at the live
-    slots' lanes (1 B a lane)."""
+    slots' lanes (1 B a lane); a clip round reads idx, reads and writes
+    found at the live lanes (4 B each way), reads valid where the pixel has
+    no find yet (1 B), alpha and cutoff where that lane is valid too (8 B),
+    and where it finds its fragment reads its pair row and the layer's depth
+    and writes both (16 B)."""
     gr = args["gr"]
     if name == "worklist_compact":
         n_g = args["mask"].shape[0] // gr
         return args["mask"].shape[0] + min(args["cap_g"], n_g) * 9 + 4
+    if name == "worklist_compose_clip":
+        live, test, ok = clip_lane_masks(args)
+        tested = int((test & args["valid"]).sum())
+        return (args["idx"].shape[0] * 4 + int(live.sum()) * 8 + int(test.sum()) + tested * 8
+                + int(ok.sum()) * 16)
     dst, idx, where = args["dst"], args["idx"], args["where"]
     words = 1 if dst.dim() == 1 else dst.shape[1]
     live = (idx < dst.shape[0] // gr)[:, None].expand(-1, gr).reshape(-1)
@@ -2402,30 +2456,37 @@ def worklist_bound(name: str, args: dict, fetched: list) -> tuple:
     return worklist_bytes(name, args) / 3.35e9, "bytes"
 
 
-def worklist_keep(name: str, args: dict) -> dict:
-    """What record_calls keeps of a worklist call: a compose's dst copied
-    before the call writes into it."""
-    return dict(args, dst=args["dst"].clone()) if name == "worklist_compose" else args
-
-
 def worklist_fresh(args: dict) -> dict:
-    """A compose's arguments with their own copy of dst to write into."""
-    return dict(args, dst=args["dst"].clone()) if "dst" in args else args
+    """A compose's arguments with their own copy of dst, or a clip round's
+    with their own copies of its planes, to write into."""
+    return dict(args, **{k: args[k].clone() for k in ("dst",) + CLIP_PLANES if k in args})
+
+
+def worklist_keep(name: str, args: dict) -> dict:
+    """What record_calls keeps of a worklist call: a compose's dst and a
+    clip round's planes copied before the call writes into them."""
+    return worklist_fresh(args)
 
 
 def worklist_equal(out, want, args: dict) -> tuple:
-    """geometry_equal of the results (idx, safe, live, need; or the
-    composed dst), and a compose's result the storage of its dst."""
-    if "dst" in args and out.data_ptr() != args["dst"].data_ptr():
-        return False, want.numel(), want.numel()
+    """geometry_equal of the results (idx, safe, live, need; the composed
+    dst; a clip round's three planes), and a compose's result the storage
+    of what it writes."""
+    written = [args[k] for k in ("dst",) + CLIP_PLANES if k in args]
+    got = list(out) if isinstance(out, tuple) and written else [out]
+    if written and [t.data_ptr() for t in got] != [t.data_ptr() for t in written]:
+        return False, 1, 1
     return geometry_equal(out, want, args)
 
 
 def worklist_yardstick(name: str, args: dict) -> tuple:
-    """(label, call) of the library yardstick at a worklist call: a
-    compaction's torch.sort of its int32 keys alone (where(granule set,
-    index, n_g), made here); a compose's index_copy_ of its rows into a
-    preallocated (n_g + 1)-row buffer (the sentinel row last)."""
+    """(label, call, whether that one PyTorch call computes the same
+    function) of the library yardstick at a worklist call: a compaction's
+    torch.sort of its int32 keys alone (where(granule set, index, n_g),
+    made here); a compose's index_copy_ of its rows into a preallocated
+    (n_g + 1)-row buffer (the sentinel row last); a clip round's
+    index_copy_ of its found rows alone the same way (one of its three
+    planes, and no test: no one call computes the round)."""
     gr = args["gr"]
     if name == "worklist_compact":
         mask = args["mask"]
@@ -2433,37 +2494,126 @@ def worklist_yardstick(name: str, args: dict) -> tuple:
         gmask = mask.reshape(-1, gr).any(dim=1)
         keys = torch.where(gmask, torch.arange(n_g, dtype=torch.int32, device=mask.device),
                            torch.full((), n_g, dtype=torch.int32, device=mask.device))
-        return f"torch.sort of its {n_g} int32 keys", lambda: torch.sort(keys)
-    dst, idx = args["dst"], args["idx"]
+        return f"torch.sort of its {n_g} int32 keys", lambda: torch.sort(keys), True
+    clip = name == "worklist_compose_clip"
+    dst, idx = args["found" if clip else "dst"], args["idx"]
     width = gr * (1 if dst.dim() == 1 else dst.shape[1])
     n_g = dst.shape[0] // gr
     buf = torch.empty((n_g + 1, width), dtype=dst.dtype, device=dst.device)
-    rows, index = args["rows"].reshape(-1, width), idx.long()
-    return (f"index_copy_ of its {idx.shape[0]} rows into an ({n_g} + 1)-row buffer",
-            lambda: buf.index_copy_(0, index, rows))
+    rows = (torch.ones_like(args["rows"]) if clip else args["rows"]).reshape(-1, width)
+    index = idx.long()
+    what = "found rows (not the same function)" if clip else "rows"
+    return (f"index_copy_ of its {idx.shape[0]} {what} into an ({n_g} + 1)-row buffer",
+            lambda: buf.index_copy_(0, index, rows), not clip)
+
+
+def separate_clip_composes(args: dict, worklist_compose=None):
+    """A clip round as separate operations on the card: the takes of found
+    and of the layer's depth, the masks, and three launches of
+    `worklist_compose` (None: this tree's; found, then pair and depth with
+    the lane mask), into the planes of `args` in place, as the kernel
+    writes them."""
+    if worklist_compose is None:
+        from superconductor_tpu_torch.ops.worklist import worklist_compose
+
+    a = args
+    gr, idx = a["gr"], a["idx"]
+    safe = torch.clamp_max(idx, a["found"].shape[0] // gr - 1)
+    cur = a["found"].reshape(-1, gr)[safe].reshape(-1) != 0
+    ok = a["valid"] & (a["alpha"] >= a["cutoff"]) & ~cur
+    worklist_compose(a["found"], idx, (cur | ok).to(torch.int32), gr)
+    worklist_compose(a["pair"], idx, a["rows"], gr, ok)
+    worklist_compose(a["depth"], idx, a["layer_depth"].reshape(-1, gr)[safe].reshape(-1), gr, ok)
+
+
+def worklist_detail(name: str, args: dict) -> str:
+    """Further timings at a worklist site (bench_raster.graph_ms): a
+    compaction's grid at GRID_BLOCKS blocks, at the rule's
+    (compact_blocks) and at twice the rule's (the entry point holds a grid
+    to what the card runs at once); a clip round as separate operations
+    (two takes, the masks, three compose launches); None for a compose of
+    rows."""
+    from superconductor_tpu_torch.bench_raster import graph_ms
+    from superconductor_tpu_torch.ops import worklist as worklist_mod
+
+    if name == "worklist_compose_clip":
+        return (f"the round as separate operations (2 takes, the masks, 3 compose launches) "
+                f"{graph_ms(lambda: separate_clip_composes(args)):.4f} ms")
+    if name != "worklist_compact":
+        return None
+    mask, gr, cap_g = args["mask"], args["gr"], args["cap_g"]
+    rule = worklist_mod.compact_blocks(mask.shape[0] // gr)
+    return "; ".join(
+        f"{blocks} blocks{' (the rule)' if blocks == rule else ''}: "
+        f"{graph_ms(lambda: worklist_mod.worklist_compact(mask, gr, cap_g, blocks)):.4f} ms"
+        for blocks in sorted({worklist_mod.GRID_BLOCKS, rule, 2 * rule}))
+
+
+def worklist_baseline(name: str, args: dict):
+    """The baseline tree's worklist kernels at a worklist call, as its
+    frame called them there: its compaction, its compose, or the clip
+    round as separate takes, masks and three of its composes; None without
+    a baseline."""
+    if BASELINE["root"] is None:
+        return None
+    mod = baseline_module("worklist")
+    if name == "worklist_compact":
+        return lambda: mod.worklist_compact(args["mask"], args["gr"], args["cap_g"])
+    if name == "worklist_compose_clip":
+        return lambda: separate_clip_composes(args, mod.worklist_compose)
+    return lambda: mod.worklist_compose(**args)
 
 
 WORKLIST_PHASE = HandPhase("worklist", WORKLIST, worklist_lanes, worklist_site, worklist_equal,
                            worklist_bound, lambda name, args, fetched: [], ("worklist",),
-                           call_launches=worklist_calls, keep=worklist_keep,
-                           fresh=worklist_fresh, yardstick=worklist_yardstick)
+                           baseline=worklist_baseline, detail=worklist_detail,
+                           keep=worklist_keep, fresh=worklist_fresh,
+                           yardstick=worklist_yardstick)
 
 
-def worklist_path(smi: str, frames: dict) -> dict:
-    """Phase [worklist] (csrc/worklist.cu): hand_path for the compaction
-    and compose of the headline, all-passes, stereo and lit frames, then
-    every call of two more eager frames held against its plain version and
-    timed the same way: the headline at gr = 1 (worklist_granules off: the
-    opaque worklist compacts 2,073,600 pixel flags) and the all-passes
-    frame with every worklist cap halved (each compaction overflows, need
-    above its cap). Prints each frame's launches of both kernels. Returns
-    hand_path's result."""
+def worklist_path(smi: str, frames: dict, log: str) -> dict:
+    """Phase [worklist] (csrc/worklist.cu): the worklist kernels' registers,
+    stack and spills (ptxas, `log`: the build's -Xptxas -v output);
+    hand_path for the compaction, the compose and the clip round of the
+    headline, all-passes, stereo and lit frames (each site's detail: the
+    compaction's grid at other sizes, the separate operations beside a
+    clip round; with --baseline, the baseline tree's kernels there); each
+    frame's launches of both kernels, read from their counters set to 0
+    just before one more eager frame and read just after, which must be
+    one a compaction and one a compose or clip round (and one clip round a
+    k-buffer layer a view's band); then every call of two more eager
+    frames held against its plain version and timed the same way: the
+    headline at gr = 1 (worklist_granules off: the opaque worklist
+    compacts 2,073,600 pixel flags) and the all-passes frame with every
+    worklist cap halved (each compaction overflows, need above its cap).
+    Returns hand_path's result."""
     from superconductor_tpu_torch.render.frame import render_frame_impl, stats_to_host
 
+    for fn, (regs, stack, spill_st, spill_ld) in ptxas_resources(log).items():
+        phase("worklist", f"{fn}: {regs} registers a thread, {stack} B stack, spill stores "
+              f"{spill_st} B, spill loads {spill_ld} B")
     result = hand_path(WORKLIST_PHASE, smi, frames)
-    for scene, counts in result["per_frame"].items():
-        phase("worklist", f"{scene}: launches a frame: compaction {counts['worklist_compact']} "
-              f"(2 a call), compose {counts['worklist_compose']}")
+    counters = {k: ws for k, ws in kernel_counters().items() if k in WORKLIST}
+    for scene, (tables, build, config, env) in frames.items():
+        calls = result["frame_calls"][scene]
+        rounds = (config.resolve_clip_layers() * config.num_views * config.row_chunks
+                  if config.enable_clip else 0)
+        state = build(0.0)
+        for ws in counters.values():
+            for w in ws:
+                w.LAUNCHES = 0
+        render_frame_impl(tables, state, config, env)
+        torch.cuda.synchronize()
+        counts = {k: sum(w.LAUNCHES for w in ws) for k, ws in counters.items()}
+        phase("worklist", f"{scene}: launches of one eager frame by the counters: compaction "
+              f"{counts['worklist_compact']} ({calls['worklist_compact']} calls), compose "
+              f"{counts['worklist_compose']} ({calls['worklist_compose']} of rows, "
+              f"{calls['worklist_compose_clip']} clip rounds)")
+        if (counts["worklist_compact"] != calls["worklist_compact"]
+                or counts["worklist_compose"] != calls["worklist_compose"]
+                + calls["worklist_compose_clip"] or calls["worklist_compose_clip"] != rounds):
+            raise RuntimeError(f"the {scene} frame's worklist launches {counts}, calls "
+                               f"{dict(calls)}: expected one a call and {rounds} clip rounds")
 
     def halved(caps):
         return None if caps is None else tuple(max(1, int(c) // 2) for c in caps)
@@ -2654,9 +2804,10 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
         entry["ms"] = graph_ms(kernel_call)
         entry["plain_ms"] = graph_ms(plain_call, launches=5, runs=10)
         if hp.yardstick is not None:
-            label, library_call = hp.yardstick(name, args)
-            entry["library_ms"] = graph_ms(library_call)
-            yardstick = f"{label} {entry['library_ms']:.4f} ms"
+            label, library_call, same_function = hp.yardstick(name, args)
+            entry["yardstick_ms"] = graph_ms(library_call)
+            entry["library_ms"] = entry["yardstick_ms"] if same_function else None
+            yardstick = f"{label} {entry['yardstick_ms']:.4f} ms"
         else:
             rows = hp.rows(name, args, fetched)
             entry["index_select_ms"] = graph_ms(
@@ -2675,8 +2826,9 @@ def compare_calls(hp: HandPhase, scene: str, calls: list, results: dict) -> None
               f"{entry['bound_ms'] / entry['ms']:.3f}; {yardstick}"
               + (f"; the baseline tree's kernels at this site {baseline}"
                  if hp.baseline is not None else ""))
-        if hp.detail is not None:
-            phase(hp.label, f"{site}: {hp.detail(name, args)}")
+        detail = hp.detail(name, args) if hp.detail is not None else None
+        if detail is not None:
+            phase(hp.label, f"{site}: {detail}")
 
 
 def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
@@ -2700,7 +2852,8 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
     times its calls' launches in the eager frame. Returns {"sites":
     per-site results, "launches": the kernels' launches in that run,
     "site_launches": the launches at each site in that run, "per_frame":
-    each scene's launches of each kernel in an eager frame}."""
+    each scene's launches of each kernel in an eager frame, "frame_calls":
+    each scene's calls (with lanes) of each wrapper there}."""
     from superconductor_tpu_torch.render import frame_graph
     from superconductor_tpu_torch.render.frame import render_frame_impl, render_frame_stats
 
@@ -2710,7 +2863,7 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
     def counts():
         return {k: sum(w.LAUNCHES for w in ws) for k, ws in counters.items()}
 
-    sites, per_frame = {}, {}
+    sites, per_frame, frame_calls = {}, {}, {}
     for scene, (tables, build, config, env) in frames.items():
         state = build(0.0)
         with record_calls(hp.kernels, hp.keep) as calls:
@@ -2718,6 +2871,8 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
         per_frame[scene] = {k: sum(launches_a_call(hp, name, args) for name, _, args in calls
                                    if bindings[name][0] == k and hp.lanes(name, args))
                             for k in hp.kernels}
+        frame_calls[scene] = collections.Counter(name for name, _, args in calls
+                                                 if hp.lanes(name, args))
         phase(hp.label, f"{scene}: {len(calls)} calls in an eager frame {per_frame[scene]}")
         compare_calls(hp, scene, calls, results=sites)
         del calls
@@ -2760,7 +2915,7 @@ def hand_path(hp: HandPhase, smi: str, frames: dict) -> dict:
         raise RuntimeError(f"the main path launched {launches}, by site {dict(site_launches)} "
                            f"in {captures} captures; expected by site {want} in {len(frames)}")
     return {"sites": sites, "launches": launches, "site_launches": dict(site_launches),
-            "per_frame": per_frame}
+            "per_frame": per_frame, "frame_calls": frame_calls}
 
 
 def launch_site(hp: HandPhase, frame) -> str:
@@ -3910,8 +4065,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--baseline", default=None,
-                        help="root of another tree of this repo whose geometry kernels "
-                             "[geometry] times beside this tree's at each site")
+                        help="root of another tree of this repo whose geometry and "
+                             "worklist kernels [geometry] and [worklist] time beside this "
+                             "tree's at each site")
     BASELINE["root"] = parser.parse_args().baseline
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4088,7 +4244,8 @@ def main() -> int:
     shade = hand_path(SHADE_PHASE, smi, dict(graph_frames, lit_passes=lit_frame))
     geometry = hand_path(GEOMETRY_PHASE, smi, dict(graph_frames, lit_passes=lit_frame))
     geometry_launches_a_frame(geometry["per_frame"], dict(graph_frames, lit_passes=lit_frame))
-    worklist = worklist_path(smi, dict(graph_frames, lit_passes=lit_frame))
+    worklist = worklist_path(smi, dict(graph_frames, lit_passes=lit_frame),
+                             build["worklist"]["log"])
     del lit_frame
 
     for mod in ("jax", "superconductor_tpu"):

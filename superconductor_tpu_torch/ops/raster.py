@@ -26,8 +26,9 @@ positions (-1 = miss) in their pair planes; the caller remaps them.
   deferred shade (``ops/shade.py`` ``shade``), and ``csrc/geometry.cu``,
   the vertex stage and the view setup (``ops/geometry.py``
   ``geometry_vertex_stage`` and ``geometry_view_setup``), and
-  ``csrc/worklist.cu``, the shading worklists' compaction and compose
-  (``ops/worklist.py`` ``worklist_compact`` and ``worklist_compose``);
+  ``csrc/worklist.cu``, the shading worklists' compaction and composes
+  (``ops/worklist.py`` ``worklist_compact``, ``worklist_compose`` and
+  ``worklist_compose_clip``);
   their wrappers count their launches as the wrappers here do.
 
 No wrapper falls back: anything its kernel does not take raises. Each
@@ -140,6 +141,9 @@ _SIGNATURES = {
     # ops/worklist.py's compaction and compose (csrc/worklist.cu)
     "sc_worklist_compact": ("worklist", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "sc_worklist_compose": ("worklist", [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "sc_worklist_compose_clip": ("worklist",
+                                 [_P, _I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _P,
+                                  _P]),
 }
 _libs: dict = {}
 _tallies: list = []  # the tallies of the captures under way, innermost last

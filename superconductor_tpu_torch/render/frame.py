@@ -64,6 +64,8 @@ from ..ops.worklist import (
     worklist_compact,
     worklist_compact_plain,
     worklist_compose,
+    worklist_compose_clip,
+    worklist_compose_clip_plain,
     worklist_compose_plain,
 )
 
@@ -275,17 +277,30 @@ class _Worklist(NamedTuple):
         c = x.shape[-1]
         return x.reshape(-1, self.gr * c)[self.safe].reshape(-1, c)
 
-    def compose(self, dst: torch.Tensor, rows: torch.Tensor,
-                where: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def compose(self, dst, rows: torch.Tensor, where: Optional[torch.Tensor] = None,
+                clip: Optional[tuple] = None):
         """Write lane rows into flat per-pixel dst at the live granules, IN
         PLACE, and return dst (worklist_compose: dead lanes never write;
         with a lane mask `where`, neither do the lanes whose mask is false,
         which is composing where(where, rows, take(dst)) bit for bit). It
         consumes dst: no caller in this module reads the old dst after
-        the call (the clip rounds' found / chosen planes, the sky on its
-        worklist, the opaque shade over the sky and each layer composite's
-        rgb are all rebound to the result, and what they read of dst they
-        take() before it)."""
+        the call (the sky on its worklist, the opaque shade over the sky
+        and each layer composite's rgb are all rebound to the result, and
+        what they read of dst they take() before it).
+
+        With clip=(valid, alpha, cutoff, layer_depth), one alpha-clip
+        round (worklist_compose_clip): dst is the round's (found, chosen
+        pair, chosen depth) planes and rows its pair lanes; a live lane
+        whose pixel has no find yet and whose fragment is valid and passes
+        alpha >= cutoff marks found and writes its pair and layer_depth at
+        its pixel, every live lane writes found. Returns the three planes,
+        written in place (the reference's round, :951-966: the takes of
+        found and of the layer's depth, its masks and three composes)."""
+        if clip is not None:
+            found, pair, depth = dst
+            valid, alpha, cutoff, layer_depth = clip
+            return worklist_compose_clip(found, pair, depth, self.idx, rows, self.gr, valid,
+                                         alpha, cutoff, layer_depth)
         return worklist_compose(dst, self.idx, rows, self.gr, where)
 
 
@@ -361,7 +376,9 @@ GEOMETRY_PLAIN_VERSIONS = {
 # plain version (the same layout)
 WORKLIST_PLAIN_VERSIONS = {
     "worklist_compact": ((sys.modules[__name__], "worklist_compact", worklist_compact_plain),),
-    "worklist_compose": ((sys.modules[__name__], "worklist_compose", worklist_compose_plain),),
+    "worklist_compose": ((sys.modules[__name__], "worklist_compose", worklist_compose_plain),
+                         (sys.modules[__name__], "worklist_compose_clip",
+                          worklist_compose_clip_plain)),
 }
 
 
@@ -460,6 +477,42 @@ def _composite_layers(rgb, pair_planes, caps, needed_k, shade_fn, config):
     return rgb, needed_k
 
 
+def _clip_rounds(kb, clip_off: int, clip_px_needed_k: torch.Tensor, npx: int, y_offset: int,
+                 config: RenderConfig, scene: dict, tables: tuple, sampled):
+    """The alpha-clip resolve's rounds (reference render/frame.py:951-966):
+    for each k-buffer layer k, the worklist of the pixels holding a layer-k
+    fragment, its lanes' pairs (+ clip_off, -1 where dead), their g-buffer
+    and albedo alpha, and one clip-round compose of the full-screen found,
+    chosen pair and chosen depth planes, which carry the search from layer
+    to layer (the nearest passing fragment wins). tables: (merged
+    TriangleSetup, merged TriangleAttrs, the shade rows in raster order,
+    row_cols); sampled(g, slots): the material-path partition's albedo or
+    None. Raises clip_px_needed_k[k] to each layer's need, in place.
+    Returns the (npx,) found (i32), chosen pair (i32) and chosen depth
+    (f32) planes."""
+    merged_tri, merged_attrs, vis_row, row_cols = tables
+    dev = kb.pair.device
+    clip_caps = config.resolve_clip_caps()
+    found_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
+    chosen_pair_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
+    chosen_depth_p = torch.zeros((npx,), dtype=torch.float32, device=dev)
+    for k in range(config.resolve_clip_layers()):
+        wlk = _compact_worklist((kb.pair[k] >= 0).reshape(-1), clip_caps[k], config)
+        clip_px_needed_k[k] = torch.maximum(clip_px_needed_k[k], wlk.need)
+        livek = wlk.lane_live()
+        pxc, pyc = _px_py_at(wlk.lane_safe(), config.width, y_offset)
+        raw_k = wlk.take(kb.pair[k].reshape(-1))
+        pair_k = torch.where(livek & (raw_k >= 0), raw_k + clip_off, -1)
+        g = interpolate_gbuffer(pair_k, pxc, pyc, merged_tri, merged_attrs,
+                                shade_row=vis_row, row_cols=row_cols)
+        a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps,
+                                 albedo4=sampled(g, slots=(0,)))
+        found_p, chosen_pair_p, chosen_depth_p = wlk.compose(
+            (found_p, chosen_pair_p, chosen_depth_p), pair_k,
+            clip=(g.valid, a, cutoff, kb.depth[k].reshape(-1)))
+    return found_p, chosen_pair_p, chosen_depth_p
+
+
 def render_view(scene: dict, state: FrameState, view_index: int,
                 config: RenderConfig, env, geometry=None, band_height: Optional[int] = None,
                 y_offset: int = 0):
@@ -548,27 +601,9 @@ def render_view(scene: dict, state: FrameState, view_index: int,
             vis_row = torch.cat([vis_row, shade_row[clip_order]])
             clip_off = config.p_cap
         pairs_needed = torch.maximum(pairs_needed, clip_pairs)
-        clip_caps = config.resolve_clip_caps()
-        found_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
-        chosen_pair_p = torch.zeros((npx,), dtype=torch.int32, device=dev)
-        chosen_depth_p = torch.zeros((npx,), dtype=torch.float32, device=dev)
-        for k in range(config.resolve_clip_layers()):
-            wlk = _compact_worklist((kb.pair[k] >= 0).reshape(-1), clip_caps[k], config)
-            clip_px_needed_k[k] = torch.maximum(clip_px_needed_k[k], wlk.need)
-            livek = wlk.lane_live()
-            pxc, pyc = _px_py_at(wlk.lane_safe(), config.width, y_offset)
-            raw_k = wlk.take(kb.pair[k].reshape(-1))
-            pair_k = torch.where(livek & (raw_k >= 0), raw_k + clip_off, -1)
-            g = interpolate_gbuffer(pair_k, pxc, pyc, merged_tri, merged_attrs,
-                                    shade_row=vis_row, row_cols=row_cols)
-            a, cutoff = albedo_alpha(g, scene, aniso_taps=config.aniso_taps,
-                                     albedo4=sampled(g, slots=(0,)))
-            cur_found = wlk.take(found_p) != 0
-            ok = g.valid & (a >= cutoff) & ~cur_found
-            found_p = wlk.compose(found_p, (cur_found | ok).to(torch.int32))
-            chosen_pair_p = wlk.compose(chosen_pair_p, pair_k, where=ok)
-            chosen_depth_p = wlk.compose(chosen_depth_p, wlk.take(kb.depth[k].reshape(-1)),
-                                         where=ok)
+        found_p, chosen_pair_p, chosen_depth_p = _clip_rounds(
+            kb, clip_off, clip_px_needed_k, npx, y_offset, config, scene,
+            (merged_tri, merged_attrs, vis_row, row_cols), sampled)
         if config.clip_px_caps is None:
             shade_px_needed = torch.maximum(shade_px_needed, clip_px_needed_k[0])
         # pixels with no passing layer keep the opaque result
