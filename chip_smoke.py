@@ -400,6 +400,12 @@ KERNEL_SOURCES = {
                          ":532 _compact_worklist)"),
     "worklist_compose": ("superconductor_tpu_torch/csrc/worklist.cu",
                          "none (XLA: superconductor_tpu/render/frame.py:543 _compose_worklist)"),
+    # the particle pass neither: the shade of a layer's lanes and the billboards
+    "particle_shade": ("superconductor_tpu_torch/csrc/shade.cu",
+                       "none (XLA: superconductor_tpu/ops/particles.py:166 shade_particles)"),
+    "particle_geometry": ("superconductor_tpu_torch/csrc/geometry.cu",
+                          "none (XLA: superconductor_tpu/ops/particles.py:42 "
+                          "particle_geometry)"),
 }
 # the all-passes frame's raster passes and k-buffer passes, in frame order
 AP_RASTER = ("opaque", "lines")
@@ -445,6 +451,7 @@ SAMPLERS = ("classic_sample", "material_sample")
 DEFERRED = ("gbuffer", "sky")
 GEOMETRY = ("vertex_stage", "view_setup")
 WORKLIST = ("worklist_compact", "worklist_compose")
+PARTICLES = ("particle_shade", "particle_geometry")
 # render/frame.py names whose results trace_frame records, called in
 # pipeline order: setup rows, bins, the raster planes, the k-buffer planes
 # and layers, worklists, g-buffers, albedo alpha, material samples, sky,
@@ -1295,7 +1302,8 @@ def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
     over a floor and without one, and timed at K = 24 and 64 by cluster
     size; the frame's launches by pass in its timed run and its
     plain-versions twin, byte for byte. Returns the launches of the timed
-    run, by kernel and by pass."""
+    run, by kernel and by pass, and the frame (tables, build(pose), fitted
+    config, env)."""
     from superconductor_tpu_torch.bench import plain_kernels_frame
     from superconductor_tpu_torch.bench_raster import CLUSTERS, graph_ms
     from superconductor_tpu_torch.ops import raster as raster_mod
@@ -1409,7 +1417,7 @@ def deep_k_path(dev, ap_config, shapes: dict) -> tuple:
         raise RuntimeError("the deep_k frame differs from its plain-kernels twin")
     phase("deep_k", "frame (particle_layers 64) equals its twin rendered with both plain "
           "versions byte for byte")
-    return launches, by_pass
+    return launches, by_pass, (scene_dev, build_state, config, env)
 
 
 def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> None:
@@ -1452,15 +1460,17 @@ def headline_variants(dev, scene_dev, state0, config, env, img, frame_ms) -> Non
 
 def plain_tables() -> dict:
     """kernel -> its wrappers' bindings (module, name, plain version):
-    bench.PLAIN_VERSIONS and render/frame.py GEOMETRY_PLAIN_VERSIONS and
-    WORKLIST_PLAIN_VERSIONS."""
+    bench.PLAIN_VERSIONS and render/frame.py GEOMETRY_PLAIN_VERSIONS,
+    WORKLIST_PLAIN_VERSIONS and PARTICLE_PLAIN_VERSIONS."""
     from superconductor_tpu_torch.bench import PLAIN_VERSIONS
     from superconductor_tpu_torch.render.frame import (
         GEOMETRY_PLAIN_VERSIONS,
+        PARTICLE_PLAIN_VERSIONS,
         WORKLIST_PLAIN_VERSIONS,
     )
 
-    return {**PLAIN_VERSIONS, **GEOMETRY_PLAIN_VERSIONS, **WORKLIST_PLAIN_VERSIONS}
+    return {**PLAIN_VERSIONS, **GEOMETRY_PLAIN_VERSIONS, **WORKLIST_PLAIN_VERSIONS,
+            **PARTICLE_PLAIN_VERSIONS}
 
 
 def kernel_bindings(kernels) -> dict:
@@ -1490,8 +1500,10 @@ def plain_versions(kernels=None):
 def kernel_counters() -> dict:
     """hand kernel -> the wrappers whose LAUNCHES count its launches (the
     sky kernel has two, the band's and the worklist's; each geometry kernel
-    two, the per-list wrapper's and the merged one's)."""
+    two, the per-list wrapper's and the merged one's; the particle kernels,
+    overloads of the shade and view setup kernels, their own)."""
     from superconductor_tpu_torch.ops import geometry as geometry_mod
+    from superconductor_tpu_torch.ops import particles as particles_mod
     from superconductor_tpu_torch.ops import raster as raster_mod
     from superconductor_tpu_torch.ops import sample as sample_mod
     from superconductor_tpu_torch.ops import shade as shade_mod
@@ -1511,7 +1523,9 @@ def kernel_counters() -> dict:
                            geometry_mod._VIEW_SETUP_MERGED_COUNTER),
             "worklist_compact": (worklist_mod._COMPACT_COUNTER,),
             "worklist_compose": (worklist_mod._COMPOSE_COUNTER,
-                                 worklist_mod._COMPOSE_CLIP_COUNTER)}
+                                 worklist_mod._COMPOSE_CLIP_COUNTER),
+            "particle_shade": (particles_mod._PARTICLE_SHADE_COUNTER,),
+            "particle_geometry": (particles_mod._PARTICLE_GEOMETRY_COUNTER,)}
 
 
 @contextlib.contextmanager
@@ -2301,6 +2315,7 @@ def geometry_detail(name: str, args: dict) -> str:
 
     from superconductor_tpu_torch.bench_raster import graph_ms
     from superconductor_tpu_torch.ops import geometry as geometry_mod
+    from superconductor_tpu_torch.profile_frame import hand_kernel_label
 
     alone = [graph_ms(lambda n=n, a=a: getattr(geometry_mod, n)(**a))
              for n, a in geometry_parts(name, args)]
@@ -2315,7 +2330,8 @@ def geometry_detail(name: str, args: dict) -> str:
     by_kernel = collections.Counter()
     for e in prof.events():
         m = re.search(r"(vertex_stage_kernel<\d+>|view_setup_kernel)", e.name)
-        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+        if e.device_type == torch.autograd.DeviceType.CUDA and m \
+                and hand_kernel_label(e.name) in ("vertex_stage_kernel", "view_setup_kernel"):
             by_kernel[m.group(1)] += e.device_time / runs / 1e3
     kernels = ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kernel.items()))
     return (f"each list alone (per-list wrapper) {' / '.join(f'{ms:.4f}' for ms in alone)} ms; "
@@ -2644,6 +2660,193 @@ def worklist_path(smi: str, frames: dict, log: str) -> dict:
         compare_calls(WORKLIST_PHASE, scene, calls, results={})
         del calls
         phase("worklist", f"{scene}: every call equals its plain version bit for bit")
+    return result
+
+
+# --- [particles]: csrc/shade.cu shade_kernel(ParticleShadeArgs) and
+# csrc/geometry.cu view_setup_kernel(ParticleQuadArgs) -------------------------
+
+# The particle shade's FP32 operations a lane before the display transform,
+# counted from the kernel as SHADE_OPS_* are (each product, sum, quotient,
+# clamp, square root, reciprocal square root and powf one, an FMA one): the
+# row's barycentrics, uv and position 48, the normal 19, the SH's direction
+# and lengths 38, the frame and the light 58, the colour 27; the smoke maps
+# 10 (the puff) or 120 (two taps' four channels: 8 for the position, 13 a
+# channel's lerp and 1 its scale), the LUT 77 (its tap, the sRGB decode)
+PARTICLE_OPS = {"puff": 199, "smoke pool": 386, "per-slot": 386}
+# a particle's billboards: its centre and four corners through three
+# matrices, their uvs, two triangles' setup (GEOMETRY_OPS_SETUP)
+PARTICLE_QUAD_OPS = 28 + 4 * (5 + 2 * 28 + 4) + 2 * GEOMETRY_OPS_SETUP
+# bytes a particle's columns hold (center 12, scale 8, valid 1, uv_offset
+# and uv_scale 16, colour and emissive colour 24, LUT flag and lut_y 8) and
+# its two triangles' results (setup 64, bbox 16, valid 1, tri_id and
+# particle 8, corner uvs 24 and world positions 36, packed row 128)
+PARTICLE_IN_BYTES, PARTICLE_OUT_BYTES = 69, 2 * 277
+
+
+def particle_smoke(args: dict) -> str:
+    """The smoke branch shade_particles takes for the call."""
+    env, scene = args["env"], args["scene"]
+    if env.smoke_tex_ids is None:
+        return "puff"
+    if env.smoke_static is not None and "smoke_ab" in scene:
+        return "smoke pool"
+    return "per-slot"
+
+
+def particle_lanes(name: str, args: dict) -> int:
+    if name == "particle_geometry":
+        return args["particles"]["center"].shape[0]
+    return args["pair"].shape[0]
+
+
+def particle_sampled_sh(args: dict) -> bool:
+    from superconductor_tpu_torch.ops.shade import _ambient_only
+
+    return not _ambient_only(args["env"])
+
+
+def particle_site(name: str, caller: str, args: dict) -> str:
+    """A particle call's site and shape: the billboards' particles and
+    target, or a layer's lanes, smoke branch, SH and inline flags."""
+    if name == "particle_geometry":
+        return (f"particle_geometry {caller} {particle_lanes(name, args)} particles at "
+                f"{args['width']}x{args['height']}")
+    sh = "sampled SH, 2 launches" if particle_sampled_sh(args) else "ambient SH"
+    return (f"shade_particles {caller} {particle_lanes(name, args)} lanes "
+            f"({particle_smoke(args)}; {sh}; tonemap {int(bool(args['inline_tonemapping']))} "
+            f"srgb {int(bool(args['inline_srgb']))})")
+
+
+def particle_launches(name: str, args: dict) -> int:
+    return 2 if name == "shade_particles" and particle_sampled_sh(args) else 1
+
+
+def _leaves(x) -> list:
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def particle_equal(out, want, args: dict) -> tuple:
+    """deferred_equal over every tensor of the results (the billboards'
+    TriangleSetup and ParticleAttrs, or rgb and alpha)."""
+    return deferred_equal(tuple(_leaves(out)), tuple(_leaves(want)), args)
+
+
+def particle_bound(name: str, args: dict, fetched: list) -> tuple:
+    """(bound_ms, bound_by) of one call, the larger of its bytes over 3.35
+    TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM). Billboards:
+    each particle's columns read and its two triangles' results written,
+    the three matrices read, num_valid written; PARTICLE_QUAD_OPS a
+    particle. A layer's shade: each lane's pair and pixel centre read and
+    its rgb and alpha written (28 B), with sampled SH its 48 B of SH read
+    (the full launch's input), each distinct packed row the lanes read
+    (128 B), the eye and the inverse view; PARTICLE_OPS of its smoke
+    branch and the display transform a lane. The smoke texels the lanes tap
+    are left out (a lower bound)."""
+    if name == "particle_geometry":
+        n = particle_lanes(name, args)
+        nbytes = n * (PARTICLE_IN_BYTES + PARTICLE_OUT_BYTES) + 3 * 64 + 4
+        ops = n * PARTICLE_QUAD_OPS
+    else:
+        lanes = particle_lanes(name, args)
+        rows = int(torch.unique(torch.clamp_min(args["pair"], 0)).numel())
+        nbytes = lanes * (28 + (48 if particle_sampled_sh(args) else 0)) + rows * 128 + 12 + 64
+        display = (SHADE_OPS_ACES if args["inline_tonemapping"] else 0) + (
+            SHADE_OPS_SRGB if args["inline_srgb"] else 0)
+        ops = lanes * (PARTICLE_OPS[particle_smoke(args)] + display)
+    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def particle_rows(name: str, args: dict, fetched: list) -> list:
+    """[(table, row indices)] a call reads: a layer's packed rows at its
+    pairs clamped to 0, or each particle's row of every particle column."""
+    if name == "shade_particles":
+        return [(args["attrs"].packed, torch.clamp_min(args["pair"], 0).long())]
+    cols = args["particles"]
+    idx = torch.arange(particle_lanes(name, args), device=cols["center"].device)
+    return [(t.reshape(t.shape[0], -1), idx) for t in cols.values()]
+
+
+def particle_detail(name: str, args: dict):
+    """At a shade call with sampled SH: its two launches alone, the SH the
+    frame's sampler gave handed back by a stand-in sampler, and that
+    sampler alone on the lanes' positions (bench_raster.graph_ms); None
+    elsewhere."""
+    if name != "shade_particles" or not particle_sampled_sh(args):
+        return None
+    from superconductor_tpu_torch.bench_raster import graph_ms
+    from superconductor_tpu_torch.ops import particles as particles_mod
+
+    seen = {}
+
+    def sample(world_pos):
+        seen["world_pos"], seen["sh"] = world_pos, args["sh_sampler"](world_pos)
+        return seen["sh"]
+
+    particles_mod.shade_particles(**dict(args, sh_sampler=sample))
+    given = dict(args, sh_sampler=lambda world_pos: seen["sh"])
+    kernel_ms = graph_ms(lambda: particles_mod.shade_particles(**given))
+    sampler_ms = graph_ms(lambda: args["sh_sampler"](seen["world_pos"]), launches=5, runs=10)
+    return (f"its two launches alone (the SH given) {kernel_ms:.4f} ms; the frame's SH sampler "
+            f"alone {sampler_ms:.4f} ms")
+
+
+PARTICLES_PHASE = HandPhase("particles", PARTICLES, particle_lanes, particle_site,
+                            particle_equal, particle_bound, particle_rows, ("particles",),
+                            call_launches=particle_launches, detail=particle_detail)
+
+
+def particles_path(smi: str, frames: dict) -> dict:
+    """Phase [particles] (the particle shade, csrc/shade.cu, and the
+    billboards, csrc/geometry.cu): hand_path on the all-passes frame (4
+    particle layers), the lit frame (the smoke pool, the light volume's
+    two-launch form) and the deep_k frame (64 layers); each frame's
+    launches of both kernels read from their counters, set to 0 just
+    before one more eager frame and read just after: one billboard launch
+    a view, and one shade launch a particle layer a view's band (two with
+    sampled SH); then a constructed call of the per-slot LDR branch (the
+    lit frame's largest layer with the smoke pool taken out of its
+    tables), held against its plain version and timed. Returns
+    hand_path's result."""
+    from superconductor_tpu_torch.ops.shade import _ambient_only
+    from superconductor_tpu_torch.render.frame import render_frame_impl
+
+    result = hand_path(PARTICLES_PHASE, smi, frames)
+    counters = {k: ws for k, ws in kernel_counters().items() if k in PARTICLES}
+    for scene, (tables, build, config, env) in frames.items():
+        state = build(0.0)
+        for ws in counters.values():
+            for w in ws:
+                w.LAUNCHES = 0
+        render_frame_impl(tables, state, config, env)
+        torch.cuda.synchronize()
+        counts = {k: sum(w.LAUNCHES for w in ws) for k, ws in counters.items()}
+        layers = len(config.layer_caps(config.resolve_particle_layers())) * config.num_views \
+            * config.row_chunks
+        a_layer = 1 if _ambient_only(env) else 2
+        phase("particles", f"{scene}: launches of one eager frame by the counters: shade "
+              f"{counts['particle_shade']} ({layers} layers x {a_layer}), billboards "
+              f"{counts['particle_geometry']} ({config.num_views} view(s)); {smi}")
+        if counts["particle_shade"] != layers * a_layer \
+                or counts["particle_geometry"] != config.num_views:
+            raise RuntimeError(f"the {scene} frame's particle launches {counts}: expected "
+                               f"{layers * a_layer} and {config.num_views}")
+
+    tables, build, config, env = frames["lit_passes"]
+    with record_calls(("particle_shade",)) as calls:
+        render_frame_impl(tables, build(0.0), config, env)
+    name, caller, args = max(calls, key=lambda c: particle_lanes(c[0], c[2]))
+    slots = {k: v for k, v in tables.items() if k not in ("smoke_ab", "smoke_lut")}
+    constructed = dict(args, scene=slots)
+    if particle_smoke(constructed) != "per-slot":
+        raise RuntimeError("the constructed call does not take the per-slot branch")
+    compare_calls(PARTICLES_PHASE, "lit_passes constructed", [(name, caller, constructed)],
+                  results={})
+    phase("particles", "lit_passes constructed: the per-slot call equals its plain version bit "
+          "for bit")
     return result
 
 
@@ -3928,7 +4131,7 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
                  lit_launches: dict, lit_by_pass: dict, app: dict, deep_launches: dict,
                  deep_by_pass: dict, graph_launches: dict, raster_res: dict,
                  kbuffer_res: dict, shapes: dict, sampler: dict, deferred: dict,
-                 shade: dict, geometry: dict, worklist: dict) -> dict:
+                 shade: dict, geometry: dict, worklist: dict, particles: dict) -> dict:
     """The kernels line: each kernel at its representative shape (the
     headline's opaque raster, clip_blend's clip k-buffer) with its launches
     over the six frames' and the two sharded frames' timed runs, the app
@@ -3950,7 +4153,9 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
     same way, at their largest call and at each site (the geometry phase's
     main-path run, with the lit frame), and the worklist compaction and
     compose kernels the same way (the worklist phase's main-path run, with
-    the lit frame; their library_ms the yardstick's)."""
+    the lit frame; their library_ms the yardstick's), and the particle
+    shade and billboard kernels the same way (the particles phase's
+    main-path run: the all-passes, lit and deep_k frames)."""
 
     def entry(name, kernel, n_launches, res, max_abs_err=None):
         source, replaces = KERNEL_SOURCES[kernel]
@@ -4045,6 +4250,12 @@ def kernels_line(headline_launches: int, cb_launches: dict, ap_launches: dict,
           for kernel in WORKLIST],
         *[entry(f"{r['kernel']}[{site}]", r["kernel"], worklist["site_launches"][site], r)
           for site, r in worklist["sites"].items()],
+        *[entry(kernel, kernel, particles["launches"][kernel] + graph_launches[kernel],
+                max((r for r in particles["sites"].values() if r["kernel"] == kernel),
+                    key=lambda r: r["lanes"]))
+          for kernel in PARTICLES],
+        *[entry(f"{r['kernel']}[{site}]", r["kernel"], particles["site_launches"][site], r)
+          for site, r in particles["sites"].items()],
     ]}
 
 
@@ -4219,7 +4430,7 @@ def main() -> int:
     shapes = {name: {"max_abs_err": 0.0} for name in AP_RASTER + AP_KBUFFER + EYES + SH_STEREO
               + SH_RASTER + SH_KBUFFER + LIT_RASTER + LIT_KBUFFER + APP_RASTER + DEMO_KBUFFER}
     ap_launches, ap_by_pass, ap_frame = all_passes_path(dev, shapes)
-    deep_launches, deep_by_pass = deep_k_path(dev, ap_frame[2], shapes)
+    deep_launches, deep_by_pass, deep_frame = deep_k_path(dev, ap_frame[2], shapes)
     stereo_by_eye, stereo_frame = stereo_path(dev, shapes)
     sh_launches, sh_by_pass = sharded_path(shapes, stereo_frame, ap_frame)
     ap_config, stereo_config = ap_frame[2], stereo_frame[2]
@@ -4246,7 +4457,9 @@ def main() -> int:
     geometry_launches_a_frame(geometry["per_frame"], dict(graph_frames, lit_passes=lit_frame))
     worklist = worklist_path(smi, dict(graph_frames, lit_passes=lit_frame),
                              build["worklist"]["log"])
-    del lit_frame
+    particles = particles_path(smi, {"all_passes": graph_frames["all_passes"],
+                                     "lit_passes": lit_frame, "deep_k": deep_frame})
+    del lit_frame, deep_frame
 
     for mod in ("jax", "superconductor_tpu"):
         if sys.modules.get(mod) is not None:
@@ -4257,7 +4470,7 @@ def main() -> int:
                                   stereo_by_eye, sh_launches, sh_by_pass, lit_launches,
                                   lit_by_pass, app, deep_launches, deep_by_pass, graph_launches,
                                   results, kb_results, shapes, sampler, deferred, shade,
-                                  geometry, worklist)))
+                                  geometry, worklist, particles)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -62,6 +62,19 @@
 // matrix is read through a device pointer (a CUDA graph's input buffer,
 // which a new pose overwrites).
 //
+// view_setup_kernel(const ParticleQuadArgs), the particle billboards: what
+// ops/particles.py particle_geometry computes (the JAX package's
+// superconductor_tpu/ops/particles.py:42, in XLA; the port's torch chain,
+// about 310 operations a view, stays as particle_geometry_plain). One
+// block, a thread a particle (the frames hold 16 to 64): its centre and
+// four corners through the view, the projection and the inverse view
+// (clip_transform's order), its two triangles (0, 1, 2) at row i and (0,
+// 2, 3) at row n + i through setup_row with the corners' ids 4i + k (the
+// quad's diagonal watertight), double-sided, and each triangle's ids, corner
+// uvs and world positions and 32-float packed shading row; num_valid the
+// block's count of valid triangles (an int32 sum, exact in any order). A
+// few kilobytes a frame: one launch at the dispatch floor.
+//
 // A frame so runs 2 vertex-stage launches (both lists) and 1 setup launch
 // a view (a first design of these kernels ran a vertex-stage launch a list,
 // whose triangle slots computed their corners' vertices again, a setup
@@ -205,6 +218,45 @@ struct SetupArgs {
   int* inst_id;
   int* num_valid;  // (): the parts' num_valid summed, or null: not written
   SetupPart part[kMaxLists];
+};
+
+// ops/particles.py particle_geometry's arguments (ops/particles.py
+// _QuadArgs mirrors it): the particles' columns, contiguous, (n,) or (n, C);
+// the view's three matrices with their element strides; the results, 2n
+// rows each (a quad's first triangle at row i, its second at n + i),
+// contiguous, the setup and packed rows 16-B aligned
+struct ParticleQuadArgs {
+  long long n;
+  const float* center;  // (n, 3)
+  const float* scale;  // (n, 2)
+  const uint8_t* valid;
+  const float* uv_offset;  // (n, 2)
+  const float* uv_scale;  // (n, 2)
+  const float* colour;  // (n, 3)
+  const float* emissive_colour;  // (n, 3)
+  const int* use_emissive_lut;
+  const float* lut_y;
+  const float* view;
+  long long view_s0;
+  long long view_s1;
+  const float* view_inverse;
+  long long vi_s0;
+  long long vi_s1;
+  const float* projection;
+  long long proj_s0;
+  long long proj_s1;
+  long long width;
+  long long height;
+  long long flip_viewport;
+  float* setup;  // (2n, 16)
+  int* bbox;  // (2n, 4)
+  uint8_t* tri_valid;
+  int* tri_id;
+  int* particle;  // TriangleSetup.inst_id and ParticleAttrs.particle
+  int* num_valid;  // ()
+  float* uv;  // (2n, 3, 2)
+  float* world_pos;  // (2n, 3, 3)
+  float* packed;  // (2n, 32)
 };
 
 __device__ __forceinline__ int isub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
@@ -598,6 +650,104 @@ __device__ __forceinline__ float max3(float a, float b, float c) {
   return maximum(maximum(a, b), c);
 }
 
+// A corner's viewport coordinates (x + w) * width / 2, (w - y) * height / 2
+// (y negated with flip_viewport), its clip z and w, from its clip coordinates
+__device__ __forceinline__ void viewport_corner(const float* clip, bool flip_viewport,
+                                                float half_w, float half_h, float& xv,
+                                                float& yv, float& zc, float& wc) {
+  const float yc = flip_viewport ? -clip[1] : clip[1];
+  zc = clip[2];
+  wc = clip[3];
+  xv = mul(add(clip[0], wc), half_w);
+  yv = mul(sub(wc, yc), half_h);
+}
+
+// _setup_from_clip with vertex_ids on one triangle, from its corners' ids
+// and viewport coordinates (viewport_corner): the setup row r (16 f32), and
+// into *valid_out and *bbox_out its valid flag (*pair_valid, kept by its
+// facing or *double_sided (null: double-sided), det != 0, in front of the
+// eye in part, on screen) and its bbox (4 i32). The two flags are read, and
+// the results stored, where the chain needs them: fewer live registers in
+// view_setup_kernel's 40. Returns the valid flag.
+__device__ __forceinline__ bool setup_row(const int* ids, const float* xv, const float* yv,
+                                          const float* zc, const float* wc,
+                                          const uint8_t* pair_valid,
+                                          const uint8_t* double_sided, long long width,
+                                          long long height, float* r, uint8_t* valid_out,
+                                          int4* bbox_out) {
+  // _setup_from_clip's edge_coeffs with vertex_ids: edges (1, 2), (2, 0), (0, 1)
+  float e[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int j0 = (i + 1) % 3, k0 = (i + 2) % 3;
+    const bool swap = ids[j0] > ids[k0];
+    const float sign = swap ? -1.0f : 1.0f;
+    const int j = swap ? k0 : j0, k = swap ? j0 : k0;
+    e[3 * i] = mul(sub(mul(yv[j], wc[k]), mul(yv[k], wc[j])), sign);
+    e[3 * i + 1] = mul(sub(mul(wc[j], xv[k]), mul(wc[k], xv[j])), sign);
+    e[3 * i + 2] = mul(sub(mul(xv[j], yv[k]), mul(xv[k], yv[j])), sign);
+  }
+  const float det = add(add(mul(xv[0], e[0]), mul(yv[0], e[1])), mul(wc[0], e[2]));
+  const bool front = det < 0.0f;
+  const bool keep = front || double_sided == nullptr || *double_sided != 0;
+  const float flip = front ? -1.0f : 1.0f;
+  bool valid = *pair_valid != 0 && keep && det != 0.0f;
+
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r[k] = mul(e[k], flip);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r[9 + c] = zc[c];
+    r[12 + c] = wc[c];
+  }
+  r[15] = front ? 0.0f : 1.0f;  // FLAG_BACKFACING
+
+  // the bbox of the corners in front of the eye
+  const float eps = 1e-6f, big = 1e9f;
+  bool w_ok[3];
+  float px[3], py[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    w_ok[c] = wc[c] > eps;
+    const float inv_w = w_ok[c] ? recip_times_one(clamp_min(wc[c], eps)) : 0.0f;
+    px[c] = mul(xv[c], inv_w);
+    py[c] = mul(yv[c], inv_w);
+  }
+  const float wf = (float)(width - 1), hf = (float)(height - 1);
+  float x0 = min3(w_ok[0] ? px[0] : big, w_ok[1] ? px[1] : big, w_ok[2] ? px[2] : big);
+  float x1 = max3(w_ok[0] ? px[0] : -big, w_ok[1] ? px[1] : -big, w_ok[2] ? px[2] : -big);
+  float y0 = min3(w_ok[0] ? py[0] : big, w_ok[1] ? py[1] : big, w_ok[2] ? py[2] : big);
+  float y1 = max3(w_ok[0] ? py[0] : -big, w_ok[1] ? py[1] : -big, w_ok[2] ? py[2] : -big);
+  const bool any_behind = !(w_ok[0] && w_ok[1] && w_ok[2]);
+  const bool all_behind = !(w_ok[0] || w_ok[1] || w_ok[2]);
+  if (any_behind) {
+    x0 = 0.0f;
+    y0 = 0.0f;
+    x1 = wf;
+    y1 = hf;
+  }
+  valid = valid && !all_behind;
+  const bool offscreen = x1 < 0.0f || y1 < 0.0f || x0 > wf || y0 > hf;
+  valid = valid && !offscreen;
+  *valid_out = valid;
+  *bbox_out = make_int4(to_i32(clamp(floorf(sub(x0, 0.5f)), 0.0f, wf)),
+                        to_i32(clamp(floorf(sub(y0, 0.5f)), 0.0f, hf)),
+                        to_i32(clamp(ceilf(add(x1, 0.5f)), 0.0f, wf)),
+                        to_i32(clamp(ceilf(add(y1, 0.5f)), 0.0f, hf)));
+  return valid;
+}
+
+// clip_transform of one row (x, y, z, w) by a row-major 4 x 4 m: (x m0 +
+// y m1) + (z m2 + w m3) a column
+__device__ __forceinline__ void clip_row(float x, float y, float z, float w, const float* m,
+                                         float* out) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[j] = add(add(mul(x, m[4 * j]), mul(y, m[4 * j + 1])),
+                 add(mul(z, m[4 * j + 2]), mul(w, m[4 * j + 3])));
+  }
+}
+
 // Triangle slot t of part p, written at row `row` of the table
 __device__ __forceinline__ void setup_slot(const SetupArgs& a, const SetupPart& p, long long t,
                                            long long row, float4* stage, long long warp_row,
@@ -608,7 +758,6 @@ __device__ __forceinline__ void setup_slot(const SetupArgs& a, const SetupPart& 
 #pragma unroll
     for (int k = 0; k < 16; ++k) m[k] = __ldg(a.view_proj + k);
     const float half_w = (float)(a.width * 0.5), half_h = (float)(a.height * 0.5);
-
     int ids[3];
     float xv[3], yv[3], zc[3], wc[3];
 #pragma unroll
@@ -616,83 +765,16 @@ __device__ __forceinline__ void setup_slot(const SetupArgs& a, const SetupPart& 
       ids[c] = __ldg(p.row3 + 3 * t + c);
       const float4 q = __ldg(reinterpret_cast<const float4*>(p.w1) + row_of(ids[c], p.v_rows));
       float clip[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // clip_transform
-        clip[j] = add(add(mul(q.x, m[4 * j]), mul(q.y, m[4 * j + 1])),
-                      add(mul(q.z, m[4 * j + 2]), mul(q.w, m[4 * j + 3])));
-      }
-      const float yc = a.flip_viewport ? -clip[1] : clip[1];
-      zc[c] = clip[2];
-      wc[c] = clip[3];
-      xv[c] = mul(add(clip[0], wc[c]), half_w);
-      yv[c] = mul(sub(wc[c], yc), half_h);
+      clip_row(q.x, q.y, q.z, q.w, m, clip);
+      viewport_corner(clip, a.flip_viewport != 0, half_w, half_h, xv[c], yv[c], zc[c], wc[c]);
     }
-
-    // _setup_from_clip's edge_coeffs with vertex_ids: edges (1, 2), (2, 0), (0, 1)
-    float e[9];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int j0 = (i + 1) % 3, k0 = (i + 2) % 3;
-      const bool swap = ids[j0] > ids[k0];
-      const float sign = swap ? -1.0f : 1.0f;
-      const int j = swap ? k0 : j0, k = swap ? j0 : k0;
-      e[3 * i] = mul(sub(mul(yv[j], wc[k]), mul(yv[k], wc[j])), sign);
-      e[3 * i + 1] = mul(sub(mul(wc[j], xv[k]), mul(wc[k], xv[j])), sign);
-      e[3 * i + 2] = mul(sub(mul(xv[j], yv[k]), mul(xv[k], yv[j])), sign);
-    }
-    const float det = add(add(mul(xv[0], e[0]), mul(yv[0], e[1])), mul(wc[0], e[2]));
-    const bool front = det < 0.0f;
-    const bool keep = front || p.double_sided[t] != 0;
-    const float flip = front ? -1.0f : 1.0f;
-    bool valid = p.pair_valid[t] != 0 && keep && det != 0.0f;
-
     float r[kSetupCols];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) r[k] = mul(e[k], flip);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      r[9 + c] = zc[c];
-      r[12 + c] = wc[c];
-    }
-    r[15] = front ? 0.0f : 1.0f;  // FLAG_BACKFACING
+    setup_row(ids, xv, yv, zc, wc, p.pair_valid + t, p.double_sided + t, a.width, a.height, r,
+              a.valid + row, reinterpret_cast<int4*>(a.bbox) + row);
 #pragma unroll
     for (int k = 0; k < kSetupCols / 4; ++k) {
       chunks[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
     }
-
-    // the bbox of the corners in front of the eye
-    const float eps = 1e-6f, big = 1e9f;
-    bool w_ok[3];
-    float px[3], py[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      w_ok[c] = wc[c] > eps;
-      const float inv_w = w_ok[c] ? recip_times_one(clamp_min(wc[c], eps)) : 0.0f;
-      px[c] = mul(xv[c], inv_w);
-      py[c] = mul(yv[c], inv_w);
-    }
-    const float wf = (float)(a.width - 1), hf = (float)(a.height - 1);
-    float x0 = min3(w_ok[0] ? px[0] : big, w_ok[1] ? px[1] : big, w_ok[2] ? px[2] : big);
-    float x1 = max3(w_ok[0] ? px[0] : -big, w_ok[1] ? px[1] : -big, w_ok[2] ? px[2] : -big);
-    float y0 = min3(w_ok[0] ? py[0] : big, w_ok[1] ? py[1] : big, w_ok[2] ? py[2] : big);
-    float y1 = max3(w_ok[0] ? py[0] : -big, w_ok[1] ? py[1] : -big, w_ok[2] ? py[2] : -big);
-    const bool any_behind = !(w_ok[0] && w_ok[1] && w_ok[2]);
-    const bool all_behind = !(w_ok[0] || w_ok[1] || w_ok[2]);
-    if (any_behind) {
-      x0 = 0.0f;
-      y0 = 0.0f;
-      x1 = wf;
-      y1 = hf;
-    }
-    valid = valid && !all_behind;
-    const bool offscreen = x1 < 0.0f || y1 < 0.0f || x0 > wf || y0 > hf;
-    valid = valid && !offscreen;
-    a.valid[row] = valid;
-    reinterpret_cast<int4*>(a.bbox)[row] = make_int4(
-        to_i32(clamp(floorf(sub(x0, 0.5f)), 0.0f, wf)),
-        to_i32(clamp(floorf(sub(y0, 0.5f)), 0.0f, hf)),
-        to_i32(clamp(ceilf(add(x1, 0.5f)), 0.0f, wf)),
-        to_i32(clamp(ceilf(add(y1, 0.5f)), 0.0f, hf)));
     if (a.tri_id) {
       a.tri_id[row] = p.scene_tri[t];
       a.inst_id[row] = p.pair_inst[t];
@@ -732,6 +814,114 @@ __global__ void __launch_bounds__(kThreads, 6) view_setup_kernel(const SetupArgs
   }
 }
 
+
+// --- The particle billboards ----------------------------------------------
+
+// m (4 x 4 at element strides s0, s1) into registers, row-major
+__device__ __forceinline__ void load_matrix(const float* m, long long s0, long long s1,
+                                            float* out) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[4 * j + k] = __ldg(m + j * s0 + k * s1);
+}
+
+// Particle i's quad: its four corners (x, y in {-0.5, 0.5} scaled, in view
+// space about its centre) through the projection and the inverse view, its
+// two triangles (0, 1, 2) at row i and (0, 2, 3) at row n + i, each with
+// its setup row, valid, bbox, ids, corner uvs and world positions and
+// packed shading row. Returns how many of the two are valid.
+__device__ __forceinline__ int particle_quad(const ParticleQuadArgs& a, long long i,
+                                             const float* view, const float* vinv,
+                                             const float* proj) {
+  const float cx[4] = {-0.5f, 0.5f, 0.5f, -0.5f}, cy[4] = {-0.5f, -0.5f, 0.5f, 0.5f};
+  float vc[4];
+  clip_row(__ldg(a.center + 3 * i), __ldg(a.center + 3 * i + 1), __ldg(a.center + 3 * i + 2),
+           1.0f, view, vc);
+  const float sx = __ldg(a.scale + 2 * i), sy = __ldg(a.scale + 2 * i + 1);
+  const float uox = __ldg(a.uv_offset + 2 * i), uoy = __ldg(a.uv_offset + 2 * i + 1);
+  const float usx = __ldg(a.uv_scale + 2 * i), usy = __ldg(a.uv_scale + 2 * i + 1);
+  float clip[4][4], world[4][4], uv[4][2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float x = add(vc[0], mul(sx, cx[k])), y = add(vc[1], mul(sy, cy[k]));
+    const float z = add(vc[2], 0.0f);
+    clip_row(x, y, z, 1.0f, proj, clip[k]);
+    clip_row(x, y, z, 1.0f, vinv, world[k]);
+    uv[k][0] = add(uox, mul(add(cx[k], 0.5f), usx));
+    uv[k][1] = add(uoy, mul(sub(0.5f, cy[k]), usy));
+  }
+  const float lut = __ldg(a.use_emissive_lut + i) != 0 ? __ldg(a.lut_y + i) : -1.0f;
+  const float half_w = (float)(a.width * 0.5), half_h = (float)(a.height * 0.5);
+  const int corners[2][3] = {{0, 1, 2}, {0, 2, 3}};
+  int kept = 0;
+#pragma unroll
+  for (int tri = 0; tri < 2; ++tri) {
+    const long long row = tri * a.n + i;
+    int ids[3];
+    float xv[3], yv[3], zc[3], wc[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int k = corners[tri][c];
+      ids[c] = iadd(imul((int)i, 4), k);
+      viewport_corner(clip[k], a.flip_viewport != 0, half_w, half_h, xv[c], yv[c], zc[c],
+                      wc[c]);
+    }
+    float r[kSetupCols];
+    kept += setup_row(ids, xv, yv, zc, wc, a.valid + i, nullptr, a.width, a.height, r,
+                      a.tri_valid + row, reinterpret_cast<int4*>(a.bbox) + row);
+    float4* setup4 = reinterpret_cast<float4*>(a.setup) + row * (kSetupCols / 4);
+#pragma unroll
+    for (int k = 0; k < kSetupCols / 4; ++k)
+      setup4[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+    a.tri_id[row] = (int)row;
+    a.particle[row] = (int)i;
+
+    // the packed row: edges (9) | uv (6) | world_pos (9) | colour (3) |
+    // emissive colour (3) | lut_y or -1 | which corner is diagonal to corner 0
+    float pk[kPackedCols];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) pk[k] = r[k];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int k = corners[tri][c];
+      pk[9 + 2 * c] = a.uv[row * 6 + 2 * c] = uv[k][0];
+      pk[10 + 2 * c] = a.uv[row * 6 + 2 * c + 1] = uv[k][1];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) pk[15 + 3 * c + j] = a.world_pos[row * 9 + 3 * c + j] = world[k][j];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      pk[24 + c] = __ldg(a.colour + 3 * i + c);
+      pk[27 + c] = __ldg(a.emissive_colour + 3 * i + c);
+    }
+    pk[30] = lut;
+    pk[31] = tri == 0 ? 0.0f : 1.0f;
+    float4* packed4 = reinterpret_cast<float4*>(a.packed) + row * (kPackedCols / 4);
+#pragma unroll
+    for (int k = 0; k < kPackedCols / 4; ++k)
+      packed4[k] = make_float4(pk[4 * k], pk[4 * k + 1], pk[4 * k + 2], pk[4 * k + 3]);
+  }
+  return kept;
+}
+
+// One block: a thread a particle (a frame holds 16 to 64 of them; past the
+// block's threads a thread takes every kThreads-th), num_valid the block's
+// count of valid triangles (an int32 sum, exact in any order)
+__global__ void __launch_bounds__(kThreads) view_setup_kernel(const ParticleQuadArgs a) {
+  __shared__ int count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  float view[16], vinv[16], proj[16];
+  load_matrix(a.view, a.view_s0, a.view_s1, view);
+  load_matrix(a.view_inverse, a.vi_s0, a.vi_s1, vinv);
+  load_matrix(a.projection, a.proj_s0, a.proj_s1, proj);
+  int kept = 0;
+  for (long long i = threadIdx.x; i < a.n; i += kThreads) kept += particle_quad(a, i, view, vinv, proj);
+  atomicAdd(&count, kept);
+  __syncthreads();
+  if (threadIdx.x == 0) *a.num_valid = count;
+}
 }  // namespace
 
 // The C entry points (ops/geometry.py binds them with ctypes): each takes
@@ -741,7 +931,8 @@ __global__ void __launch_bounds__(kThreads, 6) view_setup_kernel(const SetupArgs
 // result is the first failed launch's cudaError_t, else cudaSuccess.
 
 // sizeof(VertexArgs) (which 0), sizeof(SetupArgs) (1), sizeof(ListArgs)
-// (2) or sizeof(SetupPart) (3), for the binding's check of its mirrors
+// (2), sizeof(SetupPart) (3) or sizeof(ParticleQuadArgs) (4), for the
+// binding's check of its mirrors
 extern "C" int sc_geometry_args_bytes(int which) {
   switch (which) {
     case 0:
@@ -750,8 +941,10 @@ extern "C" int sc_geometry_args_bytes(int which) {
       return (int)sizeof(SetupArgs);
     case 2:
       return (int)sizeof(ListArgs);
-    default:
+    case 3:
       return (int)sizeof(SetupPart);
+    default:
+      return (int)sizeof(ParticleQuadArgs);
   }
 }
 
@@ -783,5 +976,12 @@ extern "C" int sc_view_setup(const void* args, void* stream) {
   long long blocks = 0;
   for (int p = 0; p < a.parts; ++p) blocks += blocks_of(a.part[p].t_cap);
   view_setup_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ops/particles.py particle_geometry's kernel: one block for every particle
+extern "C" int sc_particle_quads(const void* args, void* stream) {
+  const ParticleQuadArgs a = *static_cast<const ParticleQuadArgs*>(args);
+  view_setup_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

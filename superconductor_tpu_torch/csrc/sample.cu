@@ -99,18 +99,6 @@ __device__ __forceinline__ int select_level(int lvl, int L) {
   return lvl >= 1 ? min(lvl, L - 1) : 0;
 }
 
-__device__ __forceinline__ float byte_of(uint32_t word, int k) {
-  return (float)((word >> (8 * k)) & 0xffu);
-}
-
-// ops/tonemap.py srgb_to_linear_exact: where(c <= 0.04045, c / 12.92,
-// ((c + 0.055) / 1.055) ** 2.4)
-__device__ __forceinline__ float srgb_to_linear(float c) {
-  const float lin = scalar_quo(c, 12.92);
-  const float p = powf(scalar_quo(add(c, (float)0.055), 1.055), (float)2.4);
-  return c <= (float)0.04045 ? lin : p;
-}
-
 // u8 -> [0, 1] (_decode_u8), then the sRGB decode of the colour channels
 __device__ __forceinline__ void decode(float* r, bool srgb) {
   const float s = (float)(1.0 / 255.0);

@@ -55,6 +55,46 @@
 // product with (float)(1 / 3.0) (scalar_quo), 0.5 / t the reciprocal times
 // 0.5; clamp_min, maximum and clamp keep a NaN.
 
+// shade_kernel(const ParticleShadeArgs), the particle shade: what
+// ops/particles.py shade_particles computes for a layer's lanes, a lane a
+// thread. It replaces no TPU kernel either: the JAX package computes it in
+// XLA (superconductor_tpu/ops/particles.py:166 shade_particles), the port
+// ran it as a chain of about 130 torch operations a layer
+// (shade_particles_plain, the plain version). Per lane, in the chain's
+// order: the packed row of max(pair, 0) (ParticleAttrs.packed); the
+// barycentrics from its adjoint edges at the pixel centre (e / d, d == 0
+// taken as 1), the interpolated uv and world position; the normal towards
+// the eye from the quad's centre and the cotangent frame of the camera's
+// right and down axes; the smoke maps (the procedural puff, the
+// interleaved smoke pool's 32-B row, or each map's level-0 tap from the
+// LDR pool by its descriptor rows); the six-way light map of the SH's
+// average direction, the directional and ambient terms, the emission from
+// the LUT (the pool's own rows or the LDR pool, sRGB-decoded by the
+// texture's flag) or the emissive mask; the display transform by the two
+// inline flags; alpha, 0 where pair < 0. A dead lane is computed as the
+// chain computes it, on row 0. The SH is the 12 ambient values by value
+// where the environment binds no light volume and no lightmaps (one launch
+// a layer); else the position form (`form` 1) writes the lanes' world
+// positions, the frame's SH sampler (a torch chain) samples them, and the
+// full form reads the (P, 4, 3) result by its strides (two launches).
+//
+// What bounds it on this card: bytes. A lane reads its pair (4 B), its
+// pixel centre (8 B) and, on the lit scenes, its 48 B of SH, and writes rgb
+// and alpha (16 B); its packed row (128 B) and its texels are rows of
+// tables of a few kilobytes that stay in cache. Its arithmetic is about 240
+// FP32 operations (chip_smoke.py PARTICLE_OPS), under the bytes at the
+// card's rate. Design: registers only, the row read with 16-B loads where
+// it is aligned, nothing written but the result.
+//
+// Bit for bit with the chain on the card, beside the rules above: torch.sum
+// over a contiguous (P, 3) last dim adds (x0 + x2) + x1 (its reduction
+// splits the three values over two threads) and torch.mean multiplies that
+// sum by (float)(1 / 3); torch.sum over the corners of (P, 3, C) adds (x0 +
+// x1) + x2; both give +0 for a zero sum (their accumulators start at +0);
+// torch.linalg.cross's kernel, built with contraction, computes each
+// component a1 b2 - a2 b1 as fma(a1, b2, -(a2 b1)) (all measured on the
+// card, torch 2.11: chip_smoke.py [particles]).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -307,6 +347,303 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
   }
 }
 
+
+// --- The particle shade ---------------------------------------------------
+
+constexpr int kSmokePuff = 0;  // no smoke textures bound: the procedural puff
+constexpr int kSmokePool = 1;  // the interleaved smoke pool (smoke_ab, smoke_lut)
+constexpr int kSmokeSlots = 2;  // each map by its descriptor from the LDR pool
+
+// ops/particles.py shade_particles' arguments, 8 B a field (ops/particles.py
+// _ShadeArgs mirrors it); strides in elements, rows of u8 tables in 4-B words
+struct ParticleShadeArgs {
+  long long lanes;
+  long long form;  // 0: rgb and alpha; 1: the lanes' world positions only
+  const int* pair;
+  long long pair_s;
+  const float* px;
+  long long px_s;
+  const float* py;
+  long long py_s;
+  const float* packed;  // (T, 32) rows, adjacent columns
+  long long packed_s;
+  long long n_rows;
+  long long packed_vec;  // the rows are 16-B aligned
+  const float* eye;  // the view's (3,) eye
+  long long eye_s;
+  const float* view_inverse;  // the view's (4, 4)
+  long long vi_s0;
+  long long vi_s1;
+  const float* sh;  // (P, 4, 3), or null: the ambient values
+  long long sh_s0;
+  long long sh_s1;
+  long long sh_s2;
+  long long smoke;  // kSmoke*
+  const uint32_t* smoke_ab;  // (w * h, 32) u8
+  long long ab_s;
+  long long ab_rows;
+  long long ab_w;
+  long long ab_h;
+  long long ab_wrap;
+  const uint32_t* smoke_lut;  // (lw * lh, 16) u8
+  long long lut_s;
+  long long lut_rows;
+  long long lut_w;
+  long long lut_h;
+  long long lut_wrap;
+  long long lut_srgb;
+  const uint32_t* texels;  // the LDR pool, (N, 16) quad rows or (N, 4) texels
+  long long texels_s;
+  long long texels_rows;
+  long long texels_quad;
+  const int* tex_meta;  // (T, 4): base, count, wrap, flags
+  long long meta_s;
+  long long n_tex;
+  const int* mip_owh;  // (L, 4): offset, w, h
+  long long owh_s;
+  long long n_owh;
+  long long tex_a;
+  long long tex_b;
+  long long tex_lut;
+  long long aces;
+  long long srgb;
+  float* rgb;  // (P, 3)
+  float* alpha;  // (P,)
+  float* world_pos;  // (P, 3): the position form's result
+  float ambient[12];
+};
+
+// torch.sum over a contiguous (P, 3) last dim on the card: (x0 + x2) + x1,
+// a zero sum +0
+__device__ __forceinline__ float sum3_last(float x0, float x1, float x2) {
+  return add(add(add(x0, x2), x1), 0.0f);
+}
+
+// torch.sum over the corners of (P, 3, C): (x0 + x1) + x2, a zero sum +0
+__device__ __forceinline__ float sum3_corners(float x0, float x1, float x2) {
+  return add(add(add(x0, x1), x2), 0.0f);
+}
+
+// torch.linalg.cross on the card: each component fma(a_i b_j, -(a_j b_i))
+__device__ __forceinline__ void cross_fma(const float* a, const float* b, float* out) {
+  out[0] = __fmaf_rn(a[1], b[2], -mul(a[2], b[1]));
+  out[1] = __fmaf_rn(a[2], b[0], -mul(a[0], b[2]));
+  out[2] = __fmaf_rn(a[0], b[1], -mul(a[1], b[0]));
+}
+
+// sqrt(torch.sum(v * v, -1)) of a contiguous (P, 3) (shade_particles' _norm)
+__device__ __forceinline__ float norm3(float x0, float x1, float x2) {
+  return __fsqrt_rn(sum3_last(mul(x0, x0), mul(x1, x1), mul(x2, x2)));
+}
+
+// the four texels of a bilinear tap, 4 channels each, as bytes of words
+struct Texels {
+  uint32_t t[4];  // t00, t10, t01, t11
+};
+
+// _lerp4 of each channel of a tap, times 1 / 255
+__device__ __forceinline__ void filter(const Texels& q, float fx, float fy, float* out) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    out[c] = mul(lerp4(byte_of(q.t[0], c), byte_of(q.t[1], c), byte_of(q.t[2], c),
+                       byte_of(q.t[3], c), fx, fy),
+                 (float)(1.0 / 255.0));
+}
+
+// One level-0 bilinear tap of texture `tex` of the LDR pool
+// (sample_bilinear_level: the descriptor rows tex_meta and mip_owh, the
+// quad or the flat pool), filtered and normalised; with decode, the colour
+// channels sRGB-decoded where the texture is flagged so
+__device__ __forceinline__ void slot_tap(const ParticleShadeArgs& a, long long tex, float u,
+                                         float v, bool decode, float* out) {
+  const int* meta = a.tex_meta + row_of(tex, a.n_tex) * a.meta_s;
+  const int base = __ldg(meta), count = __ldg(meta + 1), wrap = __ldg(meta + 2),
+            flags = __ldg(meta + 3);
+  const int lvl = min(0, iadd(count, -1));  // _clamp_to(0, count)
+  const int* owh = a.mip_owh + row_of(iadd(base, lvl), a.n_owh) * a.owh_s;
+  const int off = __ldg(owh), w = __ldg(owh + 1), h = __ldg(owh + 2);
+  TapPos t = tap_pos(u, v, w, h);
+  Texels q;
+  if (a.texels_quad) {
+    const uint32_t* r = a.texels + quad_row(t, off, w, h, wrap, a.texels_rows) * a.texels_s;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q.t[k] = __ldg(r + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int xi = wrap_coord(iadd(t.x0, k & 1), w, wrap);
+      const int yi = wrap_coord(iadd(t.y0, k >> 1), h, wrap);
+      q.t[k] = __ldg(a.texels + row_of(iadd(iadd(off, imul(yi, w)), xi), a.texels_rows) *
+                                    a.texels_s);
+    }
+  }
+  filter(q, t.fx, t.fy, out);
+  if (decode && (flags & 1) != 0)
+    for (int c = 0; c < 3; ++c) out[c] = srgb_to_linear(out[c]);
+}
+
+__global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs a) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= a.lanes) return;
+  const int pair = __ldg(a.pair + p * a.pair_s);
+  const float* rp = a.packed + row_of(max(pair, 0), a.n_rows) * a.packed_s;
+  float row[32];
+  if (a.packed_vec) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(rp) + k);
+      row[4 * k] = q.x;
+      row[4 * k + 1] = q.y;
+      row[4 * k + 2] = q.z;
+      row[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) row[k] = __ldg(rp + k);
+  }
+
+  // barycentrics from the adjoint edges, the interpolated uv and position
+  const float x = __ldg(a.px + p * a.px_s), y = __ldg(a.py + p * a.py_s);
+  float e[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) e[i] = add(add(mul(row[3 * i], x), mul(row[3 * i + 1], y)), row[3 * i + 2]);
+  const float d = sum3_last(e[0], e[1], e[2]);
+  const float dd = d == 0.0f ? 1.0f : d;
+  float bary[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) bary[i] = quo(e[i], dd);
+  float wp[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    wp[c] = sum3_corners(mul(row[15 + c], bary[0]), mul(row[18 + c], bary[1]),
+                         mul(row[21 + c], bary[2]));
+  if (a.form == 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a.world_pos[p * 3 + c] = wp[c];
+    return;
+  }
+  float uv[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    uv[c] = sum3_corners(mul(row[9 + c], bary[0]), mul(row[11 + c], bary[1]),
+                         mul(row[13 + c], bary[2]));
+
+  // the normal towards the eye from the quad's centre
+  const bool diag1 = row[31] > 0.5f;
+  float normal[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float partner = diag1 ? row[18 + c] : row[21 + c];
+    normal[c] = sub(__ldg(a.eye + c * a.eye_s), mul(add(row[15 + c], partner), 0.5f));
+  }
+  normalize(normal);
+
+  // sh[k][c]: L0, L1x, L1y, L1z by colour
+  float sh[12];
+  if (a.sh != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sh[3 * k + c] = __ldg(a.sh + p * a.sh_s0 + k * a.sh_s1 + c * a.sh_s2);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) sh[k] = a.ambient[k];
+  }
+
+  // the smoke maps: (left, bottom, front, emissive) and (right, top, back, alpha)
+  float sa[4], sb[4];
+  if (a.smoke == kSmokePool) {
+    TapPos t = tap_pos(uv[0], uv[1], (int)a.ab_w, (int)a.ab_h);
+    const uint32_t* r = a.smoke_ab +
+        quad_row(t, 0, (int)a.ab_w, (int)a.ab_h, (int)a.ab_wrap, a.ab_rows) * a.ab_s;
+    Texels qa, qb;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      qa.t[k] = __ldg(r + k);
+      qb.t[k] = __ldg(r + 4 + k);
+    }
+    filter(qa, t.fx, t.fy, sa);
+    filter(qb, t.fx, t.fy, sb);
+  } else if (a.smoke == kSmokeSlots) {
+    slot_tap(a, a.tex_a, uv[0], uv[1], false, sa);
+    slot_tap(a, a.tex_b, uv[0], uv[1], false, sb);
+  } else {
+    const float du = sub(uv[0], 0.5f), dv = sub(uv[1], 0.5f);
+    const float len = __fsqrt_rn(add(mul(du, du), mul(dv, dv)));
+    const float fall = clamp(sub(1.0f, mul(len, 2.0f)), 0.0f, 1.0f);
+    const float half = mul(fall, 0.5f);
+    sa[0] = sa[1] = sa[2] = sb[0] = sb[1] = sb[2] = half;
+    sa[3] = sb[3] = fall;
+  }
+
+  // the SH's average direction and the channels' lengths
+  float avg[3], len[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    avg[j] = scalar_quo(add(add(sh[3 * (j + 1)], sh[3 * (j + 1) + 1]), sh[3 * (j + 1) + 2]), 3.0);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) len[c] = norm3(sh[3 + c], sh[6 + c], sh[9 + c]);
+  const float avg_len =
+      clamp_min(mul(sum3_last(len[0], len[1], len[2]), (float)(1.0 / 3.0)), (float)1e-8);
+  float avg_dir[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) avg_dir[j] = quo(avg[j], avg_len);
+
+  // the cotangent frame of a screen-aligned quad and the light in it
+  float right[3], down[3], t[3], b[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    right[j] = __ldg(a.view_inverse + j * a.vi_s0);
+    down[j] = -__ldg(a.view_inverse + j * a.vi_s0 + a.vi_s1);
+  }
+  cross_fma(down, normal, t);
+  normalize(t);
+  cross_fma(normal, right, b);
+  normalize(b);
+  const float l0 = sum3_last(mul(t[0], avg_dir[0]), mul(t[1], avg_dir[1]), mul(t[2], avg_dir[2]));
+  const float l1 = sum3_last(mul(b[0], avg_dir[0]), mul(b[1], avg_dir[1]), mul(b[2], avg_dir[2]));
+  const float l2 = sum3_last(mul(normal[0], avg_dir[0]), mul(normal[1], avg_dir[1]),
+                             mul(normal[2], avg_dir[2]));
+  const float h_map = l0 > 0.0f ? sa[0] : sb[0];
+  const float v_map = l1 > 0.0f ? sb[1] : sa[1];
+  const float z_map = l2 > 0.0f ? sa[2] : sb[2];
+  const float light_map = add(add(mul(mul(h_map, l0), l0), mul(mul(v_map, l1), l1)),
+                              mul(mul(z_map, l2), l2));
+
+  // the emission: the LUT at (emissive mask, lut_y), or the mask
+  const bool use_lut = row[30] >= 0.0f;
+  float lut[3] = {0.0f, 0.0f, 0.0f};
+  if (a.smoke == kSmokePool) {
+    TapPos tl = tap_pos(sa[3], clamp_min(row[30], 0.0f), (int)a.lut_w, (int)a.lut_h);
+    const uint32_t* r = a.smoke_lut +
+        quad_row(tl, 0, (int)a.lut_w, (int)a.lut_h, (int)a.lut_wrap, a.lut_rows) * a.lut_s;
+    Texels q;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q.t[k] = __ldg(r + k);
+    float l4[4];
+    filter(q, tl.fx, tl.fy, l4);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) lut[c] = a.lut_srgb ? srgb_to_linear(l4[c]) : l4[c];
+  } else if (a.smoke == kSmokeSlots) {
+    float l4[4];
+    slot_tap(a, a.tex_lut, sa[3], clamp_min(row[30], 0.0f), true, l4);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) lut[c] = l4[c];
+  }
+
+  float* rgb = a.rgb + p * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float directional = mul(sh[c], len[c]);
+    const float ambient = mul(mul(sh[c], (float)0.2), sub(1.0f, len[c]));
+    const float emission = mul(use_lut ? lut[c] : sa[3], row[27 + c]);
+    float o = add(mul(add(mul(directional, light_map), ambient), row[24 + c]), emission);
+    if (a.aces) o = aces(o);
+    if (a.srgb) o = srgb_approx(o);
+    rgb[c] = o;
+  }
+  a.alpha[p] = pair >= 0 ? sb[3] : 0.0f;
+}
 }  // namespace
 
 // The C entry point (ops/shade.py binds it with ctypes). Pointers are
@@ -333,3 +670,16 @@ extern "C" int sc_shade(int lanes, const uint8_t* valid, long long valid_s,
   shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+// ops/particles.py shade_particles' kernel: the address of its host
+// ParticleShadeArgs, launched on `stream`; the result is the launch's
+// cudaError_t.
+extern "C" int sc_particle_shade(const void* args, void* stream) {
+  const ParticleShadeArgs a = *static_cast<const ParticleShadeArgs*>(args);
+  const long long blocks = (a.lanes + kThreads - 1) / kThreads;
+  shade_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// sizeof(ParticleShadeArgs), for the binding's check of its mirror
+extern "C" int sc_particle_shade_args_bytes() { return (int)sizeof(ParticleShadeArgs); }

@@ -1,6 +1,7 @@
 // Round-exact helpers: torch's elementwise operations on the card, one at a
 // time, for the hand kernels that compute what a chain of torch operations
-// computes, bit for bit (csrc/sample.cu, csrc/gbuffer.cu, csrc/sky.cu).
+// computes, bit for bit (csrc/sample.cu, csrc/gbuffer.cu, csrc/sky.cu,
+// csrc/shade.cu, csrc/geometry.cu).
 //
 // Torch runs one kernel an operation, each result rounded to f32, so every
 // product, sum and quotient is written with __fmul_rn / __fadd_rn /
@@ -22,7 +23,8 @@
 // Every lane is computed as the chain computes it, dead lanes included.
 //
 // Also the pieces of ops/texture.py's one-tap bilinear core (_bilinear_core,
-// _lerp4) that csrc/sample.cu and csrc/sky.cu share.
+// _lerp4) and the sRGB decode that csrc/sample.cu, csrc/sky.cu and
+// csrc/shade.cu share.
 
 #pragma once
 
@@ -86,6 +88,19 @@ __device__ __forceinline__ float lerp4(float t00, float t10, float t01, float t1
   const float gx = sub(1.0f, fx), gy = sub(1.0f, fy);
   return add(add(add(mul(mul(t00, gx), gy), mul(mul(t10, fx), gy)), mul(mul(t01, gx), fy)),
              mul(mul(t11, fx), fy));
+}
+
+// byte k of a little-endian word of u8 texels, as f32 (the u8 -> f32 cast)
+__device__ __forceinline__ float byte_of(uint32_t word, int k) {
+  return (float)((word >> (8 * k)) & 0xffu);
+}
+
+// ops/tonemap.py srgb_to_linear_exact: where(c <= 0.04045, c / 12.92,
+// ((c + 0.055) / 1.055) ** 2.4)
+__device__ __forceinline__ float srgb_to_linear(float c) {
+  const float lin = scalar_quo(c, 12.92);
+  const float p = powf(scalar_quo(add(c, (float)0.055), 1.055), (float)2.4);
+  return c <= (float)0.04045 ? lin : p;
 }
 
 // A bilinear tap's position at a level of w x h texels: the floor texel

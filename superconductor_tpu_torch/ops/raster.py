@@ -133,10 +133,16 @@ _SIGNATURES = {
     "sc_shade": ("shade",
                  [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _I,
                   _P, _L, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P, _P, _P]),
-    # ops/geometry.py's vertex stage and view setup (csrc/geometry.cu): the
-    # address of a struct of arguments, and the stream
+    # ops/particles.py's particle shade (csrc/shade.cu): the address of a
+    # struct of arguments, and the stream
+    "sc_particle_shade": ("shade", [_P, _P]),
+    "sc_particle_shade_args_bytes": ("shade", []),
+    # ops/geometry.py's vertex stage and view setup and ops/particles.py's
+    # billboards (csrc/geometry.cu): the address of a struct of arguments,
+    # and the stream
     "sc_vertex_stage": ("geometry", [_P, _P]),
     "sc_view_setup": ("geometry", [_P, _P]),
+    "sc_particle_quads": ("geometry", [_P, _P]),
     "sc_geometry_args_bytes": ("geometry", [_I]),
     # ops/worklist.py's compaction and compose (csrc/worklist.cu)
     "sc_worklist_compact": ("worklist", [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),

@@ -41,6 +41,7 @@ import shutil
 import sys
 import time
 import types
+from typing import Optional
 
 import torch
 
@@ -66,6 +67,24 @@ GATHER_KERNEL = re.compile(r"gather|index", re.IGNORECASE)
 HAND_KERNEL = re.compile(r"\b(raster_sorted|kbuffer_sorted|kbuffer_deep|kbuffer_global|"
                          r"classic_sample|material_sample|gbuffer|sky|shade|vertex_stage|"
                          r"view_setup|worklist_compact|worklist_compose)_kernel\b")
+# the argument types of the overloads that share a hand kernel's name: the
+# particle shade (csrc/shade.cu) and the particle billboards (csrc/geometry.cu)
+OVERLOAD_ARGS = ("ParticleShadeArgs", "ParticleQuadArgs")
+_ARG_TYPE = re.compile(r"(?:<[^>]*>)?\((?:const )?(?:\(anonymous namespace\)::)?(\w+)")
+
+
+def hand_kernel_label(name: str) -> Optional[str]:
+    """The hand kernel a device event's demangled name names, or None: the
+    kernel's name (with its template arguments' brackets left out), and for
+    an overload of OVERLOAD_ARGS its argument type too, as
+    "shade_kernel(ParticleShadeArgs)"."""
+    m = HAND_KERNEL.search(name)
+    if m is None:
+        return None
+    arg = _ARG_TYPE.match(name, m.end())
+    if arg is not None and arg.group(1) in OVERLOAD_ARGS:
+        return f"{m.group(0)}({arg.group(1)})"
+    return m.group(0)
 
 
 def _app_frames(args):
@@ -229,9 +248,9 @@ def call_site_times(fn) -> dict:
                 break
             p = p.cpu_parent
         rows = ""
-        hand = HAND_KERNEL.search(e.name)
+        hand = hand_kernel_label(e.name)
         if hand:
-            kind, rows = "hand", hand.group(0)
+            kind, rows = "hand", hand
         elif GATHER_KERNEL.search(e.name):
             kind = "gather"
             shapes = getattr(op, "input_shapes", None) or []

@@ -47,7 +47,12 @@ from ..ops.geometry import (
 from ..ops import sample as sample_ops
 from ..ops import texture as texture_ops
 from ..ops.lines import line_geometry
-from ..ops.particles import particle_geometry, shade_particles
+from ..ops.particles import (
+    particle_geometry,
+    particle_geometry_plain,
+    shade_particles,
+    shade_particles_plain,
+)
 from ..ops.raster import kbuffer_sorted, rasterize_sorted
 from ..ops.raster_kbuffer import rasterize_kbuffer_ref
 from ..ops.raster_ref import VisibilityBuffer, rasterize_ref
@@ -379,6 +384,12 @@ WORKLIST_PLAIN_VERSIONS = {
     "worklist_compose": ((sys.modules[__name__], "worklist_compose", worklist_compose_plain),
                          (sys.modules[__name__], "worklist_compose_clip",
                           worklist_compose_clip_plain)),
+}
+
+# the particle kernels' wrappers as this module binds them (the same layout)
+PARTICLE_PLAIN_VERSIONS = {
+    "particle_shade": ((sys.modules[__name__], "shade_particles", shade_particles_plain),),
+    "particle_geometry": ((sys.modules[__name__], "particle_geometry", particle_geometry_plain),),
 }
 
 
