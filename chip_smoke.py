@@ -2011,15 +2011,29 @@ def shade_site(name: str, caller: str, args: dict) -> str:
         source = f"whole pool, {rows}"
     else:
         source = "classic, mat_row by id"
-    sh = "ambient SH" if shade_mod._ambient_only(args["env"]) else "per-lane SH"
+    sh = {"ambient": "ambient SH", "pools": "SH pools in the launch",
+          "per-lane": "per-lane SH"}[shade_sh_form(shade_inputs(args))]
     return (f"shade {caller} {shade_lanes_count(name, args)} lanes ({source}; {sh}; tonemap "
             f"{int(bool(args['inline_tonemapping']))} srgb {int(bool(args['inline_srgb']))})")
 
 
+def shade_sh_form(k: dict) -> str:
+    """How a shade_lanes call (its arguments `k`) takes its SH: "ambient",
+    "pools" (a pooled PoolSH: sampled in the launch) or "per-lane" (a (P,
+    4, 3) tensor, or a PoolSH on the layered path, sampled first)."""
+    from superconductor_tpu_torch.ops.shade import PoolSH
+
+    if k["sh"] is None:
+        return "ambient"
+    return "pools" if isinstance(k["sh"], PoolSH) and k["sh"].pooled() else "per-lane"
+
+
 def shade_timed(name: str, args: dict) -> tuple:
     """The shade kernel's launch (shade_lanes) and the torch chain it
-    replaces (shade_lanes_plain) on the call's sampled inputs: the
-    samplers and the SH lookup ahead of both are not the kernel's."""
+    replaces (shade_lanes_plain) on the call's sampled inputs, as the frame
+    makes the call: with a PoolSH the SH lookup is part of both (in the
+    kernel's launch, the torch sampler in the chain's); the material
+    samplers ahead of both are not the kernel's."""
     from superconductor_tpu_torch.ops import shade as shade_mod
 
     k = shade_inputs(args)
@@ -2034,16 +2048,78 @@ def shade_material_rows(k: dict) -> tuple:
     return k["rows"], torch.clamp(k["mat"].long(), 0, k["rows"].shape[0] - 1)
 
 
+# the shade's loads and stores: an invalid lane's valid byte and its rgb
+# and alpha (5); a lit lane's flags, material id, s16 (4 16-B loads), six
+# g-buffer vectors (16), the material row's factors and flag (11), the eye
+# (3) and the result (4); an unlit lane's flags, id, s16's albedo, the row
+# and the result (21); a given SH's 12, lm_uv and lightmapped 3
+SHADE_IO_INVALID, SHADE_IO_LIT, SHADE_IO_UNLIT = 5, 41, 21
+
+
+def sh_pool_rows(pool, world_pos, lm_uv=None, lightmapped=None) -> list:
+    """[(SH pool, row indices)] the lanes at world_pos read of a PoolSH's
+    pools (lm_uv and lightmapped: the particle shade's stand-in, 0 and
+    false, where None), one entry a tap (the light volume's two layers
+    where a lane is not lightmapped or no lightmaps are bound, the
+    lightmaps' one elsewhere), as csrc/sh_sample.cuh reads them."""
+    from superconductor_tpu_torch.ops.texture import _layer_pair, _sh_plane_index
+
+    lv, lm = pool._sets()
+    n, dev = world_pos.shape[0], world_pos.device
+    if lm_uv is None:
+        lm_uv = torch.zeros_like(world_pos[..., :2])
+        lightmapped = torch.zeros(n, dtype=torch.bool, device=dev)
+    use_lm = torch.ones(n, dtype=torch.bool, device=dev)
+    if lv is not None:
+        use_lm = lightmapped.clone() if lm is not None else ~use_lm
+    out = []
+    if lv is not None:
+        w, h = (int(v) for v in lv[1])
+        rescaled = ((world_pos - pool.uniforms["probes_bottom_left"])
+                    / pool.uniforms["probes_scale"])[~use_lm]
+        plane, _fx, _fy = _sh_plane_index(w, h, rescaled[..., 0], rescaled[..., 1])
+        zi, zi1, _fz = _layer_pair(rescaled[..., 2], int(pool.env.lightvol_z_layers))
+        out += [(pool.scene["lv_sh"], (z * (w * h) + plane).long()) for z in (zi, zi1)]
+    if lm is not None:
+        w, h = (int(v) for v in lm[1])
+        plane, _fx, _fy = _sh_plane_index(w, h, lm_uv[use_lm][..., 0], lm_uv[use_lm][..., 1])
+        out.append((pool.scene["lm_sh"], plane.long()))
+    return out
+
+
+def shade_sh_rows(k: dict) -> list:
+    """[(SH pool, row indices)] the lit valid lanes of a shade call with
+    the SH pools read (sh_pool_rows at their world_pos, lm_uv and
+    lightmapped); [] with another SH."""
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    if shade_sh_form(k) != "pools":
+        return []
+    g = k["gbuf"]
+    table, idx = shade_material_rows(k)
+    unlit_row = (table[:, 16].contiguous().view(torch.int32) & shade_mod.MAT_UNLIT) != 0
+    lit = g.valid & ~unlit_row[idx]
+    pool = k["sh"]
+    lm = pool._sets()[1] is not None
+    return sh_pool_rows(pool, g.world_pos[lit], g.lm_uv[lit] if lm else None,
+                        g.lightmapped[lit] if lm else None)
+
+
 def shade_bound(name: str, args: dict, fetched: list) -> tuple:
     """(bound_ms, bound_by) of one shade launch: the larger of its bytes
-    over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM), as
-    this call's lanes need them. Every lane reads its valid byte and writes
-    rgb and alpha (16 B); a valid lane reads front_facing, its material id
-    (by id, 4 B) and s16's albedo (16 B); a lit one also the rest of s16
-    (48 B), six g-buffer vectors (64 B) and its SH (48 B, per-lane SH
-    only); of the material rows the valid lanes read, the 32-B sectors that
-    hold columns 0-9 and 16; the eye (12 B). Operations: SHADE_OPS_* of
-    each valid lane, by lit or unlit and the call's inline flags."""
+    over 3.35 TB/s and its instruction floor over INSTRUCTIONS_PER_S
+    ("operations"), as this call's lanes need them. Every lane reads its
+    valid byte and writes rgb and alpha (16 B); a valid lane reads
+    front_facing, its material id (by id, 4 B) and s16's albedo (16 B); a
+    lit one also the rest of s16 (48 B), six g-buffer vectors (64 B) and
+    its SH: 48 B of per-lane SH, or with the SH pools the 32-B sectors of
+    the pool rows the lit lanes tap, their lm_uv and lightmapped (9 B,
+    where the lightmaps are bound) and the probe box (24 B); of the
+    material rows the valid lanes read, the 32-B sectors that hold columns
+    0-9 and 16; the eye (12 B). Instructions: SHADE_OPS_* of each valid
+    lane, by lit or unlit and the call's inline flags, the lanes' loads and
+    stores (SHADE_IO_*), and each lit lane's SH lookup (SH_INSTRUCTIONS by
+    the texture set it taps)."""
     from superconductor_tpu_torch.ops import shade as shade_mod
 
     k = shade_inputs(args)
@@ -2059,24 +2135,75 @@ def shade_bound(name: str, args: dict, fetched: list) -> tuple:
     addr = table.data_ptr() + (rows[:, None] * table.stride(0) + cols[None, :]) * 4
     sectors = sector_count(addr.reshape(-1), 4) if rows.numel() else 0
     lanes = valid.shape[0]
+    form = shade_sh_form(k)
     nbytes = (lanes * 17 + n_valid * (1 + 16 + (4 if k["mat"] is not None else 0))
-              + n_lit * (48 + 64 + (48 if k["sh"] is not None else 0)) + sectors * 32 + 12)
+              + n_lit * (48 + 64 + (48 if form == "per-lane" else 0)) + sectors * 32 + 12)
     display = (SHADE_OPS_ACES if k["inline_tonemapping"] else 0) + (
         SHADE_OPS_SRGB if k["inline_srgb"] else 0)
-    ops = n_lit * (SHADE_OPS_LIT + display) + n_unlit * (
-        SHADE_OPS_UNLIT + (SHADE_OPS_SRGB if k["inline_srgb"] else 0))
-    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+    instructions = (lanes - n_valid) * SHADE_IO_INVALID + n_lit * (
+        SHADE_OPS_LIT + display + SHADE_IO_LIT + (12 if form == "per-lane" else 0)) + n_unlit * (
+        SHADE_OPS_UNLIT + (SHADE_OPS_SRGB if k["inline_srgb"] else 0) + SHADE_IO_UNLIT)
+    if form == "pools":
+        taps = shade_sh_rows(k)
+        nbytes += pool_sectors(taps) * 32 + 24
+        lv, lm = k["sh"]._sets()
+        n_lm = next(int(i.numel()) for t, i in taps if t is k["sh"].scene["lm_sh"]) if lm else 0
+        if lm:
+            nbytes += n_lit * (8 + (1 if lv else 0))
+        instructions += n_lm * SH_INSTRUCTIONS["lightmaps"] + (
+            n_lit - n_lm) * SH_INSTRUCTIONS["volume"] + (n_lit * 3 if lm else 0)
+    bytes_ms, ops_ms = nbytes / 3.35e9, instructions / INSTRUCTIONS_PER_S * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def shade_rows(name: str, args: dict, fetched: list) -> list:
     """[(table, row indices)] a shade launch reads by index: the lanes'
-    material rows."""
-    return [shade_material_rows(shade_inputs(args))]
+    material rows and, with the SH pools, the pool rows its lit lanes
+    tap."""
+    k = shade_inputs(args)
+    return [shade_material_rows(k)] + shade_sh_rows(k)
+
+
+def shade_detail(name: str, args: dict):
+    """At a shade call with the SH pools: the frame's former form of the
+    call (the torch sampler, then the kernel with that SH given), the
+    kernel with the SH given alone, and the sampler alone
+    (bench_raster.graph_ms); None elsewhere."""
+    from superconductor_tpu_torch.bench_raster import graph_ms
+    from superconductor_tpu_torch.ops import shade as shade_mod
+
+    k = shade_inputs(args)
+    if shade_sh_form(k) != "pools":
+        return None
+    pool, g = k["sh"], k["gbuf"]
+    given = dict(k, sh=pool.sample(g))
+    former_ms = graph_ms(lambda: shade_mod.shade_lanes(**dict(k, sh=pool.sample(g))),
+                         launches=5, runs=10)
+    alone_ms = graph_ms(lambda: shade_mod.shade_lanes(**given))
+    sampler_ms = graph_ms(lambda: pool.sample(g), launches=5, runs=10)
+    return (f"the torch SH sampler, then the kernel with its SH given {former_ms:.4f} ms; that "
+            f"kernel alone {alone_ms:.4f} ms, the sampler alone {sampler_ms:.4f} ms")
+
+
+def shade_baseline(name: str, args: dict):
+    """The baseline tree's shade at a call, its ops/shade.py on its
+    csrc/shade.cu, as its frame made the call: with a light volume or
+    lightmaps bound, its torch SH sampler, then its kernel with that SH;
+    None without a baseline."""
+    if BASELINE["root"] is None:
+        return None
+    mod = baseline_module("shade")
+    k = shade_inputs(args)
+    if k["sh"] is None:
+        return lambda: mod.shade_lanes(**k)
+    pool = k["sh"]
+    return lambda: mod.shade_lanes(**dict(k, sh=mod.sample_spherical_harmonics(
+        k["gbuf"], pool.scene, pool.uniforms, pool.env)))
 
 
 SHADE_PHASE = HandPhase("shade", ("shade",), shade_lanes_count, shade_site, deferred_equal,
-                        shade_bound, shade_rows, ("shade",), shade_timed)
+                        shade_bound, shade_rows, ("shade",), shade_timed,
+                        baseline=shade_baseline, detail=shade_detail)
 
 
 # The geometry's FP32 operations, counted from the torch chains that
@@ -2248,18 +2375,19 @@ def geometry_rows(name: str, args: dict, fetched: list) -> list:
 # kernels [geometry] and [worklist] time beside this tree's at each site
 # (chip_smoke.py --baseline DIR: say, a git archive of the commit before a
 # redesign), or None; and its loaded ops modules by name
-BASELINE = {"root": None, "modules": {}}
+BASELINE = {"root": None, "modules": {}, "libraries": {}}
 
 
-def baseline_module(name: str):
+def baseline_module(name: str, source: Optional[str] = None):
     """The baseline tree's superconductor_tpu_torch/ops/{name}.py (name
-    "geometry" or "worklist"), loaded as a module of this package (its
-    relative imports resolve here), its library built by nvcc from the
-    tree's csrc/{name}.cu into build/baseline/ and bound in place of this
+    "geometry", "worklist", "shade" or "particles"), loaded as a module of
+    this package (its relative imports resolve here), its library built
+    once by nvcc from the tree's csrc/{source}.cu (source: `name`; the
+    particles' is "shade") into build/baseline/ and bound in place of this
     tree's, with the argument types the tree's ops/raster.py _SIGNATURES
     gives: the geometry module's `_kernel(symbol)` (after checking each of
-    its argument structs' sizes against the library's) or the worklist
-    module's `_kernel_fn(symbol)`."""
+    its argument structs' sizes against the library's) or the other
+    modules' `_kernel_fn(symbol)`."""
     import ast
     import ctypes
     import importlib.util
@@ -2268,13 +2396,17 @@ def baseline_module(name: str):
 
     if name in BASELINE["modules"]:
         return BASELINE["modules"][name]
+    source = source or name
     src = os.path.join(BASELINE["root"], "superconductor_tpu_torch")
-    lib = os.path.join(raster_mod.BUILD_DIR, "baseline", f"libsc_{name}.so")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
     t0 = time.perf_counter()
-    subprocess.run([raster_mod._nvcc(), *raster_mod.NVCC_FLAGS, "-o", lib,
-                    os.path.join(src, "csrc", f"{name}.cu")], check=True, capture_output=True)
-    cdll = ctypes.CDLL(lib)
+    if source not in BASELINE["libraries"]:
+        lib = os.path.join(raster_mod.BUILD_DIR, "baseline", f"libsc_{source}.so")
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        subprocess.run([raster_mod._nvcc(), *raster_mod.NVCC_FLAGS, "-o", lib,
+                        os.path.join(src, "csrc", f"{source}.cu")], check=True,
+                       capture_output=True)
+        BASELINE["libraries"][source] = ctypes.CDLL(lib)
+    cdll = BASELINE["libraries"][source]
     spec = importlib.util.spec_from_file_location(
         f"superconductor_tpu_torch.ops._baseline_{name}", os.path.join(src, "ops", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -2302,7 +2434,8 @@ def baseline_module(name: str):
     else:
         mod._kernel_fn = kernel_fn
     BASELINE["modules"][name] = mod
-    phase(name, f"baseline: {src}'s csrc/{name}.cu built in {time.perf_counter() - t0:.1f} s")
+    phase(name, f"baseline: {src}'s ops/{name}.py on its csrc/{source}.cu, built in "
+          f"{time.perf_counter() - t0:.1f} s")
     return mod
 
 
@@ -2677,6 +2810,28 @@ PARTICLE_OPS = {"puff": 199, "smoke pool": 386, "per-slot": 386}
 # a particle's billboards: its centre and four corners through three
 # matrices, their uvs, two triangles' setup (GEOMETRY_OPS_SETUP)
 PARTICLE_QUAD_OPS = 28 + 4 * (5 + 2 * 28 + 4) + 2 * GEOMETRY_OPS_SETUP
+# An instruction floor a lane, from the kernels' source: each FP32
+# operation (SHADE_OPS_*, PARTICLE_OPS, SH_INSTRUCTIONS: a powf, an IEEE
+# division or a square root one, though each runs several), each f16
+# widening and each load and store instruction (a 16-B load one) counted
+# once; integer, conversion, predicate and branch instructions not counted.
+# Over the instructions the card starts a second: 132 SMs x 4 schedulers x
+# 32 lanes at the top SM clock, 1,980 MHz (H100 SXM; half its 67 TFLOP/s
+# FP32 rate, which counts an FMA as two operations)
+INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
+# csrc/sh_sample.cuh sample_sh at a lane, by the texture set it taps: the
+# light volume's FP32 operations 343 (the rescale 6, the texel and its
+# fractions 10, the layer pair 5, two taps' _lerp4 of 12 channels 268, the
+# z lerp 36, the unpack 18), 96 f16 widenings and 18 loads (the probe box
+# 6, two 96-B rows 12); the lightmaps' 162 (10, one tap 134, the unpack
+# 18), 48 widenings and 6 loads
+SH_INSTRUCTIONS = {"volume": 343 + 96 + 18, "lightmaps": 162 + 48 + 6}
+# the particle shade's loads and stores: a lane's pair, pixel centre, rgb
+# and alpha (7); a key's packed row (8), eye and inverse view (9), and the
+# smoke pool's and LUT's taps (12) or the per-slot taps' descriptor rows and
+# texels (33); a given SH's 12 a lane
+PARTICLE_LANE_IO = 7
+PARTICLE_KEY_LOADS = {"puff": 17, "smoke pool": 29, "per-slot": 50}
 # bytes a particle's columns hold (center 12, scale 8, valid 1, uv_offset
 # and uv_scale 16, colour and emissive colour 24, LUT flag and lut_y 8) and
 # its two triangles' results (setup 64, bbox 16, valid 1, tri_id and
@@ -2700,10 +2855,17 @@ def particle_lanes(name: str, args: dict) -> int:
     return args["pair"].shape[0]
 
 
-def particle_sampled_sh(args: dict) -> bool:
-    from superconductor_tpu_torch.ops.shade import _ambient_only
+def particle_sh_form(args: dict) -> str:
+    """How a shade_particles call takes its SH (ops/particles.py sh_form):
+    "ambient", "pools" (sampled in the launch) or "sampled" (two launches
+    around the sampler)."""
+    from superconductor_tpu_torch.ops.particles import sh_form
 
-    return not _ambient_only(args["env"])
+    return sh_form(args["env"], args["sh_sampler"])
+
+
+PARTICLE_SH_LABELS = {"ambient": "ambient SH", "pools": "SH pools in the launch",
+                      "sampled": "sampled SH, 2 launches"}
 
 
 def particle_site(name: str, caller: str, args: dict) -> str:
@@ -2712,14 +2874,14 @@ def particle_site(name: str, caller: str, args: dict) -> str:
     if name == "particle_geometry":
         return (f"particle_geometry {caller} {particle_lanes(name, args)} particles at "
                 f"{args['width']}x{args['height']}")
-    sh = "sampled SH, 2 launches" if particle_sampled_sh(args) else "ambient SH"
+    sh = PARTICLE_SH_LABELS[particle_sh_form(args)]
     return (f"shade_particles {caller} {particle_lanes(name, args)} lanes "
             f"({particle_smoke(args)}; {sh}; tonemap {int(bool(args['inline_tonemapping']))} "
             f"srgb {int(bool(args['inline_srgb']))})")
 
 
 def particle_launches(name: str, args: dict) -> int:
-    return 2 if name == "shade_particles" and particle_sampled_sh(args) else 1
+    return 2 if name == "shade_particles" and particle_sh_form(args) == "sampled" else 1
 
 
 def _leaves(x) -> list:
@@ -2734,29 +2896,85 @@ def particle_equal(out, want, args: dict) -> tuple:
     return deferred_equal(tuple(_leaves(out)), tuple(_leaves(want)), args)
 
 
-def particle_bound(name: str, args: dict, fetched: list) -> tuple:
-    """(bound_ms, bound_by) of one call, the larger of its bytes over 3.35
-    TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM). Billboards:
-    each particle's columns read and its two triangles' results written,
-    the three matrices read, num_valid written; PARTICLE_QUAD_OPS a
-    particle. A layer's shade: each lane's pair and pixel centre read and
-    its rgb and alpha written (28 B), with sampled SH its 48 B of SH read
-    (the full launch's input), each distinct packed row the lanes read
-    (128 B), the eye and the inverse view; PARTICLE_OPS of its smoke
-    branch and the display transform a lane. The smoke texels the lanes tap
-    are left out (a lower bound)."""
+_particle_world_pos: dict = {}  # id(args) -> (args, the lanes' world positions)
+
+
+def particle_world_pos(args: dict) -> torch.Tensor:
+    """The lanes' interpolated world positions, where a layer's SH is
+    sampled, as shade_particles_plain hands them to its sh_sampler; found
+    once a call."""
+    from superconductor_tpu_torch.ops.particles import shade_particles_plain
+
+    if id(args) not in _particle_world_pos:
+        seen, sampler = [], args["sh_sampler"]
+        shade_particles_plain(**dict(args, sh_sampler=lambda wp: (seen.append(wp),
+                                                                   sampler(wp))[1]))
+        _particle_world_pos[id(args)] = (args, seen[0])
+    return _particle_world_pos[id(args)][1]
+
+
+def pool_sectors(rows: list) -> int:
+    """The 32-B sectors that hold the 96-B SH pool rows [(pool, row
+    indices)] (sh_pool_rows)."""
+    addr = [t.data_ptr() + idx * (t.stride(0) * t.element_size()) for t, idx in rows
+            if idx.numel()]
+    return sector_count(torch.cat(addr), 96) if addr else 0
+
+
+def distinct_keys(args: dict) -> int:
+    """The distinct (pair, pixel centre bits) of a layer's lanes: the lanes
+    whose results the kernel must compute."""
+    keys = torch.stack([args["pair"].to(torch.int32), args["px"].view(torch.int32),
+                        args["py"].view(torch.int32)], dim=1)
+    return int(torch.unique(keys, dim=0).shape[0])
+
+
+def particle_bound_parts(name: str, args: dict) -> dict:
+    """A call's work, as this run's inputs need it: "bytes" it must move
+    and, for a layer's shade, "instructions" (the floor of
+    INSTRUCTIONS_PER_S's note), "keys" and "per_key" (the instructions of a
+    distinct key's result, the lanes' loads and stores beside them), or for
+    the billboards "ops" (FP32 operations). Billboards: each particle's
+    columns read and its two triangles' results written, the three matrices
+    read, num_valid written; PARTICLE_QUAD_OPS a particle. A layer's shade:
+    each lane's pair and pixel centre read and its rgb and alpha written
+    (28 B); each distinct packed row the lanes read (128 B), the eye and
+    the inverse view; a given SH's 48 B a lane, or the 32-B sectors of the
+    SH pools' rows the lanes tap and the probe box (24 B). The smoke
+    texels the lanes tap are left out (a floor)."""
     if name == "particle_geometry":
         n = particle_lanes(name, args)
-        nbytes = n * (PARTICLE_IN_BYTES + PARTICLE_OUT_BYTES) + 3 * 64 + 4
-        ops = n * PARTICLE_QUAD_OPS
-    else:
-        lanes = particle_lanes(name, args)
-        rows = int(torch.unique(torch.clamp_min(args["pair"], 0)).numel())
-        nbytes = lanes * (28 + (48 if particle_sampled_sh(args) else 0)) + rows * 128 + 12 + 64
-        display = (SHADE_OPS_ACES if args["inline_tonemapping"] else 0) + (
-            SHADE_OPS_SRGB if args["inline_srgb"] else 0)
-        ops = lanes * (PARTICLE_OPS[particle_smoke(args)] + display)
-    bytes_ms, ops_ms = nbytes / 3.35e9, ops / 67e9
+        return {"bytes": n * (PARTICLE_IN_BYTES + PARTICLE_OUT_BYTES) + 3 * 64 + 4,
+                "ops": n * PARTICLE_QUAD_OPS}
+    lanes, form, smoke = particle_lanes(name, args), particle_sh_form(args), particle_smoke(args)
+    rows = int(torch.unique(torch.clamp_min(args["pair"], 0)).numel())
+    nbytes = lanes * 28 + rows * 128 + 12 + 64
+    per_key = PARTICLE_OPS[smoke] + PARTICLE_KEY_LOADS[smoke] + (
+        SHADE_OPS_ACES if args["inline_tonemapping"] else 0) + (
+        SHADE_OPS_SRGB if args["inline_srgb"] else 0)
+    if form == "sampled":
+        nbytes += lanes * 48
+        per_key += 12
+    elif form == "pools":
+        pool = args["sh_sampler"]
+        nbytes += pool_sectors(sh_pool_rows(pool, particle_world_pos(args))) * 32 + 24
+        # the stand-in is not lightmapped: the volume where one is bound
+        per_key += SH_INSTRUCTIONS["volume" if pool._sets()[0] is not None else "lightmaps"]
+    # a given SH is an input of its own: each lane computed
+    keys = lanes if form == "sampled" else distinct_keys(args)
+    return {"bytes": nbytes, "instructions": keys * per_key + lanes * PARTICLE_LANE_IO,
+            "keys": keys, "per_key": per_key}
+
+
+def particle_bound(name: str, args: dict, fetched: list) -> tuple:
+    """(bound_ms, bound_by) of one call (particle_bound_parts): the larger
+    of its bytes over 3.35 TB/s and, for the billboards, its FP32
+    operations over 67 TFLOP/s (H100 SXM), for a layer's shade its
+    instruction floor over INSTRUCTIONS_PER_S ("operations")."""
+    parts = particle_bound_parts(name, args)
+    bytes_ms = parts["bytes"] / 3.35e9
+    ops_ms = (parts["ops"] / 67e9 if name == "particle_geometry"
+              else parts["instructions"] / INSTRUCTIONS_PER_S * 1e3)
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -2771,47 +2989,112 @@ def particle_rows(name: str, args: dict, fetched: list) -> list:
 
 
 def particle_detail(name: str, args: dict):
-    """At a shade call with sampled SH: its two launches alone, the SH the
-    frame's sampler gave handed back by a stand-in sampler, and that
-    sampler alone on the lanes' positions (bench_raster.graph_ms); None
-    elsewhere."""
-    if name != "shade_particles" or not particle_sampled_sh(args):
+    """At a layer's shade: its bytes and instruction bounds apart
+    (particle_bound_parts); with the SH pools, the two-launch form with the
+    frame's torch sampler in the sampler's place (a closure over the
+    PoolSH, which the wrapper cannot read in place) and that sampler alone
+    on the lanes' positions; with sampled SH, its two launches alone (the
+    SH the sampler gave handed back by a stand-in) and the sampler alone
+    (bench_raster.graph_ms); None at the billboards."""
+    if name != "shade_particles":
         return None
     from superconductor_tpu_torch.bench_raster import graph_ms
     from superconductor_tpu_torch.ops import particles as particles_mod
 
-    seen = {}
+    parts = particle_bound_parts(name, args)
+    line = (f"bounds: bytes {parts['bytes'] / 3.35e9:.4f} ms ({parts['bytes']} B), "
+            f"instructions {parts['instructions'] / INSTRUCTIONS_PER_S * 1e3:.4f} ms "
+            f"({parts['keys']} distinct keys x {parts['per_key']} + "
+            f"{particle_lanes(name, args)} lanes x {PARTICLE_LANE_IO})")
+    form = particle_sh_form(args)
+    if form == "pools":
+        pool = args["sh_sampler"]
+        world_pos = particle_world_pos(args)
+        closure = dict(args, sh_sampler=lambda wp: pool(wp))
+        two_ms = graph_ms(lambda: particles_mod.shade_particles(**closure), launches=5,
+                          runs=10)
+        sampler_ms = graph_ms(lambda: pool(world_pos), launches=5, runs=10)
+        line += (f"; the two-launch form with the torch sampler {two_ms:.4f} ms, that sampler "
+                 f"alone {sampler_ms:.4f} ms")
+    elif form == "sampled":
+        seen = {}
 
-    def sample(world_pos):
-        seen["world_pos"], seen["sh"] = world_pos, args["sh_sampler"](world_pos)
-        return seen["sh"]
+        def sample(world_pos):
+            seen["world_pos"], seen["sh"] = world_pos, args["sh_sampler"](world_pos)
+            return seen["sh"]
 
-    particles_mod.shade_particles(**dict(args, sh_sampler=sample))
-    given = dict(args, sh_sampler=lambda world_pos: seen["sh"])
-    kernel_ms = graph_ms(lambda: particles_mod.shade_particles(**given))
-    sampler_ms = graph_ms(lambda: args["sh_sampler"](seen["world_pos"]), launches=5, runs=10)
-    return (f"its two launches alone (the SH given) {kernel_ms:.4f} ms; the frame's SH sampler "
-            f"alone {sampler_ms:.4f} ms")
+        particles_mod.shade_particles(**dict(args, sh_sampler=sample))
+        given = dict(args, sh_sampler=lambda world_pos: seen["sh"])
+        kernel_ms = graph_ms(lambda: particles_mod.shade_particles(**given))
+        sampler_ms = graph_ms(lambda: args["sh_sampler"](seen["world_pos"]), launches=5,
+                              runs=10)
+        line += (f"; its two launches alone (the SH given) {kernel_ms:.4f} ms, the frame's SH "
+                 f"sampler alone {sampler_ms:.4f} ms")
+    return line
+
+
+def particle_baseline(name: str, args: dict):
+    """The baseline tree's particle shade at a layer, its ops/particles.py
+    on its csrc/shade.cu, as its frame called it there (a PoolSH is a
+    callable sampler to it); None at the billboards or without a
+    baseline."""
+    if BASELINE["root"] is None or name != "shade_particles":
+        return None
+    mod = baseline_module("particles", "shade")
+    return lambda: mod.shade_particles(**args)
 
 
 PARTICLES_PHASE = HandPhase("particles", PARTICLES, particle_lanes, particle_site,
                             particle_equal, particle_bound, particle_rows, ("particles",),
-                            call_launches=particle_launches, detail=particle_detail)
+                            call_launches=particle_launches, baseline=particle_baseline,
+                            detail=particle_detail)
+
+
+def covered_layers(calls: list, smi: str) -> None:
+    """The deep_k frame's layers by their covered lanes (pair >= 0; the
+    lanes past the worklist's count are dead and repeat one granule): for
+    each count, its first layer held bit for bit against its plain version
+    and timed as the frame calls it and, with --baseline, the baseline
+    tree's kernel (bench_raster.graph_ms)."""
+    from superconductor_tpu_torch.bench_raster import graph_ms
+    from superconductor_tpu_torch.ops import particles as particles_mod
+
+    by_covered = collections.defaultdict(list)
+    for name, _, args in calls:
+        by_covered[int((args["pair"] >= 0).sum())].append(args)
+    for covered, layers in sorted(by_covered.items()):
+        args = layers[0]
+        out = particles_mod.shade_particles(**args)
+        want = particles_mod.shade_particles_plain(**args)
+        equal, total, bad = particle_equal(out, want, args)
+        if not equal:
+            raise RuntimeError(f"deep_k layer with {covered} covered lanes: {bad} of {total} "
+                               f"values differ from the plain version")
+        ms = graph_ms(lambda: particles_mod.shade_particles(**args))
+        base = particle_baseline("shade_particles", args)
+        phase("particles", f"deep_k layer with {covered} of {args['pair'].shape[0]} lanes "
+              f"covered ({len(layers)} layers): kernel {ms:.4f} ms, the baseline tree's kernel "
+              + ("not measured" if base is None else f"{graph_ms(base):.4f} ms")
+              + f"; bit for bit; {smi}")
 
 
 def particles_path(smi: str, frames: dict) -> dict:
     """Phase [particles] (the particle shade, csrc/shade.cu, and the
     billboards, csrc/geometry.cu): hand_path on the all-passes frame (4
-    particle layers), the lit frame (the smoke pool, the light volume's
-    two-launch form) and the deep_k frame (64 layers); each frame's
-    launches of both kernels read from their counters, set to 0 just
-    before one more eager frame and read just after: one billboard launch
-    a view, and one shade launch a particle layer a view's band (two with
-    sampled SH); then a constructed call of the per-slot LDR branch (the
+    particle layers), the lit frame (the smoke pool, the light volume
+    sampled from its SH pool in the launch) and the deep_k frame (64
+    layers); each frame's launches of both kernels read from their
+    counters, set to 0 just before one more eager frame and read just
+    after: one billboard launch a view, and one shade launch a particle
+    layer a view's band (two where a layer's SH is sampled between two
+    launches, which none of these frames does), with the torch SH sampler
+    (ops/shade.py sample_spherical_harmonics.CALLS) run in none of the
+    frame's calls, and the deep_k frame's layers timed once a count of
+    covered lanes (covered_layers); then a constructed call of the per-slot LDR branch (the
     lit frame's largest layer with the smoke pool taken out of its
     tables), held against its plain version and timed. Returns
     hand_path's result."""
-    from superconductor_tpu_torch.ops.shade import _ambient_only
+    from superconductor_tpu_torch.ops.shade import sample_spherical_harmonics
     from superconductor_tpu_torch.render.frame import render_frame_impl
 
     result = hand_path(PARTICLES_PHASE, smi, frames)
@@ -2821,19 +3104,28 @@ def particles_path(smi: str, frames: dict) -> dict:
         for ws in counters.values():
             for w in ws:
                 w.LAUNCHES = 0
-        render_frame_impl(tables, state, config, env)
+        sampled = sample_spherical_harmonics.CALLS
+        with record_calls(("particle_shade",)) as calls:
+            render_frame_impl(tables, state, config, env)
         torch.cuda.synchronize()
+        sampled = sample_spherical_harmonics.CALLS - sampled
         counts = {k: sum(w.LAUNCHES for w in ws) for k, ws in counters.items()}
         layers = len(config.layer_caps(config.resolve_particle_layers())) * config.num_views \
             * config.row_chunks
-        a_layer = 1 if _ambient_only(env) else 2
+        forms = collections.Counter(particle_sh_form(args) for _, _, args in calls)
         phase("particles", f"{scene}: launches of one eager frame by the counters: shade "
-              f"{counts['particle_shade']} ({layers} layers x {a_layer}), billboards "
-              f"{counts['particle_geometry']} ({config.num_views} view(s)); {smi}")
-        if counts["particle_shade"] != layers * a_layer \
+              f"{counts['particle_shade']} ({layers} layers, SH {dict(forms)}: one launch a "
+              f"layer), billboards {counts['particle_geometry']} ({config.num_views} "
+              f"view(s)); the torch SH sampler ran {sampled} times in the frame; {smi}")
+        if counts["particle_shade"] != layers or forms["sampled"] or sampled \
                 or counts["particle_geometry"] != config.num_views:
-            raise RuntimeError(f"the {scene} frame's particle launches {counts}: expected "
-                               f"{layers * a_layer} and {config.num_views}")
+            raise RuntimeError(f"the {scene} frame's particle launches {counts}, SH forms "
+                               f"{dict(forms)}, torch SH sampler calls {sampled}: expected "
+                               f"{layers} and {config.num_views}, none sampled")
+        if scene == "lit_passes" and forms["pools"] != layers:
+            raise RuntimeError(f"the lit frame's layers took the SH as {dict(forms)}")
+        if scene == "deep_k":
+            covered_layers(calls, smi)
 
     tables, build, config, env = frames["lit_passes"]
     with record_calls(("particle_shade",)) as calls:
@@ -4276,9 +4568,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--baseline", default=None,
-                        help="root of another tree of this repo whose geometry and "
-                             "worklist kernels [geometry] and [worklist] time beside this "
-                             "tree's at each site")
+                        help="root of another tree of this repo whose geometry, "
+                             "worklist, shade and particle shade kernels [geometry], "
+                             "[worklist], [shade] and [particles] time beside this tree's "
+                             "at each site, as its frame called them")
     BASELINE["root"] = parser.parse_args().baseline
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")

@@ -16,9 +16,12 @@
 // emissive); the factors (columns 0-9) and the MAT_UNLIT flag (column 16)
 // of the lane's material row, read in place from the row table (mat_row_mq
 // or mat_row by material id, or the g-buffer's mat_tail, a row a lane);
-// the lane's (4, 3) SH coefficients, or the 12 ambient ones by value; and
-// the view's eye, read through a device pointer (a CUDA graph's input
-// buffer that a new pose overwrites). It writes rgb (P, 3) and alpha (P,).
+// the lane's SH: sampled here from the light volume's and the lightmaps'
+// SH pools at the g-buffer's world_pos, lm_uv and lightmapped
+// (csrc/sh_sample.cuh, the instantiation shade_kernel<true>), or (4, 3)
+// coefficients given a lane, or the 12 ambient ones by value; and the
+// view's eye, read through a device pointer (a CUDA graph's input buffer
+// that a new pose overwrites). It writes rgb (P, 3) and alpha (P,).
 //
 // Per lane, in the chain's order: the factors and the albedo, metallic,
 // roughness and emissive terms; the geometric normal, flipped for a back
@@ -33,7 +36,8 @@
 // its material id (4 B, by id), six g-buffer vectors (64 B), s16 (64 B),
 // the 44 B of its material row that hold the factors and the flag (in the
 // 32-B sectors that hold them; the frames' materials are few, so the rows
-// stay in cache), its 48 B of SH on the lit scenes, and writes 16 B; an
+// stay in cache), on the lit scenes the 96-B pool rows of its SH taps
+// (neighbouring lanes share them) or 48 B of given SH, and writes 16 B; an
 // invalid lane reads its valid byte and writes 16 B. The arithmetic, 346
 // FP32 operations a lit lane before the display transform and 379 with it,
 // counting each powf, square root and reciprocal square root as one
@@ -77,14 +81,28 @@
 // a layer); else the position form (`form` 1) writes the lanes' world
 // positions, the frame's SH sampler (a torch chain) samples them, and the
 // full form reads the (P, 4, 3) result by its strides (two launches).
+// Where the frame's sampler is a PoolSH whose pools are bound
+// (ops/particles.py sh_form "pools"), the one launch of shade_kernel<true>
+// samples the SH at the lane's interpolated position as the frame's
+// stand-in g-buffer asks it (lm_uv 0, not lightmapped: the volume where one
+// is bound), csrc/sh_sample.cuh.
 //
-// What bounds it on this card: bytes. A lane reads its pair (4 B), its
-// pixel centre (8 B) and, on the lit scenes, its 48 B of SH, and writes rgb
-// and alpha (16 B); its packed row (128 B) and its texels are rows of
-// tables of a few kilobytes that stay in cache. Its arithmetic is about 240
-// FP32 operations (chip_smoke.py PARTICLE_OPS), under the bytes at the
-// card's rate. Design: registers only, the row read with 16-B loads where
-// it is aligned, nothing written but the result.
+// What bounds it on this card: the instructions, then the bytes. A lane
+// reads its pair (4 B) and pixel centre (8 B) and writes rgb and alpha
+// (16 B); its packed row (128 B), its texels and its SH pool rows (96 B a
+// tap) are rows of tables that stay in cache. Its arithmetic is 450-900
+// instructions (chip_smoke.py particle_bound_parts: about 450 with the
+// smoke pool, 450 more for the light volume's two SH taps), above the
+// bytes at the card's issue rate wherever most lanes are distinct.
+// Design: a thread a lane, registers only, the row read with 16-B loads
+// where it is aligned, nothing written but the result. A dead lane (pair
+// -1) whose key the lane a stride before holds returns at once: the stride
+// is as many threads as the card holds at once (particle_resident_threads,
+// by instantiation), and the first lane of each run of equal keys along it
+// computes its result and copies it down the run, so that a frame's dead
+// tail (pair -1 at one granule's pixel centres, repeating with a period
+// that divides the stride) is computed once a stride; a given SH is an
+// input of its own, so its lanes are each computed.
 //
 // Bit for bit with the chain on the card, beside the rules above: torch.sum
 // over a contiguous (P, 3) last dim adds (x0 + x2) + x1 (its reduction
@@ -98,6 +116,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sh_sample.cuh"
 #include "torch_exact.cuh"
 
 namespace {
@@ -134,8 +153,13 @@ struct ShadeArgs {
   long long n_rows;
   const int* mat;
   long long mat_s;
-  const float* sh;  // (P, 4, 3), the (4, 3) adjacent; null: ambient
+  const float* sh;  // (P, 4, 3), the (4, 3) adjacent; null: the pools or ambient
   long long sh_s;
+  ShPools pools;  // with sh null and a pool bound: the SH sampled here
+  const float* lm_uv;  // (P, 2): the lightmaps' uv
+  long long lm_uv_s;
+  const uint8_t* lightmapped;  // (P,)
+  long long lightmapped_s;
   float ambient[12];
   const float* eye;  // the view's (3,) eye on the device
   long long eye_s;
@@ -185,6 +209,10 @@ __device__ __forceinline__ void load_vec(const float* base, long long p, long lo
   for (int c = 0; c < C; ++c) v[c] = __ldg(base + p * s + c);
 }
 
+// kPools: the SH sampled from a.pools (csrc/sh_sample.cuh); otherwise given
+// (a.sh) or the ambient values. Two instantiations, so that a frame without
+// the pools runs code free of the sampler's registers.
+template <bool kPools>
 __global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.lanes) return;
@@ -275,18 +303,27 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
   // the view vector
   float v[3];
   load_vec<3>(a.world_pos, p, a.wp_s, v);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) v[j] = sub(__ldg(a.eye + j * a.eye_s), v[j]);
-  normalize(v);
 
   // sh[k][c]: L0, L1x, L1y, L1z by colour
   float sh[12];
-  if (a.sh != nullptr) {
+  if (kPools) {
+    const bool lightmapped =
+        a.lightmapped != nullptr && __ldg(a.lightmapped + p * a.lightmapped_s) != 0;
+    float lu = 0.0f, lv = 0.0f;
+    if (a.pools.lm != nullptr && (a.pools.lv == nullptr || lightmapped)) {
+      lu = __ldg(a.lm_uv + p * a.lm_uv_s);
+      lv = __ldg(a.lm_uv + p * a.lm_uv_s + 1);
+    }
+    sample_sh(a.pools, v, lu, lv, lightmapped, sh);
+  } else if (a.sh != nullptr) {
     load_vec<12>(a.sh, p, a.sh_s, sh);
   } else {
 #pragma unroll
     for (int k = 0; k < 12; ++k) sh[k] = a.ambient[k];
   }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) v[j] = sub(__ldg(a.eye + j * a.eye_s), v[j]);
+  normalize(v);
 
   // diffuse: albedo * (1 - metallic) * eval_sh_nonlinear(sh, n)
   const float one_m = sub(1.0f, metallic);
@@ -374,10 +411,11 @@ struct ParticleShadeArgs {
   const float* view_inverse;  // the view's (4, 4)
   long long vi_s0;
   long long vi_s1;
-  const float* sh;  // (P, 4, 3), or null: the ambient values
+  const float* sh;  // (P, 4, 3), or null: the pools or the ambient values
   long long sh_s0;
   long long sh_s1;
   long long sh_s2;
+  ShPools pools;  // with sh null and a pool bound: the SH sampled at the lane
   long long smoke;  // kSmoke*
   const uint32_t* smoke_ab;  // (w * h, 32) u8
   long long ab_s;
@@ -482,10 +520,12 @@ __device__ __forceinline__ void slot_tap(const ParticleShadeArgs& a, long long t
     for (int c = 0; c < 3; ++c) out[c] = srgb_to_linear(out[c]);
 }
 
-__global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs a) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.lanes) return;
-  const int pair = __ldg(a.pair + p * a.pair_s);
+// Lane p of a layer, a function of (pair, x, y), the call's tables and,
+// where the SH is given, the lane's SH: out = rgb and alpha, or with `form`
+// 1 the world position (out[0..2])
+template <bool kPools>
+__device__ __forceinline__ void particle_lane(const ParticleShadeArgs& a, long long p, int pair,
+                                              float x, float y, float out[4]) {
   const float* rp = a.packed + row_of(max(pair, 0), a.n_rows) * a.packed_s;
   float row[32];
   if (a.packed_vec) {
@@ -503,7 +543,6 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs
   }
 
   // barycentrics from the adjoint edges, the interpolated uv and position
-  const float x = __ldg(a.px + p * a.px_s), y = __ldg(a.py + p * a.py_s);
   float e[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) e[i] = add(add(mul(row[3 * i], x), mul(row[3 * i + 1], y)), row[3 * i + 2]);
@@ -519,7 +558,7 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs
                          mul(row[21 + c], bary[2]));
   if (a.form == 1) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) a.world_pos[p * 3 + c] = wp[c];
+    for (int c = 0; c < 3; ++c) out[c] = wp[c];
     return;
   }
   float uv[2];
@@ -540,7 +579,9 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs
 
   // sh[k][c]: L0, L1x, L1y, L1z by colour
   float sh[12];
-  if (a.sh != nullptr) {
+  if (kPools) {
+    sample_sh(a.pools, wp, 0.0f, 0.0f, false, sh);  // the stand-in: lm_uv 0, not lightmapped
+  } else if (a.sh != nullptr) {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
@@ -631,7 +672,6 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs
     for (int c = 0; c < 3; ++c) lut[c] = l4[c];
   }
 
-  float* rgb = a.rgb + p * 3;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float directional = mul(sh[c], len[c]);
@@ -640,16 +680,88 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs
     float o = add(mul(add(mul(directional, light_map), ambient), row[24 + c]), emission);
     if (a.aces) o = aces(o);
     if (a.srgb) o = srgb_approx(o);
-    rgb[c] = o;
+    out[c] = o;
   }
-  a.alpha[p] = pair >= 0 ? sb[3] : 0.0f;
+  out[3] = pair >= 0 ? sb[3] : 0.0f;
+}
+
+// Stores lane p's result (particle_lane's out)
+__device__ __forceinline__ void store_lane(const ParticleShadeArgs& a, long long p,
+                                           const float out[4]) {
+  if (a.form == 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a.world_pos[p * 3 + c] = out[c];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a.rgb[p * 3 + c] = out[c];
+    a.alpha[p] = out[3];
+  }
+}
+
+// A thread a lane. A dead lane (pair -1) whose key (pair and the bits of
+// x and y) the lane `tail` before it holds is written by that lane's
+// thread and returns at once; any other lane is computed by its thread,
+// and a dead one then walks forward by `tail` and copies its result to
+// each lane with the same key, up to the first that differs. The frame's
+// lanes past the compaction's count all hold pair -1 and the pixel
+// centres of one sentinel granule, so with a `tail` that is a multiple of
+// the granule the first `tail` of them are computed and the rest copied.
+// Live lanes read nothing more than a thread a lane would; a given SH is
+// an input of its own, so its lanes are each computed. kPools as
+// shade_kernel(ShadeArgs)'s.
+template <bool kPools>
+__global__ void __launch_bounds__(kThreads) shade_kernel(const ParticleShadeArgs a,
+                                                         long long tail) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= a.lanes) return;
+  const int pair = __ldg(a.pair + p * a.pair_s);
+  const float x = __ldg(a.px + p * a.px_s), y = __ldg(a.py + p * a.py_s);
+  const uint32_t bx = __float_as_uint(x), by = __float_as_uint(y);
+  const bool chain = pair < 0 && a.sh == nullptr;
+  if (chain && p >= tail) {
+    const long long q = p - tail;
+    if (__ldg(a.pair + q * a.pair_s) == pair && __float_as_uint(__ldg(a.px + q * a.px_s)) == bx &&
+        __float_as_uint(__ldg(a.py + q * a.py_s)) == by)
+      return;
+  }
+  float out[4];
+  particle_lane<kPools>(a, p, pair, x, y, out);
+  store_lane(a, p, out);
+  if (!chain) return;
+  for (long long q = p + tail; q < a.lanes; q += tail) {
+    if (__ldg(a.pair + q * a.pair_s) != pair || __float_as_uint(__ldg(a.px + q * a.px_s)) != bx ||
+        __float_as_uint(__ldg(a.py + q * a.py_s)) != by)
+      break;
+    store_lane(a, q, out);
+  }
+}
+
+// threads of the particle shade the current device holds at once, the dead
+// tail's stride (asked of the runtime once a device; -1 where it fails)
+template <bool kPools>
+long long particle_resident_threads() {
+  static long long known[64] = {};
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  if (device < 64 && known[device] > 0) return known[device];
+  void (*kernel)(const ParticleShadeArgs, long long) = shade_kernel<kPools>;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+          cudaSuccess) {
+    return -1;
+  }
+  const long long threads = (long long)sms * per_sm * kThreads;
+  if (device < 64) known[device] = threads;
+  return threads;
 }
 }  // namespace
 
 // The C entry point (ops/shade.py binds it with ctypes). Pointers are
-// device pointers but `ambient`, the host's 12 floats (read here, passed by
-// value); strides are in elements; mat null: a row a lane; sh null: the
-// ambient coefficients. The result is the launch's cudaError_t.
+// device pointers but `ambient`, the host's 12 floats, and `pools`, the
+// host's ShPools (both read here, passed by value); strides are in
+// elements; mat null: a row a lane; sh null: the SH from the pools where
+// `pools` is not null and binds one, else the ambient coefficients. The
+// result is the launch's cudaError_t.
 extern "C" int sc_shade(int lanes, const uint8_t* valid, long long valid_s,
                         const uint8_t* front_facing, long long ff_s, const float* normal,
                         long long normal_s, const float* world_pos, long long wp_s,
@@ -658,16 +770,21 @@ extern "C" int sc_shade(int lanes, const uint8_t* valid, long long valid_s,
                         const float* duvdy, long long duvdy_s, const float* s16,
                         long long s16_s, int s16_vec, const float* rows, long long rows_s,
                         long long n_rows, const int* mat, long long mat_s, const float* sh,
-                        long long sh_s, const float* ambient, const float* eye,
-                        long long eye_s, int aces, int srgb, float* rgb, float* alpha,
-                        void* stream) {
+                        long long sh_s, const void* pools, const float* lm_uv,
+                        long long lm_uv_s, const uint8_t* lightmapped, long long lightmapped_s,
+                        const float* ambient, const float* eye, long long eye_s, int aces,
+                        int srgb, float* rgb, float* alpha, void* stream) {
   ShadeArgs a{lanes, valid, valid_s, front_facing, ff_s, normal, normal_s, world_pos, wp_s,
               dpdx, dpdx_s, dpdy, dpdy_s, duvdx, duvdx_s, duvdy, duvdy_s, s16, s16_s, s16_vec,
-              rows, rows_s, n_rows, mat, mat_s, sh, sh_s, {}, eye, eye_s, aces, srgb, rgb,
-              alpha};
+              rows, rows_s, n_rows, mat, mat_s, sh, sh_s, {}, lm_uv, lm_uv_s, lightmapped,
+              lightmapped_s, {}, eye, eye_s, aces, srgb, rgb, alpha};
+  if (pools != nullptr) a.pools = *static_cast<const ShPools*>(pools);
   for (int k = 0; k < 12; ++k) a.ambient[k] = ambient[k];
   const int blocks = (lanes + kThreads - 1) / kThreads;
-  shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (a.sh == nullptr && (a.pools.lv != nullptr || a.pools.lm != nullptr))
+    shade_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    shade_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -676,10 +793,23 @@ extern "C" int sc_shade(int lanes, const uint8_t* valid, long long valid_s,
 // cudaError_t.
 extern "C" int sc_particle_shade(const void* args, void* stream) {
   const ParticleShadeArgs a = *static_cast<const ParticleShadeArgs*>(args);
+  const bool pools = a.sh == nullptr && (a.pools.lv != nullptr || a.pools.lm != nullptr);
+  const long long tail =
+      pools ? particle_resident_threads<true>() : particle_resident_threads<false>();
+  if (tail <= 0) {
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
+  }
   const long long blocks = (a.lanes + kThreads - 1) / kThreads;
-  shade_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (pools)
+    shade_kernel<true><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a, tail);
+  else
+    shade_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a, tail);
   return (int)cudaGetLastError();
 }
 
 // sizeof(ParticleShadeArgs), for the binding's check of its mirror
 extern "C" int sc_particle_shade_args_bytes() { return (int)sizeof(ParticleShadeArgs); }
+
+// sizeof(ShPools), for the binding's check of its mirror
+extern "C" int sc_sh_pools_bytes() { return (int)sizeof(ShPools); }

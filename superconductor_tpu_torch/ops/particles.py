@@ -11,7 +11,8 @@ puff (its own branch, not a fallback).
 ``particle_geometry`` and ``shade_particles`` launch hand-written kernels
 for CUDA tensors (csrc/geometry.cu ``view_setup_kernel(ParticleQuadArgs)``,
 one launch a view; csrc/shade.cu ``shade_kernel(ParticleShadeArgs)``, one
-launch a layer, two where a light volume or lightmaps are bound) and run
+launch a layer, the SH pools sampled in it where the frame's ``PoolSH``
+gives them; two where the SH comes from another sampler) and run
 their plain versions, the torch chains ``particle_geometry_plain`` and
 ``shade_particles_plain``, for CPU tensors (bit for bit with the kernels
 on the card). Each counts its launches in its ``LAUNCHES``.
@@ -27,7 +28,8 @@ import torch
 from .geometry import TriangleSetup, _setup_from_clip, clip_transform, device_values
 from .lines import _quad_corner_ids
 from .raster import _kernel_fn, _launched
-from .shade import _ambient_only, _normalize, sh_channel_vectors
+from . import shade as _shade_mod
+from .shade import PoolSH, _ambient_only, _normalize, _ShPools, sh_channel_vectors
 from .texture import (
     TEXFLAG_SRGB,
     _bilinear_core,
@@ -236,11 +238,13 @@ def shade_particles_plain(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs
 
 # --- The kernels (csrc/geometry.cu, csrc/shade.cu) ---------------------------
 
-def _mirror(name: str, source: str, fields: str, extra: tuple = ()):
+def _mirror(name: str, source: str, fields: str, extra: tuple = (), nested: dict = None):
     """A ctypes Structure of `fields` (each 8 B: pointers where the name
-    ends in "*", else long long) and then `extra`."""
-    spec = [(f.rstrip("*"), ctypes.c_void_p if f.endswith("*") else ctypes.c_longlong)
-            for f in fields.split()]
+    ends in "*", a struct where `nested` names its mirror, else long long)
+    and then `extra`."""
+    nested = nested or {}
+    spec = [(f.rstrip("*"), nested[f] if f in nested else
+             ctypes.c_void_p if f.endswith("*") else ctypes.c_longlong) for f in fields.split()]
     return type(name, (ctypes.Structure,), {
         "_fields_": spec + list(extra), "__doc__": f"{source} {name.lstrip('_')}, field for field."})
 
@@ -252,10 +256,11 @@ _QuadArgs = _mirror("_QuadArgs", "csrc/geometry.cu ParticleQuadArgs", """
     packed*""")
 _ShadeArgs = _mirror("_ShadeArgs", "csrc/shade.cu ParticleShadeArgs", """
     lanes form pair* pair_s px* px_s py* py_s packed* packed_s n_rows packed_vec eye* eye_s
-    view_inverse* vi_s0 vi_s1 sh* sh_s0 sh_s1 sh_s2 smoke smoke_ab* ab_s ab_rows ab_w ab_h
-    ab_wrap smoke_lut* lut_s lut_rows lut_w lut_h lut_wrap lut_srgb texels* texels_s
+    view_inverse* vi_s0 vi_s1 sh* sh_s0 sh_s1 sh_s2 pools smoke smoke_ab* ab_s ab_rows ab_w
+    ab_h ab_wrap smoke_lut* lut_s lut_rows lut_w lut_h lut_wrap lut_srgb texels* texels_s
     texels_rows texels_quad tex_meta* meta_s n_tex mip_owh* owh_s n_owh tex_a tex_b tex_lut
-    aces srgb rgb* alpha* world_pos*""", (("ambient", ctypes.c_float * 12),))
+    aces srgb rgb* alpha* world_pos*""", (("ambient", ctypes.c_float * 12),),
+    {"pools": _ShPools})
 SMOKE_PUFF, SMOKE_POOL, SMOKE_SLOTS = 0, 1, 2  # csrc/shade.cu kSmoke*
 PARTICLE_COLUMNS = {"center": (torch.float32, 3), "scale": (torch.float32, 2),
                     "valid": (torch.bool, None), "uv_offset": (torch.float32, 2),
@@ -418,6 +423,17 @@ def ambient_values(env) -> torch.Tensor:
     return torch.tensor(env.ambient_sh, dtype=torch.float32).reshape(-1)
 
 
+def sh_form(env, sh_sampler) -> str:
+    """How shade_particles' kernel takes a layer's SH: "ambient" (no light
+    volume and no lightmaps bound: env.ambient_sh by value), "pools" (a
+    PoolSH whose pools the kernel samples at each lane, one launch) or
+    "sampled" (any other sampler, or a PoolSH on the layered path: a
+    position launch, the sampler, a full launch)."""
+    if _ambient_only(env):
+        return "ambient"
+    return "pools" if isinstance(sh_sampler, PoolSH) and sh_sampler.pooled() else "sampled"
+
+
 def _lane_vector(fn: str, name: str, t, dtype, lanes: int, dev) -> None:
     if not isinstance(t, torch.Tensor) or t.device != dev or t.dtype != dtype \
             or tuple(t.shape) != (lanes,) or t.data_ptr() % 4:
@@ -438,13 +454,18 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
     and emissive mask from the smoke maps (or a radial puff without them),
     the emission from the LUT where the particle asks for it. CUDA tensors
     launch csrc/shade.cu shade_kernel(ParticleShadeArgs) on the packed rows
-    (attrs.packed, required there) and, where the environment binds no
-    light volume and no lightmaps, env.ambient_sh by value: one launch;
-    otherwise a launch writes the lanes' world positions, `sh_sampler`
-    samples the SH there, and a second launch shades with it (bit for bit
-    with the plain version on the card). CPU tensors run
-    shade_particles_plain; anything the kernel does not take raises.
-    Counts its launches in shade_particles.LAUNCHES."""
+    (attrs.packed, required there), by the SH's form (sh_form): one launch
+    with env.ambient_sh by value where the environment binds no light
+    volume and no lightmaps, or where `sh_sampler` is a pooled PoolSH (the
+    frame's) whose SH pools the kernel samples at each lane
+    (csrc/sh_sample.cuh); with another sampler (or a PoolSH on the layered
+    path), a launch writes the lanes' world positions, `sh_sampler` samples
+    the SH there, and a second launch shades with it (bit for bit with the
+    plain version on the card). Dead lanes (pair -1) that repeat a key a
+    stride apart, as the frame's lanes past its worklist's count do, are
+    computed once a run of them (csrc/shade.cu). CPU
+    tensors run shade_particles_plain; anything the kernel does not take
+    raises. Counts its launches in shade_particles.LAUNCHES."""
     dev = pair.device
     if dev.type == "cpu":
         return shade_particles_plain(pair, px, py, tri, attrs, particles, scene, uniforms, env,
@@ -478,10 +499,11 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
     ambient = ambient_values(env)
     if ambient.numel() != 12:
         raise ValueError(f"{fn}: ambient_sh must hold 12 values, got {ambient.numel()}")
+    form = sh_form(env, sh_sampler)
+    pools = sh_sampler.pools_struct(fn, dev) if form == "pools" else None
     if lanes >= 2 ** 31:
         raise ValueError(f"{fn}: {lanes} lanes")
-    if dev.type != "cuda":
-        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
+    _shade_mod._need_cuda(fn, dev)
     rgb = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
     alpha = torch.empty((lanes,), dtype=torch.float32, device=dev)
     if not lanes:
@@ -493,10 +515,13 @@ def shade_particles(pair, px, py, tri: TriangleSetup, attrs: ParticleAttrs,
         packed_vec=int(rows.data_ptr() % 16 == 0 and rows.stride(0) % 4 == 0),
         eye=eye.data_ptr(), eye_s=eye.stride(0), view_inverse=vi.data_ptr(), vi_s0=vi.stride(0),
         vi_s1=vi.stride(1), aces=int(bool(inline_tonemapping)), srgb=int(bool(inline_srgb)),
-        rgb=rgb.data_ptr(), alpha=alpha.data_ptr(), ambient=(ctypes.c_float * 12)(
-            *ambient.tolist()), **smoke)
+        rgb=rgb.data_ptr(), alpha=alpha.data_ptr(),
+        ambient=(ctypes.c_float * 12)(*ambient.tolist()), **smoke)
     with torch.cuda.device(dev):
-        if not _ambient_only(env):
+        if form == "pools":
+            _shade_mod._check_pools_mirror()
+            a.pools = pools
+        elif form == "sampled":
             world_pos = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
             a.form, a.world_pos = 1, world_pos.data_ptr()
             _launch(fn, "sc_particle_shade", "sc_particle_shade_args_bytes", a)

@@ -132,7 +132,9 @@ _SIGNATURES = {
     # ops/shade.py's deferred shade (csrc/shade.cu)
     "sc_shade": ("shade",
                  [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _I,
-                  _P, _L, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P, _P, _P]),
+                  _P, _L, _L, _P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _P, _L, _I, _I, _P, _P,
+                  _P]),
+    "sc_sh_pools_bytes": ("shade", []),
     # ops/particles.py's particle shade (csrc/shade.cu): the address of a
     # struct of arguments, and the stream
     "sc_particle_shade": ("shade", [_P, _P]),

@@ -365,6 +365,7 @@ def sample_spherical_harmonics(gbuf: GBuffer, scene: dict, uniforms: dict, env):
     the scene publishes one and its static dims are bound, else layer by
     layer through the HDR pool; the L1 bands are stored 0..1-encoded and
     unpacked with * 255/127 - 128/127."""
+    sample_spherical_harmonics.CALLS += 1
     p = gbuf.world_pos.shape[0]
     dev = gbuf.world_pos.device
     scale = 255.0 / 127.0
@@ -406,6 +407,125 @@ def sample_spherical_harmonics(gbuf: GBuffer, scene: dict, uniforms: dict, env):
         ambient = device_values(env.ambient_sh, torch.float32, dev).reshape(4, 3)
         sh = ambient.expand(p, 4, 3)
     return sh
+
+
+sample_spherical_harmonics.CALLS = 0  # calls, for a run to show the chain did not run
+
+
+class _ShPools(ctypes.Structure):
+    """csrc/sh_sample.cuh ShPools, field for field (8 B each)."""
+
+    _fields_ = [(f.rstrip("*"), ctypes.c_void_p if f.endswith("*") else ctypes.c_longlong)
+                for f in "lv* lv_s lv_rows lv_vec lv_w lv_h lv_z lm* lm_s lm_rows lm_vec lm_w lm_h "
+                         "bl* bl_s scale* scale_s".split()]
+
+
+_pools_checked: list = []  # [True] once the library's ShPools has the mirror's size
+
+
+def _check_pools_mirror() -> None:
+    """Raises unless csrc/sh_sample.cuh's ShPools, as the kernel library
+    was built, has _ShPools' size (checked once)."""
+    if not _pools_checked:
+        size = _kernel_fn("sc_sh_pools_bytes")()
+        if size != ctypes.sizeof(_ShPools):
+            raise RuntimeError(f"csrc/sh_sample.cuh's ShPools takes {size} B, its ctypes mirror "
+                               f"{ctypes.sizeof(_ShPools)} B")
+        _pools_checked.append(True)
+
+
+def _pool_table(fn: str, name: str, t, dev) -> tuple:
+    """(row stride in halves, rows, 16-B aligned rows) of an SH pool the
+    kernels take: a non-empty (rows, 48) float16 table on dev with adjacent
+    columns and 4-B aligned rows."""
+    if not isinstance(t, torch.Tensor) or t.device != dev or t.dtype != torch.float16 \
+            or t.dim() != 2 or t.shape[1] != 48 or t.shape[0] < 1 or t.stride(1) != 1 \
+            or t.stride(0) % 2 or t.data_ptr() % 4:
+        raise ValueError(f"{fn}: {name} must be a non-empty (rows, 48) float16 table on {dev} "
+                         f"with adjacent columns and 4-B aligned rows, got "
+                         + (f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}"
+                            if isinstance(t, torch.Tensor) else type(t).__name__))
+    return t.stride(0), t.shape[0], int(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0)
+
+
+class PoolSH:
+    """The SH of a frame's lanes (sample_spherical_harmonics on `scene`,
+    `uniforms` and `env`) as the shade kernels read it in place: called on
+    world positions (the particle shade's sh_sampler), the stand-in
+    g-buffer render/frame.py gave it (lm_uv 0, not lightmapped); `sample`
+    on a g-buffer (the deferred shade). Where every bound texture set has
+    its SH-interleaved pool and static dims (`pooled`), csrc/shade.cu's
+    kernels sample those pools themselves (csrc/sh_sample.cuh,
+    `pools_struct` gives them the tables); elsewhere (the layered path,
+    a configuration without the pools) the wrappers take the SH from this
+    torch chain."""
+
+    def __init__(self, scene: dict, uniforms: dict, env):
+        self.scene, self.uniforms, self.env = scene, uniforms, env
+
+    def __call__(self, world_pos: torch.Tensor) -> torch.Tensor:
+        n, dev = world_pos.shape[0], world_pos.device
+        stand_in = GBuffer(
+            valid=None, world_pos=world_pos, normal=None, uv=None,
+            lm_uv=torch.zeros_like(world_pos[..., :2]), material=None, front_facing=None,
+            lightmapped=torch.zeros(n, dtype=torch.bool, device=dev),
+            dpdx=None, dpdy=None, duvdx=None, duvdy=None,
+        )
+        return self.sample(stand_in)
+
+    def sample(self, gbuf: GBuffer) -> torch.Tensor:
+        return sample_spherical_harmonics(gbuf, self.scene, self.uniforms, self.env)
+
+    def _sets(self) -> tuple:
+        """(light volume, lightmaps): each bound set's (pool key, dims), or
+        None where the set is not bound."""
+        env = self.env
+        lv = None if env.lightvol_tex_ids is None else ("lv_sh", env.lightvol_wh)
+        lm = None if env.lightmap_tex_ids is None else ("lm_sh", env.lightmap_wh)
+        return lv, lm
+
+    def pooled(self) -> bool:
+        """Some texture set is bound, and every bound one has its pool in
+        the scene and its static dims: sample_spherical_harmonics takes the
+        interleaved path for each."""
+        sets = [s for s in self._sets() if s is not None]
+        return bool(sets) and all(key in self.scene and wh is not None for key, wh in sets)
+
+    def pools_struct(self, fn: str, dev) -> _ShPools:
+        """The ShPools of csrc/shade.cu's kernels (pooled() only): the
+        bound pools' tables, dims and the probe box on dev; raises on pools
+        and uniforms the kernels do not take."""
+        lv, lm = self._sets()
+        p = _ShPools()
+        if lv is not None:
+            w, h = (int(v) for v in lv[1])
+            z = int(self.env.lightvol_z_layers or 0)
+            s, rows, vec = _pool_table(fn, "scene['lv_sh']", self.scene.get("lv_sh"), dev)
+            if w < 1 or h < 1 or z < 1 or rows < w * h * z or w * h * z >= 2 ** 31:
+                raise ValueError(f"{fn}: the light volume's pool holds {rows} rows, its dims "
+                                 f"{w} x {h} x {z} want {w * h * z}")
+            for name in ("probes_bottom_left", "probes_scale"):
+                t = self.uniforms.get(name)
+                if not isinstance(t, torch.Tensor) or t.device != dev \
+                        or t.dtype != torch.float32 or tuple(t.shape) != (3,) or t.data_ptr() % 4:
+                    raise ValueError(f"{fn}: uniforms[{name!r}] must be (3,) float32 on {dev}, "
+                                     f"got " + (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                                                if isinstance(t, torch.Tensor)
+                                                else type(t).__name__))
+            bl, sc = self.uniforms["probes_bottom_left"], self.uniforms["probes_scale"]
+            p.lv, p.lv_s, p.lv_rows, p.lv_vec = self.scene["lv_sh"].data_ptr(), s, rows, vec
+            p.lv_w, p.lv_h, p.lv_z = w, h, z
+            p.bl, p.bl_s, p.scale, p.scale_s = bl.data_ptr(), bl.stride(0), sc.data_ptr(), \
+                sc.stride(0)
+        if lm is not None:
+            w, h = (int(v) for v in lm[1])
+            s, rows, vec = _pool_table(fn, "scene['lm_sh']", self.scene.get("lm_sh"), dev)
+            if w < 1 or h < 1 or rows < w * h or w * h >= 2 ** 31:
+                raise ValueError(f"{fn}: the lightmaps' pool holds {rows} rows, its dims "
+                                 f"{w} x {h} want {w * h}")
+            p.lm, p.lm_s, p.lm_rows, p.lm_vec = self.scene["lm_sh"].data_ptr(), s, rows, vec
+            p.lm_w, p.lm_h = w, h
+        return p
 
 
 def _mq_rows(m: dict, mat, gbuf=None):
@@ -487,8 +607,11 @@ def shade_lanes_plain(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
     """shade_lanes' plain version, the torch chain: the factors and flags
     of the lanes' material rows, the PBR terms, the SH lighting (`sh` (P,
     4, 3), or with sh None the 12 `ambient_sh`), the display transform,
-    the unlit branch and the misses."""
+    the unlit branch and the misses. A PoolSH `sh` is sampled here, on
+    gbuf."""
     pf, pi = _factors(rows if mat is None else rows[:, :META][mat])
+    if isinstance(sh, PoolSH):
+        sh = sh.sample(gbuf)
     if sh is None:
         sh = device_values(ambient_sh, torch.float32, s16.device).reshape(4, 3).expand(
             s16.shape[0], 4, 3)
@@ -536,17 +659,28 @@ def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
     material textures s16 (P, 16) f32, the table `rows` (R, >= 20) f32
     whose rows hold their factors and flags, indexed by mat (P,) i32, or
     with mat None a row a lane (the g-buffer's mat_tail), their SH
-    coefficients sh (P, 4, 3) f32 or with sh None the 12 host floats
-    `ambient_sh`, and the view's eye (3,) f32 on the device. CUDA tensors
-    launch csrc/shade.cu shade_kernel (bit for bit with the plain version
-    on the card; it reads the rows, the eye and every lane's inputs in
-    place, and skips an invalid lane's arithmetic), CPU tensors run
+    coefficients sh (P, 4, 3) f32, or a PoolSH (the frame's light volume
+    and lightmaps), or with sh None the 12 host floats `ambient_sh`, and the
+    view's eye (3,) f32 on the device. CUDA tensors launch csrc/shade.cu
+    shade_kernel (bit for bit with the plain version on the card; it reads
+    the rows, the eye and every lane's inputs in place, and skips an
+    invalid lane's arithmetic); a pooled PoolSH the kernel samples itself
+    at the valid lanes' world_pos, lm_uv and lightmapped
+    (csrc/sh_sample.cuh), another one (the layered path) gives its torch
+    chain's SH first, counted in shade.SAMPLED_SH. CPU tensors run
     shade_lanes_plain; anything the kernel does not take raises. Counts
     its launches in shade.LAUNCHES."""
     dev = gbuf.valid.device
     if dev.type == "cpu":
         return shade_lanes_plain(gbuf, s16, rows, mat, sh, ambient_sh, eye,
                                  inline_tonemapping, inline_srgb)
+    pools = None
+    if isinstance(sh, PoolSH):
+        if sh.pooled():
+            pools, sh = sh, None
+        else:
+            sh = sh.sample(gbuf)
+            _SHADE_COUNTER.SAMPLED_SH += 1
     lanes = gbuf.valid.shape[0] if gbuf.valid.dim() == 1 else -1
     for name, t in (("valid", gbuf.valid), ("front_facing", gbuf.front_facing)):
         if t.device != dev or t.dtype != torch.bool or t.shape != (lanes,):
@@ -581,6 +715,18 @@ def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
         if sh.stride(1) != 3:
             raise ValueError(f"shade: sh must hold each lane's (4, 3) adjacent, got strides "
                              f"{sh.stride()}")
+    lm_uv = lightmapped = None
+    if pools is not None:
+        pools = pools.pools_struct("shade", dev)
+        if pools.lm_w:
+            _check_lane_rows("gbuf.lm_uv", gbuf.lm_uv, (lanes, 2), dev)
+            lm_uv = gbuf.lm_uv
+            if pools.lv_w:
+                t = gbuf.lightmapped
+                if not isinstance(t, torch.Tensor) or t.device != dev or t.dtype != torch.bool \
+                        or tuple(t.shape) != (lanes,):
+                    raise ValueError(f"shade: gbuf.lightmapped must be ({lanes},) bool on {dev}")
+                lightmapped = t
     ambient = torch.tensor(ambient_sh, dtype=torch.float32)
     if ambient.numel() != 12:
         raise ValueError(f"shade: ambient_sh must hold 12 values, got {ambient.numel()}")
@@ -590,14 +736,15 @@ def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
                          f"{tuple(eye.shape)} on {eye.device}")
     if lanes >= 2 ** 31:
         raise ValueError(f"shade: {lanes} lanes")
-    if dev.type != "cuda":
-        raise ValueError(f"shade: the kernel runs on CUDA tensors, not {dev}")
+    _need_cuda("shade", dev)
     rgb = torch.empty((lanes, 3), dtype=torch.float32, device=dev)
     alpha = torch.empty((lanes,), dtype=torch.float32, device=dev)
     if lanes:
         s16_vec = s16.data_ptr() % 16 == 0 and s16.stride(0) % 4 == 0
         g = gbuf
         with torch.cuda.device(dev):
+            if pools is not None:
+                _check_pools_mirror()
             err = _kernel_fn("sc_shade")(
                 lanes, g.valid.data_ptr(), g.valid.stride(0), g.front_facing.data_ptr(),
                 g.front_facing.stride(0),
@@ -606,6 +753,11 @@ def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
                 s16.data_ptr(), s16.stride(0), int(s16_vec), rows.data_ptr(), rows.stride(0),
                 rows.shape[0], mat_ptr, mat_s,
                 None if sh is None else sh.data_ptr(), 0 if sh is None else sh.stride(0),
+                None if pools is None else ctypes.byref(pools),
+                None if lm_uv is None else lm_uv.data_ptr(),
+                0 if lm_uv is None else lm_uv.stride(0),
+                None if lightmapped is None else lightmapped.data_ptr(),
+                0 if lightmapped is None else lightmapped.stride(0),
                 (ctypes.c_float * 12)(*ambient.tolist()), eye.data_ptr(), eye.stride(0),
                 int(bool(inline_tonemapping)), int(bool(inline_srgb)), rgb.data_ptr(),
                 alpha.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -614,6 +766,13 @@ def shade_lanes(gbuf: GBuffer, s16, rows, mat, sh, ambient_sh, eye,
             raise RuntimeError(f"shade kernel launch failed: cudaError_t {err}")
         _launched(_SHADE_COUNTER)
     return rgb, alpha
+
+
+def _need_cuda(fn: str, dev) -> None:
+    """A kernel's wrapper past its checks: the kernel runs on CUDA tensors
+    only (a wrapper takes its plain version for CPU tensors alone)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: the kernel runs on CUDA tensors, not {dev}")
 
 
 def _check_lane_rows(name, t, shape, dev) -> None:
@@ -632,13 +791,14 @@ def shade_inputs(gbuf: GBuffer, scene: dict, uniforms: dict, view_index: int, en
                  inline_tonemapping: bool = True, inline_srgb: bool = True,
                  aniso_taps: int = 1, s16=None) -> dict:
     """shade_lanes' arguments of a shade call: the material sampling
-    (_material_inputs), the SH coefficients (sample_spherical_harmonics
-    where a light volume or lightmaps are bound, else the ambient ones by
+    (_material_inputs), the SH (a PoolSH where a light volume or lightmaps
+    are bound: shade_lanes_plain samples it with the torch chain, the
+    kernel reads its pools in place; else the ambient coefficients by
     value) and the view's eye."""
     if env is None:
         raise ValueError("shade needs EnvBindings")
     tex, rows, mat = _material_inputs(gbuf, scene, aniso_taps, s16)
-    sh = None if _ambient_only(env) else sample_spherical_harmonics(gbuf, scene, uniforms, env)
+    sh = None if _ambient_only(env) else PoolSH(scene, uniforms, env)
     return dict(gbuf=gbuf, s16=tex, rows=rows, mat=mat, sh=sh, ambient_sh=env.ambient_sh,
                 eye=uniforms["eye"][view_index], inline_tonemapping=inline_tonemapping,
                 inline_srgb=inline_srgb)
@@ -685,6 +845,7 @@ def shade(
 
 
 shade.LAUNCHES = 0
+shade.SAMPLED_SH = 0  # launches whose SH the torch chain sampled first (the layered path)
 # the wrapper whose LAUNCHES count the shade kernel's launches, however the
 # frame's name for it is rebound (a recording or plain twin put in its place)
 _SHADE_COUNTER = shade

@@ -58,9 +58,9 @@ from ..ops.raster_kbuffer import rasterize_kbuffer_ref
 from ..ops.raster_ref import VisibilityBuffer, rasterize_ref
 from ..ops.shade import (
     GBuffer,
+    PoolSH,
     albedo_alpha,
     interpolate_gbuffer,
-    sample_spherical_harmonics,
     shade,
 )
 from ..ops.sky import sample_skybox, sample_skybox_at
@@ -711,16 +711,9 @@ def render_view(scene: dict, state: FrameState, view_index: int,
         p_attrs = p_attrs._replace(packed=_in_order(p_attrs.packed, p_order))
         pairs_needed = torch.maximum(pairs_needed, p_pairs)
 
-        def sh_sampler(world_pos):
-            # a stand-in g-buffer: the SH lookup reads only the position
-            stand_in = GBuffer(
-                valid=None, world_pos=world_pos, normal=None, uv=None,
-                lm_uv=torch.zeros_like(world_pos[..., :2]), material=None,
-                front_facing=None,
-                lightmapped=torch.zeros(world_pos.shape[0], dtype=torch.bool, device=dev),
-                dpdx=None, dpdy=None, duvdx=None, duvdy=None,
-            )
-            return sample_spherical_harmonics(stand_in, scene, u, env)
+        # the SH at the lanes' positions over a stand-in g-buffer (lm_uv 0,
+        # not lightmapped); the kernel samples its pools in place
+        sh_sampler = PoolSH(scene, u, env)
 
         def shade_particle_layer(pair_w, safe, live):
             spx, spy = _px_py_at(safe, config.width, y_offset)

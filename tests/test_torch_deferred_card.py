@@ -33,7 +33,8 @@ JAX package on the CPU:
 * shade: SHADE_CASES, every material path (the interleaved pool by the
   g-buffer's mat_tail and by material id, unlit materials, the classic
   samplers, the partition's s16) and SH source (ambient, light volume,
-  lightmaps) under each inline_tonemapping x inline_srgb, on seeded lanes
+  lightmaps alone, both; read by the kernel from the SH pools, since
+  shade_inputs gives a PoolSH) under each inline_tonemapping x inline_srgb, on seeded lanes
   of the small hero, all-passes and lit scenes; on the card with NaN, +-inf
   and -0 in their g-buffer vectors and the partition's s16, and invalid
   lanes; shade_lanes on layouts the frame does not make (SHADE_LAYOUTS).
@@ -295,6 +296,7 @@ SHADE_CASES = {
     "partition": ("all_passes", "partition", "ambient"),
     "volume": ("lit", "classic", "volume"),
     "lightmap": ("lit", "classic", "lightmap"),
+    "lightmaps-only": ("lit", "classic", "lightmaps"),
 }
 # (inline_tonemapping, inline_srgb)
 SHADE_INLINE = ((True, True), (True, False), (False, True), (False, False))
@@ -327,9 +329,12 @@ def _shade_tables(scene: str, device: str) -> dict:
 
 def shade_env(case: str, env):
     """The case's EnvBindings: the lit scene's with only the light volume
-    bound, or with both (the lightmaps over the volume where lightmapped)."""
+    bound, with only the lightmaps (every lane's SH theirs), or with both
+    (the lightmaps over the volume where lightmapped)."""
     if SHADE_CASES[case][2] == "volume":
         return dataclasses.replace(env, lightmap_tex_ids=None, lightmap_wh=None)
+    if SHADE_CASES[case][2] == "lightmaps":
+        return dataclasses.replace(env, lightvol_tex_ids=None, lightvol_wh=None)
     return env
 
 
@@ -498,6 +503,34 @@ def test_shade_kernel_equals_plain_on_card(case, inline):
     want_rgb, want_alpha = port_shade.shade_plain(**args)
     _bit_equal("rgb", rgb, want_rgb)
     _bit_equal("alpha", alpha, want_alpha)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["volume", "lightmap", "lightmaps-only"])
+def test_shade_reads_the_sh_pools_on_card(case):
+    """With the SH pools bound the kernel samples them itself: the torch
+    sampler does not run, and the result equals shade_plain's (which
+    samples with it) bit for bit; with the pools dropped (the layered
+    path) the wrapper takes the torch SH first, counted in
+    shade.SAMPLED_SH, also bit for bit."""
+    dev = _card()
+    args = shade_args(case, dev, nan=True)
+    calls, sampled = port_shade.sample_spherical_harmonics.CALLS, port_shade.shade.SAMPLED_SH
+    rgb, alpha = port_shade.shade(**args)
+    torch.cuda.synchronize()
+    assert port_shade.sample_spherical_harmonics.CALLS == calls
+    assert port_shade.shade.SAMPLED_SH == sampled
+    want_rgb, want_alpha = port_shade.shade_plain(**args)
+    _bit_equal("rgb", rgb, want_rgb)
+    _bit_equal("alpha", alpha, want_alpha)
+    layered = dict(args, scene={k: v for k, v in args["scene"].items()
+                                if k not in ("lv_sh", "lm_sh")})
+    rgb, alpha = port_shade.shade(**layered)
+    torch.cuda.synchronize()
+    assert port_shade.shade.SAMPLED_SH == sampled + 1
+    want_rgb, want_alpha = port_shade.shade_plain(**layered)
+    _bit_equal("layered rgb", rgb, want_rgb)
+    _bit_equal("layered alpha", alpha, want_alpha)
 
 
 # shade_lanes' inputs in layouts the frame does not make: s16 whose rows are

@@ -42,6 +42,7 @@ from superconductor_tpu_torch.scenes import LIT_PASSES_SMALL, lit_passes_host
 from test_torch_host import REF_HOST
 from test_torch_particles_card import (
     SIZES,
+    SMOKE,
     env_for,
     geometry_args,
     lanes_for,
@@ -327,7 +328,40 @@ def test_frame_calls_the_wrappers_by_their_frame_names(monkeypatch):
     assert torch.equal(render_frame(dev, state, config, env), img)
 
 
+def test_frame_leaves_each_particle_layer_a_periodic_dead_tail(monkeypatch):
+    """The all-passes frame at 256 x 128 on the CPU: past each particle
+    layer's last granule with a covered lane (pair >= 0) every lane is dead
+    (pair -1) at the pixel centres of one granule, repeated: the runs of
+    equal keys a stride apart that the kernel computes once (csrc/shade.cu;
+    any stride that is a multiple of the granule)."""
+    from superconductor_tpu_torch.render.caps import fit_caps
+    from superconductor_tpu_torch.render.frame import render_frame
+    from superconductor_tpu_torch.scenes import ALL_PASSES_SMALL, all_passes_scene
+
+    dev, build, config, env = all_passes_scene(device="cpu", **ALL_PASSES_SMALL)
+    state = build(0.3)
+    config = fit_caps(dev, state, config, env)
+    calls = []
+    real = port_frame.shade_particles
+    monkeypatch.setattr(port_frame, "shade_particles", lambda pair, px, py, *a, **k: (
+        calls.append((pair, px, py)), real(pair, px, py, *a, **k))[1])
+    render_frame(dev, state, config, env)
+    gr = port_frame._worklist_granule(config, config.width * config.height)
+    assert gr > 1 and calls
+    dead_tails = 0
+    for pair, px, py in calls:
+        covered = (pair.reshape(-1, gr) >= 0).any(dim=1).nonzero()
+        n = (int(covered[-1]) + 1) * gr if covered.numel() else 0
+        assert (pair[n:] == -1).all()
+        for v in (px, py):
+            tail = v[n:].reshape(-1, gr)
+            assert torch.equal(tail, tail[:1].expand_as(tail))
+        dead_tails += n < pair.shape[0]
+    assert dead_tails
+
+
 def _cu_fields(source: str, struct: str) -> list:
+    """[(field, array length or 1, type)] of a struct in csrc/<source>."""
     path = os.path.join(os.path.dirname(port_particles.__file__), os.pardir, "csrc", source)
     with open(path) as f:
         src = f.read()
@@ -335,23 +369,34 @@ def _cu_fields(source: str, struct: str) -> list:
     body = re.sub(r"//[^\n]*", "", body)
     out = []
     for decl in body.split(";")[:-1]:
-        m = re.search(r"(\w+)(?:\[(\w+)\])?\s*$", decl.strip())
-        out.append((m.group(1), m.group(2) or 1))
+        m = re.search(r"(\w+)\W*\s+(\w+)(?:\[(\w+)\])?\s*$", decl.strip())
+        out.append((m.group(2), m.group(3) or 1, m.group(1)))
     return out
+
+
+# a struct a mirror nests -> (its source, its mirror)
+NESTED = {"ShPools": ("sh_sample.cuh", port_shade._ShPools)}
 
 
 @pytest.mark.parametrize("mirror, source, struct", [
     ("_ShadeArgs", "shade.cu", "ParticleShadeArgs"),
-    ("_QuadArgs", "geometry.cu", "ParticleQuadArgs")])
+    ("_QuadArgs", "geometry.cu", "ParticleQuadArgs"),
+    ("_ShPools", "sh_sample.cuh", "ShPools")])
 def test_mirrors_name_the_structs_fields(mirror, source, struct):
     """Each ctypes mirror names its struct's fields in order, each 8 B but
-    the 12 ambient floats; on the card the sizes themselves are compared
-    before the first launch (ops/particles.py _entry)."""
-    m = getattr(port_particles, mirror)
+    the 12 ambient floats and a nested struct, whose mirror is its own
+    (ShPools, in csrc/sh_sample.cuh); on the card the sizes themselves are
+    compared before the first launch (ops/particles.py _entry, ops/shade.py
+    _check_pools_mirror)."""
+    m = getattr(port_particles, mirror, None) or getattr(port_shade, mirror)
     cu = _cu_fields(source, struct)
-    assert [f for f, _ in m._fields_] == [f for f, _ in cu]
-    for (name, ctype), (_, length) in zip(m._fields_, cu):
-        if length == 1:
+    assert [f for f, _ in m._fields_] == [f for f, _, _ in cu]
+    for (name, ctype), (_, length, cu_type) in zip(m._fields_, cu):
+        if cu_type in NESTED:
+            assert ctype is NESTED[cu_type][1], name
+            assert [f for f, _ in ctype._fields_] == [
+                f for f, _, _ in _cu_fields(NESTED[cu_type][0], cu_type)]
+        elif length == 1:
             assert ctypes.sizeof(ctype) == 8, name
         else:
             assert name == "ambient" and length == "12" and ctype._length_ == 12
@@ -362,27 +407,89 @@ def test_mirrors_name_the_structs_fields(mirror, source, struct):
 def test_chip_smoke_particle_bound_counts_the_calls_bytes():
     """The billboards' bound: 69 B of columns read and 554 B of results
     written a particle, the three matrices and num_valid; a layer's shade:
-    28 B a lane, 48 B more with sampled SH, 128 B a distinct packed row,
-    the eye and the inverse view; each over 3.35 TB/s, bytes above the
-    operations at 67 TFLOP/s."""
+    28 B a lane, 128 B a distinct packed row, the eye and the inverse view,
+    48 B more a lane with sampled SH (a foreign sampler: two launches), or
+    with the SH pools (the frame's PoolSH: one launch) the 32-B sectors of
+    the pool rows the lanes tap and the probe box; bytes over 3.35 TB/s
+    beside the instruction floor (a distinct key's instructions, the
+    lanes' loads and stores) over 132 x 128 a clock at 1,980 MHz."""
     import chip_smoke
 
     g = geometry_args((256, 128), "cpu")
     ms, by = chip_smoke.particle_bound("particle_geometry", g, [])
     assert by == "bytes" and ms == pytest.approx((64 * (69 + 554) + 3 * 64 + 4) / 3.35e9)
-    for sh, extra in (("ambient", 0), ("volume", 48)):
-        args = shade_case("pool", sh, 512, "cpu")
+    per_key_base = (chip_smoke.PARTICLE_OPS["smoke pool"] + chip_smoke.PARTICLE_KEY_LOADS[
+        "smoke pool"] + chip_smoke.SHADE_OPS_ACES + chip_smoke.SHADE_OPS_SRGB)
+    for sh, sampler, form in (("ambient", "pool", "ambient"), ("volume", "foreign", "sampled"),
+                              ("volume", "pool", "pools"), ("lightmap", "pool", "pools")):
+        args = shade_case("pool", sh, 512, "cpu", sampler=sampler)
         rows = int(torch.unique(torch.clamp_min(args["pair"], 0)).numel())
+        keys = torch.unique(torch.stack([args["pair"], args["px"].view(torch.int32),
+                                         args["py"].view(torch.int32)], 1), dim=0).shape[0]
+        parts = chip_smoke.particle_bound_parts("shade_particles", args)
+        nbytes = 512 * 28 + rows * 128 + 76
+        per_key, n_keys = per_key_base, keys
+        if form == "sampled":
+            nbytes, per_key, n_keys = nbytes + 512 * 48, per_key + 12, 512
+        elif form == "pools":
+            world_pos = chip_smoke.particle_world_pos(args)
+            taps = chip_smoke.sh_pool_rows(args["sh_sampler"], world_pos)
+            # the volume's two layers, or the lightmaps' one tap where no volume is bound
+            assert len(taps) == (2 if sh == "volume" else 1)
+            sectors = chip_smoke.sector_count(torch.cat([
+                t.data_ptr() + i * t.stride(0) * 2 for t, i in taps]), 96)
+            assert 3 <= sectors <= 4 * 512 * len(taps)
+            nbytes += sectors * 32 + 24
+            per_key += chip_smoke.SH_INSTRUCTIONS["volume" if sh == "volume" else "lightmaps"]
+        assert parts == {"bytes": nbytes, "keys": n_keys, "per_key": per_key,
+                         "instructions": n_keys * per_key + 512 * chip_smoke.PARTICLE_LANE_IO}
         ms, by = chip_smoke.particle_bound("shade_particles", args, [])
-        assert by == "bytes"
-        assert ms == pytest.approx((512 * (28 + extra) + rows * 128 + 76) / 3.35e9)
-        assert chip_smoke.particle_launches("shade_particles", args) == (1 if sh == "ambient"
-                                                                         else 2)
+        bytes_ms = nbytes / 3.35e9
+        instr_ms = parts["instructions"] / (132 * 128 * 1.98e9) * 1e3
+        assert ms == pytest.approx(max(bytes_ms, instr_ms))
+        assert by == ("bytes" if bytes_ms >= instr_ms else "operations")
+        assert chip_smoke.particle_sh_form(args) == form
+        assert chip_smoke.particle_launches("shade_particles", args) == (
+            2 if form == "sampled" else 1)
+        label = {"ambient": "ambient SH", "pools": "SH pools in the launch",
+                 "sampled": "sampled SH, 2 launches"}[form]
         assert chip_smoke.particle_site("shade_particles", "layer", args) == (
-            f"shade_particles layer 512 lanes (smoke pool; "
-            f"{'ambient SH' if sh == 'ambient' else 'sampled SH, 2 launches'}; tonemap 1 srgb 1)")
+            f"shade_particles layer 512 lanes (smoke pool; {label}; tonemap 1 srgb 1)")
     for smoke, branch in (("puff", "puff"), ("slots", "per-slot"), ("slots-flat", "per-slot")):
         assert chip_smoke.particle_smoke(shade_case(smoke, "ambient", 1, "cpu")) == branch
+
+
+@pytest.mark.parametrize("case", ["by-id", "volume", "lightmap", "lightmaps-only"])
+def test_chip_smoke_shade_bound_counts_the_sh_pools(case):
+    """chip_smoke's shade bound on the frame's shade calls: the ambient SH
+    adds nothing; the SH pools add the sectors of the rows the lit lanes
+    tap (the lightmaps' where a lane is lightmapped and the lightmaps are
+    bound, the volume's two layers elsewhere), their lm_uv and lightmapped
+    and the probe box, and each lit lane's SH lookup to the instructions;
+    the pools' rows are among the rows the yardstick reads."""
+    import chip_smoke
+    from test_torch_deferred_card import shade_args
+
+    args = shade_args(case, "cpu")
+    k = chip_smoke.shade_inputs(args)
+    form = chip_smoke.shade_sh_form(k)
+    assert form == ("ambient" if case == "by-id" else "pools")
+    taps = chip_smoke.shade_sh_rows(k)
+    rows = chip_smoke.shade_rows("shade", args, [])
+    assert len(taps) == {"by-id": 0, "volume": 2, "lightmap": 3, "lightmaps-only": 1}[case]
+    assert len(rows) == 1 + len(taps) and all(
+        t is u and torch.equal(i, j) for (t, i), (u, j) in zip(rows[1:], taps))
+    ms, by = chip_smoke.shade_bound("shade", args, [])
+    assert by in ("bytes", "operations") and ms > 0
+    if form == "pools":
+        pool = k["sh"]
+        ambient = dict(args, env=dataclasses.replace(args["env"], lightvol_tex_ids=None,
+                                                     lightmap_tex_ids=None))
+        assert chip_smoke.shade_sh_form(chip_smoke.shade_inputs(ambient)) == "ambient"
+        ms_ambient, _ = chip_smoke.shade_bound("shade", ambient, [])
+        assert ms > ms_ambient
+        lit = sum(int(i.numel()) for t, i in taps if t is not pool.scene.get("lm_sh"))
+        assert lit % 2 == 0  # the volume's lanes tap two layers
 
 
 def test_chip_smoke_particle_equal_compares_every_field_by_bits():

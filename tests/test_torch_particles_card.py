@@ -25,13 +25,14 @@ versions to the JAX package and the wrappers' checks on the CPU:
 
 import dataclasses
 import functools
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
 from superconductor_tpu_torch.ops import particles as port_particles
-from superconductor_tpu_torch.ops.shade import GBuffer, sample_spherical_harmonics
+from superconductor_tpu_torch.ops.shade import GBuffer, PoolSH, sample_spherical_harmonics
 from superconductor_tpu_torch.render.camera import Camera, make_uniforms
 from superconductor_tpu_torch.render.draws import pack_particles
 from superconductor_tpu_torch.scene.upload import scene_to_torch
@@ -175,10 +176,12 @@ def lanes_for(tri_valid: np.ndarray, bbox: np.ndarray, lanes: int, seed: int) ->
 
 
 def shade_case(smoke: str, sh: str, lanes: int, device, size=(256, 128), seed: int = 9,
-               inline=(True, True)) -> dict:
+               inline=(True, True), sampler: str = "pool") -> dict:
     """shade_particles' arguments by name for one case, on `device`: the
     billboards of PARTICLES under the all-passes camera at `size`
-    (particle_geometry_plain), `lanes` lanes on them."""
+    (particle_geometry_plain), `lanes` lanes on them; the SH sampler the
+    frame's PoolSH, or with sampler "foreign" the same chain as a closure
+    (sh_sampler), which the wrapper cannot read in place."""
     u_np = uniforms_at(*size)
     u = {k: torch.from_numpy(v).to(device) for k, v in u_np.items()}
     soa = to_device(particle_soa(), device)
@@ -189,8 +192,8 @@ def shade_case(smoke: str, sh: str, lanes: int, device, size=(256, 128), seed: i
     return dict(pair=torch.from_numpy(pair).to(device), px=torch.from_numpy(px).to(device),
                 py=torch.from_numpy(py).to(device), tri=tri, attrs=attrs, particles=soa,
                 scene=scene, uniforms=u, env=env, view_index=0,
-                sh_sampler=sh_sampler(scene, u, env), inline_tonemapping=inline[0],
-                inline_srgb=inline[1])
+                sh_sampler=(PoolSH if sampler == "pool" else sh_sampler)(scene, u, env),
+                inline_tonemapping=inline[0], inline_srgb=inline[1])
 
 
 def geometry_args(size, device, flip=False, soa=None) -> dict:
@@ -218,8 +221,10 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _shade_launches(args: dict) -> int:
-    return 1 if args["env"].lightvol_tex_ids is None and args["env"].lightmap_tex_ids is None \
-        else 2
+    """One launch with the ambient SH or a pooled PoolSH, else two."""
+    ambient = args["env"].lightvol_tex_ids is None and args["env"].lightmap_tex_ids is None
+    pooled = isinstance(args["sh_sampler"], PoolSH) and args["sh_sampler"].pooled()
+    return 1 if ambient or pooled else 2
 
 
 def _check_shade(args: dict) -> None:
@@ -233,31 +238,143 @@ def _check_shade(args: dict) -> None:
     assert _bits_equal(alpha, want_alpha)
 
 
+# the frame's PoolSH (one launch) and the same chain as a closure (two
+# launches around it where a light volume or lightmaps are bound)
+SAMPLERS = ("pool", "foreign")
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("sampler", SAMPLERS)
 @pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("sh", SH)
 @pytest.mark.parametrize("smoke", SMOKE)
-def test_shade_kernel_equals_plain_on_card(smoke, sh, lanes):
+def test_shade_kernel_equals_plain_on_card(smoke, sh, lanes, sampler):
     """Every smoke branch and SH source at a layer of 1, 512 and 589,824
-    lanes: rgb and alpha bit for bit, one launch (ambient SH) or two."""
-    _check_shade(shade_case(smoke, sh, lanes, _card()))
+    lanes, by either sampler: rgb and alpha bit for bit, one launch (the
+    ambient SH, or the SH pools sampled in the launch) or two (the
+    position launch and the full one around a foreign sampler)."""
+    _check_shade(shade_case(smoke, sh, lanes, _card(), sampler=sampler))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sh", ["volume", "lightmap", "both"])
+def test_shade_kernel_foreign_sampler_takes_two_launches_on_card(sh):
+    """A sampler that is not a PoolSH (or a PoolSH without its pools):
+    the position launch, the sampler, the full launch, bit for bit."""
+    dev = _card()
+    _check_shade(shade_case("pool", sh, 4096, dev, sampler="foreign"))
+    args = shade_case("pool", sh, 4096, dev)
+    layered = {k: v for k, v in args["scene"].items() if k not in ("lv_sh", "lm_sh")}
+    args = dict(args, scene=layered, sh_sampler=PoolSH(layered, args["uniforms"], args["env"]))
+    assert _shade_launches(args) == 2
+    _check_shade(args)
+
+
+# probe boxes over the billboards: the lit scene's; a small one, so that
+# most positions fall outside it on every side (the clamped texels and
+# layers, the negative edge); one whose bottom-left corner is a particle's
+# centre, so that the positions straddle the box's lower faces
+BOXES = ("lit", "small", "corner")
+
+
+def _with_box(args: dict, box: str) -> dict:
+    u = dict(args["uniforms"])
+    if box == "small":
+        u["probes_scale"] = u["probes_scale"] * 0.05
+    elif box == "corner":
+        u["probes_bottom_left"] = args["particles"]["center"][0].clone()
+    pool = PoolSH(args["scene"], u, args["env"])
+    return dict(args, uniforms=u, sh_sampler=pool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("box", BOXES)
+@pytest.mark.parametrize("sh", ["volume", "lightmap", "both"])
+def test_shade_kernel_sh_pools_on_card(sh, box):
+    """The SH sampled in the launch at each lane's position: the light
+    volume alone, the lightmaps alone (every lane at uv 0), both (the
+    volume: the stand-in is not lightmapped), under each probe box, one
+    launch, bit for bit; the torch sampler does not run."""
+    dev = _card()
+    args = _with_box(shade_case("pool", sh, 65_536, dev, size=(1920, 1080)), box)
+    calls = sample_spherical_harmonics.CALLS
+    rgb, alpha = port_particles.shade_particles(**args)
+    torch.cuda.synchronize()
+    assert sample_spherical_harmonics.CALLS == calls
+    want_rgb, want_alpha = port_particles.shade_particles_plain(**args)
+    assert _bits_equal(rgb, want_rgb) and _bits_equal(alpha, want_alpha)
+
+
+def _dead_tail(args: dict, live: int, period: int, seed: int) -> dict:
+    """The lanes of `args` with every lane from `live` on dead (pair -1),
+    their pixel centres repeating every `period` lanes (0: none repeats)."""
+    n = args["pair"].shape[0]
+    rng = np.random.default_rng(seed)
+    pair = args["pair"].clone()
+    pair[live:] = -1
+    px, py = args["px"].clone(), args["py"].clone()
+    tail = n - live
+    if period:
+        idx = torch.arange(tail, device=px.device) % period
+        px[live:], py[live:] = px[live:live + period][idx], py[live:live + period][idx]
+    else:
+        px[live:] = torch.from_numpy(rng.uniform(0, 1920, size=tail).astype(np.float32)).to(px.device)
+        py[live:] = torch.from_numpy(rng.uniform(0, 1080, size=tail).astype(np.float32)).to(px.device)
+    return dict(args, pair=pair, px=px, py=py)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", SAMPLERS)
+@pytest.mark.parametrize("lanes", [300_000, 589_824])
+@pytest.mark.parametrize("tail", ["periodic-128", "periodic-96", "not-periodic", "all-dead"])
+def test_shade_kernel_dead_tails_on_card(tail, lanes, sampler):
+    """Lanes past a live prefix dead, their pixel centres repeating every
+    granule (as the frame's compaction leaves them), every 96 lanes (a
+    period no stride is a multiple of) or not at all, at 300,000 and
+    589,824 lanes (runs of several lanes at the card's resident threads)
+    and by either sampler (the position launch copies down the runs too):
+    bit for bit."""
+    dev = _card()
+    args = shade_case("pool", "volume", lanes, dev, size=(1920, 1080), sampler=sampler)
+    live = 0 if tail == "all-dead" else 12_345
+    period = {"periodic-128": 128, "periodic-96": 96}.get(tail, 0 if tail != "all-dead" else 128)
+    _check_shade(_dead_tail(args, live, period, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [0, 1000])
+def test_shade_kernel_given_sh_is_not_reused_on_card(live):
+    """With a foreign sampler whose SH is not a function of the position
+    (a value a lane), equal keys (a periodic dead tail over 589,824 lanes,
+    runs of several lanes at the card's resident threads) must not take a
+    copied result: bit for bit with the plain version on the same SH."""
+    dev = _card()
+    lanes = 589_824
+    args = _dead_tail(shade_case("pool", "volume", lanes, dev), live, 128, 3)
+    rng = np.random.default_rng(8)
+    per_lane = torch.from_numpy(rng.normal(scale=0.4, size=(lanes, 4, 3))
+                                .astype(np.float32)).to(dev)
+    _check_shade(dict(args, sh_sampler=lambda world_pos: per_lane[:world_pos.shape[0]]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", SAMPLERS)
 @pytest.mark.parametrize("inline", [(False, False), (True, False), (False, True)])
 @pytest.mark.parametrize("case", [("pool", "volume"), ("puff", "ambient"),
                                   ("slots", "lightmap")])
-def test_shade_kernel_inline_flags_on_card(case, inline):
-    _check_shade(shade_case(*case, 512, _card(), size=(1920, 1080), inline=inline))
+def test_shade_kernel_inline_flags_on_card(case, inline, sampler):
+    _check_shade(shade_case(*case, 512, _card(), size=(1920, 1080), inline=inline,
+                            sampler=sampler))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sampler", SAMPLERS)
 @pytest.mark.parametrize("sh", ["ambient", "volume"])
-def test_shade_kernel_64_layers_on_card(sh):
+def test_shade_kernel_64_layers_on_card(sh, sampler):
     """64 layers as a deep frame shades them: each layer's lanes (seeded
     sizes from 1 to 4,096) bit for bit, 64 or 128 launches in all."""
     dev = _card()
-    base = shade_case("pool", sh, 4096, dev, size=(1920, 1080))
+    base = shade_case("pool", sh, 4096, dev, size=(1920, 1080), sampler=sampler)
     rng = np.random.default_rng(11)
     before = port_particles.shade_particles.LAUNCHES
     for layer in range(64):
@@ -388,3 +505,85 @@ def test_torch_orders_on_card():
         (A[:, i] * B[:, j] - (a[:, j] * b[:, i]).double()).float()
         for i, j in ((1, 2), (2, 0), (0, 1))], dim=-1)
     assert (got.view(torch.int32) != want.view(torch.int32)).float().mean() < 1e-5
+
+
+# --- the particle pass in the small frames ---------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def small_frame(name: str):
+    """(tables, build(angle), state, fitted config, env) on the card of a small frame:
+    the lit scene (LIT_PASSES_SMALL), the all-passes scene
+    (ALL_PASSES_SMALL) and its deep_k form (40 more particles stacked along
+    the view ray)."""
+    from superconductor_tpu_torch import scenes
+    from superconductor_tpu_torch.render.caps import fit_caps
+
+    dev = _card()
+    if name == "lit":
+        tables, build, config, env = scenes.lit_passes_scene(device=dev, **LIT_PASSES_SMALL)
+    else:
+        tables, build, config, env = scenes.all_passes_scene(
+            device=dev, deep_particles=40 if name == "deep_k" else 0, **scenes.ALL_PASSES_SMALL)
+    state = build(0.3)
+    return tables, build, state, fit_caps(tables, state, config, env), env
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["lit", "all_passes", "deep_k"])
+def test_frame_particle_layers_on_card(frame, monkeypatch):
+    """Every shade_particles call of an eager frame held against its plain
+    version bit for bit, one launch a layer (the lit frame's SH sampled in
+    the launch: the torch sampler runs in none of its shade calls, the
+    opaque and blend shades' included)."""
+    from superconductor_tpu_torch.render import frame as port_frame
+
+    tables, _build, state, config, env = small_frame(frame)
+    calls = []
+    real = port_frame.shade_particles
+    names = inspect.signature(real).parameters
+
+    def record(*a, **k):
+        calls.append(dict(zip(names, a), **k))
+        return real(*a, **k)
+
+    monkeypatch.setattr(port_frame, "shade_particles", record)
+    before = port_particles.shade_particles.LAUNCHES
+    sh_calls = sample_spherical_harmonics.CALLS
+    port_frame.render_frame_impl(tables, state, config, env)
+    torch.cuda.synchronize()
+    layers = len(config.layer_caps(config.resolve_particle_layers()))
+    assert len(calls) == layers
+    assert port_particles.shade_particles.LAUNCHES - before == layers
+    assert sample_spherical_harmonics.CALLS == sh_calls
+    for k in calls:
+        assert _shade_launches(k) == 1
+        _check_shade(k)
+
+
+@pytest.mark.gpu
+def test_lit_frame_graph_equals_eager_and_plain_on_card():
+    """The lit frame replayed from its CUDA graph equals its eager frame
+    and its twin with the shade and particle shade plain versions (image
+    and stats), at two poses."""
+    from superconductor_tpu_torch.bench import plain_versions
+    from superconductor_tpu_torch.render import frame as port_frame
+    from superconductor_tpu_torch.render import frame_graph
+
+    tables, build, _state, config, env = small_frame("lit")
+    for angle in (0.3, 1.1):
+        s = build(angle)
+        assert frame_graph.captures(s, config)
+        img, stats = port_frame.render_frame_stats(tables, s, config, env)
+        eager, eager_stats = port_frame.render_frame_impl(tables, s, config, env, with_stats=True)
+        saved = port_frame.shade_particles
+        port_frame.shade_particles = port_particles.shade_particles_plain
+        try:
+            with plain_versions(("shade",)):
+                twin, twin_stats = port_frame.render_frame_impl(tables, s, config, env,
+                                                                with_stats=True)
+        finally:
+            port_frame.shade_particles = saved
+        for other, other_stats in ((eager, eager_stats), (twin, twin_stats)):
+            assert torch.equal(img, other)
+            assert stats.keys() == other_stats.keys()
+            assert all(torch.equal(stats[k], other_stats[k]) for k in stats)

@@ -151,6 +151,10 @@ def _meta(x):
         return x.to("meta")
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*[_meta(v) for v in x])
+    if isinstance(x, dict):
+        return {k: _meta(v) for k, v in x.items()}
+    if isinstance(x, port_shade.PoolSH):  # the SH pools and the probe box, as the lanes
+        return port_shade.PoolSH(_meta(x.scene), _meta(x.uniforms), x.env)
     return x
 
 
